@@ -24,6 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import tpurt_torch.app, tpurt_torch.kernels.traverse\n"
+            "import tpurt_torch.kernels.sampling, tpurt_torch.kernels._build\n"
             "import tpurt_torch.convert, tpurt_torch.io.image\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'tpurt'\n"
             "       or m.startswith(('jax.', 'tpurt.'))]\n"
@@ -100,6 +101,19 @@ def test_renderer_cuda_raises_without_cuda():
                  device="cuda")
 
 
+def test_renderer_defaults_to_the_card():
+    """With no device the Renderer asks for the card, and on a box
+    without CUDA it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has CUDA; the test checks the CPU-only refusal")
+    from tpurt_torch.app import Renderer
+    mesh = tscenes.teapot_scene(1500)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Renderer(mesh, tscenes.default_camera_for(mesh),
+                 ttypes.Light.directional((0.45, 0.8, 0.3)),
+                 ttypes.RenderConfig(width=32, height=32, leaf_size=8))
+
+
 @pytest.mark.parametrize("kwargs,what", [
     (dict(mode="rebuild"), "rebuild"),
     (dict(config=dict(bvh_width=2)), "bvh_width"),
@@ -107,17 +121,21 @@ def test_renderer_cuda_raises_without_cuda():
     (dict(config=dict(gbuffer="raster")), "raster"),
     (dict(config=dict(fused_shadow=False)), "fused_shadow"),
     (dict(config=dict(inkernel_attrs=False)), "inkernel_attrs"),
-    (dict(lights="sun"), "area"),
+    (dict(lights="sun", config=dict(spp=4)), "area"),
     (dict(lights="point", config=dict(spp=4)), "point"),
-    (dict(lights="two"), "2 lights"),
+    (dict(lights="two", config=dict(spp=4)), "2 lights"),
     (dict(cache_dir="unused"), "cache_dir"),
 ])
 def test_outside_the_slice_raises(kwargs, what):
     from tpurt_torch.app import Renderer
     mesh = tscenes.teapot_scene(1500)
-    lights = {"sun": ttypes.Light.sun((0.45, 0.8, 0.3)),
-              "point": ttypes.Light.point((0.0, 5.0, 0.0)),
-              "two": [ttypes.Light.directional((0.45, 0.8, 0.3))] * 2
+    # Light sets that no fused kernel takes: a soft light 0 with a point
+    # or area extra needs the unfused shadow pass.
+    sun = ttypes.Light.sun((0.45, 0.8, 0.3))
+    point = ttypes.Light.point((0.0, 5.0, 0.0), radius=0.2)
+    lights = {"sun": [sun, sun],
+              "point": [point, point],
+              "two": [ttypes.Light.directional((0.45, 0.8, 0.3)), sun]
               }.get(kwargs.get("lights"),
                     ttypes.Light.directional((0.45, 0.8, 0.3)))
     cfg = ttypes.RenderConfig(width=32, height=32, leaf_size=8,

@@ -1,14 +1,17 @@
 """Build and load the port's CUDA kernel library.
 
-``nvcc`` compiles ``csrc/closest_shadow.cu`` into a shared library with a
-plain C interface, bound with ctypes. The build runs at first use, never at
-import, into ``build/tpurt_torch/`` at the repository root, and is keyed by
-a hash of the source and the flags, so an edited source rebuilds.
+``nvcc`` compiles every ``csrc/*.cu`` (which include ``csrc/walk.cuh``) to
+an object file, one process per source, all started together, and links
+them into one shared library with a plain C interface, bound with ctypes.
+The build runs at first use, never at import, into ``build/tpurt_torch/``
+at the repository root, and is keyed by a hash of the sources, the
+headers and the flags, so an edited source rebuilds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -16,12 +19,20 @@ import subprocess
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "csrc", "closest_shadow.cu")
+_CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
                           "build", "tpurt_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _inputs():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -47,10 +58,49 @@ class _Library:
 
 
 def library_path() -> str:
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _inputs():
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
     return os.path.join(_BUILD_DIR,
-                        f"libclosest_shadow-{digest.hexdigest()[:16]}.so")
+                        f"libtpurt_kernels-{digest.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> None:
+    """Compile each source in its own nvcc process, then link; raises with
+    the compiler's output on a failure."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src in sources():
+        obj = os.path.join(
+            _BUILD_DIR, f"{os.path.basename(src)[:-3]}.{tag}.o")
+        procs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], False
+    for obj, proc in procs:
+        out, _ = proc.communicate(timeout=600)
+        logs.append(out)
+        failed |= proc.returncode != 0
+    if not failed:
+        tmp = f"{path}.{tag}"
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", tmp] + [obj for obj, _ in procs],
+            capture_output=True, text=True, timeout=600)
+        logs.append(link.stdout + link.stderr)
+        failed = link.returncode != 0
+    for obj, _ in procs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    BuildInfo.seconds = time.perf_counter() - t0
+    BuildInfo.log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{BuildInfo.log}")
+    os.replace(tmp, path)
 
 
 def load_library() -> ctypes.CDLL:
@@ -60,23 +110,31 @@ def load_library() -> ctypes.CDLL:
         return _Library.handle
     path = library_path()
     if not os.path.exists(path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                              capture_output=True, text=True, timeout=600)
-        BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{BuildInfo.log}")
-        os.replace(tmp, path)
+        _build(path)
     BuildInfo.path = path
     lib = ctypes.CDLL(path)
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.tpurt_closest_shadow_launch.restype = i
-    lib.tpurt_closest_shadow_launch.argtypes = [
-        p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i, i, p]
+    f = ctypes.c_float
+    u = ctypes.c_uint32
+    ptrs = [p] * 6           # nodes, tris, at0, at1, rays, scal
+    tail = [f, i, i, p]      # t_min, max_iters, stack_size, stream
+    signatures = {
+        "tpurt_closest_shadow_launch":
+            ptrs + [p, p, p, i, i, i] + tail,
+        "tpurt_closest_multi_shadow_launch":
+            ptrs + [p, p, p, i, i, i, i] + tail,
+        "tpurt_closest_soft_shadow_launch":
+            ptrs + [p, p, p, i, i, i, u, i] + tail,
+        "tpurt_closest_point_soft_shadow_launch":
+            ptrs + [p, p, p, i, i, i, u, i] + tail,
+        "tpurt_closest_soft_multi_shadow_launch":
+            ptrs + [p, p, p, p, i, i, i, u, i, i, i] + tail,
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = argtypes
     lib.tpurt_stack_capacity.restype = i
     lib.tpurt_stack_capacity.argtypes = []
     from .traverse import STACK_CAPACITY

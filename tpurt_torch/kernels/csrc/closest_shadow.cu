@@ -21,152 +21,25 @@
 // (packet, lane), so neighbouring threads read neighbouring words of the
 // SoA ray block. Each ray walks its own stack in local memory; nodes,
 // leaves and attribute rows are read from global memory through the
-// read-only path. What should bound it on this card (not yet profiled):
+// read-only path (the walks are in walk.cuh). What bounds it on this card:
 // the walk is a chain of dependent global loads (pop -> node row -> slab
 // tests -> push) with divergent trip counts within a warp, so latency and
-// divergence rather than bandwidth or FLOPs. The walk's data for a
-// 287k-triangle scene (5.8 MB of node rows, 15.3 MB of leaf rows) fits
-// the 50 MB L2; the attribute rows (another 30.7 MB) are read only when a
-// candidate wins. This first version hides latency only by occupancy.
-// Caching the top of the tree in shared memory, warp-cooperative walks
-// and wavefront scheduling are later work. The TPU kernel's 1024-ray
-// packets with one shared stack and its "any lane hit" reductions are not
-// carried over: each ray tests only the boxes it hits itself.
+// divergence rather than bandwidth or FLOPs; the float work of the slab
+// and triangle tests gives the operation bound that PERF.md states. The
+// walk's data for a 287k-triangle scene (5.8 MB of node rows, 15.3 MB of
+// leaf rows) fits the 50 MB L2; the attribute rows (another 30.7 MB) are
+// read only when a candidate wins. This first version hides latency only
+// by occupancy. Caching the top of the tree in shared memory,
+// warp-cooperative walks and wavefront scheduling are later work. The TPU
+// kernel's 1024-ray packets with one shared stack and its "any lane hit"
+// reductions are not carried over: each ray tests only the boxes it hits
+// itself.
 //
 // Built with --fmad=false: the slab and Moller-Trumbore products are
 // evaluated in the plain version's order without contraction, so the two
 // agree bit for bit on most rays.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define STACK_CAPACITY 256
-#define ATTR_CH 15
-#define LANES 1024
-#define BIG 3.4e38f
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-};
-
-// Slab test of one child record against [t_min, cap]. Empty slots carry
-// inverted boxes, which the slab test alone accepts, so the caller also
-// checks bmin.x <= bmax.x.
-__device__ __forceinline__ bool slab(const float* __restrict__ b, const Ray& r,
-                                     float t_min, float cap) {
-  float t0 = (__ldg(b + 0) - r.ox) * r.ix;
-  float t1 = (__ldg(b + 3) - r.ox) * r.ix;
-  float lx = fminf(t0, t1), hx = fmaxf(t0, t1);
-  t0 = (__ldg(b + 1) - r.oy) * r.iy;
-  t1 = (__ldg(b + 4) - r.oy) * r.iy;
-  float ly = fminf(t0, t1), hy = fmaxf(t0, t1);
-  t0 = (__ldg(b + 2) - r.oz) * r.iz;
-  t1 = (__ldg(b + 5) - r.oz) * r.iz;
-  float lz = fminf(t0, t1), hz = fmaxf(t0, t1);
-  float enter = fmaxf(fmaxf(lx, ly), fmaxf(lz, t_min));
-  float exit_ = fminf(fminf(hx, hy), fminf(hz, cap));
-  return enter <= exit_;
-}
-
-// Bit c set when child c of the row is non-empty and its box is hit.
-__device__ __forceinline__ unsigned child_hits(const float* __restrict__ row,
-                                               const Ray& r, float t_min,
-                                               float cap) {
-  unsigned mask = 0;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float* b = row + 16 * c;
-    if (__ldg(b) <= __ldg(b + 3) && slab(b, r, t_min, cap)) mask |= 1u << c;
-  }
-  return mask;
-}
-
-struct MT {
-  float det, nu, nv, nt;
-};
-
-// Moller-Trumbore products shared by the closest and the any-hit test,
-// in the plain version's order of operations.
-__device__ __forceinline__ MT mt_terms(const float* __restrict__ tri,
-                                       const Ray& r) {
-  float v0x = __ldg(tri + 0), v0y = __ldg(tri + 1), v0z = __ldg(tri + 2);
-  float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4), e1z = __ldg(tri + 5);
-  float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7), e2z = __ldg(tri + 8);
-  float px = r.dy * e2z - r.dz * e2y;
-  float py = r.dz * e2x - r.dx * e2z;
-  float pz = r.dx * e2y - r.dy * e2x;
-  MT m;
-  m.det = e1x * px + e1y * py + e1z * pz;
-  float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-  m.nu = tx * px + ty * py + tz * pz;
-  float qx = ty * e1z - tz * e1y;
-  float qy = tz * e1x - tx * e1z;
-  float qz = tx * e1y - ty * e1x;
-  m.nv = r.dx * qx + r.dy * qy + r.dz * qz;
-  m.nt = e2x * qx + e2y * qy + e2z * qz;
-  return m;
-}
-
-struct Hit {
-  float t, u, v, kd, tid, o0, o1, o2, nx, ny, nz;
-  int idx;
-};
-
-// Closest-hit test of one leaf: division by det, eps 1e-9, inclusive
-// barycentric bounds, strictly smaller t wins (the first hit found wins a
-// tie). The winner's attributes are read from the leaf attribute rows.
-__device__ __forceinline__ void leaf_closest(
-    const float* __restrict__ tris, const float* __restrict__ at0,
-    const float* __restrict__ at1, int leaf, int k, const Ray& r,
-    float t_min, bool active0, Hit& h) {
-  const float* row = tris + (size_t)leaf * 128;
-  for (int j = 0; j < k; ++j) {
-    const float* tri = row + 9 * j;
-    MT m = mt_terms(tri, r);
-    bool ok = fabsf(m.det) >= 1e-9f;
-    float inv_det = 1.0f / (ok ? m.det : 1.0f);
-    float u = m.nu * inv_det;
-    float v = m.nv * inv_det;
-    float t = m.nt * inv_det;
-    ok = ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f;
-    t = ok ? t : BIG;
-    if (t > t_min && t < h.t && active0) {
-      const float* a = (j < 8) ? at0 + (size_t)leaf * 128 + 16 * j
-                               : at1 + (size_t)leaf * 128 + 16 * (j - 8);
-      float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4), e1z = __ldg(tri + 5);
-      float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7), e2z = __ldg(tri + 8);
-      h.t = t;
-      h.idx = leaf * k + j;
-      h.u = u;
-      h.v = v;
-      h.kd = __ldg(a + 3);
-      h.tid = __ldg(a + 11);
-      h.o0 = __ldg(a + 0);
-      h.o1 = __ldg(a + 1);
-      h.o2 = __ldg(a + 2);
-      h.nx = e1y * e2z - e1z * e2y;
-      h.ny = e1z * e2x - e1x * e2z;
-      h.nz = e1x * e2y - e1y * e2x;
-    }
-  }
-}
-
-// Division-free occlusion test of one leaf.
-__device__ __forceinline__ bool leaf_occluded(const float* __restrict__ tris,
-                                              int leaf, int k, const Ray& r,
-                                              float t_min, float tmax) {
-  const float* row = tris + (size_t)leaf * 128;
-  for (int j = 0; j < k; ++j) {
-    MT m = mt_terms(row + 9 * j, r);
-    float sgn = m.det < 0.0f ? -1.0f : 1.0f;
-    float adet = m.det * sgn;
-    float nu = m.nu * sgn, nv = m.nv * sgn, nt = m.nt * sgn;
-    if (adet >= 1e-9f && nu >= 0.0f && nv >= 0.0f && nu + nv <= adet &&
-        nt > t_min * adet && nt < tmax * adet)
-      return true;
-  }
-  return false;
-}
+#include "walk.cuh"
 
 __global__ void __launch_bounds__(128) closest_shadow_kernel(
     const float* __restrict__ nodes, const float* __restrict__ tris,
@@ -192,77 +65,19 @@ __global__ void __launch_bounds__(128) closest_shadow_kernel(
   float tmax = rb[9 * LANES];
 
   int stack[STACK_CAPACITY];
-  int overflow = 0, capped = 0;
+  WalkCounts wc;
 
   // Phase 1: closest hit with attribute tracking.
-  bool active0 = tmax > t_min;
-  Hit h;
-  h.t = active0 ? tmax : -BIG;
-  h.idx = -1;
-  h.u = h.v = h.kd = h.tid = h.o0 = h.o1 = h.o2 = 0.0f;
-  h.nx = h.ny = h.nz = 0.0f;
-  int sp = 1, it = 0;
-  stack[0] = 0;
-  while (sp > 0 && it < max_iters) {
-    const float* row = nodes + (size_t)stack[--sp] * 128;
-    unsigned mask = child_hits(row, r, t_min, active0 ? h.t : -BIG);
-    for (int c = 0; c < 8; ++c) {
-      if (!(mask >> c & 1u)) continue;
-      int ref = (int)__ldg(row + 16 * c + 6);
-      if (ref < 0) {
-        leaf_closest(tris, at0, at1, max(-ref - 1, 0), k, r, t_min, active0,
-                     h);
-      } else if (sp < stack_size) {
-        stack[sp++] = ref;
-      } else {
-        ++overflow;
-      }
-    }
-    ++it;
-  }
-  capped += sp > 0;
+  Hit h = closest_walk(nodes, tris, at0, at1, k, r, tmax, t_min, max_iters,
+                       stack_size, stack, wc);
+  write_attrs(out, p, lane, h);
 
-  float* ob = out + (size_t)p * ATTR_CH * LANES + lane;
+  // Phase 2: light 0's shadow ray from the biased hit point.
   bool hitm = h.idx >= 0;
-  ob[0] = hitm ? h.t : BIG;
-  ob[1 * LANES] = (float)h.idx;
-  ob[2 * LANES] = h.u;
-  ob[3 * LANES] = h.v;
-  ob[4 * LANES] = 0.0f;
-  ob[5 * LANES] = 0.0f;
-  ob[6 * LANES] = h.kd;
-  ob[7 * LANES] = 0.0f;
-  ob[8 * LANES] = h.tid;
-  ob[9 * LANES] = h.o0;
-  ob[10 * LANES] = h.o1;
-  ob[11 * LANES] = h.o2;
-  ob[12 * LANES] = h.nx;
-  ob[13 * LANES] = h.ny;
-  ob[14 * LANES] = h.nz;
-
-  // Phase 2: light 0's shadow ray from the hit, pushed by the bias along
-  // the unit geometric normal turned toward the viewer.
-  float bias = point ? scal[3] : scal[6];
-  float rn = 1.0f / sqrtf(fmaxf(h.nx * h.nx + h.ny * h.ny + h.nz * h.nz,
-                                1e-30f));
-  float flip = (h.nx * r.dx + h.ny * r.dy + h.nz * r.dz > 0.0f) ? -1.0f : 1.0f;
-  float off = bias * rn * flip;
-  Ray s;
-  s.ox = r.ox + h.t * r.dx + h.nx * off;
-  s.oy = r.oy + h.t * r.dy + h.ny * off;
-  s.oz = r.oz + h.t * r.dz + h.nz * off;
+  Ray s = biased_origin(r, h, point ? scal[3] : scal[6]);
   float stmax;
   if (point) {
-    float ex = scal[0] - s.ox, ey = scal[1] - s.oy, ez = scal[2] - s.oz;
-    float d2 = fmaxf(ex * ex + ey * ey + ez * ez, 1e-24f);
-    float drn = 1.0f / sqrtf(d2);
-    s.dx = ex * drn;
-    s.dy = ey * drn;
-    s.dz = ez * drn;
-    s.ix = fminf(fmaxf(1.0f / s.dx, -BIG), BIG);
-    s.iy = fminf(fmaxf(1.0f / s.dy, -BIG), BIG);
-    s.iz = fminf(fmaxf(1.0f / s.dz, -BIG), BIG);
-    stmax = hitm ? d2 * drn * 0.9999f : -BIG;
+    stmax = toward(hitm, scal[0] - s.ox, scal[1] - s.oy, scal[2] - s.oz, s);
   } else {
     s.dx = scal[0];
     s.dy = scal[1];
@@ -270,41 +85,13 @@ __global__ void __launch_bounds__(128) closest_shadow_kernel(
     s.ix = scal[3];
     s.iy = scal[4];
     s.iz = scal[5];
-    float ex = fminf(
-        fminf(fmaxf((scal[7] - s.ox) * s.ix, (scal[10] - s.ox) * s.ix),
-              fmaxf((scal[8] - s.oy) * s.iy, (scal[11] - s.oy) * s.iy)),
-        fmaxf((scal[9] - s.oz) * s.iz, (scal[12] - s.oz) * s.iz));
-    stmax = hitm ? fmaxf(ex, 0.0f) * 1.0001f : -BIG;
+    stmax = scene_exit_cap(hitm, s, scal + 7);
   }
-
-  bool active1 = stmax > 0.0f;
-  int occ = 0;
-  sp = 1;
-  it = 0;
-  stack[0] = 0;
-  while (sp > 0 && it < max_iters && !occ) {
-    const float* row = nodes + (size_t)stack[--sp] * 128;
-    unsigned mask = child_hits(row, s, 0.0f, active1 ? stmax : -BIG);
-    for (int c = 0; c < 8; ++c) {
-      if (!(mask >> c & 1u)) continue;
-      int ref = (int)__ldg(row + 16 * c + 6);
-      if (ref < 0) {
-        if (leaf_occluded(tris, max(-ref - 1, 0), k, s, 0.0f, stmax)) {
-          occ = 1;
-          break;
-        }
-      } else if (sp < stack_size) {
-        stack[sp++] = ref;
-      } else {
-        ++overflow;
-      }
-    }
-    ++it;
-  }
-  capped += (!occ && sp > 0);
+  bool occ = anyhit_walk(nodes, tris, k, s, stmax, 0.0f, max_iters,
+                         stack_size, stack, wc);
   occ_out[(size_t)p * LANES + lane] = occ;
-  if (overflow) atomicAdd(counts, overflow);
-  if (capped) atomicAdd(counts + 1, capped);
+  if (wc.overflow) atomicAdd(counts, wc.overflow);
+  if (wc.capped) atomicAdd(counts + 1, wc.capped);
 }
 
 extern "C" int tpurt_stack_capacity() { return STACK_CAPACITY; }

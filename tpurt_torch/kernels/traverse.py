@@ -1,26 +1,42 @@
-"""Fused closest hit + light-0 hard shadow over the 8-wide BVH (counterpart
-of ``tpurt/kernels/traverse.py`` ``trace_closest_shadow_pallas`` ->
-``_closest_shadow_kernel_w8_b``).
+"""The fused closest-hit + shadow traversals over the 8-wide BVH
+(counterparts of ``tpurt/kernels/traverse.py``):
 
-Three pieces share one contract on the packed ray block:
+- ``trace_closest_shadow`` -> ``_closest_shadow_kernel_w8_b``: light 0's
+  hard shadow (``csrc/closest_shadow.cu``);
+- ``trace_closest_multi_shadow`` -> ``_closest_multi_shadow_kernel_w8_b``:
+  one hard shadow per light, an i32 occlusion bitmask;
+- ``trace_closest_soft_shadow`` -> ``_closest_soft_shadow_kernel_w8_b``:
+  spp cone samples toward an area (sun) light, counts in [0, spp];
+- ``trace_closest_point_soft_shadow`` ->
+  ``_closest_psoft_shadow_kernel_w8_b``: spp jittered-disk samples on a
+  point light, counts;
+- ``trace_closest_soft_multi_shadow`` ->
+  ``_closest_soft_multi_shadow_kernel_w8_b``: soft light 0 (cone or disk)
+  -> counts, hard directional extras -> bitmask.
 
-- ``closest_shadow_cuda``: the hand-written CUDA kernel
-  (``csrc/closest_shadow.cu``), one thread per ray. It takes CUDA tensors
-  only and launches or raises.
-- ``closest_shadow_reference``: the same function in plain PyTorch, a
-  vectorised per-ray stack walk. The wrapper takes it only for CPU tensors.
-- ``trace_closest_shadow``: the wrapper the frame calls. It packs the
-  rays, picks one of the two by the tensors' device, and decodes the
-  attribute channels.
+The last four are modes of one CUDA kernel (``csrc/fused_shadows.cu``).
+Each function has three pieces that share one contract on the packed ray
+block:
 
-Both walks return ``counts`` i32[2]: pushes dropped because the per-ray
-stack was full, and walks cut at the iteration cap. A correct walk leaves
-both at zero; ``check_walk_counts`` raises otherwise.
+- ``*_cuda``: the hand-written CUDA kernel, one thread per ray. It takes
+  CUDA tensors only and launches or raises; ``.launches`` counts its
+  launches.
+- ``*_reference``: the same function in plain PyTorch, a vectorised
+  per-ray stack walk. The wrapper takes it only for CPU tensors.
+- ``trace_*``: the wrapper the frame calls. It packs the rays, picks one
+  of the two by the tensors' device, and decodes the attribute channels.
+
+All walks return ``counts`` i32[2]: pushes dropped because the per-ray
+stack was full, and walks cut at the iteration cap, summed over phase 1
+and every shadow walk. A correct frame leaves both at zero;
+``check_walk_counts`` raises otherwise. The soft samplers draw from the
+counter-based generator of ``sampling.py``.
 
 The layouts at the kernel boundary are the JAX package's: nodes
 f32[Nw,128], leaf rows f32[L,128], attribute rows f32[nblk,128], rays
-f32[PB,10,8,128] (o, d, clamped 1/d, t_max), outputs f32[PB,15,8,128]
-attribute channels and i32[PB,8,128] occlusion.
+f32[PB,10,8,128] (o, d, clamped 1/d, t_max), the float32 scalar blocks of
+the JAX wrappers, outputs f32[PB,15,8,128] attribute channels and
+i32[PB,8,128] occlusion, mask or counts.
 """
 
 from __future__ import annotations
@@ -33,6 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from ..bvh.wide import WideBVH
+from .sampling import (lane_axis_onb, onb3, rsqrt, sample_uniforms,
+                       sincos_2pi)
 
 TILE = 32          # 32x32 pixel tile -> one (8, 128) packet
 _BIG = 3.4e38
@@ -254,8 +272,16 @@ class _Walk:
         self.sp[rows] += 1
 
 
+def _count(stats, key, n) -> None:
+    """Add ``n`` (a tensor or int) to ``stats[key]`` when stats are kept:
+    the plain walks count node pops and triangle tests, the work the
+    kernels' bound is computed from."""
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + n
+
+
 def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
-                  max_iters, stack_size):
+                  max_iters, stack_size, stats=None):
     n = tmax.shape[0]
     dev = tmax.device
     active0 = tmax > t_min
@@ -268,6 +294,7 @@ def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
         rows = torch.nonzero((w.sp > 0) & (w.it < max_iters))[:, 0]
         if rows.numel() == 0:
             break
+        _count(stats, "pops", rows.numel())
         rec = nodes[w.pop(rows)].reshape(-1, 8, 16)
         cap = torch.where(active0[rows], best_t[rows], -_BIG)
         ro = tuple(c[rows] for c in o)
@@ -276,6 +303,7 @@ def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
         for c in range(8):
             leaf_m = hit[:, c] & (refs[:, c] < 0)
             if bool(leaf_m.any()):
+                _count(stats, "closest_tris", leaf_m.sum() * k)
                 r = rows[leaf_m]
                 leaf = torch.clamp(-refs[leaf_m, c] - 1, min=0).long()
                 tri = _leaf_tris(tris, leaf, k)
@@ -312,7 +340,7 @@ def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
 
 
 def _anyhit_walk(nodes, tris, k, o, d, inv, tmax, t_min, max_iters,
-                 stack_size):
+                 stack_size, stats=None):
     n = tmax.shape[0]
     dev = tmax.device
     active0 = tmax > t_min
@@ -322,6 +350,7 @@ def _anyhit_walk(nodes, tris, k, o, d, inv, tmax, t_min, max_iters,
         rows = torch.nonzero((w.sp > 0) & (w.it < max_iters) & ~occ)[:, 0]
         if rows.numel() == 0:
             break
+        _count(stats, "pops", rows.numel())
         rec = nodes[w.pop(rows)].reshape(-1, 8, 16)
         cap = torch.where(active0[rows], tmax[rows], -_BIG)
         hit = _slab8(rec, tuple(c[rows] for c in o),
@@ -331,6 +360,7 @@ def _anyhit_walk(nodes, tris, k, o, d, inv, tmax, t_min, max_iters,
         for c in range(8):
             leaf_m = hit[:, c] & (refs[:, c] < 0) & ~done
             if bool(leaf_m.any()):
+                _count(stats, "anyhit_tris", leaf_m.sum() * k)
                 r = rows[leaf_m]
                 leaf = torch.clamp(-refs[leaf_m, c] - 1, min=0).long()
                 h = _leaf_occluded(_leaf_tris(tris, leaf, k),
@@ -346,79 +376,307 @@ def _anyhit_walk(nodes, tris, k, o, d, inv, tmax, t_min, max_iters,
     return occ, w.overflow, capped
 
 
-def _shadow_rays(scal, point, o, d, best_t, best_i, gn):
-    """Phase 2 ray per hit: origin pushed by the bias along the unit
-    geometric normal turned toward the viewer; t capped at the root-box
-    exit x 1.0001 (directional) or the light distance x (1 - 1e-4)
-    (point). Lanes with no hit get t_max = -BIG."""
+# Phase 2 ray construction. Every function evaluates in the CUDA kernels'
+# order of operations (csrc/walk.cuh), so the two agree bit for bit.
+
+def _inv3(sd):
+    return tuple(torch.clamp(1.0 / x, -_BIG, _BIG) for x in sd)
+
+
+def _biased_origin(bias, o, d, best_t, gn):
+    """Hit point pushed by the bias along the unit geometric normal turned
+    toward the viewer (``_biased_hit_origin``)."""
     nx, ny, nz = gn
     ox, oy, oz = o
     dx, dy, dz = d
-    hitm = best_i >= 0
-    bias = scal[3] if point else scal[6]
     rn = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
                                       min=1e-30))
     flip = torch.where(nx * dx + ny * dy + nz * dz > 0.0, -1.0, 1.0)
     off = bias * rn * flip
-    so = (ox + best_t * dx + nx * off, oy + best_t * dy + ny * off,
-          oz + best_t * dz + nz * off)
-    if point:
-        e = (scal[0] - so[0], scal[1] - so[1], scal[2] - so[2])
-        d2 = torch.clamp(e[0] * e[0] + e[1] * e[1] + e[2] * e[2], min=1e-24)
-        drn = 1.0 / torch.sqrt(d2)
-        sd = tuple(x * drn for x in e)
-        sinv = tuple(torch.clamp(1.0 / x, -_BIG, _BIG) for x in sd)
-        stmax = torch.where(hitm, d2 * drn * (1.0 - 1e-4), -_BIG)
-    else:
-        n = best_t.shape[0]
-        sd = tuple(scal[a].expand(n) for a in range(3))
-        sinv = tuple(scal[3 + a].expand(n) for a in range(3))
-        ex = None
-        for a in range(3):
-            t0 = (scal[7 + a] - so[a]) * sinv[a]
-            t1 = (scal[10 + a] - so[a]) * sinv[a]
-            m = torch.maximum(t0, t1)
-            ex = m if ex is None else torch.minimum(ex, m)
-        stmax = torch.where(hitm, torch.clamp(ex, min=0.0) * 1.0001, -_BIG)
-    return so, sd, sinv, stmax
+    return (ox + best_t * dx + nx * off, oy + best_t * dy + ny * off,
+            oz + best_t * dz + nz * off)
+
+
+def _scene_exit_cap(hitm, so, sinv, rmin, rmax):
+    """Root-box exit x 1.0001 (``_scene_exit_cap``); -BIG off the hit set."""
+    ex = None
+    for a in range(3):
+        t0 = (rmin[a] - so[a]) * sinv[a]
+        t1 = (rmax[a] - so[a]) * sinv[a]
+        m = torch.maximum(t0, t1)
+        ex = m if ex is None else torch.minimum(ex, m)
+    return torch.where(hitm, torch.clamp(ex, min=0.0) * 1.0001, -_BIG)
+
+
+def _toward(e, hitm):
+    """Unit direction along the per-ray vector e, its clamped inverse and
+    t capped at |e| x (1 - 1e-4): a point light or a disk sample."""
+    d2 = torch.clamp(e[0] * e[0] + e[1] * e[1] + e[2] * e[2], min=1e-24)
+    drn = 1.0 / torch.sqrt(d2)
+    sd = tuple(x * drn for x in e)
+    return sd, _inv3(sd), torch.where(hitm, d2 * drn * (1.0 - 1e-4), -_BIG)
+
+
+def _point_ray(lp, so, hitm):
+    return _toward((lp[0] - so[0], lp[1] - so[1], lp[2] - so[2]), hitm)
+
+
+def _dir_ray(ld, linv, rmin, rmax, so, hitm):
+    n = so[0].shape[0]
+    sd = tuple(ld[a].expand(n) for a in range(3))
+    sinv = tuple(linv[a].expand(n) for a in range(3))
+    return sd, sinv, _scene_exit_cap(hitm, so, sinv, rmin, rmax)
+
+
+def _cone_ray(u1, u2, axis, t0, t1, cone_cos, rmin, rmax, so, hitm):
+    """One uniform direction in the cone around ``axis``, t capped at the
+    root-box exit (the soft kernels' per-sample recipe)."""
+    cos_t = 1.0 - u1 * (1.0 - cone_cos)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    sphi, cphi = sincos_2pi(u2)
+    sc = sin_t * cphi
+    ss = sin_t * sphi
+    sd = tuple(axis[a] * cos_t + t0[a] * sc + t1[a] * ss for a in range(3))
+    srn = rsqrt(torch.clamp(sd[0] * sd[0] + sd[1] * sd[1] + sd[2] * sd[2],
+                            min=1e-20))
+    sd = tuple(x * srn for x in sd)
+    sinv = _inv3(sd)
+    return sd, sinv, _scene_exit_cap(hitm, so, sinv, rmin, rmax)
+
+
+def _disk_ray(u1, u2, e0, basis, radius, hitm):
+    """Toward a jittered point of the light's disk: r = sqrt(u1) x radius,
+    phi from u2, in the per-ray basis around the axis to the centre."""
+    t0x, t0y, t0z, t1x, t1y, t1z = basis
+    r = torch.sqrt(u1) * radius
+    sphi, cphi = sincos_2pi(u2)
+    rc = r * cphi
+    rs = r * sphi
+    return _toward((e0[0] + t0x * rc + t1x * rs,
+                    e0[1] + t0y * rc + t1y * rs,
+                    e0[2] + t0z * rc + t1z * rs), hitm)
+
+
+class _Phase1:
+    """The shared phase 1 of every fused plain version: the attribute-
+    tracked closest walk over the packed rays, its 15 output channels,
+    and the walk counters that phase 2 adds to."""
+
+    def __init__(self, rays, nodes, tris, at0, at1, k, t_min, max_iters,
+                 stack_size, stats):
+        pb = rays.shape[0]
+        comp = rays.reshape(pb, 10, LANES).permute(1, 0, 2).reshape(10, -1)
+        self.o = (comp[0], comp[1], comp[2])
+        self.d = (comp[3], comp[4], comp[5])
+        inv, tmax = (comp[6], comp[7], comp[8]), comp[9]
+        self.args = (nodes, tris, k)
+        self.walk_kw = dict(max_iters=max_iters, stack_size=stack_size,
+                            stats=stats)
+        best_t, best_i, attr, ovf, cap = _closest_walk(
+            nodes, tris, at0, at1, k, self.o, self.d, inv, tmax, t_min,
+            max_iters, stack_size, stats)
+        n = tmax.shape[0]
+        zero = torch.zeros(n, dtype=torch.float32, device=tmax.device)
+        chans = [torch.where(best_i >= 0, best_t, _BIG),
+                 best_i.to(torch.float32), attr[:, 0], attr[:, 1], zero,
+                 zero, attr[:, 2], zero, attr[:, 3], attr[:, 4], attr[:, 5],
+                 attr[:, 6], attr[:, 7], attr[:, 8], attr[:, 9]]
+        self.out = torch.stack(chans).reshape(ATTR_CH, pb, 8, 128).permute(
+            1, 0, 2, 3).contiguous()
+        self.pb = pb
+        self.n = n
+        self.best_t = best_t
+        self.hitm = best_i >= 0
+        self.gn = (attr[:, 7], attr[:, 8], attr[:, 9])
+        self.ovf, self.cap = ovf, cap
+
+    def origin(self, bias):
+        return _biased_origin(bias, self.o, self.d, self.best_t, self.gn)
+
+    def occluded(self, so, ray) -> torch.Tensor:
+        """One any-hit walk from the biased origins; adds to the counters."""
+        sd, sinv, stmax = ray
+        nodes, tris, k = self.args
+        occ, ovf, cap = _anyhit_walk(nodes, tris, k, so, sd, sinv, stmax,
+                                     0.0, **self.walk_kw)
+        self.ovf = self.ovf + ovf
+        self.cap = self.cap + cap
+        return occ
+
+    def image(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-ray i32 values -> the kernels' (PB, 8, 128) output block."""
+        return x.to(torch.int32).reshape(self.pb, 8, 128)
+
+    def counts(self) -> torch.Tensor:
+        return torch.stack([self.ovf, self.cap]).to(torch.int32)
 
 
 def closest_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
                              leaf_size: int, point: bool, t_min: float,
-                             max_iters: int, stack_size: int):
+                             max_iters: int, stack_size: int, stats=None):
     """Plain PyTorch version of the fused kernel, on any device.
 
     rays f32[PB,10,8,128] -> (out f32[PB,15,8,128], occ i32[PB,8,128],
     counts i32[2]). Each ray walks its own stack [N, stack_size]; the loop
     runs until every stack is empty. Children of a popped node are tested
     against the cap at pop time and handled in slot order (leaf tests in
-    place, internal children pushed), as the kernel does."""
-    pb = rays.shape[0]
-    comp = rays.reshape(pb, 10, LANES).permute(1, 0, 2).reshape(10, -1)
-    o, d, inv, tmax = (comp[0], comp[1], comp[2]), \
-        (comp[3], comp[4], comp[5]), (comp[6], comp[7], comp[8]), comp[9]
-    k = leaf_size
-    best_t, best_i, attr, ovf1, cap1 = _closest_walk(
-        nodes, tris, at0, at1, k, o, d, inv, tmax, t_min, max_iters,
-        stack_size)
-    n = tmax.shape[0]
-    zero = torch.zeros(n, dtype=torch.float32, device=tmax.device)
-    chans = [torch.where(best_i >= 0, best_t, _BIG), best_i.to(torch.float32),
-             attr[:, 0], attr[:, 1], zero, zero, attr[:, 2], zero,
-             attr[:, 3], attr[:, 4], attr[:, 5], attr[:, 6],
-             attr[:, 7], attr[:, 8], attr[:, 9]]
-    out = torch.stack(chans).reshape(ATTR_CH, pb, 8, 128).permute(1, 0, 2, 3)
-    gn = (attr[:, 7], attr[:, 8], attr[:, 9])
-    so, sd, sinv, stmax = _shadow_rays(scal, point, o, d, best_t, best_i, gn)
-    occ, ovf2, cap2 = _anyhit_walk(nodes, tris, k, so, sd, sinv, stmax, 0.0,
-                                   max_iters, stack_size)
-    occ = occ.to(torch.int32).reshape(pb, 8, 128)
-    counts = torch.stack([ovf1 + ovf2, cap1 + cap2]).to(torch.int32)
-    return out.contiguous(), occ, counts
+    place, internal children pushed), as the kernel does. ``stats``: an
+    optional dict that receives the node pops and triangle tests."""
+    ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
+                 stack_size, stats)
+    if point:
+        so = ph.origin(scal[3])
+        ray = _point_ray(scal[0:3], so, ph.hitm)
+    else:
+        so = ph.origin(scal[6])
+        ray = _dir_ray(scal[0:3], scal[3:6], scal[7:10], scal[10:13], so,
+                       ph.hitm)
+    occ = ph.occluded(so, ray)
+    return ph.out, ph.image(occ), ph.counts()
+
+
+MAX_MASK_LIGHTS = 31   # bits of the i32 occlusion mask
+
+
+def _check_mask_lights(n: int) -> None:
+    if not 1 <= n <= MAX_MASK_LIGHTS:
+        raise ValueError(f"{n} lights in an occlusion mask; it holds 1.."
+                         f"{MAX_MASK_LIGHTS}")
+
+
+def _multi_scal_len(points) -> int:
+    return 7 + sum(3 if p else 6 for p in points)
+
+
+def closest_multi_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
+                                   leaf_size: int, points, t_min: float,
+                                   max_iters: int, stack_size: int,
+                                   stats=None):
+    """Plain version of ``_closest_multi_shadow_kernel_w8_b``: phase 1,
+    then one hard any-hit walk per light from the shared biased hit point.
+    scal: [bias, root min(3), root max(3)], then per light a position(3)
+    (``points[l]``) or a toward-light direction(3) and its clamped
+    inverse(3). -> (out, mask i32[PB,8,128] with bit l = light l occluded,
+    counts i32[2])."""
+    _check_mask_lights(len(points))
+    ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
+                 stack_size, stats)
+    so = ph.origin(scal[0])
+    rmin, rmax = scal[1:4], scal[4:7]
+    mask = torch.zeros(ph.n, dtype=torch.int32, device=rays.device)
+    s = 7
+    for li, is_point in enumerate(points):
+        if is_point:
+            ray = _point_ray(scal[s:s + 3], so, ph.hitm)
+            s += 3
+        else:
+            ray = _dir_ray(scal[s:s + 3], scal[s + 3:s + 6], rmin, rmax, so,
+                           ph.hitm)
+            s += 6
+        mask |= ph.occluded(so, ray).to(torch.int32) << li
+    return ph.out, ph.image(mask), ph.counts()
+
+
+def _sampled_counts(ph, so, spp, seed, zero_stream, make_ray):
+    """Occlusion counts in [0, spp] over spp samples of light 0."""
+    ray_index = torch.arange(ph.n, device=so[0].device)
+    cnt = torch.zeros(ph.n, dtype=torch.int32, device=so[0].device)
+    for s in range(spp):
+        u1, u2 = sample_uniforms(seed, 0, ray_index, s, zero_stream)
+        cnt += ph.occluded(so, make_ray(u1, u2)).to(torch.int32)
+    return cnt
+
+
+def _cone_sampler(scal, at, rmin, rmax, so, hitm):
+    """Light-0 cone at scal[at:at+10]: axis(3), basis t0(3), t1(3),
+    cone_cos."""
+    axis, t0, t1 = scal[at:at + 3], scal[at + 3:at + 6], scal[at + 6:at + 9]
+    cone_cos = scal[at + 9]
+    return lambda u1, u2: _cone_ray(u1, u2, axis, t0, t1, cone_cos, rmin,
+                                    rmax, so, hitm)
+
+
+def _disk_sampler(scal, at, so, hitm):
+    """Light-0 disk at scal[at:at+4]: position(3), radius."""
+    lp, radius = scal[at:at + 3], scal[at + 3]
+    e0 = (lp[0] - so[0], lp[1] - so[1], lp[2] - so[2])
+    basis = lane_axis_onb(*e0)
+    return lambda u1, u2: _disk_ray(u1, u2, e0, basis, radius, hitm)
+
+
+def closest_soft_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
+                                  leaf_size: int, spp: int, seed: int,
+                                  zero_stream: bool, t_min: float,
+                                  max_iters: int, stack_size: int,
+                                  stats=None):
+    """Plain version of ``_closest_soft_shadow_kernel_w8_b``: phase 1, then
+    spp cone samples around the sun axis. scal f32[17]: axis(3), basis
+    t0(3), t1(3), cone_cos, root min(3), root max(3), bias. -> (out, counts
+    i32[PB,8,128] in [0, spp], walk counts i32[2])."""
+    ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
+                 stack_size, stats)
+    so = ph.origin(scal[16])
+    sample = _cone_sampler(scal, 0, scal[10:13], scal[13:16], so, ph.hitm)
+    cnt = _sampled_counts(ph, so, spp, seed, zero_stream, sample)
+    return ph.out, ph.image(cnt), ph.counts()
+
+
+def closest_point_soft_shadow_reference(rays, nodes, tris, at0, at1, scal,
+                                        *, leaf_size: int, spp: int,
+                                        seed: int, zero_stream: bool,
+                                        t_min: float, max_iters: int,
+                                        stack_size: int, stats=None):
+    """Plain version of ``_closest_psoft_shadow_kernel_w8_b``: phase 1,
+    then spp jittered-disk samples on a point light, in a per-ray Duff
+    basis around the axis to the light's centre. scal f32[5]: position(3),
+    radius, bias. -> (out, counts, walk counts)."""
+    ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
+                 stack_size, stats)
+    so = ph.origin(scal[4])
+    sample = _disk_sampler(scal, 0, so, ph.hitm)
+    cnt = _sampled_counts(ph, so, spp, seed, zero_stream, sample)
+    return ph.out, ph.image(cnt), ph.counts()
+
+
+def _soft_multi_scal_len(disk: bool, n_extra: int) -> int:
+    return 7 + (4 if disk else 10) + 6 * n_extra
+
+
+def closest_soft_multi_shadow_reference(rays, nodes, tris, at0, at1, scal,
+                                        *, leaf_size: int, spp: int,
+                                        seed: int, zero_stream: bool,
+                                        disk: bool, n_extra: int,
+                                        t_min: float, max_iters: int,
+                                        stack_size: int, stats=None):
+    """Plain version of ``_closest_soft_multi_shadow_kernel_w8_b``: phase
+    1; light 0 soft (``disk``: jittered disk, else cone) -> counts; one
+    hard walk per extra directional light -> mask (bit i = extra light i).
+    scal: [bias, root min(3), root max(3)], light 0 (disk: position(3),
+    radius; cone: axis(3), t0(3), t1(3), cone_cos), then per extra light
+    direction(3) and clamped inverse(3). -> (out, counts, mask, walk
+    counts)."""
+    if n_extra:
+        _check_mask_lights(n_extra)
+    ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
+                 stack_size, stats)
+    so = ph.origin(scal[0])
+    rmin, rmax = scal[1:4], scal[4:7]
+    if disk:
+        sample, base = _disk_sampler(scal, 7, so, ph.hitm), 11
+    else:
+        sample, base = _cone_sampler(scal, 7, rmin, rmax, so, ph.hitm), 17
+    cnt = _sampled_counts(ph, so, spp, seed, zero_stream, sample)
+    mask = torch.zeros(ph.n, dtype=torch.int32, device=rays.device)
+    for li in range(n_extra):
+        s = base + 6 * li
+        ray = _dir_ray(scal[s:s + 3], scal[s + 3:s + 6], rmin, rmax, so,
+                       ph.hitm)
+        mask |= ph.occluded(so, ray).to(torch.int32) << li
+    return ph.out, ph.image(cnt), ph.image(mask), ph.counts()
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel
+# The CUDA kernels
 # ---------------------------------------------------------------------------
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -433,17 +691,15 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def closest_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
-                        leaf_size: int, point: bool, t_min: float,
-                        max_iters: int, stack_size: int):
-    """Launch the CUDA kernel (csrc/closest_shadow.cu) on the current
-    stream; same contract as ``closest_shadow_reference``. Builds the
-    kernel library on first use. Raises on anything the kernel does not
-    take and on a refused launch."""
+def _cuda_prep(name, rays, nodes, tris, at0, at1, scal, leaf_size,
+               stack_size, scal_len):
+    """Check a fused launch's common inputs; allocate the attribute
+    channels and the walk counters. -> (lib, pb, out, counts, stream,
+    pointers of the inputs)."""
     from ._build import load_library
     dev = rays.device
     if dev.type != "cuda":
-        raise ValueError(f"closest_shadow_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     k = int(leaf_size)
     if not 1 <= k <= 14:
         raise ValueError(f"leaf_size {k} outside 1..14")
@@ -456,20 +712,41 @@ def closest_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
     _check(tris, "tris", torch.float32, (nl, 128), dev)
     _check(at0, "at0", torch.float32, (nl, 128), dev)
     _check(at1, "at1", torch.float32, ((nl if k > 8 else 1), 128), dev)
-    _check(scal, "scal", torch.float32, ((4 if point else 13),), dev)
+    _check(scal, "scal", torch.float32, (scal_len,), dev)
     lib = load_library()
     out = torch.empty((pb, ATTR_CH, 8, 128), dtype=torch.float32, device=dev)
-    occ = torch.empty((pb, 8, 128), dtype=torch.int32, device=dev)
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.tpurt_closest_shadow_launch(
-        nodes.data_ptr(), tris.data_ptr(), at0.data_ptr(), at1.data_ptr(),
-        rays.data_ptr(), scal.data_ptr(), out.data_ptr(), occ.data_ptr(),
-        counts.data_ptr(), pb * LANES, k, int(point), ctypes.c_float(t_min),
-        int(max_iters), int(stack_size), stream)
+    ptrs = (nodes.data_ptr(), tris.data_ptr(), at0.data_ptr(),
+            at1.data_ptr(), rays.data_ptr(), scal.data_ptr())
+    return lib, pb, out, counts, stream, ptrs
+
+
+def _i32_block(pb, device) -> torch.Tensor:
+    return torch.empty((pb, 8, 128), dtype=torch.int32, device=device)
+
+
+def _raise_on(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"closest_shadow kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def closest_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
+                        leaf_size: int, point: bool, t_min: float,
+                        max_iters: int, stack_size: int):
+    """Launch the CUDA kernel (csrc/closest_shadow.cu) on the current
+    stream; same contract as ``closest_shadow_reference``. Builds the
+    kernel library on first use. Raises on anything the kernel does not
+    take and on a refused launch."""
+    lib, pb, out, counts, stream, ptrs = _cuda_prep(
+        "closest_shadow_cuda", rays, nodes, tris, at0, at1, scal, leaf_size,
+        stack_size, 4 if point else 13)
+    occ = _i32_block(pb, rays.device)
+    err = lib.tpurt_closest_shadow_launch(
+        *ptrs, out.data_ptr(), occ.data_ptr(), counts.data_ptr(), pb * LANES,
+        int(leaf_size), int(point), ctypes.c_float(t_min), int(max_iters),
+        int(stack_size), stream)
+    _raise_on(err, "closest_shadow")
     closest_shadow_cuda.launches += 1
     return out, occ, counts
 
@@ -477,32 +754,260 @@ def closest_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
 closest_shadow_cuda.launches = 0
 
 
+def closest_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
+                              leaf_size: int, points, t_min: float,
+                              max_iters: int, stack_size: int):
+    """Launch ``fused_shadows.cu`` in its multi-light mode; the contract of
+    ``closest_multi_shadow_reference``."""
+    _check_mask_lights(len(points))
+    lib, pb, out, counts, stream, ptrs = _cuda_prep(
+        "closest_multi_shadow_cuda", rays, nodes, tris, at0, at1, scal,
+        leaf_size, stack_size, _multi_scal_len(points))
+    mask = _i32_block(pb, rays.device)
+    point_mask = sum(1 << i for i, p in enumerate(points) if p)
+    err = lib.tpurt_closest_multi_shadow_launch(
+        *ptrs, out.data_ptr(), mask.data_ptr(), counts.data_ptr(),
+        pb * LANES, int(leaf_size), len(points), point_mask,
+        ctypes.c_float(t_min), int(max_iters), int(stack_size), stream)
+    _raise_on(err, "closest_multi_shadow")
+    closest_multi_shadow_cuda.launches += 1
+    return out, mask, counts
+
+
+closest_multi_shadow_cuda.launches = 0
+
+
+def _check_spp(spp: int) -> None:
+    if spp < 1:
+        raise ValueError(f"spp {spp} < 1")
+
+
+def closest_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
+                             leaf_size: int, spp: int, seed: int,
+                             zero_stream: bool, t_min: float,
+                             max_iters: int, stack_size: int):
+    """Launch ``fused_shadows.cu`` in its cone mode; the contract of
+    ``closest_soft_shadow_reference``."""
+    _check_spp(spp)
+    lib, pb, out, counts, stream, ptrs = _cuda_prep(
+        "closest_soft_shadow_cuda", rays, nodes, tris, at0, at1, scal,
+        leaf_size, stack_size, 17)
+    cnt = _i32_block(pb, rays.device)
+    err = lib.tpurt_closest_soft_shadow_launch(
+        *ptrs, out.data_ptr(), cnt.data_ptr(), counts.data_ptr(), pb * LANES,
+        int(leaf_size), int(spp), ctypes.c_uint32(seed & 0xFFFFFFFF),
+        int(zero_stream), ctypes.c_float(t_min), int(max_iters),
+        int(stack_size), stream)
+    _raise_on(err, "closest_soft_shadow")
+    closest_soft_shadow_cuda.launches += 1
+    return out, cnt, counts
+
+
+closest_soft_shadow_cuda.launches = 0
+
+
+def closest_point_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
+                                   leaf_size: int, spp: int, seed: int,
+                                   zero_stream: bool, t_min: float,
+                                   max_iters: int, stack_size: int):
+    """Launch ``fused_shadows.cu`` in its disk mode; the contract of
+    ``closest_point_soft_shadow_reference``."""
+    _check_spp(spp)
+    lib, pb, out, counts, stream, ptrs = _cuda_prep(
+        "closest_point_soft_shadow_cuda", rays, nodes, tris, at0, at1, scal,
+        leaf_size, stack_size, 5)
+    cnt = _i32_block(pb, rays.device)
+    err = lib.tpurt_closest_point_soft_shadow_launch(
+        *ptrs, out.data_ptr(), cnt.data_ptr(), counts.data_ptr(), pb * LANES,
+        int(leaf_size), int(spp), ctypes.c_uint32(seed & 0xFFFFFFFF),
+        int(zero_stream), ctypes.c_float(t_min), int(max_iters),
+        int(stack_size), stream)
+    _raise_on(err, "closest_point_soft_shadow")
+    closest_point_soft_shadow_cuda.launches += 1
+    return out, cnt, counts
+
+
+closest_point_soft_shadow_cuda.launches = 0
+
+
+def closest_soft_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
+                                   leaf_size: int, spp: int, seed: int,
+                                   zero_stream: bool, disk: bool,
+                                   n_extra: int, t_min: float,
+                                   max_iters: int, stack_size: int):
+    """Launch ``fused_shadows.cu`` in its soft-plus-extras mode; the
+    contract of ``closest_soft_multi_shadow_reference``."""
+    _check_spp(spp)
+    if n_extra:
+        _check_mask_lights(n_extra)
+    lib, pb, out, counts, stream, ptrs = _cuda_prep(
+        "closest_soft_multi_shadow_cuda", rays, nodes, tris, at0, at1, scal,
+        leaf_size, stack_size, _soft_multi_scal_len(disk, n_extra))
+    cnt = _i32_block(pb, rays.device)
+    mask = _i32_block(pb, rays.device)
+    err = lib.tpurt_closest_soft_multi_shadow_launch(
+        *ptrs, out.data_ptr(), cnt.data_ptr(), mask.data_ptr(),
+        counts.data_ptr(), pb * LANES, int(leaf_size), int(spp),
+        ctypes.c_uint32(seed & 0xFFFFFFFF), int(zero_stream), int(disk),
+        int(n_extra), ctypes.c_float(t_min), int(max_iters),
+        int(stack_size), stream)
+    _raise_on(err, "closest_soft_multi_shadow")
+    closest_soft_multi_shadow_cuda.launches += 1
+    return out, cnt, mask, counts
+
+
+closest_soft_multi_shadow_cuda.launches = 0
+
+CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
+                closest_soft_shadow_cuda, closest_point_soft_shadow_cuda,
+                closest_soft_multi_shadow_cuda)
+
+
+# ---------------------------------------------------------------------------
+# Inputs and wrappers
+# ---------------------------------------------------------------------------
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def _dir_scalars(ld, device):
+    """Toward-light direction(3) and its clamped inverse(3)."""
+    d = _f32(ld, device)
+    return [d, torch.clamp(1.0 / d, -_BIG, _BIG)]
+
+
+def _root_box(bvh: WideBVH):
+    return [bvh.root_min.to(torch.float32), bvh.root_max.to(torch.float32)]
+
+
+def _cone_scalars(axis_dir, cone_cos, device):
+    """Cone axis(3), its Duff basis t0(3), t1(3), cone_cos."""
+    axis = _f32(axis_dir, device)
+    t0, t1 = onb3(axis)
+    return [axis, t0, t1, _f32([cone_cos], device)]
+
+
 def _shadow_scalars(bvh: WideBVH, light_dir, bias, light_pos, device):
     """f32[4] (point: position, bias) or f32[13] (directional: dir,
     clamped 1/dir, bias, root box min, max)."""
-    b = torch.tensor([float(bias)], dtype=torch.float32, device=device)
+    b = _f32([bias], device)
     if light_pos is not None:
-        lp = torch.as_tensor(np.asarray(light_pos, np.float32), device=device)
-        return torch.cat([lp, b])
-    ld = torch.as_tensor(np.asarray(light_dir, np.float32), device=device)
-    inv = torch.clamp(1.0 / ld, -_BIG, _BIG)
-    return torch.cat([ld, inv, b, bvh.root_min.to(torch.float32),
-                      bvh.root_max.to(torch.float32)])
+        return torch.cat([_f32(light_pos, device), b])
+    return torch.cat(_dir_scalars(light_dir, device) + [b]
+                     + _root_box(bvh))
+
+
+def _fused_inputs(bvh: WideBVH, origins, dirs, attr_tables, t_max, t_min,
+                  stack_size, scal_fn, **kw):
+    """Pack image rays for a fused kernel -> (args, kwargs, p, meta):
+    ``kernel(*args, **kwargs)`` or its plain version; ``p`` and ``meta``
+    unpack the outputs. ``scal_fn(device)`` makes the scalar block."""
+    rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
+    args = (rays, bvh.nodes, bvh.tris, attr_tables[0], attr_tables[1],
+            scal_fn(rays.device))
+    kwargs = dict(leaf_size=bvh.leaf_size, t_min=float(t_min),
+                  max_iters=iter_cap(bvh.num_wide), stack_size=stack_size,
+                  **kw)
+    return args, kwargs, p, meta
 
 
 def closest_shadow_inputs(bvh: WideBVH, origins, dirs, light_dir, bias,
                           attr_tables, t_max=_BIG, t_min: float = 0.0,
                           light_pos=None, stack_size: int = STACK_CAPACITY):
-    """Pack image rays for the kernel contract -> (args, kwargs, p, meta):
-    ``closest_shadow_cuda(*args, **kwargs)`` or the plain version; ``p``
-    and ``meta`` unpack the outputs."""
-    rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
-    scal = _shadow_scalars(bvh, light_dir, bias, light_pos, rays.device)
-    args = (rays, bvh.nodes, bvh.tris, attr_tables[0], attr_tables[1], scal)
-    kwargs = dict(leaf_size=bvh.leaf_size, point=light_pos is not None,
-                  t_min=float(t_min), max_iters=iter_cap(bvh.num_wide),
-                  stack_size=stack_size)
-    return args, kwargs, p, meta
+    """Inputs of ``closest_shadow_cuda`` / ``closest_shadow_reference``."""
+    return _fused_inputs(
+        bvh, origins, dirs, attr_tables, t_max, t_min, stack_size,
+        lambda dev: _shadow_scalars(bvh, light_dir, bias, light_pos, dev),
+        point=light_pos is not None)
+
+
+def closest_multi_shadow_inputs(bvh: WideBVH, origins, dirs, lights, bias,
+                                attr_tables, t_max=_BIG, t_min: float = 0.0,
+                                stack_size: int = STACK_CAPACITY):
+    """Inputs of the multi-light kernel. lights: (light_dir, light_pos)
+    pairs, exactly one of each pair not None."""
+    _check_mask_lights(len(lights))
+    points = tuple(lp is not None for _, lp in lights)
+
+    def scal(dev):
+        blocks = [_f32([bias], dev)] + _root_box(bvh)
+        for ld, lp in lights:
+            blocks += [_f32(lp, dev)] if lp is not None \
+                else _dir_scalars(ld, dev)
+        return torch.cat(blocks)
+    return _fused_inputs(bvh, origins, dirs, attr_tables, t_max, t_min,
+                         stack_size, scal, points=points)
+
+
+def closest_soft_shadow_inputs(bvh: WideBVH, origins, dirs, axis_dir,
+                               cone_cos, spp: int, seed: int, bias,
+                               attr_tables, t_max=_BIG, t_min: float = 0.0,
+                               zero_stream: bool = False,
+                               stack_size: int = STACK_CAPACITY):
+    """Inputs of the cone kernel (scal f32[17])."""
+    return _fused_inputs(
+        bvh, origins, dirs, attr_tables, t_max, t_min, stack_size,
+        lambda dev: torch.cat(_cone_scalars(axis_dir, cone_cos, dev)
+                              + _root_box(bvh) + [_f32([bias], dev)]),
+        spp=int(spp), seed=int(seed), zero_stream=bool(zero_stream))
+
+
+def closest_point_soft_shadow_inputs(bvh: WideBVH, origins, dirs, light_pos,
+                                     radius, spp: int, seed: int, bias,
+                                     attr_tables, t_max=_BIG,
+                                     t_min: float = 0.0,
+                                     zero_stream: bool = False,
+                                     stack_size: int = STACK_CAPACITY):
+    """Inputs of the disk kernel (scal f32[5])."""
+    return _fused_inputs(
+        bvh, origins, dirs, attr_tables, t_max, t_min, stack_size,
+        lambda dev: torch.cat([_f32(light_pos, dev),
+                               _f32([radius, bias], dev)]),
+        spp=int(spp), seed=int(seed), zero_stream=bool(zero_stream))
+
+
+def closest_soft_multi_shadow_inputs(bvh: WideBVH, origins, dirs, light0,
+                                     extra_dirs, spp: int, seed: int, bias,
+                                     attr_tables, t_max=_BIG,
+                                     t_min: float = 0.0,
+                                     zero_stream: bool = False,
+                                     stack_size: int = STACK_CAPACITY):
+    """Inputs of the soft-plus-extras kernel. light0: ("cone", axis,
+    cone_cos) or ("disk", position, radius); extra_dirs: toward-light
+    directions of the hard extras."""
+    kind, vec, scalar = light0
+    if kind not in ("cone", "disk"):
+        raise ValueError(f"light 0 kind {kind!r}, expected 'cone' or 'disk'")
+    if extra_dirs:
+        _check_mask_lights(len(extra_dirs))
+
+    def scal(dev):
+        blocks = [_f32([bias], dev)] + _root_box(bvh)
+        blocks += [_f32(vec, dev), _f32([scalar], dev)] if kind == "disk" \
+            else _cone_scalars(vec, scalar, dev)
+        for ld in extra_dirs:
+            blocks += _dir_scalars(ld, dev)
+        return torch.cat(blocks)
+    return _fused_inputs(bvh, origins, dirs, attr_tables, t_max, t_min,
+                         stack_size, scal, spp=int(spp), seed=int(seed),
+                         zero_stream=bool(zero_stream), disk=kind == "disk",
+                         n_extra=len(extra_dirs))
+
+
+def _pick(device: torch.device, cuda_fn, plain_fn):
+    """The kernel for CUDA tensors, its plain version for CPU tensors."""
+    if device.type == "cuda":
+        return cuda_fn
+    if device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"unsupported device {device}")
+
+
+def _need_attrs(attr_tables) -> None:
+    if attr_tables is None:
+        raise NotImplementedError(
+            "the attrs=0 variant (t/sidx outputs) is not ported")
 
 
 def trace_closest_shadow(bvh: WideBVH, origins, dirs, light_dir, bias,
@@ -516,19 +1021,88 @@ def trace_closest_shadow(bvh: WideBVH, origins, dirs, light_dir, bias,
     attribute rows. Returns (channel dict, occluded bool[H, W], counts
     i32[2]). CUDA tensors launch the kernel; CPU tensors take the plain
     version."""
-    if attr_tables is None:
-        raise NotImplementedError(
-            "the attrs=0 variant (t/sidx/occ outputs) is not ported")
-    dev = origins.device
-    if dev.type == "cuda":
-        fn = closest_shadow_cuda
-    elif dev.type == "cpu":
-        fn = closest_shadow_reference
-    else:
-        raise ValueError(f"unsupported device {dev}")
+    _need_attrs(attr_tables)
+    fn = _pick(origins.device, closest_shadow_cuda, closest_shadow_reference)
     args, kwargs, p, meta = closest_shadow_inputs(
         bvh, origins, dirs, light_dir, bias, attr_tables, t_max, t_min,
         light_pos, stack_size)
     out, occ, counts = fn(*args, **kwargs)
     occ = _unpack(occ[:p], meta)
     return _attr_channels(out, p, meta), occ > 0, counts
+
+
+def trace_closest_multi_shadow(bvh: WideBVH, origins, dirs, lights, bias,
+                               t_max=_BIG, t_min: float = 0.0,
+                               attr_tables=None,
+                               stack_size: int = STACK_CAPACITY):
+    """Fused primary visibility + N hard shadows (ONE kernel launch).
+    lights: (light_dir, light_pos) pairs as ``tpurt``'s
+    ``trace_closest_multi_shadow_pallas`` takes them (at most 31). Returns
+    (channel dict, occ_mask i32[H, W] with bit l = light l occluded,
+    counts i32[2])."""
+    _need_attrs(attr_tables)
+    fn = _pick(origins.device, closest_multi_shadow_cuda,
+               closest_multi_shadow_reference)
+    args, kwargs, p, meta = closest_multi_shadow_inputs(
+        bvh, origins, dirs, lights, bias, attr_tables, t_max, t_min,
+        stack_size)
+    out, mask, counts = fn(*args, **kwargs)
+    return _attr_channels(out, p, meta), _unpack(mask[:p], meta), counts
+
+
+def trace_closest_soft_shadow(bvh: WideBVH, origins, dirs, axis_dir,
+                              cone_cos, spp: int, seed: int, bias,
+                              t_max=_BIG, t_min: float = 0.0,
+                              attr_tables=None, zero_stream: bool = False,
+                              stack_size: int = STACK_CAPACITY):
+    """Fused primary visibility + area-light (cone) soft shadows (ONE
+    kernel launch). Returns (channel dict, occlusion counts i32[H, W] in
+    [0, spp], walk counts i32[2]); visibility = 1 - counts / spp."""
+    _need_attrs(attr_tables)
+    fn = _pick(origins.device, closest_soft_shadow_cuda,
+               closest_soft_shadow_reference)
+    args, kwargs, p, meta = closest_soft_shadow_inputs(
+        bvh, origins, dirs, axis_dir, cone_cos, spp, seed, bias,
+        attr_tables, t_max, t_min, zero_stream, stack_size)
+    out, cnt, counts = fn(*args, **kwargs)
+    return _attr_channels(out, p, meta), _unpack(cnt[:p], meta), counts
+
+
+def trace_closest_point_soft_shadow(bvh: WideBVH, origins, dirs, light_pos,
+                                    radius, spp: int, seed: int, bias,
+                                    t_max=_BIG, t_min: float = 0.0,
+                                    attr_tables=None,
+                                    zero_stream: bool = False,
+                                    stack_size: int = STACK_CAPACITY):
+    """Fused primary visibility + point-light penumbra (ONE kernel
+    launch). Returns (channel dict, counts i32[H, W] in [0, spp], walk
+    counts i32[2])."""
+    _need_attrs(attr_tables)
+    fn = _pick(origins.device, closest_point_soft_shadow_cuda,
+               closest_point_soft_shadow_reference)
+    args, kwargs, p, meta = closest_point_soft_shadow_inputs(
+        bvh, origins, dirs, light_pos, radius, spp, seed, bias, attr_tables,
+        t_max, t_min, zero_stream, stack_size)
+    out, cnt, counts = fn(*args, **kwargs)
+    return _attr_channels(out, p, meta), _unpack(cnt[:p], meta), counts
+
+
+def trace_closest_soft_multi_shadow(bvh: WideBVH, origins, dirs, light0,
+                                    extra_dirs, spp: int, seed: int, bias,
+                                    t_max=_BIG, t_min: float = 0.0,
+                                    attr_tables=None,
+                                    zero_stream: bool = False,
+                                    stack_size: int = STACK_CAPACITY):
+    """Fused primary + soft light 0 + hard directional extras (ONE kernel
+    launch). light0: ("cone", axis, cone_cos) or ("disk", position,
+    radius). Returns (channel dict, counts0 i32[H, W], occ_mask i32[H, W]
+    with bit i = extra light i, walk counts i32[2])."""
+    _need_attrs(attr_tables)
+    fn = _pick(origins.device, closest_soft_multi_shadow_cuda,
+               closest_soft_multi_shadow_reference)
+    args, kwargs, p, meta = closest_soft_multi_shadow_inputs(
+        bvh, origins, dirs, light0, extra_dirs, spp, seed, bias, attr_tables,
+        t_max, t_min, zero_stream, stack_size)
+    out, cnt, mask, counts = fn(*args, **kwargs)
+    return (_attr_channels(out, p, meta), _unpack(cnt[:p], meta),
+            _unpack(mask[:p], meta), counts)
