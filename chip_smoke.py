@@ -6,9 +6,9 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 1. Device check: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. There is no CPU path.
-2. Build the CUDA kernel library with nvcc, one process per source
-   (closest_shadow.cu, fused_shadows.cu), and print ptxas's register and
-   spill report.
+2. Build the CUDA kernel library (csrc/fused_shadows.cu, one template
+   with a mode per kernel) with one nvcc call, and print ptxas's register
+   and spill report.
 3. Every kernel against its plain PyTorch version on the card: teapot
    scene, 10k triangles, 512x512, leaf 14. closest_shadow with a
    directional and a point light; multi with directional + point +
@@ -49,10 +49,12 @@ bit for bit except where float rounding of division or sqrt could differ.
 
 The kernel table's bound_ms is the larger of two floors computed from this
 run's inputs: bytes (every input and output tensor once) over 3.35 TB/s,
-and float32 operations over 67 TFLOP/s. The operations are those of the
-slab tests (26 per child box, 8 per node pop) and the triangle tests (56
-per triangle) that the plain version's walks perform on the same inputs;
-ray set-up, sampling and integer work are not counted.
+and float32 operations over 67 TFLOP/s. The operations are those the
+kernel performs, counted by the plain version's walks on the same inputs:
+per node pop 8 empty-slot compares, 25 per slab test of a non-empty child
+box, and 56 per triangle test, where the closest walk tests every
+triangle of a leaf it visits and an any-hit walk stops at the first
+occluder. Ray set-up, sampling and integer work are not counted.
 """
 
 from __future__ import annotations
@@ -80,16 +82,19 @@ LAMP_POS, LAMP_RADIUS = (2.0, 9.0, 0.5), 0.5
 CSRC = "tpurt_torch/kernels/csrc/"
 TPU = "tpurt/kernels/traverse.py:"
 KERNELS = {
-    "closest_shadow": ("closest_shadow.cu", 1450),
+    "closest_shadow": ("fused_shadows.cu", 1450),
     "closest_multi_shadow": ("fused_shadows.cu", 1538),
     "closest_soft_shadow": ("fused_shadows.cu", 1032),
     "closest_point_soft_shadow": ("fused_shadows.cu", 1117),
     "closest_soft_multi_shadow": ("fused_shadows.cu", 1622),
 }
 
-# Float32 operations per node pop (8 slab tests of 26) and per triangle
-# test (56), and the card's published peaks.
-OPS_PER_POP = 8 * 26
+# Float32 operations per node pop (8 empty-slot compares), per slab test
+# of a non-empty child box (per axis 2 sub, 2 mul, min, max; 3 max and 3
+# min to close the interval; the test) and per triangle test (56), and the
+# card's published peaks.
+OPS_PER_POP = 8
+OPS_PER_SLAB = 25
 OPS_PER_TRI = 56
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
@@ -209,17 +214,23 @@ def compare(kres, pres, what: str, outputs) -> dict:
 
 def bound(stats: dict, args, res) -> dict:
     """Least time for the same work on the card: bytes of every input and
-    output once over the memory rate, the walks' float32 operations (from
-    the plain version's counted visits) over the float32 peak."""
+    output once over the memory rate, the kernel's float32 operations
+    (from the plain version's counted visits) over the float32 peak.
+    ``ops_upper`` ignores the kernel's early exits (every child slot
+    slab-tested, every triangle of a visited leaf tested) and shows what
+    they save."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)] + list(res)
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    pops = int(stats.get("pops", 0))
-    tris = int(stats.get("closest_tris", 0)) + int(stats.get("anyhit_tris",
-                                                              0))
-    ops = pops * OPS_PER_POP + tris * OPS_PER_TRI
+    n = {k: int(stats.get(k, 0)) for k in (
+        "pops", "slab_tests", "closest_tris", "anyhit_tris",
+        "anyhit_leaf_tris")}
+    ops = (n["pops"] * OPS_PER_POP + n["slab_tests"] * OPS_PER_SLAB
+           + (n["closest_tris"] + n["anyhit_tris"]) * OPS_PER_TRI)
+    ops_upper = (n["pops"] * 8 * (OPS_PER_SLAB + 1)
+                 + (n["closest_tris"] + n["anyhit_leaf_tris"]) * OPS_PER_TRI)
     bytes_ms = nbytes / HBM_RATE * 1e3
     ops_ms = ops / FP32_PEAK * 1e3
-    return dict(bytes=nbytes, ops=ops, node_pops=pops, tri_tests=tris,
+    return dict(bytes=nbytes, ops=ops, ops_upper=ops_upper, **n,
                 bytes_ms=bytes_ms, ops_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -657,7 +668,8 @@ def kernel_row(name, launches_, kp, small) -> dict:
             "mismatch_share": max(c["mismatch_share"] for c in checks),
             "ms": kp["ms"], "plain_ms": kp["plain_ms"],
             "bound_ms": kp["bound_ms"], "bound_by": kp["bound_by"],
-            "library_ms": None}
+            "library_ms": None, "closest_tris": kp["closest_tris"],
+            "anyhit_tris": kp["anyhit_tris"]}
 
 
 def main() -> int:

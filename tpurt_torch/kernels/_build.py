@@ -1,11 +1,10 @@
 """Build and load the port's CUDA kernel library.
 
-``nvcc`` compiles every ``csrc/*.cu`` (which include ``csrc/walk.cuh``) to
-an object file, one process per source, all started together, and links
-them into one shared library with a plain C interface, bound with ctypes.
-The build runs at first use, never at import, into ``build/tpurt_torch/``
-at the repository root, and is keyed by a hash of the sources, the
-headers and the flags, so an edited source rebuilds.
+One ``nvcc`` call compiles every ``csrc/*.cu`` (which include
+``csrc/walk.cuh``) into one shared library with a plain C interface, bound
+with ctypes. The build runs at first use, never at import, into
+``build/tpurt_torch/`` at the repository root, and is keyed by a hash of
+the sources, the headers and the flags, so an edited source rebuilds.
 """
 
 from __future__ import annotations
@@ -26,11 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 
-def sources():
-    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
-
-
 def _inputs():
+    """Every source and header under csrc/, in a fixed order."""
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
                   + glob.glob(os.path.join(_CSRC, "*.cuh")))
 
@@ -67,38 +63,17 @@ def library_path() -> str:
 
 
 def _build(path: str) -> None:
-    """Compile each source in its own nvcc process, then link; raises with
-    the compiler's output on a failure."""
+    """Compile and link every source in one nvcc call; raises with the
+    compiler's output on a failure."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
-    nvcc = _nvcc()
+    tmp = f"{path}.{os.getpid()}.tmp"
+    srcs = [p for p in _inputs() if p.endswith(".cu")]
     t0 = time.perf_counter()
-    procs = []
-    for src in sources():
-        obj = os.path.join(
-            _BUILD_DIR, f"{os.path.basename(src)[:-3]}.{tag}.o")
-        procs.append((obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], False
-    for obj, proc in procs:
-        out, _ = proc.communicate(timeout=600)
-        logs.append(out)
-        failed |= proc.returncode != 0
-    if not failed:
-        tmp = f"{path}.{tag}"
-        link = subprocess.run(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-             "-o", tmp] + [obj for obj, _ in procs],
-            capture_output=True, text=True, timeout=600)
-        logs.append(link.stdout + link.stderr)
-        failed = link.returncode != 0
-    for obj, _ in procs:
-        if os.path.exists(obj):
-            os.remove(obj)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *srcs],
+                          capture_output=True, text=True, timeout=600)
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = "".join(logs)
-    if failed:
+    BuildInfo.log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{BuildInfo.log}")
     os.replace(tmp, path)
 
@@ -113,33 +88,19 @@ def load_library() -> ctypes.CDLL:
         _build(path)
     BuildInfo.path = path
     lib = ctypes.CDLL(path)
-    p = ctypes.c_void_p
     i = ctypes.c_int
-    f = ctypes.c_float
-    u = ctypes.c_uint32
-    ptrs = [p] * 6           # nodes, tris, at0, at1, rays, scal
-    tail = [f, i, i, p]      # t_min, max_iters, stack_size, stream
-    signatures = {
-        "tpurt_closest_shadow_launch":
-            ptrs + [p, p, p, i, i, i] + tail,
-        "tpurt_closest_multi_shadow_launch":
-            ptrs + [p, p, p, i, i, i, i] + tail,
-        "tpurt_closest_soft_shadow_launch":
-            ptrs + [p, p, p, i, i, i, u, i] + tail,
-        "tpurt_closest_point_soft_shadow_launch":
-            ptrs + [p, p, p, i, i, i, u, i] + tail,
-        "tpurt_closest_soft_multi_shadow_launch":
-            ptrs + [p, p, p, p, i, i, i, u, i, i, i] + tail,
-    }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.restype = i
-        fn.argtypes = argtypes
-    lib.tpurt_stack_capacity.restype = i
-    lib.tpurt_stack_capacity.argtypes = []
-    from .traverse import STACK_CAPACITY
+    lib.tpurt_fused_shadows_launch.restype = i
+    lib.tpurt_fused_shadows_launch.argtypes = [i, ctypes.c_void_p,
+                                               ctypes.c_void_p]
+    for name in ("tpurt_stack_capacity", "tpurt_params_size"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = []
+    from .traverse import STACK_CAPACITY, Params
     if lib.tpurt_stack_capacity() != STACK_CAPACITY:
         raise RuntimeError("kernel STACK_CAPACITY differs from "
                            "traverse.STACK_CAPACITY")
+    if lib.tpurt_params_size() != ctypes.sizeof(Params):
+        raise RuntimeError("the kernel's Params struct differs from "
+                           "traverse.Params")
     _Library.handle = lib
     return lib

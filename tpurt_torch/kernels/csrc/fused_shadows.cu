@@ -1,8 +1,11 @@
-// Fused closest hit + multi-light and soft shadows over an 8-wide BVH, for
-// Hopper: one kernel template, four modes, each replacing one TPU kernel
-// of tpurt/kernels/traverse.py in its attrs=1 variant (attribute tracking,
-// no textures):
+// Fused closest hit + shadows over an 8-wide BVH, for Hopper: one kernel
+// template, five modes, each replacing one TPU kernel of
+// tpurt/kernels/traverse.py in its attrs=1 variant (attribute tracking, no
+// textures):
 //
+//   HARD        _closest_shadow_kernel_w8_b         light 0's hard shadow,
+//                                                   directional or point
+//                                                   -> i32 0/1
 //   MULTI       _closest_multi_shadow_kernel_w8_b   one hard walk per light
 //                                                   -> i32 bitmask
 //   SOFT        _closest_soft_shadow_kernel_w8_b    spp cone samples around
@@ -13,12 +16,22 @@
 //                                                   disk) -> counts; hard
 //                                                   directional extras -> mask
 //
-// Their plain PyTorch versions are closest_{multi,soft,point_soft,
-// soft_multi}_shadow_reference in tpurt_torch/kernels/traverse.py. The
-// contract is closest_shadow.cu's (rays f32[PB,10,8,128], nodes, leaf rows,
-// attribute rows, out f32[PB,15,8,128], counts i32[2]) with the JAX
-// wrappers' scalar blocks:
+// Their plain PyTorch versions are closest_{,multi_,soft_,point_soft_,
+// soft_multi_}shadow_reference in tpurt_torch/kernels/traverse.py. All
+// follow one contract:
 //
+//   rays    f32[PB,10,8,128]  o.xyz, d.xyz, clamped 1/d.xyz, t_max (SoA)
+//   nodes   f32[Nw,128]       8 children x [bmin.xyz, bmax.xyz, ref, pad]
+//   tris    f32[L,128]        k x (v0, e1, e2) per leaf
+//   at0/at1 f32[L,128]        leaf attribute rows (at1 read only if k > 8)
+//   out     f32[PB,15,8,128]  t, sidx, u, v, uv(2), kd, layer, tri_id,
+//                             packed oct n0..n2, geometric normal
+//   counts  i32[2]            stack overflows, walks cut at the cap
+//
+// with the JAX wrappers' scalar blocks:
+//
+//   HARD        f32[13] dir(3), clamped 1/dir(3), bias, root min(3),
+//               root max(3); or (point_mask 1) f32[4] position(3), bias
 //   MULTI       [bias, root min(3), root max(3)], then per light a
 //               position(3) (bit l of point_mask) or dir(3) + clamped 1/dir(3)
 //   SOFT        f32[17] axis(3), t0(3), t1(3), cone_cos, root min(3),
@@ -31,30 +44,44 @@
 // and i32[PB,8,128] outputs: mask (bit l = light l occluded; SOFT_MULTI:
 // bit i = extra light i) and/or counts in [0, spp].
 //
-// Design: one thread per ray, as in closest_shadow.cu. Phase 1 is the
-// shared attribute-tracked closest walk; phase 2 runs every light or
-// sample in the same thread, from the same biased hit point, reusing the
-// per-ray stack; each shadow walk has its own iteration cap, and dropped
-// pushes and capped walks of all walks are summed into counts. The soft
-// modes draw u1, u2 from Philox4x32-10 keyed by (seed, light 0) and
-// counted by (ray index in the packed block, sample), so a sample never
-// depends on the thread layout; zero_stream gives u1 = u2 = 0, the stream
-// of the JAX kernels' interpret mode. What bounds it on this card: as in
-// closest_shadow.cu, a chain of dependent global loads per walk with
-// divergent trip counts, now 1 + (lights or spp) walks per thread; the
-// float work of the slab and triangle tests gives the operation bound in
-// PERF.md, and it grows with the number of shadow walks while the bytes
-// (rays in, channels out) do not. The design does nothing yet about the
-// divergence between a ray's samples: samples of neighbouring pixels run
-// in lock step within a warp, but each walks its own path. Sample-major
-// scheduling and a node cache in shared memory are later work.
+// Design: one thread per ray, blocks of 128 threads. The ray index is
+// (packet, lane), so neighbouring threads read neighbouring words of the
+// SoA ray block. Phase 1 is the attribute-tracked closest walk; phase 2
+// runs every light or sample in the same thread, from the same biased hit
+// point, reusing the per-ray stack in local memory; each shadow walk has
+// its own iteration cap, and dropped pushes and capped walks of all walks
+// are summed into counts (the walks are in walk.cuh). Nodes, leaves and
+// attribute rows are read from global memory through the read-only path.
+// The soft modes draw u1, u2 from Philox4x32-10 keyed by (seed, light 0)
+// and counted by (ray index in the packed block, sample), so a sample
+// never depends on the thread layout; zero_stream gives u1 = u2 = 0, the
+// stream of the JAX kernels' interpret mode.
 //
-// Built with --fmad=false, evaluated in the plain version's order.
+// What bounds it on this card: each walk is a chain of dependent global
+// loads (pop -> node row -> slab tests -> push) with divergent trip counts
+// within a warp, so latency and divergence rather than bandwidth or FLOPs.
+// The float work of the slab and triangle tests gives the operation bound
+// that PERF.md states; it grows with the number of shadow walks while the
+// bytes (rays in, channels out) do not. The walk's data for a 287k-
+// triangle scene (5.8 MB of node rows, 15.3 MB of leaf rows) fits the
+// 50 MB L2; the attribute rows (another 30.7 MB) are read only when a
+// candidate wins. This first version hides latency only by occupancy and
+// does nothing about the divergence between a ray's samples. The TPU
+// kernels' 1024-ray packets with one shared stack and their "any lane hit"
+// reductions are not carried over: each ray tests only the boxes it hits
+// itself. A node cache in shared memory, warp-cooperative walks and
+// sample-major scheduling are later work.
+//
+// Built with --fmad=false: every product is evaluated in the plain
+// version's order without contraction, so the two agree bit for bit on
+// most rays.
 
 #include "walk.cuh"
 
-enum Mode { MULTI = 0, SOFT = 1, PSOFT = 2, SOFT_MULTI = 3 };
+enum Mode { HARD = 0, MULTI = 1, SOFT = 2, PSOFT = 3, SOFT_MULTI = 4 };
 
+// One launch's arguments; tpurt_torch/kernels/traverse.py Params mirrors
+// it field for field.
 struct Params {
   const float* nodes;
   const float* tris;
@@ -64,11 +91,11 @@ struct Params {
   const float* scal;
   float* out;
   int* cnt_out;   // SOFT, PSOFT, SOFT_MULTI
-  int* mask_out;  // MULTI, SOFT_MULTI
+  int* mask_out;  // HARD, MULTI, SOFT_MULTI
   int* counts;
   int num_rays, k, max_iters, stack_size;
   float t_min;
-  int nlights, point_mask;  // MULTI
+  int nlights, point_mask;  // HARD (bit 0: point light), MULTI
   int spp, zero_stream, disk, n_extra;  // sampling modes
   uint32_t seed;
 };
@@ -146,6 +173,12 @@ __device__ __forceinline__ float dir_ray(const float* d, bool hitm,
   return scene_exit_cap(hitm, s, rb);
 }
 
+// Hard point light at scal p[0..2].
+__device__ __forceinline__ float point_ray(const float* p, bool hitm,
+                                           Ray& s) {
+  return toward(hitm, p[0] - s.ox, p[1] - s.oy, p[2] - s.oz, s);
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(128) fused_shadows_kernel(Params P) {
   int gid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -172,18 +205,25 @@ __global__ void __launch_bounds__(128) fused_shadows_kernel(Params P) {
 
   const float* sc = P.scal;
   bool hitm = h.idx >= 0;
-  float bias = MODE == SOFT ? sc[16] : (MODE == PSOFT ? sc[4] : sc[0]);
+  bool hard_point = MODE == HARD && (P.point_mask & 1);
+  float bias = MODE == HARD ? sc[hard_point ? 3 : 6]
+             : MODE == SOFT ? sc[16]
+             : MODE == PSOFT ? sc[4] : sc[0];
   Ray s = biased_origin(r, h, bias);
-  const float* root = MODE == SOFT ? sc + 10 : sc + 1;
+  const float* root = MODE == HARD ? sc + 7 : MODE == SOFT ? sc + 10 : sc + 1;
   size_t o = (size_t)p * LANES + lane;
 
-  if (MODE == MULTI) {
+  if (MODE == HARD) {
+    float stmax = hard_point ? point_ray(sc, hitm, s)
+                             : dir_ray(sc, hitm, root, s);
+    P.mask_out[o] = anyhit_walk(P.nodes, P.tris, P.k, s, stmax, 0.0f,
+                                P.max_iters, P.stack_size, stack, wc);
+  } else if (MODE == MULTI) {
     int mask = 0, at = 7;
     for (int l = 0; l < P.nlights; ++l) {
       float stmax;
       if (P.point_mask >> l & 1) {
-        stmax = toward(hitm, sc[at] - s.ox, sc[at + 1] - s.oy,
-                       sc[at + 2] - s.oz, s);
+        stmax = point_ray(sc + at, hitm, s);
         at += 3;
       } else {
         stmax = dir_ray(sc + at, hitm, root, s);
@@ -197,7 +237,7 @@ __global__ void __launch_bounds__(128) fused_shadows_kernel(Params P) {
   } else {
     // Light 0's samples.
     bool disk = MODE == PSOFT || (MODE == SOFT_MULTI && P.disk);
-    const float* l0 = MODE == SOFT ? sc : (MODE == PSOFT ? sc : sc + 7);
+    const float* l0 = MODE == SOFT_MULTI ? sc + 7 : sc;
     Disk db = {};
     if (disk) db = disk_basis(l0, l0[3], s);
     int cnt = 0;
@@ -230,93 +270,37 @@ __global__ void __launch_bounds__(128) fused_shadows_kernel(Params P) {
   if (wc.capped) atomicAdd(P.counts + 1, wc.capped);
 }
 
-template <int MODE>
-static int launch(const Params& P, void* stream) {
-  if (P.num_rays <= 0) return (int)cudaGetLastError();
+extern "C" int tpurt_stack_capacity() { return STACK_CAPACITY; }
+
+extern "C" int tpurt_params_size() { return (int)sizeof(Params); }
+
+// Launches ``mode`` on ``stream`` with the arguments in *P; allocates
+// nothing and returns cudaGetLastError() (cudaErrorInvalidValue for an
+// unknown mode).
+extern "C" int tpurt_fused_shadows_launch(int mode, const Params* P,
+                                          void* stream) {
+  if (P->num_rays <= 0) return (int)cudaGetLastError();
   dim3 block(128);
-  dim3 grid((P.num_rays + 127) / 128);
-  fused_shadows_kernel<MODE><<<grid, block, 0, (cudaStream_t)stream>>>(P);
+  dim3 grid((P->num_rays + 127) / 128);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case HARD:
+      fused_shadows_kernel<HARD><<<grid, block, 0, st>>>(*P);
+      break;
+    case MULTI:
+      fused_shadows_kernel<MULTI><<<grid, block, 0, st>>>(*P);
+      break;
+    case SOFT:
+      fused_shadows_kernel<SOFT><<<grid, block, 0, st>>>(*P);
+      break;
+    case PSOFT:
+      fused_shadows_kernel<PSOFT><<<grid, block, 0, st>>>(*P);
+      break;
+    case SOFT_MULTI:
+      fused_shadows_kernel<SOFT_MULTI><<<grid, block, 0, st>>>(*P);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
-}
-
-static Params common(const void* nodes, const void* tris, const void* at0,
-                     const void* at1, const void* rays, const void* scal,
-                     void* out, void* counts, int num_rays, int k,
-                     float t_min, int max_iters, int stack_size) {
-  Params P = {};
-  P.nodes = (const float*)nodes;
-  P.tris = (const float*)tris;
-  P.at0 = (const float*)at0;
-  P.at1 = (const float*)at1;
-  P.rays = (const float*)rays;
-  P.scal = (const float*)scal;
-  P.out = (float*)out;
-  P.counts = (int*)counts;
-  P.num_rays = num_rays;
-  P.k = k;
-  P.t_min = t_min;
-  P.max_iters = max_iters;
-  P.stack_size = stack_size;
-  return P;
-}
-
-// Each launcher runs on ``stream``, allocates nothing and returns
-// cudaGetLastError().
-extern "C" int tpurt_closest_multi_shadow_launch(
-    const void* nodes, const void* tris, const void* at0, const void* at1,
-    const void* rays, const void* scal, void* out, void* mask, void* counts,
-    int num_rays, int k, int nlights, int point_mask, float t_min,
-    int max_iters, int stack_size, void* stream) {
-  Params P = common(nodes, tris, at0, at1, rays, scal, out, counts, num_rays,
-                    k, t_min, max_iters, stack_size);
-  P.mask_out = (int*)mask;
-  P.nlights = nlights;
-  P.point_mask = point_mask;
-  return launch<MULTI>(P, stream);
-}
-
-extern "C" int tpurt_closest_soft_shadow_launch(
-    const void* nodes, const void* tris, const void* at0, const void* at1,
-    const void* rays, const void* scal, void* out, void* cnt, void* counts,
-    int num_rays, int k, int spp, uint32_t seed, int zero_stream,
-    float t_min, int max_iters, int stack_size, void* stream) {
-  Params P = common(nodes, tris, at0, at1, rays, scal, out, counts, num_rays,
-                    k, t_min, max_iters, stack_size);
-  P.cnt_out = (int*)cnt;
-  P.spp = spp;
-  P.seed = seed;
-  P.zero_stream = zero_stream;
-  return launch<SOFT>(P, stream);
-}
-
-extern "C" int tpurt_closest_point_soft_shadow_launch(
-    const void* nodes, const void* tris, const void* at0, const void* at1,
-    const void* rays, const void* scal, void* out, void* cnt, void* counts,
-    int num_rays, int k, int spp, uint32_t seed, int zero_stream,
-    float t_min, int max_iters, int stack_size, void* stream) {
-  Params P = common(nodes, tris, at0, at1, rays, scal, out, counts, num_rays,
-                    k, t_min, max_iters, stack_size);
-  P.cnt_out = (int*)cnt;
-  P.spp = spp;
-  P.seed = seed;
-  P.zero_stream = zero_stream;
-  return launch<PSOFT>(P, stream);
-}
-
-extern "C" int tpurt_closest_soft_multi_shadow_launch(
-    const void* nodes, const void* tris, const void* at0, const void* at1,
-    const void* rays, const void* scal, void* out, void* cnt, void* mask,
-    void* counts, int num_rays, int k, int spp, uint32_t seed,
-    int zero_stream, int disk, int n_extra, float t_min, int max_iters,
-    int stack_size, void* stream) {
-  Params P = common(nodes, tris, at0, at1, rays, scal, out, counts, num_rays,
-                    k, t_min, max_iters, stack_size);
-  P.cnt_out = (int*)cnt;
-  P.mask_out = (int*)mask;
-  P.spp = spp;
-  P.seed = seed;
-  P.zero_stream = zero_stream;
-  P.disk = disk;
-  P.n_extra = n_extra;
-  return launch<SOFT_MULTI>(P, stream);
 }

@@ -1,5 +1,5 @@
-// Device walks over an 8-wide BVH, shared by the fused kernels
-// (closest_shadow.cu, fused_shadows.cu): the slab and Moller-Trumbore
+// Device walks over an 8-wide BVH, shared by the modes of the fused
+// kernel (fused_shadows.cu): the slab and Moller-Trumbore
 // tests, the attribute-tracked closest walk (tpurt/kernels/traverse.py
 // _w8_closest_walk_attr), the any-hit walk (_w8_anyhit_walk), the biased
 // shadow origin (_biased_hit_origin), the scene-exit cap

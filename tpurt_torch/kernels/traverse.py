@@ -2,7 +2,7 @@
 (counterparts of ``tpurt/kernels/traverse.py``):
 
 - ``trace_closest_shadow`` -> ``_closest_shadow_kernel_w8_b``: light 0's
-  hard shadow (``csrc/closest_shadow.cu``);
+  hard shadow;
 - ``trace_closest_multi_shadow`` -> ``_closest_multi_shadow_kernel_w8_b``:
   one hard shadow per light, an i32 occlusion bitmask;
 - ``trace_closest_soft_shadow`` -> ``_closest_soft_shadow_kernel_w8_b``:
@@ -14,13 +14,13 @@
   ``_closest_soft_multi_shadow_kernel_w8_b``: soft light 0 (cone or disk)
   -> counts, hard directional extras -> bitmask.
 
-The last four are modes of one CUDA kernel (``csrc/fused_shadows.cu``).
+All five are modes of one CUDA kernel template (``csrc/fused_shadows.cu``).
 Each function has three pieces that share one contract on the packed ray
 block:
 
-- ``*_cuda``: the hand-written CUDA kernel, one thread per ray. It takes
-  CUDA tensors only and launches or raises; ``.launches`` counts its
-  launches.
+- ``*_cuda``: the hand-written CUDA kernel in its mode, one thread per
+  ray. It takes CUDA tensors only and launches or raises; ``.launches``
+  counts its launches.
 - ``*_reference``: the same function in plain PyTorch, a vectorised
   per-ray stack walk. The wrapper takes it only for CPU tensors.
 - ``trace_*``: the wrapper the frame calls. It packs the rays, picks one
@@ -234,8 +234,9 @@ def _leaf_closest_t(tri, o, d):
     return torch.where(ok, t, _BIG), u, v
 
 
-def _leaf_occluded(tri, o, d, t_min, tmax):
-    """Division-free occlusion test of n rays x k triangles -> bool[n]."""
+def _leaf_occluders(tri, o, d, t_min, tmax):
+    """Division-free occlusion test of n rays x k triangles -> bool[n, k],
+    True where the triangle occludes."""
     det, nu, nv, nt = _mt_terms(tri, o, d)
     sgn = torch.where(det < 0.0, -1.0, 1.0)
     adet = det * sgn
@@ -245,7 +246,7 @@ def _leaf_occluded(tri, o, d, t_min, tmax):
     tm = tmax[:, None]
     ok = ((adet >= 1e-9) & (nu >= 0.0) & (nv >= 0.0) & (nu + nv <= adet)
           & (nt > t_min * adet) & (nt < tm * adet))
-    return ok.any(dim=1)
+    return ok
 
 
 class _Walk:
@@ -273,11 +274,24 @@ class _Walk:
 
 
 def _count(stats, key, n) -> None:
-    """Add ``n`` (a tensor or int) to ``stats[key]`` when stats are kept:
-    the plain walks count node pops and triangle tests, the work the
-    kernels' bound is computed from."""
+    """Add ``n`` (a tensor or int) to ``stats[key]`` when stats are kept.
+    The plain walks count the work the kernels' bound is computed from, as
+    the kernels do it: "pops" (node rows popped, each with 8 empty-slot
+    compares), "slab_tests" (the non-empty child boxes of those rows, the
+    only ones the kernels slab-test), "closest_tris" (k per leaf the
+    closest walk visits: it tests every triangle) and "anyhit_tris" (per
+    leaf an any-hit walk visits, the triangles up to and including the
+    first that occludes, where the kernels stop). "anyhit_leaf_tris"
+    counts k per leaf the any-hit walks visit, an upper bound kept to
+    show what the early exit saves."""
     if stats is not None:
         stats[key] = stats.get(key, 0) + n
+
+
+def _count_pops(stats, rec) -> None:
+    if stats is not None:
+        _count(stats, "pops", rec.shape[0])
+        _count(stats, "slab_tests", (rec[:, :, 0] <= rec[:, :, 3]).sum())
 
 
 def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
@@ -294,8 +308,8 @@ def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
         rows = torch.nonzero((w.sp > 0) & (w.it < max_iters))[:, 0]
         if rows.numel() == 0:
             break
-        _count(stats, "pops", rows.numel())
         rec = nodes[w.pop(rows)].reshape(-1, 8, 16)
+        _count_pops(stats, rec)
         cap = torch.where(active0[rows], best_t[rows], -_BIG)
         ro = tuple(c[rows] for c in o)
         hit = _slab8(rec, ro, tuple(c[rows] for c in inv), t_min, cap)
@@ -350,8 +364,8 @@ def _anyhit_walk(nodes, tris, k, o, d, inv, tmax, t_min, max_iters,
         rows = torch.nonzero((w.sp > 0) & (w.it < max_iters) & ~occ)[:, 0]
         if rows.numel() == 0:
             break
-        _count(stats, "pops", rows.numel())
         rec = nodes[w.pop(rows)].reshape(-1, 8, 16)
+        _count_pops(stats, rec)
         cap = torch.where(active0[rows], tmax[rows], -_BIG)
         hit = _slab8(rec, tuple(c[rows] for c in o),
                      tuple(c[rows] for c in inv), t_min, cap)
@@ -360,12 +374,17 @@ def _anyhit_walk(nodes, tris, k, o, d, inv, tmax, t_min, max_iters,
         for c in range(8):
             leaf_m = hit[:, c] & (refs[:, c] < 0) & ~done
             if bool(leaf_m.any()):
-                _count(stats, "anyhit_tris", leaf_m.sum() * k)
                 r = rows[leaf_m]
                 leaf = torch.clamp(-refs[leaf_m, c] - 1, min=0).long()
-                h = _leaf_occluded(_leaf_tris(tris, leaf, k),
-                                   tuple(x[r] for x in o),
-                                   tuple(x[r] for x in d), t_min, tmax[r])
+                ok = _leaf_occluders(_leaf_tris(tris, leaf, k),
+                                     tuple(x[r] for x in o),
+                                     tuple(x[r] for x in d), t_min, tmax[r])
+                h = ok.any(dim=1)
+                if stats is not None:
+                    first = ok.to(torch.int32).argmax(dim=1) + 1
+                    _count(stats, "anyhit_tris",
+                           torch.where(h, first, k).sum())
+                    _count(stats, "anyhit_leaf_tris", leaf_m.sum() * k)
                 occ[r] = h
                 done[leaf_m] = h
             push_m = hit[:, c] & (refs[:, c] >= 0) & ~done
@@ -691,15 +710,35 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def _cuda_prep(name, rays, nodes, tris, at0, at1, scal, leaf_size,
-               stack_size, scal_len):
-    """Check a fused launch's common inputs; allocate the attribute
-    channels and the walk counters. -> (lib, pb, out, counts, stream,
-    pointers of the inputs)."""
+class Params(ctypes.Structure):
+    """One launch's arguments: ``Params`` of csrc/fused_shadows.cu, field
+    for field (the loader checks the two sizes agree)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "nodes", "tris", "at0", "at1", "rays", "scal", "out", "cnt_out",
+        "mask_out", "counts")]
+        + [(n, ctypes.c_int) for n in ("num_rays", "k", "max_iters",
+                                       "stack_size")]
+        + [("t_min", ctypes.c_float)]
+        + [(n, ctypes.c_int) for n in ("nlights", "point_mask", "spp",
+                                       "zero_stream", "disk", "n_extra")]
+        + [("seed", ctypes.c_uint32)])
+
+
+# The kernel template's modes (csrc/fused_shadows.cu ``Mode``).
+HARD, MULTI, SOFT, PSOFT, SOFT_MULTI = range(5)
+
+
+def _launch(mode: int, outputs, rays, nodes, tris, at0, at1, scal, *,
+            leaf_size: int, t_min: float, max_iters: int, stack_size: int,
+            scal_len: int, **extra):
+    """Check a fused launch's inputs, allocate its outputs, launch ``mode``
+    on the current stream. outputs: the i32[PB,8,128] blocks to return,
+    a tuple of "cnt_out" / "mask_out". extra: the mode's Params fields.
+    -> (out, *outputs, counts); raises on a refused launch."""
     from ._build import load_library
     dev = rays.device
     if dev.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+        raise ValueError(f"the CUDA kernels need CUDA tensors, got {dev}")
     k = int(leaf_size)
     if not 1 <= k <= 14:
         raise ValueError(f"leaf_size {k} outside 1..14")
@@ -715,119 +754,87 @@ def _cuda_prep(name, rays, nodes, tris, at0, at1, scal, leaf_size,
     _check(scal, "scal", torch.float32, (scal_len,), dev)
     lib = load_library()
     out = torch.empty((pb, ATTR_CH, 8, 128), dtype=torch.float32, device=dev)
+    blocks = [torch.empty((pb, 8, 128), dtype=torch.int32, device=dev)
+              for _ in outputs]
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (nodes.data_ptr(), tris.data_ptr(), at0.data_ptr(),
-            at1.data_ptr(), rays.data_ptr(), scal.data_ptr())
-    return lib, pb, out, counts, stream, ptrs
-
-
-def _i32_block(pb, device) -> torch.Tensor:
-    return torch.empty((pb, 8, 128), dtype=torch.int32, device=device)
-
-
-def _raise_on(err: int, name: str) -> None:
+    params = Params(
+        nodes=nodes.data_ptr(), tris=tris.data_ptr(), at0=at0.data_ptr(),
+        at1=at1.data_ptr(), rays=rays.data_ptr(), scal=scal.data_ptr(),
+        out=out.data_ptr(), counts=counts.data_ptr(), num_rays=pb * LANES,
+        k=k, max_iters=int(max_iters), stack_size=int(stack_size),
+        t_min=float(t_min),
+        **{name: b.data_ptr() for name, b in zip(outputs, blocks)}, **extra)
+    err = lib.tpurt_fused_shadows_launch(
+        mode, ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused kernel mode {mode} launch failed: CUDA "
+                           f"error {err}")
+    return (out, *blocks, counts)
 
+
+def _sampling(spp: int, seed: int, zero_stream: bool) -> dict:
+    """The sampling modes' Params fields."""
+    if spp < 1:
+        raise ValueError(f"spp {spp} < 1")
+    return dict(spp=int(spp), seed=int(seed) & 0xFFFFFFFF,
+                zero_stream=int(zero_stream))
+
+
+# Each *_cuda launches one mode of csrc/fused_shadows.cu, with the contract
+# of its *_reference; it takes CUDA tensors only, builds the kernel library
+# on first use, raises on anything the kernel does not take and on a
+# refused launch, and counts its launches in ``.launches``.
 
 def closest_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
                         leaf_size: int, point: bool, t_min: float,
                         max_iters: int, stack_size: int):
-    """Launch the CUDA kernel (csrc/closest_shadow.cu) on the current
-    stream; same contract as ``closest_shadow_reference``. Builds the
-    kernel library on first use. Raises on anything the kernel does not
-    take and on a refused launch."""
-    lib, pb, out, counts, stream, ptrs = _cuda_prep(
-        "closest_shadow_cuda", rays, nodes, tris, at0, at1, scal, leaf_size,
-        stack_size, 4 if point else 13)
-    occ = _i32_block(pb, rays.device)
-    err = lib.tpurt_closest_shadow_launch(
-        *ptrs, out.data_ptr(), occ.data_ptr(), counts.data_ptr(), pb * LANES,
-        int(leaf_size), int(point), ctypes.c_float(t_min), int(max_iters),
-        int(stack_size), stream)
-    _raise_on(err, "closest_shadow")
+    """Mode HARD: light 0's hard shadow."""
+    res = _launch(HARD, ("mask_out",), rays, nodes, tris, at0, at1, scal,
+                  leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
+                  stack_size=stack_size, scal_len=4 if point else 13,
+                  nlights=1, point_mask=int(bool(point)))
     closest_shadow_cuda.launches += 1
-    return out, occ, counts
-
-
-closest_shadow_cuda.launches = 0
+    return res
 
 
 def closest_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
                               leaf_size: int, points, t_min: float,
                               max_iters: int, stack_size: int):
-    """Launch ``fused_shadows.cu`` in its multi-light mode; the contract of
-    ``closest_multi_shadow_reference``."""
+    """Mode MULTI: one hard shadow per light."""
     _check_mask_lights(len(points))
-    lib, pb, out, counts, stream, ptrs = _cuda_prep(
-        "closest_multi_shadow_cuda", rays, nodes, tris, at0, at1, scal,
-        leaf_size, stack_size, _multi_scal_len(points))
-    mask = _i32_block(pb, rays.device)
-    point_mask = sum(1 << i for i, p in enumerate(points) if p)
-    err = lib.tpurt_closest_multi_shadow_launch(
-        *ptrs, out.data_ptr(), mask.data_ptr(), counts.data_ptr(),
-        pb * LANES, int(leaf_size), len(points), point_mask,
-        ctypes.c_float(t_min), int(max_iters), int(stack_size), stream)
-    _raise_on(err, "closest_multi_shadow")
+    res = _launch(MULTI, ("mask_out",), rays, nodes, tris, at0, at1, scal,
+                  leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
+                  stack_size=stack_size, scal_len=_multi_scal_len(points),
+                  nlights=len(points),
+                  point_mask=sum(1 << i for i, p in enumerate(points) if p))
     closest_multi_shadow_cuda.launches += 1
-    return out, mask, counts
-
-
-closest_multi_shadow_cuda.launches = 0
-
-
-def _check_spp(spp: int) -> None:
-    if spp < 1:
-        raise ValueError(f"spp {spp} < 1")
+    return res
 
 
 def closest_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
                              leaf_size: int, spp: int, seed: int,
                              zero_stream: bool, t_min: float,
                              max_iters: int, stack_size: int):
-    """Launch ``fused_shadows.cu`` in its cone mode; the contract of
-    ``closest_soft_shadow_reference``."""
-    _check_spp(spp)
-    lib, pb, out, counts, stream, ptrs = _cuda_prep(
-        "closest_soft_shadow_cuda", rays, nodes, tris, at0, at1, scal,
-        leaf_size, stack_size, 17)
-    cnt = _i32_block(pb, rays.device)
-    err = lib.tpurt_closest_soft_shadow_launch(
-        *ptrs, out.data_ptr(), cnt.data_ptr(), counts.data_ptr(), pb * LANES,
-        int(leaf_size), int(spp), ctypes.c_uint32(seed & 0xFFFFFFFF),
-        int(zero_stream), ctypes.c_float(t_min), int(max_iters),
-        int(stack_size), stream)
-    _raise_on(err, "closest_soft_shadow")
+    """Mode SOFT: spp cone samples of a sun."""
+    res = _launch(SOFT, ("cnt_out",), rays, nodes, tris, at0, at1, scal,
+                  leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
+                  stack_size=stack_size, scal_len=17,
+                  **_sampling(spp, seed, zero_stream))
     closest_soft_shadow_cuda.launches += 1
-    return out, cnt, counts
-
-
-closest_soft_shadow_cuda.launches = 0
+    return res
 
 
 def closest_point_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
                                    leaf_size: int, spp: int, seed: int,
                                    zero_stream: bool, t_min: float,
                                    max_iters: int, stack_size: int):
-    """Launch ``fused_shadows.cu`` in its disk mode; the contract of
-    ``closest_point_soft_shadow_reference``."""
-    _check_spp(spp)
-    lib, pb, out, counts, stream, ptrs = _cuda_prep(
-        "closest_point_soft_shadow_cuda", rays, nodes, tris, at0, at1, scal,
-        leaf_size, stack_size, 5)
-    cnt = _i32_block(pb, rays.device)
-    err = lib.tpurt_closest_point_soft_shadow_launch(
-        *ptrs, out.data_ptr(), cnt.data_ptr(), counts.data_ptr(), pb * LANES,
-        int(leaf_size), int(spp), ctypes.c_uint32(seed & 0xFFFFFFFF),
-        int(zero_stream), ctypes.c_float(t_min), int(max_iters),
-        int(stack_size), stream)
-    _raise_on(err, "closest_point_soft_shadow")
+    """Mode PSOFT: spp disk samples of a point light."""
+    res = _launch(PSOFT, ("cnt_out",), rays, nodes, tris, at0, at1, scal,
+                  leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
+                  stack_size=stack_size, scal_len=5,
+                  **_sampling(spp, seed, zero_stream))
     closest_point_soft_shadow_cuda.launches += 1
-    return out, cnt, counts
-
-
-closest_point_soft_shadow_cuda.launches = 0
+    return res
 
 
 def closest_soft_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
@@ -835,32 +842,24 @@ def closest_soft_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
                                    zero_stream: bool, disk: bool,
                                    n_extra: int, t_min: float,
                                    max_iters: int, stack_size: int):
-    """Launch ``fused_shadows.cu`` in its soft-plus-extras mode; the
-    contract of ``closest_soft_multi_shadow_reference``."""
-    _check_spp(spp)
+    """Mode SOFT_MULTI: soft light 0 plus hard directional extras."""
     if n_extra:
         _check_mask_lights(n_extra)
-    lib, pb, out, counts, stream, ptrs = _cuda_prep(
-        "closest_soft_multi_shadow_cuda", rays, nodes, tris, at0, at1, scal,
-        leaf_size, stack_size, _soft_multi_scal_len(disk, n_extra))
-    cnt = _i32_block(pb, rays.device)
-    mask = _i32_block(pb, rays.device)
-    err = lib.tpurt_closest_soft_multi_shadow_launch(
-        *ptrs, out.data_ptr(), cnt.data_ptr(), mask.data_ptr(),
-        counts.data_ptr(), pb * LANES, int(leaf_size), int(spp),
-        ctypes.c_uint32(seed & 0xFFFFFFFF), int(zero_stream), int(disk),
-        int(n_extra), ctypes.c_float(t_min), int(max_iters),
-        int(stack_size), stream)
-    _raise_on(err, "closest_soft_multi_shadow")
+    res = _launch(SOFT_MULTI, ("cnt_out", "mask_out"), rays, nodes, tris,
+                  at0, at1, scal, leaf_size=leaf_size, t_min=t_min,
+                  max_iters=max_iters, stack_size=stack_size,
+                  scal_len=_soft_multi_scal_len(disk, n_extra),
+                  disk=int(bool(disk)), n_extra=int(n_extra),
+                  **_sampling(spp, seed, zero_stream))
     closest_soft_multi_shadow_cuda.launches += 1
-    return out, cnt, mask, counts
+    return res
 
-
-closest_soft_multi_shadow_cuda.launches = 0
 
 CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
                 closest_soft_shadow_cuda, closest_point_soft_shadow_cuda,
                 closest_soft_multi_shadow_cuda)
+for _fn in CUDA_KERNELS:
+    _fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
