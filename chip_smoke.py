@@ -17,7 +17,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    disk + one directional light. The sampling kernels run once with the
    real generator and once with the zero stream; with the zero stream
    their counts must be spp x closest_shadow's hard occlusion along the
-   axis or toward the centre.
+   axis or toward the centre. Then the unfused frame's kernels on the same
+   rays: closest_attrs (its channels must equal closest_shadow's bit for
+   bit), any with directional and point rays from the G-buffer, and
+   any_soft and any_point_soft from its biased origins with the real and
+   the zero stream; zero-stream counts must be spp x any's occlusion.
 4. Config 1's path at the bench headline's size (Sponza-class hall, 260k
    triangles, 1920x1080, leaf 14, one directional light) through
    Renderer(device="cuda"): one warm-up frame and five timed frames,
@@ -37,13 +41,25 @@ Phases, in order; any failure raises and the exit code is not 0:
    (the 2 deg sun with the two fill lights, spp 8) at 1920x1080: two
    frames each through the Renderer, the kernel against its plain version
    on every 8th row, and both timed on the whole ray block.
-8. Timings on one JSON line, then the kernel table on one JSON line, the
+8. The unfused frame at 1920x1080 in the same hall, through the Renderer:
+   config 1 and config 3 with fused_shadow=False, the lamp with
+   fused_shadow=False, and the mixed set 2 deg sun + lamp (spp 8), which
+   takes the fused cone kernel for the sun and the unfused disk sampler
+   for the lamp. One warm-up and five timed frames each, with the launches
+   of every kernel counted; config 1's unfused image against phase 4's
+   fused one; the stage split (G-buffer, shadow pass per light,
+   composite); every kernel of the case against its plain version on
+   every 8th row and on the whole frame (the samplers also with the zero
+   stream on every 8th row); each fused_shadow=False case timed in turns
+   with its fused twin (fused, unfused, unfused, fused).
+9. Timings on one JSON line, then the kernel table on one JSON line, the
    card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Tolerances of the kernel-vs-plain checks: valid masks equal; t to rtol
 1e-6 / atol 1e-6; tri_id equal on >= 99.9% of valid pixels and every
 other attribute channel within 1e-6 where it is; occlusion, each bit of a
-mask and counts differ on at most 1e-3 of valid pixels. Both are built
+mask and counts differ on at most 1e-3 of valid (for the shadow-ray
+kernels: active) pixels, and nothing is set off them. Both are built
 without fused multiply-adds and draw the same random bits, so they agree
 bit for bit except where float rounding of division or sqrt could differ.
 
@@ -59,6 +75,7 @@ occluder. Ray set-up, sampling and integer work are not counted.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -87,7 +104,13 @@ KERNELS = {
     "closest_soft_shadow": ("fused_shadows.cu", 1032),
     "closest_point_soft_shadow": ("fused_shadows.cu", 1117),
     "closest_soft_multi_shadow": ("fused_shadows.cu", 1622),
+    "closest_attrs": ("fused_shadows.cu", 1429),
+    "any": ("shadow_rays.cu", 874),
+    "any_soft": ("shadow_rays.cu", 890),
+    "any_point_soft": ("shadow_rays.cu", 963),
 }
+# The kernels that take given shadow rays or origins, no camera rays.
+SHADOW_RAYS = ("any", "any_soft", "any_point_soft")
 
 # Float32 operations per node pop (8 empty-slot compares), per slab test
 # of a non-empty child box (per axis 2 sub, 2 mul, min, max; 3 max and 3
@@ -128,18 +151,19 @@ def launches() -> dict:
     return {fn.__name__[:-len("_cuda")]: fn.launches for fn in CUDA_KERNELS}
 
 
-def drive(name, fn, expect: int):
+def drive(expect: dict, fn):
     """Run one main path with every launch counter at 0 just before it;
-    fail unless ``name``'s kernel launched ``expect`` times and no other
-    kernel launched. Returns (fn's result, the launch count)."""
+    fail unless each kernel named in ``expect`` launched that many times
+    and no other kernel launched. Returns (fn's result, the counts of the
+    kernels in ``expect``)."""
     reset_launches()
     res = fn()
     torch.cuda.synchronize()
     got = launches()
-    want = {k: (expect if k == name else 0) for k in got}
+    want = {k: expect.get(k, 0) for k in got}
     if got != want:
-        raise RuntimeError(f"{name} main path launches {got}, want {want}")
-    return res, got[name]
+        raise RuntimeError(f"main path launches {got}, want {want}")
+    return res, {k: got[k] for k in expect}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -203,13 +227,44 @@ def compare(kres, pres, what: str, outputs) -> dict:
             [((ki >> b) & 1, (pi >> b) & 1) for b in range(n)]
         for a, b in planes:
             shares.append(int(((a != b) & valid).sum()) / nvalid)
-    mism = max(shares)
+    mism = max(shares, default=0.0)
     if mism > 1e-3:
         raise RuntimeError(f"{what}: shadow outputs differ on {mism:.2e} "
                            f"of valid rays ({shares})")
     max_abs = max(float((kt - pt).abs().max()), attr_err)
     return dict(valid=nvalid, tri_id_equal=tri_frac, mismatch_share=mism,
                 mismatch_shares=shares, max_abs_err=max_abs)
+
+
+def compare_rays(kres, pres, active, what: str) -> dict:
+    """Hold a shadow-ray kernel's (i32 block, counts) against the plain
+    version's; ``active``: the rays that walk (t_max > t_min, or a valid
+    origin)."""
+    kc, pc = kres[-1].tolist(), pres[-1].tolist()
+    if kc != [0, 0] or pc != [0, 0]:
+        raise RuntimeError(f"{what}: walk counters kernel {kc} plain {pc}")
+    k, p = kres[0], pres[0]
+    nact = int(active.sum())
+    if nact == 0:
+        raise RuntimeError(f"{what}: no active ray")
+    if bool((k[~active] != 0).any()):
+        raise RuntimeError(f"{what}: output set on an inactive ray")
+    mism = int(((k != p) & active).sum()) / nact
+    if mism > 1e-3:
+        raise RuntimeError(f"{what}: outputs differ on {mism:.2e} of "
+                           f"active rays")
+    return dict(valid=nact, mismatch_share=mism,
+                max_abs_err=float((k - p).abs().max()))
+
+
+def check(name, kres, pres, args, kw, what) -> dict:
+    """The comparison that fits kernel ``name``'s outputs."""
+    if name in SHADOW_RAYS:
+        rays = args[0]
+        active = rays[:, 9] > kw["t_min"] if name == "any" \
+            else rays[:, 3] > 0.0
+        return compare_rays(kres, pres, active, what)
+    return compare(kres, pres, what, outputs_of(name, kw))
 
 
 def bound(stats: dict, args, res) -> dict:
@@ -244,6 +299,8 @@ def outputs_of(name, kw):
         return [("bits", len(kw["points"]))]
     if name == "closest_soft_multi_shadow":
         return [("count", 0), ("bits", kw["n_extra"])]
+    if name == "closest_attrs":
+        return []
     return [("count", 0)]
 
 
@@ -258,7 +315,7 @@ def check_pair(name, args, kw, what) -> tuple:
         raise RuntimeError(f"{name}: launch counter did not grow")
     pres = pfn(*args, **kw)
     torch.cuda.synchronize()
-    res = compare(kres, pres, what, outputs_of(name, kw))
+    res = check(name, kres, pres, args, kw, what)
     kfn.launches = before
     return res, kres
 
@@ -274,7 +331,7 @@ def time_pair(name, args, kw, reps: int = 10) -> dict:
     kfn.launches = before
     stats = {}
     pres, plain_ms = host_ms(lambda: pfn(*args, stats=stats, **kw))
-    cmp = compare(kres, pres, f"{name} whole block", outputs_of(name, kw))
+    cmp = check(name, kres, pres, args, kw, f"{name} whole block")
     return dict(ms=ms, plain_ms=plain_ms, compare=cmp,
                 **bound(stats, args, kres))
 
@@ -323,6 +380,7 @@ def phase_small(dev) -> dict:
         args, kw = args_of("closest_shadow", **spec)
         res, kres = check_pair("closest_shadow", args, kw, f"512^2 {kind}")
         hard[kind] = kres[1]
+        hard[f"{kind} channels"] = kres[0]
         res.update(time_pair("closest_shadow", args, kw, 20))
         out[f"closest_shadow/{kind}"] = res
         log(f"phase 3 closest_shadow {kind}: {json.dumps(res)}")
@@ -383,6 +441,72 @@ def phase_small(dev) -> dict:
                     res.update(time_pair(name, args, kw, 20))
                 out[f"{name}/{label}/zero={zero}"] = res
                 log(f"phase 3 {what}: {json.dumps(res)}")
+    out.update(small_unfused(r, mesh, cam, o, d, acc, sun, lpos, cone_cos,
+                             hard["directional channels"]))
+    return out
+
+
+def small_unfused(r, mesh, cam, o, d, acc, sun, lpos, cone_cos,
+                  hard_channels) -> dict:
+    """The unfused frame's kernels at 512^2: the closest hit alone, then
+    shadow rays and origins made from its G-buffer on the unordered
+    accel, as the unfused shadow pass makes them."""
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.passes.gbuffer import gbuf_from_attr_channels
+    from tpurt_torch.passes.shadow import shadow_ray_batch
+    from tpurt_torch.types import Light
+    out = {}
+    args, kw, p, meta = tr.closest_attrs_inputs(acc, o, d, r.attr_tables)
+    res, kres = check_pair("closest_attrs", args, kw, "512^2 closest_attrs")
+    if not torch.equal(kres[0], hard_channels):
+        raise RuntimeError("closest_attrs channels differ from "
+                           "closest_shadow's")
+    res.update(time_pair("closest_attrs", args, kw, 20))
+    out["closest_attrs"] = res
+    log(f"phase 3 closest_attrs: {json.dumps(res)}")
+    gbuf = gbuf_from_attr_channels(tr._attr_channels(kres[0], p, meta), o, d,
+                                   cam, mesh)
+    bounds = (r.accel.root_min, r.accel.root_max)
+    lights = {"directional": Light.directional(sun),
+              "point": Light.point(lpos)}
+    occ = {}
+    for kind, light in lights.items():
+        so, sd, stm = shadow_ray_batch(gbuf, light, BIAS, None, bounds)
+        args, kw = tr.any_inputs(r.accel, so, sd, stm)[:2]
+        res, kres = check_pair("any", args, kw, f"512^2 any {kind}")
+        occ[kind] = kres[0]
+        res.update(time_pair("any", args, kw, 20))
+        out[f"any/{kind}"] = res
+        log(f"phase 3 any {kind}: {json.dumps(res)}")
+    origins = gbuf["position"] + gbuf["gnormal"] * BIAS
+    samplers = (("any_soft", dict(axis_dir=lights["directional"].direction,
+                                  cone_cos=cone_cos), "directional"),
+                ("any_point_soft", dict(light_pos=lpos, radius=0.4),
+                 "point"))
+    for name, spec, hard_kind in samplers:
+        for zero in (False, True):
+            what = f"512^2 {name} zero_stream={zero}"
+            args, kw = getattr(tr, f"{name}_inputs")(
+                r.accel, origins, gbuf["valid"], spp=SPP, seed=11, light=1,
+                zero_stream=zero, **spec)[:2]
+            res, kres = check_pair(name, args, kw, what)
+            active = args[0][:, 3] > 0.0
+            if zero:
+                share = int(((kres[0] != SPP * occ[hard_kind]) & active)
+                            .sum()) / int(active.sum())
+                if share > 1e-3:
+                    raise RuntimeError(f"{what}: counts differ from spp x "
+                                       f"any's occlusion on {share:.2e}")
+                res["zero_vs_hard_mismatch"] = share
+            else:
+                cnt = kres[0][active]
+                res["penumbra_share"] = float(
+                    ((cnt > 0) & (cnt < SPP)).float().mean())
+                if not res["penumbra_share"] > 0:
+                    raise RuntimeError(f"{what}: no penumbra")
+                res.update(time_pair(name, args, kw, 20))
+            out[f"{name}/zero={zero}"] = res
+            log(f"phase 3 {what}: {json.dumps(res)}")
     return out
 
 
@@ -432,7 +556,13 @@ def frame_inputs(name, r, w, h, **spec):
 
 
 def kernel_vs_plain(name, r, w, h, what, **spec) -> dict:
-    (args, kw), (sargs, skw) = frame_inputs(name, r, w, h, **spec)
+    return vs_plain(name, *frame_inputs(name, r, w, h, **spec), what)
+
+
+def vs_plain(name, full_inputs, sub_inputs, what) -> dict:
+    """The kernel against its plain version on every 8th row, then timed
+    and compared on the whole frame."""
+    (args, kw), (sargs, skw) = full_inputs, sub_inputs
     sub, _ = check_pair(name, sargs, skw, f"{what} every 8th row")
     log(f"{what} every 8th row: {json.dumps(sub)}")
     full = time_pair(name, args, kw)
@@ -494,7 +624,7 @@ def phase_config1(dev, mesh) -> dict:
     r = Renderer(mesh, cam, light, cfg, device=dev)
     log(f"phase 4 setup: tris={mesh.num_triangles} {json.dumps(setup_stats(r))}")
     torch.cuda.reset_peak_memory_stats()
-    (kept, frame_ms), n = drive("closest_shadow", lambda: frames(r, 6), 6)
+    (kept, frame_ms), n = drive({"closest_shadow": 6}, lambda: frames(r, 6))
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     valid_share = check_image(kept[0], MAIN_W, MAIN_H, "config 1")
     valid = kept[0]["valid"]
@@ -511,8 +641,9 @@ def phase_config1(dev, mesh) -> dict:
         acc, o, d, light.direction, BIAS, attr_tables=r.attr_tables),
         mean_ms)
     nvalid = int(valid.sum())
-    return dict(launches=n, frame_ms=frame_ms, frame_ms_mean=mean_ms,
-                kernel=kp, stages_ms=stages, valid_share=valid_share,
+    return dict(launches=n["closest_shadow"], frame_ms=frame_ms,
+                frame_ms_mean=mean_ms, kernel=kp, stages_ms=stages,
+                image=kept[0]["image"], valid_share=valid_share,
                 occluded_share=occ_share,
                 peak_mem_mb=peak_mb, tris=mesh.num_triangles,
                 **rays_per_s(MAIN_W * MAIN_H, nvalid, nvalid, mean_ms),
@@ -532,8 +663,8 @@ def phase_config3(dev, mesh) -> dict:
     r = Renderer(mesh, cam, sun, cfg, device=dev)
     if r.route != "fused0":
         raise RuntimeError(f"config 3 takes route {r.route}")
-    (kept, frame_ms), n = drive("closest_soft_shadow",
-                                lambda: frames(r, 6), 6)
+    (kept, frame_ms), n = drive({"closest_soft_shadow": 6},
+                                lambda: frames(r, 6))
     for f in kept:
         check_image(f, MAIN_W, MAIN_H, "config 3")
     valid = kept[0]["valid"]
@@ -559,8 +690,9 @@ def phase_config3(dev, mesh) -> dict:
         acc, o, d, sun.direction, cone_cos, SPP, seed, BIAS,
         attr_tables=r.attr_tables), mean_ms)
     nvalid = int(valid.sum())
-    return dict(launches=n, frame_ms=frame_ms, frame_ms_mean=mean_ms,
-                kernel=kp, stages_ms=stages, penumbra_share=penumbra,
+    return dict(launches=n["closest_soft_shadow"], frame_ms=frame_ms,
+                frame_ms_mean=mean_ms, kernel=kp, stages_ms=stages,
+                penumbra_share=penumbra,
                 occluded_share=occluded,
                 **rays_per_s(MAIN_W * MAIN_H, nvalid, nvalid * SPP, mean_ms))
 
@@ -587,8 +719,8 @@ def phase_config5(dev, mesh) -> dict:
     if r.route != "fusedN":
         raise RuntimeError(f"config 5 takes route {r.route}")
     torch.cuda.reset_peak_memory_stats()
-    (kept, frame_ms), n = drive("closest_multi_shadow",
-                                lambda: frames(r, 6), 6)
+    (kept, frame_ms), n = drive({"closest_multi_shadow": 6},
+                                lambda: frames(r, 6))
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     check_image(kept[0], UHD_W, UHD_H, "config 5")
     for f in kept[1:]:
@@ -606,8 +738,9 @@ def phase_config5(dev, mesh) -> dict:
     stages = stage_ms(r, lambda acc, o, d: trace_closest_multi_shadow(
         acc, o, d, spec, BIAS, attr_tables=r.attr_tables), mean_ms)
     nvalid = int(valid.sum())
-    return dict(launches=n, frame_ms=frame_ms, frame_ms_mean=mean_ms,
-                kernel=kp, stages_ms=stages, occluded_shares=shares,
+    return dict(launches=n["closest_multi_shadow"], frame_ms=frame_ms,
+                frame_ms_mean=mean_ms, kernel=kp, stages_ms=stages,
+                occluded_shares=shares,
                 peak_mem_mb=peak_mb,
                 **rays_per_s(UHD_W * UHD_H, nvalid, nvalid * len(lights),
                              mean_ms))
@@ -640,7 +773,7 @@ def phase_soft_variants(dev, mesh) -> dict:
         r = Renderer(mesh, cam, lights, cfg, device=dev)
         if r.route != route:
             raise RuntimeError(f"{name}: route {r.route}, want {route}")
-        (kept, frame_ms), n = drive(name, lambda: frames(r, 2), 2)
+        (kept, frame_ms), n = drive({name: 2}, lambda: frames(r, 2))
         for f in kept:
             check_image(f, MAIN_W, MAIN_H, name)
         valid = kept[0]["valid"]
@@ -650,11 +783,184 @@ def phase_soft_variants(dev, mesh) -> dict:
             raise RuntimeError(f"{name}: no penumbra")
         kp = kernel_vs_plain(name, r, MAIN_W, MAIN_H, f"phase 7 {name}",
                              **spec)
-        out[name] = dict(launches=n, frame_ms=frame_ms, kernel=kp,
+        out[name] = dict(launches=n[name], frame_ms=frame_ms, kernel=kp,
                          penumbra_share=penumbra,
                          occluded_shares=[float((s[valid] < 1).float()
                                                 .mean())
                                           for s in kept[0]["shadow"]])
+    return out
+
+
+def unfused_inputs(name, r, light_index: int, step: int):
+    """Kernel ``name``'s inputs in the Renderer's unfused frame, on every
+    ``step``-th row: the closest hit on the camera-ordered accel, shadow
+    rays or origins from its G-buffer on the accel as built."""
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.app import _gb_accel, frame_seed, gbuffer_production
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.passes.shadow import cone_cos, shadow_ray_batch
+    cfg = r.config
+
+    def rows(x):
+        return x[::step].contiguous()
+    if name == "closest_attrs":
+        o, d = generate_rays(r.camera, cfg.width, cfg.height, r.device)
+        return tr.closest_attrs_inputs(_gb_accel(r.accel, r.camera, cfg),
+                                       rows(o), rows(d), r.attr_tables)[:2]
+    gbuf, _ = gbuffer_production(r.accel, r.mesh, r.camera, cfg,
+                                 r.attr_tables)
+    light = r.lights[light_index]
+    if name == "any":
+        so, sd, stm = shadow_ray_batch(gbuf, light, cfg.shadow_bias, None,
+                                       (r.accel.root_min, r.accel.root_max))
+        return tr.any_inputs(r.accel, rows(so), rows(sd), rows(stm))[:2]
+    origins = rows(gbuf["position"] + gbuf["gnormal"] * cfg.shadow_bias)
+    valid = rows(gbuf["valid"])
+    seed = frame_seed(cfg.seed, 0)
+    if name == "any_soft":
+        return tr.any_soft_inputs(r.accel, origins, valid, light.direction,
+                                  cone_cos(light), cfg.spp, seed,
+                                  light_index)[:2]
+    return tr.any_point_soft_inputs(r.accel, origins, valid, light.position,
+                                    float(light.radius), cfg.spp, seed,
+                                    light_index)[:2]
+
+
+def stage_ms_unfused(r, frame_ms_mean: float, reps: int = 5) -> dict:
+    """Where an unfused or mixed frame's time goes: CUDA events around the
+    G-buffer (with light 0's fused shadow on the fused0 route), each
+    light's unfused shadow pass and the composite, run by hand on the
+    Renderer's state (mean of reps calls); the rest by difference."""
+    from tpurt_torch.app import (composite_lights, frame_seed,
+                                 gbuffer_production,
+                                 gbuffer_shadow_fused_production,
+                                 shadow_production, unfused_lights)
+    cfg = r.config
+    seed = frame_seed(cfg.seed, 0)
+    if r.route == "fused0":
+        def gb():
+            return gbuffer_shadow_fused_production(
+                r.accel, r.mesh, r.camera, cfg, r.lights[0], r.attr_tables,
+                seed)
+        gbuf, vis0, _ = gb()
+        shadows = [vis0]
+        out = {"gbuffer_and_light0_fused": cuda_ms(gb, reps)}
+    else:
+        def gb():
+            return gbuffer_production(r.accel, r.mesh, r.camera, cfg,
+                                      r.attr_tables)
+        gbuf, _ = gb()
+        shadows = []
+        out = {"gbuffer": cuda_ms(gb, reps)}
+    for li in unfused_lights(r.route, len(r.lights)):
+        def shadow(li=li):
+            return shadow_production(r.accel, gbuf, r.lights[li], seed, li,
+                                     cfg)
+        shadows.append(shadow()[0])
+        out[f"shadow_pass_light{li}"] = cuda_ms(shadow, reps)
+    out["composite"] = cuda_ms(
+        lambda: composite_lights(gbuf, shadows, r.lights, cfg), reps)
+    out["counter_read_rest"] = frame_ms_mean - sum(out.values())
+    return out
+
+
+def in_turns(ra, rb, n: int = 5) -> dict:
+    """Frame ms of two Renderers in turns (a, b, b, a, repeated n times;
+    CUDA events around each frame), so that both see the same host and
+    card state."""
+    ms = {"a": [], "b": []}
+    for _ in range(n):
+        for key, r in (("a", ra), ("b", rb), ("b", rb), ("a", ra)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            r.render_frame()
+            end.record()
+            torch.cuda.synchronize()
+            ms[key].append(start.elapsed_time(end))
+    return {k: dict(mean=float(np.mean(v)), min=float(np.min(v)), ms=v)
+            for k, v in ms.items()}
+
+
+def phase_unfused(dev, mesh, fused_config1_image) -> dict:
+    """The unfused frame at 1080p: configs 1 and 3 and the lamp with
+    fused_shadow=False, and the mixed set sun + lamp (fused0 + unfused)."""
+    from tpurt_torch.app import Renderer
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import LIGHT_DIRECTIONAL, Light, RenderConfig
+    cam = sponza_interior_camera()
+    sun = Light.sun(SUN_DIR, angular_radius_deg=2.0)
+    lamp = Light.point(LAMP_POS, radius=LAMP_RADIUS)
+    unfused = dict(fused_shadow=False)
+    # label: (lights, config fields, route, launches per frame by kernel,
+    # the unfused kernels to hold against their plain versions with the
+    # index of the light they trace). The three fused_shadow=False cases
+    # are also timed in turns with their fused twin.
+    cases = {
+        "config1_unfused": ([Light.directional(SUN_DIR)], dict(unfused),
+                            "unfused", {"closest_attrs": 1, "any": 1},
+                            [("closest_attrs", 0), ("any", 0)]),
+        "config3_unfused": ([sun], dict(unfused, spp=SPP), "unfused",
+                            {"closest_attrs": 1, "any_soft": 1},
+                            [("any_soft", 0)]),
+        "lamp_unfused": ([lamp], dict(unfused, spp=SPP), "unfused",
+                         {"closest_attrs": 1, "any_point_soft": 1},
+                         [("any_point_soft", 0)]),
+        "sun_lamp_mixed": ([sun, lamp], dict(spp=SPP), "fused0",
+                           {"closest_soft_shadow": 1, "any_point_soft": 1},
+                           [("any_point_soft", 1)]),
+    }
+    out = {}
+    for label, (lights, fields, route, per_frame, checked) in cases.items():
+        cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=14,
+                           **fields)
+        r = Renderer(mesh, cam, lights, cfg, device=dev)
+        if r.route != route:
+            raise RuntimeError(f"{label}: route {r.route}, want {route}")
+        (kept, frame_ms), n = drive({k: 6 * v for k, v in per_frame.items()},
+                                    lambda: frames(r, 6))
+        for f in kept:
+            check_image(f, MAIN_W, MAIN_H, label)
+        valid = kept[0]["valid"]
+        res = dict(route=route, launches=n, frame_ms=frame_ms,
+                   frame_ms_mean=float(np.mean(frame_ms)),
+                   occluded_shares=[float((s[valid] < 1).float().mean())
+                                    for s in kept[0]["shadow"]])
+        for li, light in enumerate(lights):
+            if light.kind != LIGHT_DIRECTIONAL:
+                vis = kept[0]["shadow"][li][valid]
+                pen = float(((vis > 0) & (vis < 1)).float().mean())
+                if not pen > 0:
+                    raise RuntimeError(f"{label} light {li}: no penumbra")
+                res[f"penumbra_share_light{li}"] = pen
+        if label == "config1_unfused":
+            img = kept[0]["image"]
+            differ = (img != fused_config1_image).any(-1) & valid
+            share = float(differ.sum()) / int(valid.sum())
+            if share > 1e-3:
+                raise RuntimeError(f"config 1 unfused image differs from the "
+                                   f"fused one on {share:.2e} of valid pixels")
+            res["vs_fused_image_share"] = share
+        res["kernels"] = {
+            name: vs_plain(name, unfused_inputs(name, r, li, 1),
+                           unfused_inputs(name, r, li, 8),
+                           f"phase 8 {label} {name}")
+            for name, li in checked}
+        for name, li in checked:
+            if name in ("any_soft", "any_point_soft"):
+                args, kw = unfused_inputs(name, r, li, 8)
+                res["kernels"][name]["zero_stream_every_8th_row"] = \
+                    check_pair(name, args, dict(kw, zero_stream=True),
+                               f"phase 8 {label} {name} zero stream")[0]
+        res["stages_ms"] = stage_ms_unfused(r, res["frame_ms_mean"])
+        if not cfg.fused_shadow:
+            twin = Renderer(mesh, cam, lights,
+                            dataclasses.replace(cfg, fused_shadow=True),
+                            device=dev)
+            turns = in_turns(twin, r)
+            res["in_turns_ms"] = {"fused": turns["a"], "unfused": turns["b"]}
+        out[label] = res
+        log(f"phase 8 {label}: {json.dumps(res)}")
     return out
 
 
@@ -700,11 +1006,12 @@ def main() -> int:
     c3 = phase_config3(dev, mesh)
     c5 = phase_config5(dev, mesh)
     variants = phase_soft_variants(dev, mesh)
+    unf = phase_unfused(dev, mesh, c1.pop("image"))
     timings = {"card": card, "build_s": build_s,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
                "config3_1080p": c3, "config5_2160p": c5,
-               "soft_variants_1080p": variants}
+               "soft_variants_1080p": variants, "unfused_1080p": unf}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],
@@ -713,6 +1020,12 @@ def main() -> int:
                        small)]
     rows += [kernel_row(name, v["launches"], v["kernel"], small)
              for name, v in variants.items()]
+    for label, name in (("config1_unfused", "closest_attrs"),
+                        ("config1_unfused", "any"),
+                        ("config3_unfused", "any_soft"),
+                        ("lamp_unfused", "any_point_soft")):
+        rows.append(kernel_row(name, unf[label]["launches"][name],
+                               unf[label]["kernels"][name], small))
     log(json.dumps({"timings": timings}))
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -15,6 +15,7 @@ import tpurt.scenes as jscenes
 import tpurt.types as jtypes
 import tpurt_torch.scenes as tscenes
 import tpurt_torch.types as ttypes
+import tpurt_torch.app as tapp
 from tpurt_torch.app import Renderer, frame_route
 from tpurt_torch.io.image import read_png, to_uint8
 from tpurt_torch.kernels.traverse import trace_closest_multi_shadow
@@ -142,12 +143,16 @@ def _sets(mod):
             "point+point": [point, point]}
 
 
+# name[:unfused]: the light set, with fused_shadow=False after the colon.
 ROUTES = [("dir", 1, "fused0"), ("sun", 1, "fused0"), ("sun", 8, "fused0"),
           ("point", 1, "fused0"), ("point", 4, "fused0"),
           ("dir+dir", 4, "fusedN"), ("dir+dir+point", 1, "fusedN"),
           ("sun+point", 1, "fusedN"), ("sun+dir+dir", 4, "fusedSM"),
-          ("point+dir", 4, "fusedSM"), ("sun+point", 4, None),
-          ("dir+sun", 4, None), ("point+point", 4, None)]
+          ("point+dir", 4, "fusedSM"), ("sun+point", 4, "fused0"),
+          ("dir+sun", 4, "fused0"), ("point+point", 4, "fused0"),
+          ("dir:unfused", 1, "unfused"), ("sun+point:unfused", 4, "unfused"),
+          ("dir+dir:unfused", 1, "unfused")]
+MIXED = [("sun+point", 4), ("dir+sun", 4), ("point+point", 4)]
 
 
 @pytest.fixture(scope="module")
@@ -158,15 +163,15 @@ def jwide_accel():
 
 
 def _tpurt_route(cfg, accel, lights):
-    """tpurt's render_frame_fn routing, with None where a light beyond
-    light 0 goes to the unfused shadow pass."""
+    """tpurt's render_frame_fn routing: fused0 takes light 0 whatever the
+    number of lights, and "unfused" where no fused kernel applies."""
     if japp.fused_multi_applicable(cfg, accel, lights):
         return "fusedN"
     if japp.fused_soft_multi_applicable(cfg, accel, lights):
         return "fusedSM"
     if japp.fused_shadow_applicable(cfg, accel, lights):
-        return "fused0" if len(lights) == 1 else None
-    return None
+        return "fused0"
+    return "unfused"
 
 
 @pytest.mark.parametrize("name,spp,route", ROUTES)
@@ -178,23 +183,38 @@ def test_routes_follow_tpurt_gates(monkeypatch, jwide_accel, name, spp,
     chip."""
     import tpurt.kernels.traverse as jtraverse
     monkeypatch.setattr(jtraverse, "_compiled_backend", lambda: True)
-    jcfg = jtypes.RenderConfig(width=32, height=32, leaf_size=8, spp=spp,
-                               gbuffer="ray")
-    tcfg = ttypes.RenderConfig(width=32, height=32, leaf_size=8, spp=spp,
-                               gbuffer="ray")
+    name, _, unfused = name.partition(":")
+    fields = dict(width=32, height=32, leaf_size=8, spp=spp, gbuffer="ray",
+                  fused_shadow=not unfused)
+    jcfg = jtypes.RenderConfig(**fields)
+    tcfg = ttypes.RenderConfig(**fields)
     assert _tpurt_route(jcfg, jwide_accel, _sets(jtypes)[name]) == route
     assert frame_route(tcfg, _sets(ttypes)[name]) == route
 
 
-@pytest.mark.parametrize("name,spp", [(n, s) for n, s, r in ROUTES
-                                      if r is None])
-def test_unported_light_sets_raise(name, spp):
+@pytest.mark.parametrize("name,spp", MIXED)
+def test_mixed_light_sets_render(monkeypatch, name, spp):
+    """Light sets with a soft light and a point or area extra: fused0 takes
+    light 0 and the unfused shadow pass every light after it, as in
+    tpurt's render_frame_fn. The frame is finite and has a penumbra."""
+    traced = []
+    real = tapp.shadow_production
+
+    def spy(bvh, gbuf, light, seed, light_index, cfg):
+        traced.append(light_index)
+        return real(bvh, gbuf, light, seed, light_index, cfg)
+    monkeypatch.setattr(tapp, "shadow_production", spy)
     mesh = tscenes.teapot_scene(1500)
-    with pytest.raises(NotImplementedError, match="unfused shadow pass"):
-        Renderer(mesh, tscenes.default_camera_for(mesh),
-                 _sets(ttypes)[name],
-                 ttypes.RenderConfig(width=32, height=32, leaf_size=8,
+    lights = _sets(ttypes)[name]
+    r = Renderer(mesh, tscenes.default_camera_for(mesh), lights,
+                 ttypes.RenderConfig(width=48, height=40, leaf_size=8,
                                      spp=spp), device="cpu")
+    assert r.route == "fused0"
+    out = r.render_frame()
+    assert traced == list(range(1, len(lights)))
+    assert torch.isfinite(out["image"]).all()
+    vis = out["shadow"][:, out["valid"]]
+    assert ((vis > 0) & (vis < 1)).any()
 
 
 def test_more_than_31_mask_lights_raise():

@@ -26,6 +26,7 @@ def test_port_imports_no_jax():
             "import tpurt_torch.app, tpurt_torch.kernels.traverse\n"
             "import tpurt_torch.kernels.sampling, tpurt_torch.kernels._build\n"
             "import tpurt_torch.convert, tpurt_torch.io.image\n"
+            "import tpurt_torch.passes.shadow, tpurt_torch.passes.gbuffer\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'tpurt'\n"
             "       or m.startswith(('jax.', 'tpurt.'))]\n"
             "assert not bad, bad\n"
@@ -119,26 +120,23 @@ def test_renderer_defaults_to_the_card():
     (dict(config=dict(bvh_width=2)), "bvh_width"),
     (dict(config=dict(sah=False)), "sah"),
     (dict(config=dict(gbuffer="raster")), "raster"),
-    (dict(config=dict(fused_shadow=False)), "fused_shadow"),
+    (dict(config=dict(use_pallas=False)), "use_pallas"),
     (dict(config=dict(inkernel_attrs=False)), "inkernel_attrs"),
-    (dict(lights="sun", config=dict(spp=4)), "area"),
-    (dict(lights="point", config=dict(spp=4)), "point"),
-    (dict(lights="two", config=dict(spp=4)), "2 lights"),
+    (dict(config=dict(seeded_gbuffer=True)), "seeded_gbuffer"),
+    (dict(mode="refit"), "refit"),
+    (dict(lights="three", config=dict(sort_rays=True)), "sort_rays"),
     (dict(cache_dir="unused"), "cache_dir"),
 ])
 def test_outside_the_slice_raises(kwargs, what):
     from tpurt_torch.app import Renderer
     mesh = tscenes.teapot_scene(1500)
-    # Light sets that no fused kernel takes: a soft light 0 with a point
-    # or area extra needs the unfused shadow pass.
-    sun = ttypes.Light.sun((0.45, 0.8, 0.3))
-    point = ttypes.Light.point((0.0, 5.0, 0.0), radius=0.2)
-    lights = {"sun": [sun, sun],
-              "point": [point, point],
-              "two": [ttypes.Light.directional((0.45, 0.8, 0.3)), sun]
-              }.get(kwargs.get("lights"),
-                    ttypes.Light.directional((0.45, 0.8, 0.3)))
-    cfg = ttypes.RenderConfig(width=32, height=32, leaf_size=8,
+    # sort_rays wraps the any-hit tracer of the unfused shadow pass: at spp
+    # 4 fused0 takes light 0 and the unfused pass the sun and the hard
+    # light 2.
+    d = ttypes.Light.directional((0.45, 0.8, 0.3))
+    lights = {"three": [d, ttypes.Light.sun((0.45, 0.8, 0.3)), d]
+              }.get(kwargs.get("lights"), d)
+    cfg = ttypes.RenderConfig(width=32, height=32, leaf_size=8, spp=4,
                               **kwargs.get("config", {}))
     with pytest.raises(NotImplementedError, match=what):
         Renderer(mesh, tscenes.default_camera_for(mesh), lights, cfg,

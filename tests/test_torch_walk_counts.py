@@ -95,19 +95,54 @@ def teapot():
     return acc, r.attr_tables, o, d
 
 
-@pytest.mark.parametrize("name,spec", [
-    ("closest_shadow", dict(light_dir=(0.45, 0.8, 0.3))),
-    ("closest_multi_shadow", dict(lights=[((0.45, 0.8, 0.3), None),
-                                          ((-0.5, 0.7, 0.2), None)])),
-    ("closest_soft_shadow", dict(axis_dir=(0.45, 0.8, 0.3), cone_cos=0.99,
-                                 spp=2, seed=3)),
-])
-def test_counting_leaves_the_result_alone(teapot, name, spec):
+def _gbuf(acc, at, o, d):
+    """The plain G-buffer of the teapot rays, for the shadow-ray kernels."""
+    from tpurt_torch.passes.gbuffer import gbuf_from_attr_channels
+    mesh = teapot_scene(1500)
+    ch, _ = tr.trace_closest_attrs(acc, o, d, at)
+    return gbuf_from_attr_channels(ch, o, d, default_camera_for(mesh), mesh)
+
+
+def kernel_inputs(name, acc, at, o, d):
+    """(args, kwargs) of each *_cuda / *_reference pair on the teapot."""
+    fused = {
+        "closest_shadow": dict(light_dir=(0.45, 0.8, 0.3)),
+        "closest_multi_shadow": dict(lights=[((0.45, 0.8, 0.3), None),
+                                             ((-0.5, 0.7, 0.2), None)]),
+        "closest_soft_shadow": dict(axis_dir=(0.45, 0.8, 0.3),
+                                    cone_cos=0.99, spp=2, seed=3),
+        "closest_point_soft_shadow": dict(light_pos=(0.0, 5.0, 0.0),
+                                          radius=0.2, spp=2, seed=3),
+        "closest_soft_multi_shadow": dict(
+            light0=("cone", (0.45, 0.8, 0.3), 0.99),
+            extra_dirs=[(-0.5, 0.7, 0.2)], spp=2, seed=3),
+    }
+    if name in fused:
+        return getattr(tr, f"{name}_inputs")(
+            acc, o, d, bias=1e-3, attr_tables=at, **fused[name])[:2]
+    if name == "closest_attrs":
+        return tr.closest_attrs_inputs(acc, o, d, at)[:2]
+    gb = _gbuf(acc, at, o, d)
+    so = gb["position"] + gb["gnormal"] * 1e-3
+    if name == "any":
+        ld = torch.tensor([0.45, 0.8, 0.3]) / torch.tensor(
+            [0.45, 0.8, 0.3]).norm()
+        return tr.any_inputs(acc, so, ld.expand(so.shape).contiguous(),
+                             torch.where(gb["valid"], 50.0, 0.0))[:2]
+    if name == "any_soft":
+        return tr.any_soft_inputs(acc, so, gb["valid"], (0.45, 0.8, 0.3),
+                                  0.99, 2, 3, light=1)[:2]
+    return tr.any_point_soft_inputs(acc, so, gb["valid"], (0.0, 5.0, 0.0),
+                                    0.2, 2, 3, light=1)[:2]
+
+
+@pytest.mark.parametrize("name", ["closest_shadow", "closest_multi_shadow",
+                                  "closest_soft_shadow", "any", "any_soft"])
+def test_counting_leaves_the_result_alone(teapot, name):
     """The same outputs with and without stats; the early exits are taken
     (fewer any-hit tests than whole leaves, fewer slab tests than slots)."""
     acc, at, o, d = teapot
-    args, kw, _, _ = getattr(tr, f"{name}_inputs")(
-        acc, o, d, bias=1e-3, attr_tables=at, **spec)
+    args, kw = kernel_inputs(name, acc, at, o, d)
     plain = getattr(tr, f"{name}_reference")
     stats = {}
     counted = plain(*args, stats=stats, **kw)
@@ -116,27 +151,63 @@ def test_counting_leaves_the_result_alone(teapot, name, spec):
     n = {k: int(v) for k, v in stats.items()}
     assert 0 < n["slab_tests"] < 8 * n["pops"]
     assert 0 < n["anyhit_tris"] < n["anyhit_leaf_tris"]
-    assert n["closest_tris"] % acc.leaf_size == 0
+    assert n.get("closest_tris", 0) % acc.leaf_size == 0
 
 
-def test_params_mirror_the_cuda_struct():
-    """traverse.Params has the fields of csrc/fused_shadows.cu's Params,
-    in order (the loader also compares the sizes on the card)."""
-    with open(os.path.join(ROOT, "tpurt_torch", "kernels", "csrc",
-                           "fused_shadows.cu")) as f:
-        src = f.read()
-    body = re.search(r"struct Params \{(.*?)\};", src, re.S).group(1)
+def test_closest_attrs_counts_only_the_closest_walk(teapot):
+    acc, at, o, d = teapot
+    args, kw = kernel_inputs("closest_attrs", acc, at, o, d)
+    stats = {}
+    tr.closest_attrs_reference(*args, stats=stats, **kw)
+    assert stats["closest_tris"] > 0 and "anyhit_tris" not in stats
+
+
+def _struct_fields(src: str, name: str):
+    body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     names = []
     for decl in body.split(";"):
         decl = re.sub(r"^\s*(const\s+)?\w+\s*\*?", "", decl.strip())
         names += [n.strip(" *") for n in decl.split(",") if n.strip()]
-    assert [f[0] for f in tr.Params._fields_] == names
-    modes = re.search(r"enum Mode \{(.*?)\};", src, re.S).group(1)
-    assert [m.split("=")[0].strip() for m in modes.split(",")] == [
-        "HARD", "MULTI", "SOFT", "PSOFT", "SOFT_MULTI"]
-    assert [tr.HARD, tr.MULTI, tr.SOFT, tr.PSOFT, tr.SOFT_MULTI] == [
-        int(m.split("=")[1]) for m in modes.split(",")]
+    return names
+
+
+def _modes(src: str):
+    body = re.search(r"enum Mode \{(.*?)\};", src, re.S).group(1)
+    return {m.split("=")[0].strip(): int(m.split("=")[1])
+            for m in body.split(",")}
+
+
+def _csrc(name: str) -> str:
+    with open(os.path.join(ROOT, "tpurt_torch", "kernels", "csrc",
+                           name)) as f:
+        return f.read()
+
+
+def test_params_mirror_the_cuda_struct():
+    """traverse.Params has the fields of csrc/walk.cuh's Params, in order
+    (the loader also compares the sizes on the card), and the mode numbers
+    are those of csrc/fused_shadows.cu and csrc/shadow_rays.cu."""
+    assert [f[0] for f in tr.Params._fields_] == _struct_fields(
+        _csrc("walk.cuh"), "Params")
+    assert _modes(_csrc("fused_shadows.cu")) == {
+        "HARD": tr.HARD, "MULTI": tr.MULTI, "SOFT": tr.SOFT,
+        "PSOFT": tr.PSOFT, "SOFT_MULTI": tr.SOFT_MULTI,
+        "CLOSEST": tr.CLOSEST}
+    assert _modes(_csrc("shadow_rays.cu")) == {
+        "ANY": tr.ANY, "ANY_SOFT": tr.ANY_SOFT, "ANY_PSOFT": tr.ANY_PSOFT}
+
+
+def test_only_one_source_defines_the_queries():
+    """Both sources link into one library: the extern "C" queries live in
+    fused_shadows.cu alone, and every device function of walk.cuh is
+    inlined, so no symbol is defined twice."""
+    fused, rays = _csrc("fused_shadows.cu"), _csrc("shadow_rays.cu")
+    for q in ("tpurt_stack_capacity", "tpurt_params_size"):
+        assert q in fused and q not in rays
+    walk = _csrc("walk.cuh")
+    assert walk.count("__device__ __forceinline__") == walk.count(
+        "__device__")
 
 
 @pytest.mark.parametrize("fn", tr.CUDA_KERNELS, ids=lambda f: f.__name__)
@@ -144,20 +215,7 @@ def test_cuda_launchers_refuse_cpu_tensors(teapot, fn):
     """No fallback: a *_cuda launcher given CPU tensors raises and counts
     no launch."""
     acc, at, o, d = teapot
-    name = fn.__name__[:-len("_cuda")]
-    spec = {
-        "closest_shadow": dict(light_dir=(0.45, 0.8, 0.3)),
-        "closest_multi_shadow": dict(lights=[((0.45, 0.8, 0.3), None)]),
-        "closest_soft_shadow": dict(axis_dir=(0.45, 0.8, 0.3),
-                                    cone_cos=0.99, spp=2, seed=3),
-        "closest_point_soft_shadow": dict(light_pos=(0.0, 5.0, 0.0),
-                                          radius=0.2, spp=2, seed=3),
-        "closest_soft_multi_shadow": dict(
-            light0=("cone", (0.45, 0.8, 0.3), 0.99),
-            extra_dirs=[(-0.5, 0.7, 0.2)], spp=2, seed=3),
-    }[name]
-    args, kw, _, _ = getattr(tr, f"{name}_inputs")(
-        acc, o, d, bias=1e-3, attr_tables=at, **spec)
+    args, kw = kernel_inputs(fn.__name__[:-len("_cuda")], acc, at, o, d)
     before = fn.launches
     with pytest.raises(ValueError, match="CUDA tensors"):
         fn(*args, **kw)

@@ -1,17 +1,25 @@
-"""Renderer: the static-scene fused frames (counterpart of the static slice
-of ``tpurt/app.py``).
+"""Renderer: the static-scene frames (counterpart of the static slice of
+``tpurt/app.py``).
 
-One frame: camera rays -> near-first child ordering of the accel -> ONE
-fused kernel launch -> G-buffer decode -> composite. The kernel finds the
-closest hit with the winner's shading attributes, then traces the light
-set's shadows from the biased hit point. Which kernel runs follows
+One fused frame: camera rays -> near-first child ordering of the accel ->
+ONE fused kernel launch -> G-buffer decode -> composite. The kernel finds
+the closest hit with the winner's shading attributes, then traces the
+light set's shadows from the biased hit point. Which kernel runs follows
 ``tpurt``'s routing order (``render_frame_fn``):
 
 1. fusedN: every light hard (directional; point or cone at spp 1) and at
    least two of them -> one hard walk per light, an occlusion bitmask;
 2. fusedSM: a soft light 0 (cone or point at spp > 1) with hard
    directional extras -> light-0 sample counts plus a bitmask;
-3. fused0: one light -> its hard shadow, cone samples or disk samples.
+3. fused0: light 0 (any number of lights) -> its hard shadow, cone samples
+   or disk samples;
+4. unfused (``fused_shadow=False``): the closest-hit kernel alone.
+
+Every light that no fused kernel took (lights 1.. after fused0, every
+light after unfused) goes through the unfused shadow pass
+(``passes/shadow.py``): one any-hit launch per hard light, one in-kernel
+cone or disk sampler launch per soft light, on the accel as built (the
+G-buffer walks the camera-ordered copy, as in ``tpurt``).
 
 Unlike ``tpurt`` the soft paths are not gated on the backend: the port's
 in-kernel generator is real on the CPU too. The accel is built once per
@@ -26,10 +34,10 @@ missing piece; nothing falls back to another path or device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, Optional, Sequence, Union
 
-import numpy as np
 import torch
 
 from .bvh.sah import build_sah_lbvh
@@ -38,13 +46,16 @@ from .bvh.wide import (WideBVH, count_wide, leaf_boxes_from_nodes,
                        round_up_bucket, wide_depth, widen_from_plan)
 from .camera import generate_rays
 from .kernels.traverse import (MAX_MASK_LIGHTS, check_stack_bound,
-                               check_walk_counts, trace_closest_multi_shadow,
+                               check_walk_counts, trace_any,
+                               trace_any_point_soft, trace_any_soft,
+                               trace_closest_multi_shadow,
                                trace_closest_point_soft_shadow,
                                trace_closest_shadow,
                                trace_closest_soft_multi_shadow,
                                trace_closest_soft_shadow)
 from .passes.composite import accumulate, composite_pass
-from .passes.gbuffer import gbuf_from_attr_channels
+from .passes.gbuffer import gbuf_from_attr_channels, gbuffer_attr_pass
+from .passes.shadow import cone_cos, shadow_pass
 from .passes.shading import make_leaf_attr_rows
 from .types import (LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT, Camera,
                     Light, Mesh, RenderConfig)
@@ -85,23 +96,30 @@ def fused_soft_multi_applicable(cfg: RenderConfig, lights) -> bool:
             and all(l.kind == LIGHT_DIRECTIONAL for l in lights[1:]))
 
 
-def frame_route(cfg: RenderConfig, lights) -> Optional[str]:
-    """The fused path a frame takes, in ``tpurt``'s order (fusedN, fusedSM,
-    fused0), or None when no fused kernel shades every light (``tpurt``
-    then traces the other lights in the unfused shadow pass)."""
+def frame_route(cfg: RenderConfig, lights) -> str:
+    """The path a frame takes, in ``tpurt``'s order: "fusedN", "fusedSM",
+    "fused0" (light 0 whatever the number of lights) or "unfused" (no
+    fused kernel)."""
     if fused_multi_applicable(cfg, lights):
         return "fusedN"
     if fused_soft_multi_applicable(cfg, lights):
         return "fusedSM"
-    if len(lights) == 1 and fused_shadow_applicable(cfg, lights):
+    if fused_shadow_applicable(cfg, lights):
         return "fused0"
-    return None
+    return "unfused"
 
 
-def _kinds(lights) -> str:
-    names = {LIGHT_DIRECTIONAL: "directional", LIGHT_POINT: "point",
-             LIGHT_AREA_CONE: "area cone"}
-    return ", ".join(names.get(l.kind, str(l.kind)) for l in lights)
+def unfused_lights(route: str, n_lights: int) -> range:
+    """Indices of the lights the unfused shadow pass traces on ``route``:
+    lights 1.. after fused0, every light after unfused, none after fusedN
+    or fusedSM."""
+    return {"fused0": range(1, n_lights),
+            "unfused": range(n_lights)}.get(route, range(0))
+
+
+def _soft(light: Light, spp: int) -> bool:
+    """Does ``shadow_pass`` sample the light (cone or point at spp > 1)?"""
+    return light.kind in (LIGHT_AREA_CONE, LIGHT_POINT) and spp > 1
 
 
 def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
@@ -118,8 +136,6 @@ def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
         missing.append("use_pallas=False (portable traversal)")
     if config.gbuffer == "raster":
         missing.append("gbuffer='raster' (tile rasterizer)")
-    if not config.fused_shadow:
-        missing.append("fused_shadow=False (unfused shadow pass)")
     if not config.inkernel_attrs or config.seeded_gbuffer:
         missing.append("the shade-table G-buffer (inkernel_attrs=False or "
                        "seeded_gbuffer=True)")
@@ -127,19 +143,19 @@ def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
         missing.append("textured meshes")
     if not lights:
         missing.append("an empty light set")
-    elif _fused_on(config):
+    else:
         route = frame_route(config, lights)
-        if route is None:
-            missing.append(
-                f"{len(lights)} lights ({_kinds(lights)}) at spp "
-                f"{config.spp}: no fused kernel takes this light set; the "
-                f"lights after light 0 need the unfused shadow pass")
-        elif route == "fusedN" and len(lights) > MAX_MASK_LIGHTS:
+        if route == "fusedN" and len(lights) > MAX_MASK_LIGHTS:
             missing.append(f"{len(lights)} lights (the occlusion mask holds "
                            f"{MAX_MASK_LIGHTS})")
         elif route == "fusedSM" and len(lights) - 1 > MAX_MASK_LIGHTS:
             missing.append(f"{len(lights) - 1} extra lights (the occlusion "
                            f"mask holds {MAX_MASK_LIGHTS})")
+        if config.sort_rays and any(
+                not _soft(lights[i], config.spp)
+                for i in unfused_lights(route, len(lights))):
+            missing.append("sort_rays=True with a hard light in the unfused "
+                           "shadow pass (passes/sort.py)")
     if cache_dir is not None:
         missing.append("cache_dir (content-addressed BVH cache)")
     if missing:
@@ -169,10 +185,6 @@ def frame_seed(seed: int, frame_index: int) -> int:
 def _gb_accel(bvh: WideBVH, cam: Camera, cfg: RenderConfig) -> WideBVH:
     return order_children_for_point(bvh, cam.position) \
         if cfg.order_children else bvh
-
-
-def _cone_cos(light: Light) -> float:
-    return float(np.cos(np.float32(light.angular_radius)))
 
 
 def _visibility(valid: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
@@ -206,7 +218,7 @@ def gbuffer_shadow_fused_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
         vis = 1.0 - cnt.to(torch.float32) / cfg.spp
     elif soft:
         ch, cnt, counts = trace_closest_soft_shadow(
-            gb_accel, origins, dirs, light.direction, _cone_cos(light),
+            gb_accel, origins, dirs, light.direction, cone_cos(light),
             cfg.spp, seed, cfg.shadow_bias, attr_tables=attr_tables)
         vis = 1.0 - cnt.to(torch.float32) / cfg.spp
     else:
@@ -251,7 +263,7 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
     gb_accel = _gb_accel(bvh, cam, cfg)
     l0 = lights[0]
     light0 = ("disk", l0.position, l0.radius) if l0.kind == LIGHT_POINT \
-        else ("cone", l0.direction, _cone_cos(l0))
+        else ("cone", l0.direction, cone_cos(l0))
     origins, dirs = generate_rays(cam, cfg.width, cfg.height, dev)
     ch, cnt, mask, counts = trace_closest_soft_multi_shadow(
         gb_accel, origins, dirs, light0, [l.direction for l in lights[1:]],
@@ -263,12 +275,52 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
     return gbuf, vises, counts
 
 
+def gbuffer_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
+                       cfg: RenderConfig, attr_tables):
+    """The unfused frame's G-buffer: the attribute-tracked closest hit on
+    the camera-ordered accel. Returns (gbuf, walk counts)."""
+    return gbuffer_attr_pass(_gb_accel(bvh, cam, cfg), attr_tables, mesh,
+                             cam, cfg.width, cfg.height)
+
+
+def shadow_production(bvh: WideBVH, gbuf, light: Light, seed: int,
+                      light_index: int, cfg: RenderConfig):
+    """One light's unfused shadow pass on the accel as built (``tpurt``
+    measured camera or light ordering as no gain for the any-hit walks).
+    The tracers are ``tpurt``'s ``make_tracers`` any-hit half and its
+    ``make_soft_tracer`` / ``make_point_soft_tracer`` without their gates:
+    ``check_slice`` refuses the configs they would gate off (no portable
+    traversal, no ray sorting), and the port's generator is real on every
+    device. Returns (visibility, walk counts)."""
+    return shadow_pass(
+        functools.partial(trace_any, bvh), gbuf, light, cfg.spp, seed,
+        light_index, cfg.shadow_bias,
+        scene_bounds=(bvh.root_min, bvh.root_max),
+        trace_soft=functools.partial(trace_any_soft, bvh),
+        trace_soft_point=functools.partial(trace_any_point_soft, bvh))
+
+
+def composite_lights(gbuf, shadows, lights: Sequence[Light],
+                     cfg: RenderConfig) -> torch.Tensor:
+    """Sum of per-light direct terms + one ambient term."""
+    img = composite_pass(gbuf, shadows[0], lights[0], cfg.ambient,
+                         cfg.background)
+    valid = gbuf["valid"][..., None]
+    for li in range(1, len(lights)):
+        extra = composite_pass(gbuf, shadows[li], lights[li], 0.0,
+                               (0.0, 0.0, 0.0))
+        img = torch.where(valid, img + extra, img)
+    return img
+
+
 def render_frame_fn(bvh: WideBVH, mesh: Mesh, cam: Camera,
                     lights: Sequence[Light], cfg: RenderConfig,
                     attr_tables, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """One fused frame: G-buffer + every light's shadows from ONE kernel
-    launch -> composite (sum of per-light direct terms + one ambient
-    term). ``seed``: the frame's generator key (``frame_seed``)."""
+    """One frame: G-buffer + the fused route's shadows -> the unfused
+    shadow pass for every other light -> composite (sum of per-light
+    direct terms + one ambient term). ``seed``: the frame's generator key
+    (``frame_seed``); light i samples with the key (seed, i).
+    ``walk_counts`` sums the walk counters of every launch of the frame."""
     route = frame_route(cfg, lights)
     if route == "fusedN":
         gbuf, shadows, counts = gbuffer_multi_shadow_fused_production(
@@ -281,18 +333,14 @@ def render_frame_fn(bvh: WideBVH, mesh: Mesh, cam: Camera,
             bvh, mesh, cam, cfg, lights[0], attr_tables, seed)
         shadows = [vis0]
     else:
-        raise NotImplementedError(
-            f"no fused kernel takes lights ({_kinds(lights)}) at spp "
-            f"{cfg.spp}")
-    img = composite_pass(gbuf, shadows[0], lights[0], cfg.ambient,
-                         cfg.background)
-    valid = gbuf["valid"][..., None]
-    for li in range(1, len(lights)):
-        extra = composite_pass(gbuf, shadows[li], lights[li], 0.0,
-                               (0.0, 0.0, 0.0))
-        img = torch.where(valid, img + extra, img)
-    return {"image": img, "shadow": torch.stack(shadows), **gbuf,
-            "walk_counts": counts}
+        gbuf, counts = gbuffer_production(bvh, mesh, cam, cfg, attr_tables)
+        shadows = []
+    for li in unfused_lights(route, len(lights)):
+        vis, c = shadow_production(bvh, gbuf, lights[li], seed, li, cfg)
+        shadows.append(vis)
+        counts = counts + c
+    return {"image": composite_lights(gbuf, shadows, lights, cfg),
+            "shadow": torch.stack(shadows), **gbuf, "walk_counts": counts}
 
 
 def _sync(device: torch.device) -> None:

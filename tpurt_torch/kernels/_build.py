@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernel library.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` (which include
-``csrc/walk.cuh``) into one shared library with a plain C interface, bound
-with ctypes. The build runs at first use, never at import, into
+Every ``csrc/*.cu`` (each includes ``csrc/walk.cuh``) is compiled by its
+own ``nvcc``, all started together, and one more ``nvcc`` links the
+objects into one shared library with a plain C interface, bound with
+ctypes. The build runs at first use, never at import, into
 ``build/tpurt_torch/`` at the repository root, and is keyed by a hash of
 the sources, the headers and the flags, so an edited source rebuilds.
 """
@@ -63,17 +64,31 @@ def library_path() -> str:
 
 
 def _build(path: str) -> None:
-    """Compile and link every source in one nvcc call; raises with the
-    compiler's output on a failure."""
+    """Compile every source with its own nvcc, all at once, then link them
+    into one library; raises with the compiler's output on a failure."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     srcs = [p for p in _inputs() if p.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *srcs],
-                          capture_output=True, text=True, timeout=600)
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, o in zip(srcs, objs)]
+    logs = [proc.communicate(timeout=600)[0] for proc in procs]
+    failed = any(proc.returncode != 0 for proc in procs)
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True,
+                              timeout=600)
+        logs.append(link.stdout + link.stderr)
+        failed = link.returncode != 0
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    BuildInfo.log = "".join(logs)
+    if failed:
         raise RuntimeError(f"nvcc failed:\n{BuildInfo.log}")
     os.replace(tmp, path)
 
@@ -89,9 +104,9 @@ def load_library() -> ctypes.CDLL:
     BuildInfo.path = path
     lib = ctypes.CDLL(path)
     i = ctypes.c_int
-    lib.tpurt_fused_shadows_launch.restype = i
-    lib.tpurt_fused_shadows_launch.argtypes = [i, ctypes.c_void_p,
-                                               ctypes.c_void_p]
+    for name in ("tpurt_fused_shadows_launch", "tpurt_shadow_rays_launch"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [i, ctypes.c_void_p, ctypes.c_void_p]
     for name in ("tpurt_stack_capacity", "tpurt_params_size"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []

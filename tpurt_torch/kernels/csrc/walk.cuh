@@ -1,15 +1,18 @@
-// Device walks over an 8-wide BVH, shared by the modes of the fused
-// kernel (fused_shadows.cu): the slab and Moller-Trumbore
-// tests, the attribute-tracked closest walk (tpurt/kernels/traverse.py
+// Device walks over an 8-wide BVH, shared by the kernels of
+// fused_shadows.cu and shadow_rays.cu: the slab and Moller-Trumbore tests,
+// the attribute-tracked closest walk (tpurt/kernels/traverse.py
 // _w8_closest_walk_attr), the any-hit walk (_w8_anyhit_walk), the biased
 // shadow origin (_biased_hit_origin), the scene-exit cap
-// (_scene_exit_cap), and the counter-based generator and sampling helpers
-// of the soft kernels (_uniform01, _sincos_2pi, _lane_axis_onb).
+// (_scene_exit_cap), the counter-based generator and the cone and disk
+// samplers of the soft kernels (_uniform01, _sincos_2pi, _lane_axis_onb),
+// and the launch arguments both files take (Params).
 //
 // One thread walks one ray with its own stack in local memory. Every
 // function evaluates in the order of the plain PyTorch version
 // (tpurt_torch/kernels/traverse.py, sampling.py); with --fmad=false no
-// product is contracted, so the two agree bit for bit.
+// product is contracted, so the two agree bit for bit. Every function here
+// is __forceinline__, so the two translation units of one library never
+// define the same symbol.
 
 #pragma once
 
@@ -332,3 +335,104 @@ __device__ __forceinline__ void sincos_2pi(float t, float& s, float& c) {
   s = 2.0f * s1 * c1;
   c = 1.0f - 2.0f * s1 * s1;
 }
+
+// Word 0 and 1 of the generator as u1, u2 in [0, 1); zero_stream gives 0.
+__device__ __forceinline__ void sample_u1u2(uint32_t seed, uint32_t light,
+                                            int zero_stream, uint32_t ray,
+                                            uint32_t sample, float& u1,
+                                            float& u2) {
+  u1 = u2 = 0.0f;
+  if (zero_stream) return;
+  uint2 bits = philox_u1u2(seed, light, ray, sample);
+  u1 = bits_to_uniform(bits.x);
+  u2 = bits_to_uniform(bits.y);
+}
+
+// One cone sample around the axis c[0..2] (basis t0 = c[3..5], t1 =
+// c[6..8]): direction, inverse, and t capped at the root-box exit rb; the
+// direction is renormalised (traverse.py :941-945).
+__device__ __forceinline__ float cone_sample(const float* c, float cone_cos,
+                                             float u1, float u2, bool hitm,
+                                             const float* rb, Ray& s) {
+  float cos_t = 1.0f - u1 * (1.0f - cone_cos);
+  float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+  float sphi, cphi;
+  sincos_2pi(u2, sphi, cphi);
+  float sc = sin_t * cphi;
+  float ss = sin_t * sphi;
+  float dx = c[0] * cos_t + c[3] * sc + c[6] * ss;
+  float dy = c[1] * cos_t + c[4] * sc + c[7] * ss;
+  float dz = c[2] * cos_t + c[5] * sc + c[8] * ss;
+  float srn = 1.0f / sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-20f));
+  s.dx = dx * srn;
+  s.dy = dy * srn;
+  s.dz = dz * srn;
+  set_inverse(s);
+  return scene_exit_cap(hitm, s, rb);
+}
+
+// Per-ray axis toward a disk light's centre and its Duff basis.
+struct Disk {
+  float ex, ey, ez, t0x, t0y, t0z, t1x, t1y, t1z, radius;
+};
+
+__device__ __forceinline__ Disk disk_basis(const float* lp, float radius,
+                                           const Ray& s) {
+  Disk b;
+  b.ex = lp[0] - s.ox;
+  b.ey = lp[1] - s.oy;
+  b.ez = lp[2] - s.oz;
+  b.radius = radius;
+  float arn = 1.0f / sqrtf(fmaxf(b.ex * b.ex + b.ey * b.ey + b.ez * b.ez,
+                                 1e-24f));
+  float ax = b.ex * arn, ay = b.ey * arn, az = b.ez * arn;
+  float sgn = az >= 0.0f ? 1.0f : -1.0f;
+  float aa = -1.0f / (sgn + az);
+  float bb = ax * ay * aa;
+  b.t0x = 1.0f + sgn * ax * ax * aa;
+  b.t0y = sgn * bb;
+  b.t0z = -sgn * ax;
+  b.t1x = bb;
+  b.t1y = sgn + ay * ay * aa;
+  b.t1z = -ay;
+  return b;
+}
+
+// One jittered point of the disk: r = sqrt(u1) x radius, phi from u2; t
+// capped at the distance x (1 - 1e-4) (traverse.py :1011-1017).
+__device__ __forceinline__ float disk_sample(const Disk& b, float u1,
+                                             float u2, bool hitm, Ray& s) {
+  float r = sqrtf(u1) * b.radius;
+  float sphi, cphi;
+  sincos_2pi(u2, sphi, cphi);
+  float rc = r * cphi;
+  float rs = r * sphi;
+  return toward(hitm, b.ex + b.t0x * rc + b.t1x * rs,
+                b.ey + b.t0y * rc + b.t1y * rs,
+                b.ez + b.t0z * rc + b.t1z * rs, s);
+}
+
+// ---------------------------------------------------------------------------
+// One launch's arguments, for every mode of both kernel files;
+// tpurt_torch/kernels/traverse.py Params mirrors it field for field (the
+// loader checks the sizes agree).
+// ---------------------------------------------------------------------------
+
+struct Params {
+  const float* nodes;
+  const float* tris;
+  const float* at0;
+  const float* at1;
+  const float* rays;  // f32[PB,10,8,128]; ANY_SOFT, ANY_PSOFT: f32[PB,4,8,128]
+  const float* scal;
+  float* out;         // fused modes and CLOSEST
+  int* cnt_out;       // SOFT, PSOFT, SOFT_MULTI, ANY_SOFT, ANY_PSOFT
+  int* mask_out;      // HARD, MULTI, SOFT_MULTI, ANY
+  int* counts;
+  int num_rays, k, max_iters, stack_size;
+  float t_min;
+  int nlights, point_mask;  // HARD (bit 0: point light), MULTI
+  int spp, zero_stream, disk, n_extra;  // sampling modes
+  uint32_t seed;
+  uint32_t light;  // the generator's second key word (the light index)
+};

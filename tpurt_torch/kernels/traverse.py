@@ -1,5 +1,5 @@
-"""The fused closest-hit + shadow traversals over the 8-wide BVH
-(counterparts of ``tpurt/kernels/traverse.py``):
+"""The traversals over the 8-wide BVH (counterparts of
+``tpurt/kernels/traverse.py``). The fused closest-hit + shadow kernels:
 
 - ``trace_closest_shadow`` -> ``_closest_shadow_kernel_w8_b``: light 0's
   hard shadow;
@@ -14,9 +14,19 @@
   ``_closest_soft_multi_shadow_kernel_w8_b``: soft light 0 (cone or disk)
   -> counts, hard directional extras -> bitmask.
 
-All five are modes of one CUDA kernel template (``csrc/fused_shadows.cu``).
-Each function has three pieces that share one contract on the packed ray
-block:
+The unfused frame's kernels:
+
+- ``trace_closest_attrs`` -> ``_closest_attr_kernel_w8_b``: the closest
+  hit and its attribute channels alone;
+- ``trace_any`` -> ``_any_hit_kernel_w8_b``: any hit of given rays;
+- ``trace_any_soft`` -> ``_any_hit_kernel_w8_soft`` and
+  ``trace_any_point_soft`` -> ``_any_hit_kernel_w8_psoft``: spp cone or
+  disk samples from given biased origins, counts.
+
+The first five and ``trace_closest_attrs`` are modes of one CUDA kernel
+template (``csrc/fused_shadows.cu``), the three shadow-ray kernels modes of
+another (``csrc/shadow_rays.cu``). Each function has three pieces that
+share one contract on the packed ray block:
 
 - ``*_cuda``: the hand-written CUDA kernel in its mode, one thread per
   ray. It takes CUDA tensors only and launches or raises; ``.launches``
@@ -34,9 +44,10 @@ counter-based generator of ``sampling.py``.
 
 The layouts at the kernel boundary are the JAX package's: nodes
 f32[Nw,128], leaf rows f32[L,128], attribute rows f32[nblk,128], rays
-f32[PB,10,8,128] (o, d, clamped 1/d, t_max), the float32 scalar blocks of
-the JAX wrappers, outputs f32[PB,15,8,128] attribute channels and
-i32[PB,8,128] occlusion, mask or counts.
+f32[PB,10,8,128] (o, d, clamped 1/d, t_max), soft-shadow origins
+f32[PB,4,8,128] (o, valid flag), the float32 scalar blocks of the JAX
+wrappers, outputs f32[PB,15,8,128] attribute channels and i32[PB,8,128]
+occlusion, mask or counts.
 """
 
 from __future__ import annotations
@@ -114,21 +125,32 @@ def from_packets(p: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return t.reshape(ht * TILE, wt * TILE)[:h, :w]
 
 
+def _flat_packets(x: torch.Tensor, npad: int, fill: float) -> torch.Tensor:
+    """f32[N] -> f32[npad / 1024, 8, 128], padded with ``fill``."""
+    return F.pad(x, (0, npad - x.shape[0]), value=fill).reshape(-1, 8, 128)
+
+
 def _ray_packets(origins, dirs, t_max):
-    """(H, W, 3) rays -> seven (P, 8, 128) component tensors."""
-    if origins.ndim != 3:
-        raise NotImplementedError("flat ray sets are not ported; pass (H, W, 3)")
-    h, w = origins.shape[:2]
-    comps = [to_packets(origins[..., c]) for c in range(3)]
-    comps += [to_packets(dirs[..., c], fill=1.0) for c in range(3)]
+    """(H, W, 3) rays -> seven (P, 8, 128) component tensors in 32x32 pixel
+    tiles, or (N, 3) rays in runs of 1024."""
     tm = torch.as_tensor(t_max, dtype=torch.float32, device=origins.device)
-    tm = to_packets(tm.expand(h, w), fill=-1.0)
-    return comps, tm, ("img", h, w)
+    if origins.ndim == 3:
+        h, w = origins.shape[:2]
+        comps = [to_packets(origins[..., c]) for c in range(3)]
+        comps += [to_packets(dirs[..., c], fill=1.0) for c in range(3)]
+        return comps, to_packets(tm.expand(h, w), fill=-1.0), ("img", h, w)
+    n = origins.shape[0]
+    npad = -(-n // LANES) * LANES
+    comps = [_flat_packets(origins[:, c], npad, 0.0) for c in range(3)]
+    comps += [_flat_packets(dirs[:, c], npad, 1.0) for c in range(3)]
+    return comps, _flat_packets(tm.expand(n), npad, -1.0), ("flat", n, npad)
 
 
 def _unpack(res, meta):
-    _, h, w = meta
-    return from_packets(res, h, w)
+    kind, a, b = meta
+    if kind == "img":
+        return from_packets(res, a, b)
+    return res.reshape(-1)[:a]
 
 
 def _ray_packets_packed(origins, dirs, t_max, batch: int):
@@ -145,6 +167,31 @@ def _ray_packets_packed(origins, dirs, t_max, batch: int):
                           device=rays.device)
         pad[:, 9] = -1.0
         rays = torch.cat([rays, pad])
+    return rays.contiguous(), p, meta
+
+
+def _pack_soft_origins(origins, valid, batch: int):
+    """Biased shadow origins and valid flags -> ONE f32[PB, 4, 8, 128]
+    block (o.xyz, valid as 1.0 / 0.0), padded to a multiple of ``batch``
+    with invalid packets. origins (H, W, 3) with valid (H, W), or (N, 3)
+    with (N,)."""
+    v = valid.to(torch.float32)
+    if origins.ndim == 3:
+        h, w = origins.shape[:2]
+        comps = [to_packets(origins[..., c]) for c in range(3)]
+        comps.append(to_packets(v))
+        meta = ("img", h, w)
+    else:
+        n = origins.shape[0]
+        npad = -(-n // LANES) * LANES
+        comps = [_flat_packets(origins[:, c], npad, 0.0) for c in range(3)]
+        comps.append(_flat_packets(v, npad, 0.0))
+        meta = ("flat", n, npad)
+    rays = torch.stack(comps, dim=1)                   # (P, 4, 8, 128)
+    p = rays.shape[0]
+    pb = -(-p // batch) * batch
+    if pb != p:
+        rays = torch.cat([rays, rays.new_zeros((pb - p, 4, 8, 128))])
     return rays.contiguous(), p, meta
 
 
@@ -476,25 +523,64 @@ def _disk_ray(u1, u2, e0, basis, radius, hitm):
                     e0[2] + t0z * rc + t1z * rs), hitm)
 
 
-class _Phase1:
-    """The shared phase 1 of every fused plain version: the attribute-
-    tracked closest walk over the packed rays, its 15 output channels,
-    and the walk counters that phase 2 adds to."""
+def _components(rays) -> list:
+    """A packed f32[PB, C, 8, 128] block -> its C components, each f32[N]
+    in (packet, lane) order: ray i of the block is element i."""
+    pb, c = rays.shape[:2]
+    return list(rays.reshape(pb, c, LANES).permute(1, 0, 2).reshape(c, -1))
+
+
+class _Walks:
+    """Any-hit walks of n rays over one accel, from t_min, summing every
+    walk's dropped pushes and capped walks."""
+
+    def __init__(self, nodes, tris, k, n, t_min, max_iters, stack_size,
+                 stats):
+        self.args = (nodes, tris, k)
+        self.n = n
+        self.t_min = t_min
+        self.walk_kw = dict(max_iters=max_iters, stack_size=stack_size,
+                            stats=stats)
+        zero = torch.zeros((), dtype=torch.int32, device=nodes.device)
+        self.ovf, self.cap = zero, zero
+
+    def occluded(self, so, ray) -> torch.Tensor:
+        """One any-hit walk per ray; adds to the counters."""
+        sd, sinv, stmax = ray
+        nodes, tris, k = self.args
+        occ, ovf, cap = _anyhit_walk(nodes, tris, k, so, sd, sinv, stmax,
+                                     self.t_min, **self.walk_kw)
+        self.ovf = self.ovf + ovf
+        self.cap = self.cap + cap
+        return occ
+
+    def image(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-ray i32 values -> the kernels' (PB, 8, 128) output block."""
+        return x.to(torch.int32).reshape(-1, 8, 128)
+
+    def counts(self) -> torch.Tensor:
+        return torch.stack([self.ovf, self.cap]).to(torch.int32)
+
+
+class _Phase1(_Walks):
+    """The shared phase 1 of every closest-hit plain version: the
+    attribute-tracked closest walk over the packed rays and its 15 output
+    channels; the shadow walks of phase 2 start at t = 0 and add to its
+    walk counters."""
 
     def __init__(self, rays, nodes, tris, at0, at1, k, t_min, max_iters,
                  stack_size, stats):
         pb = rays.shape[0]
-        comp = rays.reshape(pb, 10, LANES).permute(1, 0, 2).reshape(10, -1)
+        comp = _components(rays)
         self.o = (comp[0], comp[1], comp[2])
         self.d = (comp[3], comp[4], comp[5])
         inv, tmax = (comp[6], comp[7], comp[8]), comp[9]
-        self.args = (nodes, tris, k)
-        self.walk_kw = dict(max_iters=max_iters, stack_size=stack_size,
-                            stats=stats)
-        best_t, best_i, attr, ovf, cap = _closest_walk(
+        n = tmax.shape[0]
+        super().__init__(nodes, tris, k, n, 0.0, max_iters, stack_size,
+                         stats)
+        best_t, best_i, attr, self.ovf, self.cap = _closest_walk(
             nodes, tris, at0, at1, k, self.o, self.d, inv, tmax, t_min,
             max_iters, stack_size, stats)
-        n = tmax.shape[0]
         zero = torch.zeros(n, dtype=torch.float32, device=tmax.device)
         chans = [torch.where(best_i >= 0, best_t, _BIG),
                  best_i.to(torch.float32), attr[:, 0], attr[:, 1], zero,
@@ -502,32 +588,12 @@ class _Phase1:
                  attr[:, 6], attr[:, 7], attr[:, 8], attr[:, 9]]
         self.out = torch.stack(chans).reshape(ATTR_CH, pb, 8, 128).permute(
             1, 0, 2, 3).contiguous()
-        self.pb = pb
-        self.n = n
         self.best_t = best_t
         self.hitm = best_i >= 0
         self.gn = (attr[:, 7], attr[:, 8], attr[:, 9])
-        self.ovf, self.cap = ovf, cap
 
     def origin(self, bias):
         return _biased_origin(bias, self.o, self.d, self.best_t, self.gn)
-
-    def occluded(self, so, ray) -> torch.Tensor:
-        """One any-hit walk from the biased origins; adds to the counters."""
-        sd, sinv, stmax = ray
-        nodes, tris, k = self.args
-        occ, ovf, cap = _anyhit_walk(nodes, tris, k, so, sd, sinv, stmax,
-                                     0.0, **self.walk_kw)
-        self.ovf = self.ovf + ovf
-        self.cap = self.cap + cap
-        return occ
-
-    def image(self, x: torch.Tensor) -> torch.Tensor:
-        """Per-ray i32 values -> the kernels' (PB, 8, 128) output block."""
-        return x.to(torch.int32).reshape(self.pb, 8, 128)
-
-    def counts(self) -> torch.Tensor:
-        return torch.stack([self.ovf, self.cap]).to(torch.int32)
 
 
 def closest_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
@@ -596,13 +662,14 @@ def closest_multi_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
     return ph.out, ph.image(mask), ph.counts()
 
 
-def _sampled_counts(ph, so, spp, seed, zero_stream, make_ray):
-    """Occlusion counts in [0, spp] over spp samples of light 0."""
-    ray_index = torch.arange(ph.n, device=so[0].device)
-    cnt = torch.zeros(ph.n, dtype=torch.int32, device=so[0].device)
+def _sampled_counts(walks, so, spp, seed, zero_stream, make_ray,
+                    light: int = 0):
+    """Occlusion counts in [0, spp] over spp samples of ``light``."""
+    ray_index = torch.arange(walks.n, device=so[0].device)
+    cnt = torch.zeros(walks.n, dtype=torch.int32, device=so[0].device)
     for s in range(spp):
-        u1, u2 = sample_uniforms(seed, 0, ray_index, s, zero_stream)
-        cnt += ph.occluded(so, make_ray(u1, u2)).to(torch.int32)
+        u1, u2 = sample_uniforms(seed, light, ray_index, s, zero_stream)
+        cnt += walks.occluded(so, make_ray(u1, u2)).to(torch.int32)
     return cnt
 
 
@@ -694,6 +761,69 @@ def closest_soft_multi_shadow_reference(rays, nodes, tris, at0, at1, scal,
     return ph.out, ph.image(cnt), ph.image(mask), ph.counts()
 
 
+def closest_attrs_reference(rays, nodes, tris, at0, at1, *, leaf_size: int,
+                            t_min: float, max_iters: int, stack_size: int,
+                            stats=None):
+    """Plain version of ``_closest_attr_kernel_w8_b``: phase 1 alone.
+    rays f32[PB,10,8,128] -> (out f32[PB,15,8,128], counts i32[2])."""
+    ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
+                 stack_size, stats)
+    return ph.out, ph.counts()
+
+
+def any_reference(rays, nodes, tris, *, leaf_size: int, t_min: float,
+                  max_iters: int, stack_size: int, stats=None):
+    """Plain version of ``_any_hit_kernel_w8_b``: any hit in (t_min,
+    t_max) of each ray of the f32[PB,10,8,128] block; a ray with t_max <=
+    t_min is inactive. -> (occ i32[PB,8,128], counts i32[2])."""
+    c = _components(rays)
+    w = _Walks(nodes, tris, leaf_size, c[9].shape[0], t_min, max_iters,
+               stack_size, stats)
+    occ = w.occluded((c[0], c[1], c[2]),
+                     ((c[3], c[4], c[5]), (c[6], c[7], c[8]), c[9]))
+    return w.image(occ), w.counts()
+
+
+def _soft_walks(rays, nodes, tris, leaf_size, t_min, max_iters, stack_size,
+                stats):
+    """The origins block f32[PB,4,8,128] -> (walks, origins, valid)."""
+    c = _components(rays)
+    w = _Walks(nodes, tris, leaf_size, c[0].shape[0], t_min, max_iters,
+               stack_size, stats)
+    return w, (c[0], c[1], c[2]), c[3] > 0.0
+
+
+def any_soft_reference(rays, nodes, tris, scal, *, leaf_size: int, spp: int,
+                       seed: int, light: int, zero_stream: bool,
+                       t_min: float, max_iters: int, stack_size: int,
+                       stats=None):
+    """Plain version of ``_any_hit_kernel_w8_soft``: spp cone samples from
+    each biased origin of the f32[PB,4,8,128] block, drawn with the key
+    (seed, light). scal f32[16]: axis(3), basis t0(3), t1(3), cone_cos,
+    root min(3), root max(3). Invalid rays walk with t = -BIG. -> (counts
+    i32[PB,8,128] in [0, spp], walk counts i32[2])."""
+    w, so, valid = _soft_walks(rays, nodes, tris, leaf_size, t_min,
+                               max_iters, stack_size, stats)
+    sample = _cone_sampler(scal, 0, scal[10:13], scal[13:16], so, valid)
+    cnt = _sampled_counts(w, so, spp, seed, zero_stream, sample, light)
+    return w.image(cnt), w.counts()
+
+
+def any_point_soft_reference(rays, nodes, tris, scal, *, leaf_size: int,
+                             spp: int, seed: int, light: int,
+                             zero_stream: bool, t_min: float,
+                             max_iters: int, stack_size: int, stats=None):
+    """Plain version of ``_any_hit_kernel_w8_psoft``: spp jittered-disk
+    samples on a point light from each biased origin, in a per-ray Duff
+    basis around the axis to the light's centre. scal f32[4]: position(3),
+    radius. -> (counts, walk counts)."""
+    w, so, valid = _soft_walks(rays, nodes, tris, leaf_size, t_min,
+                               max_iters, stack_size, stats)
+    sample = _disk_sampler(scal, 0, so, valid)
+    cnt = _sampled_counts(w, so, spp, seed, zero_stream, sample, light)
+    return w.image(cnt), w.counts()
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
@@ -711,8 +841,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 class Params(ctypes.Structure):
-    """One launch's arguments: ``Params`` of csrc/fused_shadows.cu, field
-    for field (the loader checks the two sizes agree)."""
+    """One launch's arguments: ``Params`` of csrc/walk.cuh, field for field
+    (the loader checks the two sizes agree)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "nodes", "tris", "at0", "at1", "rays", "scal", "out", "cnt_out",
         "mask_out", "counts")]
@@ -721,20 +851,28 @@ class Params(ctypes.Structure):
         + [("t_min", ctypes.c_float)]
         + [(n, ctypes.c_int) for n in ("nlights", "point_mask", "spp",
                                        "zero_stream", "disk", "n_extra")]
-        + [("seed", ctypes.c_uint32)])
+        + [(n, ctypes.c_uint32) for n in ("seed", "light")])
 
 
-# The kernel template's modes (csrc/fused_shadows.cu ``Mode``).
-HARD, MULTI, SOFT, PSOFT, SOFT_MULTI = range(5)
+# The kernel templates' modes: csrc/fused_shadows.cu ``Mode`` (closest hit,
+# alone or with shadows) and csrc/shadow_rays.cu ``Mode`` (shadow rays).
+HARD, MULTI, SOFT, PSOFT, SOFT_MULTI, CLOSEST = range(6)
+ANY, ANY_SOFT, ANY_PSOFT = range(3)
+_FUSED = "tpurt_fused_shadows_launch"
+_SHADOW_RAYS = "tpurt_shadow_rays_launch"
 
 
-def _launch(mode: int, outputs, rays, nodes, tris, at0, at1, scal, *,
-            leaf_size: int, t_min: float, max_iters: int, stack_size: int,
-            scal_len: int, **extra):
-    """Check a fused launch's inputs, allocate its outputs, launch ``mode``
-    on the current stream. outputs: the i32[PB,8,128] blocks to return,
-    a tuple of "cnt_out" / "mask_out". extra: the mode's Params fields.
-    -> (out, *outputs, counts); raises on a refused launch."""
+def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
+            ray_comps: int, attrs, leaf_size: int, t_min: float,
+            max_iters: int, stack_size: int, scal_len: int, **extra):
+    """Check a launch's inputs, allocate its outputs, launch ``mode`` of the
+    C entry point ``entry`` on the current stream. rays: the
+    f32[PB,ray_comps,8,128] block; attrs: the attribute tables (at0, at1)
+    of the closest walk, which also returns out f32[PB,15,8,128], or None;
+    scal: f32[scal_len], or None when scal_len is 0; outputs: the
+    i32[PB,8,128] blocks to return, a tuple of "cnt_out" / "mask_out";
+    extra: the mode's Params fields. -> ([out], *outputs, counts); raises on
+    a refused launch."""
     from ._build import load_library
     dev = rays.device
     if dev.type != "cuda":
@@ -746,53 +884,68 @@ def _launch(mode: int, outputs, rays, nodes, tris, at0, at1, scal, *,
         raise ValueError(f"stack_size {stack_size} outside 1..{STACK_CAPACITY}")
     pb = rays.shape[0]
     nl = tris.shape[0]
-    _check(rays, "rays", torch.float32, (pb, 10, 8, 128), dev)
+    _check(rays, "rays", torch.float32, (pb, ray_comps, 8, 128), dev)
     _check(nodes, "nodes", torch.float32, (nodes.shape[0], 128), dev)
     _check(tris, "tris", torch.float32, (nl, 128), dev)
-    _check(at0, "at0", torch.float32, (nl, 128), dev)
-    _check(at1, "at1", torch.float32, ((nl if k > 8 else 1), 128), dev)
-    _check(scal, "scal", torch.float32, (scal_len,), dev)
+    ptrs, res = {}, []
+    if attrs is not None:
+        at0, at1 = attrs
+        _check(at0, "at0", torch.float32, (nl, 128), dev)
+        _check(at1, "at1", torch.float32, ((nl if k > 8 else 1), 128), dev)
+        res.append(torch.empty((pb, ATTR_CH, 8, 128), dtype=torch.float32,
+                               device=dev))
+        ptrs.update(at0=at0.data_ptr(), at1=at1.data_ptr(),
+                    out=res[0].data_ptr())
+    if scal_len:
+        _check(scal, "scal", torch.float32, (scal_len,), dev)
+        ptrs["scal"] = scal.data_ptr()
     lib = load_library()
-    out = torch.empty((pb, ATTR_CH, 8, 128), dtype=torch.float32, device=dev)
     blocks = [torch.empty((pb, 8, 128), dtype=torch.int32, device=dev)
               for _ in outputs]
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     params = Params(
-        nodes=nodes.data_ptr(), tris=tris.data_ptr(), at0=at0.data_ptr(),
-        at1=at1.data_ptr(), rays=rays.data_ptr(), scal=scal.data_ptr(),
-        out=out.data_ptr(), counts=counts.data_ptr(), num_rays=pb * LANES,
-        k=k, max_iters=int(max_iters), stack_size=int(stack_size),
-        t_min=float(t_min),
+        nodes=nodes.data_ptr(), tris=tris.data_ptr(), rays=rays.data_ptr(),
+        counts=counts.data_ptr(), num_rays=pb * LANES, k=k,
+        max_iters=int(max_iters), stack_size=int(stack_size),
+        t_min=float(t_min), **ptrs,
         **{name: b.data_ptr() for name, b in zip(outputs, blocks)}, **extra)
-    err = lib.tpurt_fused_shadows_launch(
+    err = getattr(lib, entry)(
         mode, ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused kernel mode {mode} launch failed: CUDA "
-                           f"error {err}")
-    return (out, *blocks, counts)
+        raise RuntimeError(f"{entry} mode {mode} launch failed: CUDA error "
+                           f"{err}")
+    return (*res, *blocks, counts)
 
 
-def _sampling(spp: int, seed: int, zero_stream: bool) -> dict:
+def _fused(mode: int, outputs, rays, nodes, tris, at0, at1, scal, **kw):
+    """A launch of csrc/fused_shadows.cu: the closest walk's modes."""
+    return _launch(_FUSED, mode, outputs, rays, nodes, tris, scal,
+                   ray_comps=10, attrs=(at0, at1), **kw)
+
+
+def _sampling(spp: int, seed: int, zero_stream: bool,
+              light: int = 0) -> dict:
     """The sampling modes' Params fields."""
     if spp < 1:
         raise ValueError(f"spp {spp} < 1")
     return dict(spp=int(spp), seed=int(seed) & 0xFFFFFFFF,
-                zero_stream=int(zero_stream))
+                zero_stream=int(zero_stream), light=int(light) & 0xFFFFFFFF)
 
 
-# Each *_cuda launches one mode of csrc/fused_shadows.cu, with the contract
-# of its *_reference; it takes CUDA tensors only, builds the kernel library
-# on first use, raises on anything the kernel does not take and on a
-# refused launch, and counts its launches in ``.launches``.
+# Each *_cuda launches one mode of csrc/fused_shadows.cu or
+# csrc/shadow_rays.cu, with the contract of its *_reference; it takes CUDA
+# tensors only, builds the kernel library on first use, raises on anything
+# the kernel does not take and on a refused launch, and counts its launches
+# in ``.launches``.
 
 def closest_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
                         leaf_size: int, point: bool, t_min: float,
                         max_iters: int, stack_size: int):
     """Mode HARD: light 0's hard shadow."""
-    res = _launch(HARD, ("mask_out",), rays, nodes, tris, at0, at1, scal,
-                  leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
-                  stack_size=stack_size, scal_len=4 if point else 13,
-                  nlights=1, point_mask=int(bool(point)))
+    res = _fused(HARD, ("mask_out",), rays, nodes, tris, at0, at1, scal,
+                 leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
+                 stack_size=stack_size, scal_len=4 if point else 13,
+                 nlights=1, point_mask=int(bool(point)))
     closest_shadow_cuda.launches += 1
     return res
 
@@ -802,11 +955,11 @@ def closest_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
                               max_iters: int, stack_size: int):
     """Mode MULTI: one hard shadow per light."""
     _check_mask_lights(len(points))
-    res = _launch(MULTI, ("mask_out",), rays, nodes, tris, at0, at1, scal,
-                  leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
-                  stack_size=stack_size, scal_len=_multi_scal_len(points),
-                  nlights=len(points),
-                  point_mask=sum(1 << i for i, p in enumerate(points) if p))
+    res = _fused(MULTI, ("mask_out",), rays, nodes, tris, at0, at1, scal,
+                 leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
+                 stack_size=stack_size, scal_len=_multi_scal_len(points),
+                 nlights=len(points),
+                 point_mask=sum(1 << i for i, p in enumerate(points) if p))
     closest_multi_shadow_cuda.launches += 1
     return res
 
@@ -816,10 +969,10 @@ def closest_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
                              zero_stream: bool, t_min: float,
                              max_iters: int, stack_size: int):
     """Mode SOFT: spp cone samples of a sun."""
-    res = _launch(SOFT, ("cnt_out",), rays, nodes, tris, at0, at1, scal,
-                  leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
-                  stack_size=stack_size, scal_len=17,
-                  **_sampling(spp, seed, zero_stream))
+    res = _fused(SOFT, ("cnt_out",), rays, nodes, tris, at0, at1, scal,
+                 leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
+                 stack_size=stack_size, scal_len=17,
+                 **_sampling(spp, seed, zero_stream))
     closest_soft_shadow_cuda.launches += 1
     return res
 
@@ -829,10 +982,10 @@ def closest_point_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
                                    zero_stream: bool, t_min: float,
                                    max_iters: int, stack_size: int):
     """Mode PSOFT: spp disk samples of a point light."""
-    res = _launch(PSOFT, ("cnt_out",), rays, nodes, tris, at0, at1, scal,
-                  leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
-                  stack_size=stack_size, scal_len=5,
-                  **_sampling(spp, seed, zero_stream))
+    res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, at0, at1, scal,
+                 leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
+                 stack_size=stack_size, scal_len=5,
+                 **_sampling(spp, seed, zero_stream))
     closest_point_soft_shadow_cuda.launches += 1
     return res
 
@@ -845,19 +998,64 @@ def closest_soft_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
     """Mode SOFT_MULTI: soft light 0 plus hard directional extras."""
     if n_extra:
         _check_mask_lights(n_extra)
-    res = _launch(SOFT_MULTI, ("cnt_out", "mask_out"), rays, nodes, tris,
-                  at0, at1, scal, leaf_size=leaf_size, t_min=t_min,
-                  max_iters=max_iters, stack_size=stack_size,
-                  scal_len=_soft_multi_scal_len(disk, n_extra),
-                  disk=int(bool(disk)), n_extra=int(n_extra),
-                  **_sampling(spp, seed, zero_stream))
+    res = _fused(SOFT_MULTI, ("cnt_out", "mask_out"), rays, nodes, tris,
+                 at0, at1, scal, leaf_size=leaf_size, t_min=t_min,
+                 max_iters=max_iters, stack_size=stack_size,
+                 scal_len=_soft_multi_scal_len(disk, n_extra),
+                 disk=int(bool(disk)), n_extra=int(n_extra),
+                 **_sampling(spp, seed, zero_stream))
     closest_soft_multi_shadow_cuda.launches += 1
+    return res
+
+
+def closest_attrs_cuda(rays, nodes, tris, at0, at1, *, leaf_size: int,
+                       t_min: float, max_iters: int, stack_size: int):
+    """Mode CLOSEST: the closest hit and its attributes alone."""
+    res = _fused(CLOSEST, (), rays, nodes, tris, at0, at1, None,
+                 leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
+                 stack_size=stack_size, scal_len=0)
+    closest_attrs_cuda.launches += 1
+    return res
+
+
+def any_cuda(rays, nodes, tris, *, leaf_size: int, t_min: float,
+             max_iters: int, stack_size: int):
+    """Mode ANY of csrc/shadow_rays.cu: any hit of given rays."""
+    res = _launch(_SHADOW_RAYS, ANY, ("mask_out",), rays, nodes, tris, None,
+                  ray_comps=10, attrs=None, leaf_size=leaf_size, t_min=t_min,
+                  max_iters=max_iters, stack_size=stack_size, scal_len=0)
+    any_cuda.launches += 1
+    return res
+
+
+def any_soft_cuda(rays, nodes, tris, scal, *, leaf_size: int, spp: int,
+                  seed: int, light: int, zero_stream: bool, t_min: float,
+                  max_iters: int, stack_size: int):
+    """Mode ANY_SOFT: spp cone samples from given origins."""
+    res = _launch(_SHADOW_RAYS, ANY_SOFT, ("cnt_out",), rays, nodes, tris,
+                  scal, ray_comps=4, attrs=None, leaf_size=leaf_size,
+                  t_min=t_min, max_iters=max_iters, stack_size=stack_size,
+                  scal_len=16, **_sampling(spp, seed, zero_stream, light))
+    any_soft_cuda.launches += 1
+    return res
+
+
+def any_point_soft_cuda(rays, nodes, tris, scal, *, leaf_size: int,
+                        spp: int, seed: int, light: int, zero_stream: bool,
+                        t_min: float, max_iters: int, stack_size: int):
+    """Mode ANY_PSOFT: spp disk samples from given origins."""
+    res = _launch(_SHADOW_RAYS, ANY_PSOFT, ("cnt_out",), rays, nodes, tris,
+                  scal, ray_comps=4, attrs=None, leaf_size=leaf_size,
+                  t_min=t_min, max_iters=max_iters, stack_size=stack_size,
+                  scal_len=4, **_sampling(spp, seed, zero_stream, light))
+    any_point_soft_cuda.launches += 1
     return res
 
 
 CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
                 closest_soft_shadow_cuda, closest_point_soft_shadow_cuda,
-                closest_soft_multi_shadow_cuda)
+                closest_soft_multi_shadow_cuda, closest_attrs_cuda, any_cuda,
+                any_soft_cuda, any_point_soft_cuda)
 for _fn in CUDA_KERNELS:
     _fn.launches = 0
 
@@ -897,6 +1095,11 @@ def _shadow_scalars(bvh: WideBVH, light_dir, bias, light_pos, device):
                      + _root_box(bvh))
 
 
+def _walk_kwargs(bvh: WideBVH, t_min, stack_size) -> dict:
+    return dict(leaf_size=bvh.leaf_size, t_min=float(t_min),
+                max_iters=iter_cap(bvh.num_wide), stack_size=stack_size)
+
+
 def _fused_inputs(bvh: WideBVH, origins, dirs, attr_tables, t_max, t_min,
                   stack_size, scal_fn, **kw):
     """Pack image rays for a fused kernel -> (args, kwargs, p, meta):
@@ -905,10 +1108,7 @@ def _fused_inputs(bvh: WideBVH, origins, dirs, attr_tables, t_max, t_min,
     rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
     args = (rays, bvh.nodes, bvh.tris, attr_tables[0], attr_tables[1],
             scal_fn(rays.device))
-    kwargs = dict(leaf_size=bvh.leaf_size, t_min=float(t_min),
-                  max_iters=iter_cap(bvh.num_wide), stack_size=stack_size,
-                  **kw)
-    return args, kwargs, p, meta
+    return args, dict(_walk_kwargs(bvh, t_min, stack_size), **kw), p, meta
 
 
 def closest_shadow_inputs(bvh: WideBVH, origins, dirs, light_dir, bias,
@@ -992,6 +1192,58 @@ def closest_soft_multi_shadow_inputs(bvh: WideBVH, origins, dirs, light0,
                          stack_size, scal, spp=int(spp), seed=int(seed),
                          zero_stream=bool(zero_stream), disk=kind == "disk",
                          n_extra=len(extra_dirs))
+
+
+def closest_attrs_inputs(bvh: WideBVH, origins, dirs, attr_tables,
+                         t_max=_BIG, t_min: float = 0.0,
+                         stack_size: int = STACK_CAPACITY):
+    """Inputs of ``closest_attrs_cuda`` / ``closest_attrs_reference`` ->
+    (args, kwargs, p, meta)."""
+    rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
+    args = (rays, bvh.nodes, bvh.tris, attr_tables[0], attr_tables[1])
+    return args, _walk_kwargs(bvh, t_min, stack_size), p, meta
+
+
+def any_inputs(bvh: WideBVH, origins, dirs, t_max, t_min: float = 0.0,
+               stack_size: int = STACK_CAPACITY):
+    """Inputs of ``any_cuda`` / ``any_reference``: rays (H, W, 3) or (N,
+    3), t_max a scalar or per ray."""
+    rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
+    args = (rays, bvh.nodes, bvh.tris)
+    return args, _walk_kwargs(bvh, t_min, stack_size), p, meta
+
+
+def _soft_inputs(bvh, origins, valid, scal_fn, spp, seed, light, t_min,
+                 zero_stream, stack_size):
+    rays, p, meta = _pack_soft_origins(origins, valid, batch=1)
+    args = (rays, bvh.nodes, bvh.tris, scal_fn(rays.device))
+    kwargs = dict(_walk_kwargs(bvh, t_min, stack_size), spp=int(spp),
+                  seed=int(seed), light=int(light),
+                  zero_stream=bool(zero_stream))
+    return args, kwargs, p, meta
+
+
+def any_soft_inputs(bvh: WideBVH, origins, valid, axis_dir, cone_cos,
+                    spp: int, seed: int, light: int = 0, t_min: float = 0.0,
+                    zero_stream: bool = False,
+                    stack_size: int = STACK_CAPACITY):
+    """Inputs of the standalone cone kernel (scal f32[16])."""
+    return _soft_inputs(
+        bvh, origins, valid,
+        lambda dev: torch.cat(_cone_scalars(axis_dir, cone_cos, dev)
+                              + _root_box(bvh)),
+        spp, seed, light, t_min, zero_stream, stack_size)
+
+
+def any_point_soft_inputs(bvh: WideBVH, origins, valid, light_pos, radius,
+                          spp: int, seed: int, light: int = 0,
+                          t_min: float = 0.0, zero_stream: bool = False,
+                          stack_size: int = STACK_CAPACITY):
+    """Inputs of the standalone disk kernel (scal f32[4])."""
+    return _soft_inputs(
+        bvh, origins, valid,
+        lambda dev: torch.cat([_f32(light_pos, dev), _f32([radius], dev)]),
+        spp, seed, light, t_min, zero_stream, stack_size)
 
 
 def _pick(device: torch.device, cuda_fn, plain_fn):
@@ -1105,3 +1357,59 @@ def trace_closest_soft_multi_shadow(bvh: WideBVH, origins, dirs, light0,
     out, cnt, mask, counts = fn(*args, **kwargs)
     return (_attr_channels(out, p, meta), _unpack(cnt[:p], meta),
             _unpack(mask[:p], meta), counts)
+
+
+def trace_closest_attrs(bvh: WideBVH, origins, dirs, attr_tables,
+                        t_max=_BIG, t_min: float = 0.0,
+                        stack_size: int = STACK_CAPACITY):
+    """Attribute-tracked closest hit (ONE kernel launch): the G-buffer of
+    the unfused frame. Returns (channel dict, walk counts i32[2])."""
+    fn = _pick(origins.device, closest_attrs_cuda, closest_attrs_reference)
+    args, kwargs, p, meta = closest_attrs_inputs(
+        bvh, origins, dirs, attr_tables, t_max, t_min, stack_size)
+    out, counts = fn(*args, **kwargs)
+    return _attr_channels(out, p, meta), counts
+
+
+def trace_any(bvh: WideBVH, origins, dirs, t_max, t_min: float = 0.0,
+              stack_size: int = STACK_CAPACITY):
+    """Occlusion query (ONE kernel launch): True where something lies in
+    (t_min, t_max); rays with t_max <= t_min are inactive and return
+    False. origins/dirs (H, W, 3) or (N, 3). Returns (occluded bool[H, W]
+    or [N], walk counts i32[2])."""
+    fn = _pick(origins.device, any_cuda, any_reference)
+    args, kwargs, p, meta = any_inputs(bvh, origins, dirs, t_max, t_min,
+                                       stack_size)
+    occ, counts = fn(*args, **kwargs)
+    return _unpack(occ[:p], meta) > 0, counts
+
+
+def trace_any_soft(bvh: WideBVH, origins, valid, axis_dir, cone_cos,
+                   spp: int, seed: int, light: int = 0, t_min: float = 0.0,
+                   zero_stream: bool = False,
+                   stack_size: int = STACK_CAPACITY):
+    """Area-light (cone) soft shadows from given biased origins (ONE kernel
+    launch), sampled in the kernel with the generator key (seed, light).
+    origins (H, W, 3) with valid bool[H, W], or (N, 3) with [N]. Returns
+    (occlusion counts i32 in [0, spp], walk counts i32[2])."""
+    fn = _pick(origins.device, any_soft_cuda, any_soft_reference)
+    args, kwargs, p, meta = any_soft_inputs(
+        bvh, origins, valid, axis_dir, cone_cos, spp, seed, light, t_min,
+        zero_stream, stack_size)
+    cnt, counts = fn(*args, **kwargs)
+    return _unpack(cnt[:p], meta), counts
+
+
+def trace_any_point_soft(bvh: WideBVH, origins, valid, light_pos, radius,
+                         spp: int, seed: int, light: int = 0,
+                         t_min: float = 0.0, zero_stream: bool = False,
+                         stack_size: int = STACK_CAPACITY):
+    """Point-light penumbra from given biased origins (ONE kernel launch):
+    spp jittered-disk samples keyed by (seed, light). Returns (counts i32
+    in [0, spp], walk counts i32[2])."""
+    fn = _pick(origins.device, any_point_soft_cuda, any_point_soft_reference)
+    args, kwargs, p, meta = any_point_soft_inputs(
+        bvh, origins, valid, light_pos, radius, spp, seed, light, t_min,
+        zero_stream, stack_size)
+    cnt, counts = fn(*args, **kwargs)
+    return _unpack(cnt[:p], meta), counts

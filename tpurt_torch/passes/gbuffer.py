@@ -1,6 +1,7 @@
-"""G-buffer decode of the fused kernel's attribute channels (counterpart of
-``tpurt/passes/gbuffer.py`` ``gbuf_from_attr_channels``): elementwise
-tensor code, no per-pixel gather."""
+"""The attribute-tracked G-buffer (counterpart of ``tpurt/passes/gbuffer.py``
+``gbuffer_attr_pass`` and ``gbuf_from_attr_channels``): the closest-hit
+kernel returns the winner's attribute channels, and the decode is
+elementwise tensor code, no per-pixel gather."""
 
 from __future__ import annotations
 
@@ -8,9 +9,22 @@ from typing import Dict
 
 import torch
 
-from ..camera import normalize, view_depth
+from ..camera import generate_rays, normalize, view_depth
+from ..kernels.traverse import trace_closest_attrs
 from ..types import Camera, Mesh
 from .shading import oct_decode, unpack_rgb
+
+
+def gbuffer_attr_pass(bvh, attr_tables, mesh: Mesh, cam: Camera,
+                      width: int, height: int, rays=None):
+    """G-buffer of the unfused frame: camera rays (or the given (origins,
+    dirs)) -> ONE closest-hit kernel launch -> decode. Returns (G-buffer,
+    walk counts i32[2])."""
+    if rays is None:
+        rays = generate_rays(cam, width, height, bvh.nodes.device)
+    origins, dirs = rays
+    ch, counts = trace_closest_attrs(bvh, origins, dirs, attr_tables)
+    return gbuf_from_attr_channels(ch, origins, dirs, cam, mesh), counts
 
 
 def gbuf_from_attr_channels(ch: Dict[str, torch.Tensor], origins, dirs,
