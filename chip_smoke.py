@@ -6,9 +6,10 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 1. Device check: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. There is no CPU path.
-2. Build the CUDA kernel library (csrc/fused_shadows.cu, one template
-   with a mode per kernel) with one nvcc call, and print ptxas's register
-   and spill report.
+2. Build the CUDA kernel library (csrc/fused_shadows.cu and
+   csrc/shadow_rays.cu, templates with a mode per walk kernel, and
+   csrc/build.cu, the rebuild's kernels; one nvcc per source, in
+   parallel), and print ptxas's register and spill report.
 3. Every kernel against its plain PyTorch version on the card: teapot
    scene, 10k triangles, 512x512, leaf 14. closest_shadow with a
    directional and a point light; multi with directional + point +
@@ -52,8 +53,25 @@ Phases, in order; any failure raises and the exit code is not 0:
    every 8th row and on the whole frame (the samplers also with the zero
    stream on every 8th row); each fused_shadow=False case timed in turns
    with its fused twin (fused, unfused, unfused, fused).
-9. Timings on one JSON line, then the kernel table on one JSON line, the
-   card's nvidia-smi line, and last {"ok": true, "device": {...}}.
+9. Config 2, the per-frame rebuild (tpurt/cli.py:28): the same hall and
+   camera at 1920x1080, leaf 14, Renderer(mode="rebuild"). Each build
+   kernel of csrc/build.cu against its plain version on the card, equal
+   bit for bit: the Morton codes of the hall's centroids; the topology of
+   the hall's clustered leaf codes and of a synthetic 30k-leaf code array
+   drawn from 64 values; the area collapse with the Renderer's pad and
+   with a forced pad smaller than the count. Then the whole rebuilt accel
+   (nodes, leaf rows, tri_id, attribute rows, count) built once with the
+   kernels and once with the plain versions on the card, equal. One
+   warm-up and five timed frames, one launch of each build kernel and of
+   closest_shadow per frame; frames bit-identical; the image against
+   config 1's static frame (another tree of the same geometry: at most
+   1e-3 of valid pixels may differ by more than 1e-3); the rebuild's
+   stage split; the wide depth and nw_pad. Then five animated frames
+   (set_vertices(deform(mesh, t))), finite, with the count of overflow
+   recoveries, and one more after a pad forced below the count, which
+   must recover.
+10. Timings on one JSON line, then the kernel table on one JSON line, the
+    card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Tolerances of the kernel-vs-plain checks: valid masks equal; t to rtol
 1e-6 / atol 1e-6; tri_id equal on >= 99.9% of valid pixels and every
@@ -70,7 +88,11 @@ kernel performs, counted by the plain version's walks on the same inputs:
 per node pop 8 empty-slot compares, 25 per slab test of a non-empty child
 box, and 56 per triangle test, where the closest walk tests every
 triangle of a leaf it visits and an any-hit walk stops at the first
-occluder. Ray set-up, sampling and integer work are not counted.
+occluder. Ray set-up, sampling and integer work are not counted. The
+build kernels' operations (integer ones counted at the float32 rate): 52
+per Morton code; per topology node one sparse-table min per level, two
+compares per level of the two searches and 10 to place it; per expanded
+wide node 190 for the six greedy steps and the emission.
 """
 
 from __future__ import annotations
@@ -80,6 +102,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -140,15 +163,19 @@ def kernel(name):
     return getattr(tr, f"{name}_cuda"), getattr(tr, f"{name}_reference")
 
 
-def reset_launches():
+def all_kernels():
+    from tpurt_torch.kernels.build import BUILD_KERNELS
     from tpurt_torch.kernels.traverse import CUDA_KERNELS
-    for fn in CUDA_KERNELS:
+    return CUDA_KERNELS + BUILD_KERNELS
+
+
+def reset_launches():
+    for fn in all_kernels():
         fn.launches = 0
 
 
 def launches() -> dict:
-    from tpurt_torch.kernels.traverse import CUDA_KERNELS
-    return {fn.__name__[:-len("_cuda")]: fn.launches for fn in CUDA_KERNELS}
+    return {fn.__name__[:-len("_cuda")]: fn.launches for fn in all_kernels()}
 
 
 def drive(expect: dict, fn):
@@ -544,10 +571,11 @@ def check_image(out, w, h, what):
 
 def frame_inputs(name, r, w, h, **spec):
     """The kernel's inputs for the Renderer's whole frame and for every
-    8th row of it."""
-    from tpurt_torch.bvh.wide import order_children_for_point
+    8th row of it, on the accel the frame walks (camera-ordered unless
+    the config turns that off)."""
+    from tpurt_torch.app import _gb_accel
     from tpurt_torch.camera import generate_rays
-    acc = order_children_for_point(r.accel, r.camera.position)
+    acc = _gb_accel(r.accel, r.camera, r.config)
     o, d = generate_rays(r.camera, w, h, r.device)
     full = inputs(name, acc, r.attr_tables, o, d, **spec)
     sub = inputs(name, acc, r.attr_tables, o[::8].contiguous(),
@@ -964,6 +992,351 @@ def phase_unfused(dev, mesh, fused_config1_image) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: config 2, the per-frame rebuild
+# ---------------------------------------------------------------------------
+
+BUILD_TPU = "tpurt/kernels/build.py:"
+BUILD_KERNEL_LINES = {"morton_codes": 353, "topology": 265,
+                      "collapse_area": 742}
+OPS_PER_CODE = 52
+OPS_PER_TOPOLOGY_PLACE = 10
+OPS_PER_WIDE_NODE = 190
+
+
+class plain_build_kernels:
+    """Within the block the build wrappers take their plain versions on
+    CUDA tensors too (the twin of a rebuild made with the kernels)."""
+
+    NAMES = ("morton_codes", "topology", "collapse_area")
+
+    def __enter__(self):
+        import tpurt_torch.kernels.build as b
+        self.saved = {n: getattr(b, f"{n}_cuda") for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(b, f"{n}_cuda", getattr(b, f"{n}_reference"))
+
+    def __exit__(self, *exc):
+        import tpurt_torch.kernels.build as b
+        for n, fn in self.saved.items():
+            setattr(b, f"{n}_cuda", fn)
+
+
+def host_syncs(fn) -> list:
+    """Run fn under CUDA's sync debug mode; each call that waits for the
+    card warns, and is returned as the port's innermost frame that made
+    it."""
+    import traceback
+    found = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if "tpurt_torch" in f.filename]
+        found.append(f"{frames[-1].filename.split('tpurt_torch/')[-1]}:"
+                     f"{frames[-1].lineno} {frames[-1].line}"
+                     if frames else str(message))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return found
+
+
+def build_pair(name, args, what) -> dict:
+    """A build kernel and its plain version on the same inputs: every
+    output equal exactly -> (comparison, kernel result)."""
+    import tpurt_torch.kernels.build as b
+    kfn, pfn = getattr(b, f"{name}_cuda"), getattr(b, f"{name}_reference")
+    before = kfn.launches
+    kres = kfn(*args)
+    torch.cuda.synchronize()
+    if kfn.launches != before + 1:
+        raise RuntimeError(f"{name}: launch counter did not grow")
+    kfn.launches = before
+    pres = pfn(*args)
+    torch.cuda.synchronize()
+    kres = kres if isinstance(kres, tuple) else (kres,)
+    pres = pres if isinstance(pres, tuple) else (pres,)
+    err = 0
+    for i, (k, p) in enumerate(zip(kres, pres)):
+        if k.shape != p.shape or k.dtype != p.dtype or not torch.equal(k, p):
+            bad = int((k != p).sum()) if k.shape == p.shape else -1
+            raise RuntimeError(f"{what}: output {i} differs from the plain "
+                               f"version ({bad} entries)")
+        err = max(err, float((k.double() - p.double()).abs().max())
+                  if k.numel() else 0.0)
+    return dict(max_abs_err=err, mismatch_share=0.0)
+
+
+def build_bound(nbytes: int, ops: int) -> dict:
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    ops_ms = ops / FP32_PEAK * 1e3
+    return dict(bytes=nbytes, ops=ops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def time_build(name, args, reps: int = 20) -> dict:
+    """Kernel ms (CUDA events) and plain ms (host clock) on the same
+    inputs."""
+    import tpurt_torch.kernels.build as b
+    kfn, pfn = getattr(b, f"{name}_cuda"), getattr(b, f"{name}_reference")
+    before = kfn.launches
+    ms = cuda_ms(lambda: kfn(*args), reps)
+    kfn.launches = before
+    _, plain_ms = host_ms(lambda: pfn(*args))
+    return dict(ms=ms, plain_ms=plain_ms)
+
+
+def rebuild_stages(r):
+    """_rebuild_fused by hand, stage by stage, on the Renderer's geometry
+    -> (the three build kernels' inputs at config 2's shapes: unit
+    coordinates of the centroids, the clustered leaf codes' deltas, the
+    deferred tree's child array and node areas; {stage: callable that
+    reruns it on the intermediates})."""
+    from tpurt_torch.bvh import lbvh as L
+    from tpurt_torch.bvh import wide as W
+    from tpurt_torch.bvh.morton import unit_coords
+    from tpurt_torch.kernels.build import collapse_area, morton_codes, \
+        topology
+    from tpurt_torch.passes.shading import (attr_payload_columns,
+                                            leaf_attr_rows_from_sorted)
+    m, k, splits = r.mesh, r.config.leaf_size, r._rebuild_splits
+    tpad = r.bvh.num_sorted_tris
+    tri, v0, e1, e2, cen, smin, smax = L._triangle_data(m.vertices,
+                                                        m.indices, tpad)
+    cols = L._pad_columns(attr_payload_columns(m, r.device), tpad)
+    codes = morton_codes(cen, smin, smax)
+    order = torch.arange(tpad, dtype=torch.int32, device=r.device)
+    chs, srt = L._sort_payload(codes, [order, v0, e1, e2, tri] + cols)
+    sv0, se1, se2 = srt[1:4]
+    split = L._subleaf_split(chs, *L._leaf_boxes(sv0, se1, se2, k)[2:], k,
+                             splits)
+    d = L.adjacent_deltas(split[1]).contiguous()
+    bvh = L.build_lbvh(m.vertices, m.indices, leaf_size=k, boxes="defer",
+                       split_blocks=splits)
+    boxes = W._leaf_boxes_from_tris(bvh)
+    tab = L.range_table(*boxes)
+    area = W.node_areas(bvh, tab)
+    front, src, _ = collapse_area(bvh.nodes_child, area, r._nw_pad)
+    stages = {
+        "bounds_and_centroids": lambda: L._triangle_data(m.vertices,
+                                                         m.indices, tpad),
+        "attribute_columns": lambda: attr_payload_columns(m, r.device),
+        "morton_kernel": lambda: morton_codes(cen, smin, smax),
+        "sort_and_payload_gather": lambda: L._sort_payload(
+            codes, [order, v0, e1, e2, tri] + cols),
+        "subleaf_split": lambda: L._subleaf_split(
+            chs, *L._leaf_boxes(sv0, se1, se2, k)[2:], k, splits),
+        "deltas_and_topology_kernel": lambda: topology(
+            L.adjacent_deltas(split[1])),
+        "root_box": lambda: torch.cat([split[2], -split[3]], 1).amin(0),
+        "range_table_and_areas": lambda: W.node_areas(
+            bvh, L.range_table(*boxes)),
+        "collapse_kernel": lambda: collapse_area(bvh.nodes_child, area,
+                                                 r._nw_pad),
+        "row_assembly": lambda: (W.assemble_area_rows(
+            bvh, boxes, tab, front, src, r._nw_pad), W.block_rows(bvh)),
+        "attribute_rows": lambda: leaf_attr_rows_from_sorted(
+            srt[5:], srt[0], bvh.num_blocks, k),
+    }
+    inputs = (unit_coords(cen, smin, smax).contiguous(), d,
+              bvh.nodes_child.contiguous(), area)
+    return inputs, stages
+
+
+def phase_config2(dev, mesh, static_image) -> dict:
+    """Config 2: the per-frame rebuild at 1080p."""
+    import tpurt_torch.kernels.build as B
+    from tpurt_torch.app import Renderer
+    from tpurt_torch.bvh.lbvh import adjacent_deltas
+    from tpurt_torch.kernels.traverse import trace_closest_shadow
+    from tpurt_torch.scenes import deform, sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    cam = sponza_interior_camera()
+    light = Light.directional(SUN_DIR)
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=14)
+    t0 = time.perf_counter()
+    r = Renderer(mesh, cam, light, cfg, mode="rebuild", device=dev)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    if r.route != "fused0" or r.config.order_children:
+        raise RuntimeError(f"config 2 takes route {r.route}, ordered "
+                           f"{r.config.order_children}")
+    nl, nb = r.bvh.num_leaves, r.bvh.num_blocks
+    log(f"phase 9 setup: {setup_ms:.1f} ms; blocks={nb} leaves={nl} "
+        f"splits={r._rebuild_splits} nw_pad={r._nw_pad} "
+        f"wide_depth={r.depth} {json.dumps(r.stats)}")
+
+    # Each build kernel against its plain version, exactly.
+    (unit, d, child, area), rebuild_stage = rebuild_stages(r)
+    rng = np.random.default_rng(2)
+    values = rng.integers(0, 1 << 30, 64)
+    synth = torch.from_numpy(np.sort(rng.choice(values, 30_000)).astype(
+        np.int32)).to(dev)
+    d30k = adjacent_deltas(synth).contiguous()
+    count = int(B.collapse_area_reference(child, area, r._nw_pad)[2])
+    checks = {
+        "morton_codes": [build_pair("morton_codes", (unit,),
+                                    "morton codes, config 2")],
+        "topology": [build_pair("topology", (d,), "topology, config 2"),
+                     build_pair("topology", (d30k,),
+                                "topology, 30k leaves of 64 codes")],
+        "collapse_area": [
+            build_pair("collapse_area", (child, area, r._nw_pad),
+                       "collapse, config 2 pad"),
+            build_pair("collapse_area", (child, area, count // 2),
+                       f"collapse, forced pad {count // 2} < {count}")],
+    }
+    log(f"phase 9 build kernels vs plain: count={count} "
+        f"{json.dumps(checks)}")
+    ni = int(child.shape[0])
+    levels = max(1, ni.bit_length())
+    n = int(unit.shape[0])
+    kernels = {
+        "morton_codes": dict(args=(unit,), **build_bound(
+            n * 12 + n * 4, n * OPS_PER_CODE)),
+        "topology": dict(args=(d,), **build_bound(
+            ni * 4 + ni * 8 + ni * 8,
+            (levels - 1) * ni + 2 * levels * ni
+            + OPS_PER_TOPOLOGY_PLACE * (ni + 1))),
+        "collapse_area": dict(args=(child, area, r._nw_pad), **build_bound(
+            ni * 12 + r._nw_pad * 36 + 4,
+            min(count, r._nw_pad) * OPS_PER_WIDE_NODE)),
+    }
+    for name, kk in kernels.items():
+        kk.update(time_build(name, kk.pop("args")))
+        kk["checks"] = checks[name]
+        kk["max_abs_err"] = max(c["max_abs_err"] for c in checks[name])
+        kk["mismatch_share"] = 0.0
+        log(f"phase 9 {name}: {json.dumps(kk)}")
+
+    # The whole rebuilt accel, kernels against plain versions; the kernels'
+    # rebuild once more under CUDA's sync debug mode, which warns at every
+    # call that waits for the card.
+    syncs = host_syncs(r._rebuild)
+    log(f"phase 9 host syncs in one rebuild: {len(syncs)} {syncs}")
+    _, kw, kat, kcnt = r._rebuild()
+    with plain_build_kernels():
+        _, pw, pat, pcnt = r._rebuild()
+    torch.cuda.synchronize()
+    pairs = (("nodes", kw.nodes, pw.nodes), ("tris", kw.tris, pw.tris),
+             ("tri_id", kw.tri_id, pw.tri_id), ("at0", kat[0], pat[0]),
+             ("at1", kat[1], pat[1]), ("count", kcnt, pcnt))
+    for what, a, b in pairs:
+        if not torch.equal(a, b):
+            raise RuntimeError(f"rebuilt accel: {what} differs between the "
+                               f"kernels and the plain versions")
+    log("phase 9 rebuilt accel: kernels == plain versions "
+        "(nodes, tris, tri_id, at0, at1, count)")
+
+    # Config 2 frames through the Renderer.
+    def run(n_frames):
+        kept, ms, build = [], [], []
+        for i in range(n_frames):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = r.render_frame()
+            end.record()
+            torch.cuda.synchronize()
+            kept.append({"image": out["image"], "shadow": out["shadow"],
+                         "valid": out["valid"]})
+            if i > 0:
+                ms.append(start.elapsed_time(end))
+                build.append(r.stats["build_ms"])
+        return kept, ms, build
+    (kept, frame_ms, build_ms), n = drive(
+        {"closest_shadow": 6, "morton_codes": 6, "topology": 6,
+         "collapse_area": 6}, lambda: run(6))
+    valid_share = check_image(kept[0], MAIN_W, MAIN_H, "config 2")
+    for f in kept[1:]:
+        if not torch.equal(f["image"], kept[0]["image"]):
+            raise RuntimeError("config 2 frames are not bit-identical")
+    valid = kept[0]["valid"]
+    diff = (kept[0]["image"] - static_image).abs().amax(-1)
+    nvalid = int(valid.sum())
+    share = float(((diff > 1e-3) & valid).sum()) / nvalid
+    exact = float(((diff > 0) & valid).sum()) / nvalid
+    if share > 1e-3:
+        raise RuntimeError(f"config 2 image differs from config 1's static "
+                           f"one on {share:.2e} of valid pixels")
+    # Where the rebuild's time goes: CUDA events around each stage (mean
+    # of 5 calls, launch overhead included).
+    stages = {name: cuda_ms(fn, 5) for name, fn in rebuild_stage.items()}
+    stages["sum"] = sum(stages.values())
+    hard = kernel_vs_plain("closest_shadow", r, MAIN_W, MAIN_H,
+                           "phase 9 closest_shadow on the rebuilt tree",
+                           light_dir=light.direction)
+    mean_ms = float(np.mean(frame_ms))
+    # The frame's stages after the rebuild; their rest excludes it.
+    frame_stages = stage_ms(r, lambda acc, o, d: trace_closest_shadow(
+        acc, o, d, light.direction, BIAS, attr_tables=r.attr_tables),
+        mean_ms - float(np.mean(build_ms)))
+    res = dict(launches=n, frame_ms=frame_ms, frame_ms_mean=mean_ms,
+               build_ms=build_ms, build_ms_mean=float(np.mean(build_ms)),
+               rebuild_stages_ms=stages, frame_stages_ms=frame_stages,
+               closest_shadow=hard,
+               valid_share=valid_share,
+               vs_static_share=share, vs_static_any_bit_share=exact,
+               occluded_share=float((kept[0]["shadow"][0][valid] < 1.0)
+                                    .float().mean()),
+               nw_pad=r._nw_pad, wide_count=count, wide_depth=r.depth,
+               rebuild_host_syncs=len(syncs),
+               blocks=nb, leaves=nl, splits=r._rebuild_splits,
+               setup_ms=setup_ms, setup=dict(r.stats),
+               kernels={k: {kk: vv for kk, vv in v.items()
+                            if kk != "checks"}
+                        for k, v in kernels.items()},
+               **rays_per_s(MAIN_W * MAIN_H, nvalid, nvalid, mean_ms))
+    log(f"phase 9 config 2: {json.dumps(res)}")
+
+    # Five animated frames.
+    anim = []
+    for step in range(1, 6):
+        r.set_vertices(deform(mesh, 0.2 * step))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = r.render_frame()
+        end.record()
+        torch.cuda.synchronize()
+        check_image(out, MAIN_W, MAIN_H, f"config 2 animated frame {step}")
+        anim.append(dict(frame_ms=start.elapsed_time(end),
+                         build_ms=r.stats["build_ms"], nw_pad=r._nw_pad))
+    res["animated"] = dict(frames=anim, overflow_recoveries=int(
+        r.stats["overflow_recoveries"]))
+    # The recovery on the card: a pad forced below the count, one more
+    # animated frame.
+    before = r.stats["overflow_recoveries"]
+    r._nw_pad = count // 2
+    r.set_vertices(deform(mesh, 1.2))
+    out, ms = host_ms(r.render_frame)
+    check_image(out, MAIN_W, MAIN_H, "config 2 frame after a forced overflow")
+    if r.stats["overflow_recoveries"] != before + 1:
+        raise RuntimeError("the forced overflow was not recovered")
+    res["animated"]["forced_overflow"] = dict(
+        pad=count // 2, new_pad=r._nw_pad, frame_host_ms=ms)
+    log(f"phase 9 animated: {json.dumps(res['animated'])}")
+    return res
+
+
+def build_kernel_row(name, launches_, kp) -> dict:
+    return {"name": name, "route": "cuda", "source": CSRC + "build.cu",
+            "replaces": f"{BUILD_TPU}{BUILD_KERNEL_LINES[name]}",
+            "launches": launches_, "max_abs_err": kp["max_abs_err"],
+            "mismatch_share": kp["mismatch_share"], "ms": kp["ms"],
+            "plain_ms": kp["plain_ms"], "bound_ms": kp["bound_ms"],
+            "bound_by": kp["bound_by"], "library_ms": None}
+
+
 def kernel_row(name, launches_, kp, small) -> dict:
     src, line = KERNELS[name]
     checks = [kp] + [v for k, v in small.items()
@@ -1006,12 +1379,15 @@ def main() -> int:
     c3 = phase_config3(dev, mesh)
     c5 = phase_config5(dev, mesh)
     variants = phase_soft_variants(dev, mesh)
-    unf = phase_unfused(dev, mesh, c1.pop("image"))
+    static_image = c1.pop("image")
+    unf = phase_unfused(dev, mesh, static_image)
+    c2 = phase_config2(dev, mesh, static_image)
     timings = {"card": card, "build_s": build_s,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
                "config3_1080p": c3, "config5_2160p": c5,
-               "soft_variants_1080p": variants, "unfused_1080p": unf}
+               "soft_variants_1080p": variants, "unfused_1080p": unf,
+               "config2_1080p": c2}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],
@@ -1026,6 +1402,8 @@ def main() -> int:
                         ("lamp_unfused", "any_point_soft")):
         rows.append(kernel_row(name, unf[label]["launches"][name],
                                unf[label]["kernels"][name], small))
+    rows += [build_kernel_row(name, c2["launches"][name], kp)
+             for name, kp in c2["kernels"].items()]
     log(json.dumps({"timings": timings}))
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -27,6 +27,8 @@ def test_port_imports_no_jax():
             "import tpurt_torch.kernels.sampling, tpurt_torch.kernels._build\n"
             "import tpurt_torch.convert, tpurt_torch.io.image\n"
             "import tpurt_torch.passes.shadow, tpurt_torch.passes.gbuffer\n"
+            "import tpurt_torch.kernels.build, tpurt_torch.bvh.morton\n"
+            "import tpurt_torch.bvh.lbvh, tpurt_torch.bvh.wide\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'tpurt'\n"
             "       or m.startswith(('jax.', 'tpurt.'))]\n"
             "assert not bad, bad\n"
@@ -116,9 +118,13 @@ def test_renderer_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(mode="rebuild"), "rebuild"),
+    (dict(mode="rebuild", config=dict(rebuild_collapse="fixed")),
+     "rebuild_collapse"),
     (dict(config=dict(bvh_width=2)), "bvh_width"),
-    (dict(config=dict(sah=False)), "sah"),
+    (dict(config=dict(sah=False)), "sah=False with gbuffer='auto'"),
+    (dict(mode="rebuild", config=dict(top_sah=True)), "top_sah"),
+    (dict(mode="rebuild", config=dict(rebuild_splits=0)),
+     "rebuild_splits=0 with gbuffer='auto'"),
     (dict(config=dict(gbuffer="raster")), "raster"),
     (dict(config=dict(use_pallas=False)), "use_pallas"),
     (dict(config=dict(inkernel_attrs=False)), "inkernel_attrs"),

@@ -1,5 +1,5 @@
-"""Renderer: the static-scene frames (counterpart of the static slice of
-``tpurt/app.py``).
+"""Renderer: the static-scene frames and the per-frame rebuild
+(counterpart of the static and rebuild slices of ``tpurt/app.py``).
 
 One fused frame: camera rays -> near-first child ordering of the accel ->
 ONE fused kernel launch -> G-buffer decode -> composite. The kernel finds
@@ -22,8 +22,13 @@ cone or disk sampler launch per soft light, on the accel as built (the
 G-buffer walks the camera-ordered copy, as in ``tpurt``).
 
 Unlike ``tpurt`` the soft paths are not gated on the backend: the port's
-in-kernel generator is real on the CPU too. The accel is built once per
-scene: host SBVH build, 8-wide area collapse, leaf attribute rows. On the
+in-kernel generator is real on the CPU too. In ``mode="static"`` the accel
+is built once per scene: host SBVH build (or, with ``sah=False``, the
+on-device Morton build), 8-wide area collapse, leaf attribute rows. In
+``mode="rebuild"`` (config 2) every frame rebuilds it on the device
+(``_rebuild_fused``): Morton codes, one payload sort, sub-leaf clustering,
+the topology kernel, the breadth-first area collapse kernel and the
+attribute rows, with no host sync unless the geometry changed. On the
 H100 the accel lives in device memory, so the TPU package's VMEM budgets
 and chunked split have no counterpart here.
 
@@ -40,10 +45,12 @@ from typing import Dict, Optional, Sequence, Union
 
 import torch
 
+from .bvh.lbvh import auto_split_blocks, build_lbvh
 from .bvh.sah import build_sah_lbvh
 from .bvh.wide import (WideBVH, count_wide, leaf_boxes_from_nodes,
                        make_wide_plan, order_children_for_point,
-                       round_up_bucket, wide_depth, widen_from_plan)
+                       round_up_bucket, wide_depth, widen_area_kernel,
+                       widen_from_plan)
 from .camera import generate_rays
 from .kernels.traverse import (MAX_MASK_LIGHTS, check_stack_bound,
                                check_walk_counts, trace_any,
@@ -56,7 +63,8 @@ from .kernels.traverse import (MAX_MASK_LIGHTS, check_stack_bound,
 from .passes.composite import accumulate, composite_pass
 from .passes.gbuffer import gbuf_from_attr_channels, gbuffer_attr_pass
 from .passes.shadow import cone_cos, shadow_pass
-from .passes.shading import make_leaf_attr_rows
+from .passes.shading import (attr_payload_columns, leaf_attr_rows_from_sorted,
+                             make_leaf_attr_rows, smooth_normals_device)
 from .types import (LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT, Camera,
                     Light, Mesh, RenderConfig)
 
@@ -125,13 +133,26 @@ def _soft(light: Light, spp: int) -> bool:
 def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
                 mesh: Mesh, cache_dir: Optional[str]) -> None:
     """Raise NotImplementedError for anything the port does not cover yet."""
+    if mode not in ("static", "rebuild", "refit"):
+        raise ValueError(f"mode={mode!r}")
     missing = []
-    if mode != "static":
-        missing.append(f"mode={mode!r} (per-frame rebuild / refit)")
+    if mode == "refit":
+        missing.append("mode='refit' (per-frame refit)")
+    if mode == "rebuild":
+        if config.rebuild_collapse != "area":
+            missing.append(f"rebuild_collapse={config.rebuild_collapse!r} "
+                           "(the fixed cut needs the topology's depth "
+                           "output)")
+        if config.top_sah:
+            missing.append("top_sah=True (the sweep-SAH priorities kernel)")
+        if config.rebuild_splits == 0 and config.gbuffer == "auto":
+            missing.append("rebuild_splits=0 with gbuffer='auto' (tpurt "
+                           "picks the raster G-buffer there)")
+    elif not config.sah and config.gbuffer == "auto":
+        missing.append("sah=False with gbuffer='auto' (tpurt picks the "
+                       "raster G-buffer there)")
     if config.bvh_width != 8:
         missing.append(f"bvh_width={config.bvh_width} (binary traversal)")
-    if not config.sah:
-        missing.append("sah=False (on-device Morton build)")
     if not config.use_pallas:
         missing.append("use_pallas=False (portable traversal)")
     if config.gbuffer == "raster":
@@ -343,6 +364,25 @@ def render_frame_fn(bvh: WideBVH, mesh: Mesh, cam: Camera,
             "shadow": torch.stack(shadows), **gbuf, "walk_counts": counts}
 
 
+def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
+                   leaf_size: int, nw_pad: int, split_blocks: int = 0):
+    """Config 2's per-frame rebuild, no host sync (``tpurt``'s
+    ``_rebuild_fused(tables="attr", collapse="area")``): the deferred-box
+    build with the attribute columns riding the sort, the breadth-first
+    area collapse into ``nw_pad`` rows, and the attribute rows from the
+    sorted columns. Returns (bvh, wide accel, (at0, at1), count i32[]):
+    count > nw_pad means the pad overflowed and the accel is truncated."""
+    bvh, cols = build_lbvh(vertices, indices, leaf_size=leaf_size,
+                           boxes="defer",
+                           extra_payload=attr_payload_columns(
+                               mesh, vertices.device),
+                           split_blocks=split_blocks)
+    wide, count = widen_area_kernel(bvh, nw_pad)
+    at = leaf_attr_rows_from_sorted(cols, bvh.tri_id, bvh.num_blocks,
+                                    leaf_size)
+    return bvh, wide, at, count
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -352,9 +392,17 @@ class Renderer:
     """Owns the scene and its accel on ``device`` (the card unless the
     caller asks for ``"cpu"``) and renders frames.
 
-    ``stats`` holds the set-up times in milliseconds: ``sah_build_ms``
-    (host SBVH build and conversion, copy to the device included),
-    ``collapse_ms`` (8-wide collapse) and ``attr_rows_ms``."""
+    ``mode="static"`` builds the accel once; ``mode="rebuild"`` (config 2)
+    rebuilds it at the start of every frame.
+
+    ``stats`` holds times in milliseconds. Set-up: ``sah_build_ms`` (host
+    SBVH build and conversion, copy to the device included),
+    ``lbvh_build_ms`` (on-device Morton build) or, in rebuild mode,
+    ``build_and_count_ms`` (a full-box build and the wide-node count that
+    fixes the pad), ``collapse_ms`` (8-wide collapse) and
+    ``attr_rows_ms``. Per frame in rebuild mode: ``build_ms``, the rebuild
+    (CUDA events on the card, read after the frame's walk counters), and
+    ``overflow_recoveries``, the rebuilds that outgrew the pad."""
 
     def __init__(self, mesh: Mesh, camera: Camera,
                  lights: Union[Light, Sequence[Light]],
@@ -371,6 +419,16 @@ class Renderer:
         check_slice(config, mode, lights, mesh, cache_dir)
         if config.gbuffer == "auto":
             config = dataclasses.replace(config, gbuffer="ray")
+        # Rebuild mode counts the pad on the same (clustered) trees its
+        # frames build; clustered rebuilds never camera-order the accel
+        # (tpurt/app.py:656-675).
+        self._rebuild_splits = 0
+        if mode == "rebuild" and config.rebuild_splits:
+            self._rebuild_splits = (
+                auto_split_blocks(mesh.num_triangles, config.leaf_size)
+                if config.rebuild_splits < 0 else config.rebuild_splits)
+        if self._rebuild_splits:
+            config = dataclasses.replace(config, order_children=False)
         self.config = config
         self.mode = mode
         self.mesh = mesh
@@ -380,40 +438,130 @@ class Renderer:
         self.frame_index = 0
         self.accum: Optional[torch.Tensor] = None
         self.stats: Dict[str, float] = {}
+        self._nw_pad: Optional[int] = None
+        self._geom_dirty = False
 
-        t0 = time.perf_counter()
-        self.bvh = build_sah_lbvh(mesh, self.device, config.leaf_size)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        self.accel = self._make_accel()
-        _sync(self.device)
-        t2 = time.perf_counter()
-        self.attr_tables = make_leaf_attr_rows(self.bvh, mesh)
-        _sync(self.device)
-        t3 = time.perf_counter()
-        self.stats.update(sah_build_ms=(t1 - t0) * 1e3,
-                          collapse_ms=(t2 - t1) * 1e3,
-                          attr_rows_ms=(t3 - t2) * 1e3)
+        if mode == "rebuild":
+            self._setup_rebuild()
+        else:
+            t0 = time.perf_counter()
+            if config.sah:
+                self.bvh = build_sah_lbvh(mesh, self.device, config.leaf_size)
+            else:
+                dm = mesh.on(self.device)
+                self.bvh = build_lbvh(dm.vertices, dm.indices,
+                                      leaf_size=config.leaf_size)
+            _sync(self.device)
+            t1 = time.perf_counter()
+            self.accel = self._make_accel()
+            _sync(self.device)
+            t2 = time.perf_counter()
+            self.attr_tables = make_leaf_attr_rows(self.bvh, mesh)
+            _sync(self.device)
+            t3 = time.perf_counter()
+            self.stats.update({
+                "sah_build_ms" if config.sah else "lbvh_build_ms":
+                    (t1 - t0) * 1e3,
+                "collapse_ms": (t2 - t1) * 1e3,
+                "attr_rows_ms": (t3 - t2) * 1e3})
         self.depth = wide_depth(self.accel)
         check_stack_bound(self.depth)
 
     def _make_accel(self) -> WideBVH:
-        """8-wide area collapse of the SAH tree. The leaf slots take the
+        """8-wide area collapse of a static tree. The leaf slots take the
         builder's stored (on SBVH: clipped) boxes."""
         nw_pad = round_up_bucket(max(count_wide(self.bvh), 1))
         plan = make_wide_plan(self.bvh, nw_pad)
         return widen_from_plan(plan, self.bvh, leaf_boxes_from_nodes(self.bvh))
 
+    def _count_pad(self) -> int:
+        """A full-box build of the current geometry and the padded count of
+        its area collapse (host sync): the rebuild's ``nw_pad``."""
+        self.bvh = build_lbvh(self.mesh.vertices, self.mesh.indices,
+                              leaf_size=self.config.leaf_size,
+                              split_blocks=self._rebuild_splits)
+        return round_up_bucket(max(count_wide(self.bvh), 1))
+
+    def _check_count(self, count: torch.Tensor) -> None:
+        """Raise if a collapse outgrew the pad just counted (host sync)."""
+        if int(count) > self._nw_pad:
+            raise RuntimeError(f"the collapse made {int(count)} wide nodes "
+                               f"in a pad of {self._nw_pad}")
+
+    def _setup_rebuild(self) -> None:
+        """Rebuild mode's set-up: the mesh on the device, the pad from a
+        full-box build, and the set-up accel from that tree through the
+        per-frame collapse, so its wide depth is checked against the stack
+        once (frames rely on the walk counters)."""
+        self.mesh = self.mesh.on(self.device)
+        t0 = time.perf_counter()
+        self._nw_pad = self._count_pad()
+        t1 = time.perf_counter()
+        self.accel, count = widen_area_kernel(self.bvh, self._nw_pad)
+        self._check_count(count)
+        t2 = time.perf_counter()
+        self.attr_tables = make_leaf_attr_rows(self.bvh, self.mesh)
+        _sync(self.device)
+        t3 = time.perf_counter()
+        self.stats.update(build_and_count_ms=(t1 - t0) * 1e3,
+                          collapse_ms=(t2 - t1) * 1e3,
+                          attr_rows_ms=(t3 - t2) * 1e3,
+                          overflow_recoveries=0)
+
+    def _rebuild(self):
+        return _rebuild_fused(self.mesh.vertices, self.mesh.indices,
+                              self.mesh, self.config.leaf_size,
+                              self._nw_pad,
+                              split_blocks=self._rebuild_splits)
+
+    def _update_bvh(self) -> None:
+        """Rebuild the accel for this frame. The wide-node count is read
+        back only after ``set_vertices``; if it outgrew the pad, the pad is
+        recounted on a full-box build and the frame rebuilt with it.
+        ``tpurt`` instead renders that full-box build's XLA area collapse:
+        the same tree with its wide ids in binary-node order, where the
+        rerun keeps the breadth-first ids every other frame has."""
+        bvh, accel, at, count = self._rebuild()
+        if self._geom_dirty:
+            self._geom_dirty = False
+            if int(count) > self._nw_pad:
+                self._nw_pad = self._count_pad()
+                self.stats["overflow_recoveries"] += 1
+                bvh, accel, at, count = self._rebuild()
+                self._check_count(count)
+        self.bvh, self.accel, self.attr_tables = bvh, accel, at
+
+    def set_vertices(self, vertices) -> None:
+        """Animate (rebuild mode): new vertex positions f32[V, 3], same
+        triangles. The vertex normals are recomputed on the device; the
+        next frame's rebuild checks the pad against the new geometry."""
+        if self.mode != "rebuild":
+            raise NotImplementedError("set_vertices outside mode='rebuild' "
+                                      "(the refit path) is not ported")
+        v = torch.as_tensor(vertices, dtype=torch.float32,
+                            device=self.device)
+        self.mesh = dataclasses.replace(
+            self.mesh, vertices=v,
+            normals=smooth_normals_device(v, self.mesh.indices))
+        self._geom_dirty = True
+
     def render_frame(self) -> Dict[str, torch.Tensor]:
         """Render one frame; returns the output dict (tensors on the
-        Renderer's device). The soft kernels draw this frame's samples
-        from ``frame_seed(config.seed, frame_index)``. Raises if a walk
-        overflowed its stack or hit the iteration cap."""
+        Renderer's device). Rebuild mode first rebuilds the accel. The soft
+        kernels draw this frame's samples from ``frame_seed(config.seed,
+        frame_index)``. Raises if a walk overflowed its stack or hit the
+        iteration cap."""
         cfg = self.config
+        if self.mode == "rebuild":
+            timer = _Stopwatch(self.device)
+            self._update_bvh()
+            timer.stop()
         out = render_frame_fn(self.accel, self.mesh, self.camera,
                               self.lights, cfg, self.attr_tables,
                               seed=frame_seed(cfg.seed, self.frame_index))
         check_walk_counts(out["walk_counts"])
+        if self.mode == "rebuild":
+            self.stats["build_ms"] = timer.ms()
         if cfg.accumulate:
             if self.accum is None:
                 self.accum = out["image"]
@@ -423,3 +571,30 @@ class Renderer:
             out["image"] = self.accum
         self.frame_index += 1
         return out
+
+
+class _Stopwatch:
+    """Milliseconds of the work between construction and ``stop()``: CUDA
+    events on the card (read later, without a sync of its own), the host
+    clock on the CPU, where the work has finished when it returns."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        if self._cuda:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self._cuda:
+            self._end.record()
+        else:
+            self._t1 = time.perf_counter()
+
+    def ms(self) -> float:
+        if self._cuda:
+            self._end.synchronize()
+            return self._start.elapsed_time(self._end)
+        return (self._t1 - self._t0) * 1e3

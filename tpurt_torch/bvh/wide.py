@@ -1,11 +1,19 @@
-"""Binary LBVH -> 8-wide BVH collapse (counterpart of the static part of
-``tpurt/bvh/wide.py``).
+"""Binary LBVH -> 8-wide BVH collapse (counterpart of
+``tpurt/bvh/wide.py`` for the area frontier).
 
-Plain tensor code on the accel's device, run once per scene: the
-area-greedy frontiers, the 64-sweep reachability of wide roots, the
-compaction to dense wide ids and the one-gather row assembly, then the
-per-frame near-first child ordering. Every step reproduces the JAX
-package's arrays exactly (tests/test_torch_accel.py).
+Two collapses of the same greedy rule:
+
+- once per scene (static path, and the rebuild path's pad count): plain
+  tensor code, the area-greedy frontiers of every node, the 64-sweep
+  reachability of wide roots, dense wide ids in binary-node order and the
+  one-gather row assembly (tests/test_torch_accel.py);
+- every frame of the rebuild (``widen_area_kernel``): the breadth-first
+  collapse kernel (``kernels/build.collapse_area``), whose wide ids are BFS
+  positions, and the same kind of row assembly, with node boxes from range
+  queries over the leaf boxes (tests/test_torch_rebuild.py).
+
+Then the per-frame near-first child ordering. Every step reproduces the
+JAX package's arrays exactly.
 """
 
 from __future__ import annotations
@@ -16,10 +24,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .lbvh import LBVH
+from ..kernels.build import EMPTY, WIDE_FACTOR, collapse_area, greedy_slots
+from .lbvh import LBVH, _leaf_boxes, range_query, range_table
 
-EMPTY = -(2 ** 31)
-WIDE_FACTOR = 8
 _BIG = 3.4e38
 
 
@@ -47,48 +54,31 @@ class WideBVH:
     leaf_size: int
 
 
-def frontiers_area(child: torch.Tensor, nodes_box: torch.Tensor
-                   ) -> torch.Tensor:
-    """i32[Ni, 8] SAH-greedy frontiers: expand the LARGEST-AREA internal
-    slot while the row has < 8 slots. ``argmax`` takes the first maximum,
-    as ``jnp.argmax`` does."""
-    ni = child.shape[0]
-    dev = child.device
-    own_min = torch.minimum(nodes_box[:, 0:3], nodes_box[:, 6:9])
-    own_max = torch.maximum(nodes_box[:, 3:6], nodes_box[:, 9:12])
-    ext = torch.clamp(own_max - own_min, min=0.0).double()
-    # XLA contracts the reference's e0*e1 + e1*e2 + e2*e0 into
-    # fma(e2, e0, fma(e0, e1, e1*e2)) under jit. Products of two floats are
-    # exact in float64, so each fused step is one float64 add rounded to
-    # float32; equal slot areas must tie exactly for argmax to match.
+def area_key(ext: torch.Tensor) -> torch.Tensor:
+    """f32[N] expansion keys e0*e1 + e1*e2 + e2*e0 of box extents f32[N, 3],
+    rounded as the JAX package's jitted code rounds them.
+
+    XLA contracts the sum into fma(e2, e0, fma(e0, e1, e1*e2)) under jit.
+    Products of two floats are exact in float64, so each fused step is one
+    float64 add rounded to float32; equal slot areas must tie exactly for
+    the first-maximum rule to pick the same slot."""
+    ext = ext.double()
     e0, e1, e2 = ext[:, 0], ext[:, 1], ext[:, 2]
     inner = (e1 * e2).float().double()
     mid = (e0 * e1 + inner).float().double()
-    area = (e2 * e0 + mid).float()
+    return (e2 * e0 + mid).float()
 
-    slots = torch.full((ni, WIDE_FACTOR), EMPTY, dtype=torch.int32,
-                       device=dev)
-    slots[:, 0] = child[:, 0]
-    slots[:, 1] = child[:, 1]
-    count = torch.full((ni,), 2, dtype=torch.int32, device=dev)
-    lanes = torch.arange(WIDE_FACTOR, device=dev)[None, :]
 
-    for _ in range(WIDE_FACTOR - 2):
-        is_int = slots >= 0
-        key = torch.where(is_int, area[slots.clamp(0, ni - 1).long()], -1.0)
-        pick = torch.argmax(key, dim=1)
-        can = (count < WIDE_FACTOR) & (
-            torch.gather(key, 1, pick[:, None])[:, 0] >= 0.0)
-        ref = torch.gather(slots, 1, pick[:, None])[:, 0]
-        refc = ref.clamp(0, ni - 1).long()
-        at_pick = lanes == pick[:, None]
-        at_end = lanes == count[:, None]
-        slots = torch.where(at_pick & can[:, None], child[refc, 0][:, None],
-                            slots)
-        slots = torch.where(at_end & can[:, None], child[refc, 1][:, None],
-                            slots)
-        count = count + can.to(torch.int32)
-    return slots
+def frontiers_area(child: torch.Tensor, nodes_box: torch.Tensor
+                   ) -> torch.Tensor:
+    """i32[Ni, 8] SAH-greedy frontiers of every internal node: expand the
+    LARGEST-AREA internal slot while the row has < 8 slots (the first
+    maximum winning, as ``jnp.argmax``)."""
+    own_min = torch.minimum(nodes_box[:, 0:3], nodes_box[:, 6:9])
+    own_max = torch.maximum(nodes_box[:, 3:6], nodes_box[:, 9:12])
+    area = area_key(torch.clamp(own_max - own_min, min=0.0))
+    return greedy_slots(child, area,
+                        torch.arange(child.shape[0], device=child.device))
 
 
 def wide_roots_reachable(child: torch.Tensor, front: torch.Tensor,
@@ -147,6 +137,14 @@ def leaf_boxes_from_nodes(bvh: LBVH) -> Tuple[torch.Tensor, torch.Tensor]:
     return lmin, lmax
 
 
+def _inverted_box(device) -> torch.Tensor:
+    """f32[1, 6] [+BIG x3, -BIG x3], the unhittable box of an empty slot,
+    made by fills on the device (a tensor from host data would copy and
+    sync)."""
+    return torch.cat([torch.full((1, 3), _BIG, device=device),
+                      torch.full((1, 3), -_BIG, device=device)], dim=1)
+
+
 def _assemble_wide_nodes(refs, nodes_box, leaf_min, leaf_max, wref):
     """One-gather assembly of the f32[Nw, 128] wide node rows from a
     candidate table [Ni + Nl + 1, 6] (internal: union of stored child
@@ -158,10 +156,9 @@ def _assemble_wide_nodes(refs, nodes_box, leaf_min, leaf_max, wref):
     dev = nodes_box.device
     int_min = torch.minimum(nodes_box[:, 0:3], nodes_box[:, 6:9])
     int_max = torch.maximum(nodes_box[:, 3:6], nodes_box[:, 9:12])
-    inverted = torch.tensor([[_BIG] * 3 + [-_BIG] * 3], dtype=torch.float32,
-                            device=dev)
     table = torch.cat([torch.cat([int_min, int_max], dim=1),
-                       torch.cat([leaf_min, leaf_max], dim=1), inverted])
+                       torch.cat([leaf_min, leaf_max], dim=1),
+                       _inverted_box(dev)])
     row = torch.where(refs >= 0, refs,
                       torch.where(refs == EMPTY, ni + nl, ni + (-refs - 1)))
     rec = table[row.reshape(-1).long()]                 # [Nw*8, 6]
@@ -200,15 +197,88 @@ def widen_from_plan(plan, bvh: LBVH, leaf_boxes) -> WideBVH:
     leaf_min, leaf_max = leaf_boxes
     nodes = _assemble_wide_nodes(refs, bvh.nodes_box, leaf_min, leaf_max,
                                  wref)
+    return WideBVH(nodes=nodes.contiguous(), tris=block_rows(bvh),
+                   tri_id=bvh.tri_id, root_min=bvh.root_min,
+                   root_max=bvh.root_max, num_wide=nw_pad,
+                   leaf_size=bvh.leaf_size)
+
+
+def _leaf_boxes_from_tris(bvh: LBVH):
+    """Per-tree-leaf boxes: the clustered build's own (one side of each
+    split block's cut), else the k-chop triangle blocks' unions."""
+    if bvh.leaf_block is not None:
+        return bvh.leaf_min, bvh.leaf_max
+    return _leaf_boxes(bvh.tri_v0, bvh.tri_e1, bvh.tri_e2, bvh.leaf_size)[:2]
+
+
+def node_areas(bvh: LBVH, tab: torch.Tensor) -> torch.Tensor:
+    """f32[Ni] surface-area keys of every internal node, from one batched
+    query of the leaf boxes' ``range_table`` (works on deferred-box
+    builds)."""
+    amin, amax = range_query(tab, bvh.nodes_first, bvh.nodes_last)
+    return area_key(torch.clamp(amax - amin, min=0.0))
+
+
+def assemble_area_rows(bvh: LBVH, leaf_boxes, tab: torch.Tensor, front,
+                       src, nw_pad: int) -> torch.Tensor:
+    """f32[nw_pad, 128] wide rows from the collapse's BFS frontier: one
+    gather over a candidate table of the wide nodes' boxes (range queries
+    over their binary roots' leaf spans), the leaf boxes and an inverted
+    empty box. Leaf slots carry their triangle BLOCK as the kernel ref;
+    refs past the pad (an overflowed collapse) are clamped, and such an
+    accel is never rendered."""
+    leaf_min, leaf_max = leaf_boxes
+    nl = leaf_min.shape[0]
+    dev = front.device
+    srcl = src.long()
+    wmin, wmax = range_query(tab, bvh.nodes_first[srcl],
+                             bvh.nodes_last[srcl])
+    table = torch.cat([torch.cat([wmin, wmax], dim=1),
+                       torch.cat([leaf_min, leaf_max], dim=1),
+                       _inverted_box(dev)])
+    safe = torch.clamp(front, max=nw_pad - 1)
+    row = torch.where(front >= 0, safe,
+                      torch.where(front == EMPTY, nw_pad + nl,
+                                  nw_pad + (-front - 1)))
+    rec = table[row.reshape(-1).long()]                       # [Nw*8, 6]
+    leaf = (-front - 1).clamp(0, nl - 1).long()
+    lref = front if bvh.leaf_block is None else -(bvh.leaf_block[leaf] + 1)
+    kref = torch.where(front >= 0, safe.to(torch.float32),
+                       torch.where(front == EMPTY, -1.0,
+                                   lref.to(torch.float32)))
+    rec = torch.cat([rec, kref.reshape(-1, 1),
+                     torch.zeros((nw_pad * 8, 9), dtype=torch.float32,
+                                 device=dev)], dim=1)
+    return rec.reshape(nw_pad, 128)
+
+
+def block_rows(bvh: LBVH) -> torch.Tensor:
+    """f32[num_blocks, 128]: one triangle block per row, k x (v0, e1,
+    e2), zero-padded."""
     k = bvh.leaf_size
     if k * 9 > 128:
         raise ValueError(f"leaf_size {k} does not fit one 128-lane leaf row")
     tri9 = torch.stack([bvh.tri_v0, bvh.tri_e1, bvh.tri_e2], dim=1)
-    tri9 = tri9.reshape(bvh.num_leaves, k * 9)
-    tris = torch.nn.functional.pad(tri9, (0, 128 - k * 9))
-    return WideBVH(nodes=nodes.contiguous(), tris=tris.contiguous(),
+    tri9 = tri9.reshape(bvh.num_blocks, k * 9)
+    return torch.nn.functional.pad(tri9, (0, 128 - k * 9)).contiguous()
+
+
+def widen_area_kernel(bvh: LBVH, nw_pad: int):
+    """The per-frame rebuild's 8-wide collapse: one sparse table of the
+    leaf boxes, node areas from range queries, the BFS area-greedy
+    collapse kernel, the one-gather row assembly. Works on full- and
+    deferred-box builds. Returns (WideBVH, count i32[]): count > nw_pad
+    means the pad overflowed and the rows are truncated."""
+    leaf_boxes = _leaf_boxes_from_tris(bvh)
+    tab = range_table(*leaf_boxes)
+    area = node_areas(bvh, tab)
+    front, src, count = collapse_area(bvh.nodes_child, area, nw_pad)
+    nodes = assemble_area_rows(bvh, leaf_boxes, tab, front, src, nw_pad)
+    wide = WideBVH(nodes=nodes.contiguous(), tris=block_rows(bvh),
                    tri_id=bvh.tri_id, root_min=bvh.root_min,
-                   root_max=bvh.root_max, num_wide=nw_pad, leaf_size=k)
+                   root_max=bvh.root_max, num_wide=nw_pad,
+                   leaf_size=bvh.leaf_size)
+    return wide, count
 
 
 def wide_depth(wide: WideBVH) -> int:

@@ -34,10 +34,16 @@ def _t(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
+def _opt(a, dtype, device):
+    return None if a is None else _t(a, dtype, device)
+
+
 def lbvh(fields: Dict[str, Any], device) -> LBVH:
+    """A ``tpurt`` LBVH; ``nodes_box`` may be None (a deferred-box build)
+    and the sub-leaf clustering fields are carried when present."""
     f32, i32 = torch.float32, torch.int32
     return LBVH(
-        nodes_box=_t(fields["nodes_box"], f32, device),
+        nodes_box=_opt(fields["nodes_box"], f32, device),
         nodes_child=_t(fields["nodes_child"], i32, device),
         nodes_first=_t(fields["nodes_first"], i32, device),
         nodes_last=_t(fields["nodes_last"], i32, device),
@@ -48,7 +54,10 @@ def lbvh(fields: Dict[str, Any], device) -> LBVH:
         tri_id=_t(fields["tri_id"], i32, device),
         root_min=_t(fields["root_min"], f32, device),
         root_max=_t(fields["root_max"], f32, device),
-        leaf_size=int(fields["leaf_size"]))
+        leaf_size=int(fields["leaf_size"]),
+        leaf_block=_opt(fields.get("leaf_block"), i32, device),
+        leaf_min=_opt(fields.get("leaf_min"), f32, device),
+        leaf_max=_opt(fields.get("leaf_max"), f32, device))
 
 
 def wide_bvh(fields: Dict[str, Any], device) -> WideBVH:

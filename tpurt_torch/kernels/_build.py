@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernel library.
+"""Build and load the port's CUDA kernel library, and the checks every
+kernel wrapper makes at the launch boundary.
 
-Every ``csrc/*.cu`` (each includes ``csrc/walk.cuh``) is compiled by its
-own ``nvcc``, all started together, and one more ``nvcc`` links the
-objects into one shared library with a plain C interface, bound with
-ctypes. The build runs at first use, never at import, into
-``build/tpurt_torch/`` at the repository root, and is keyed by a hash of
-the sources, the headers and the flags, so an edited source rebuilds.
+Every ``csrc/*.cu`` (the walk kernels include ``csrc/walk.cuh``; the
+build kernels of ``csrc/build.cu`` stand alone) is compiled by its own
+``nvcc``, all started together, and one more ``nvcc`` links the objects
+into one shared library with a plain C interface, bound with ctypes. The
+build runs at first use, never at import, into ``build/tpurt_torch/`` at
+the repository root, and is keyed by a hash of the sources, the headers
+and the flags, so an edited source rebuilds.
 """
 
 from __future__ import annotations
@@ -24,6 +26,29 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
                           "build", "tpurt_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+
+def _check(t, name: str, dtype, shape, device) -> None:
+    """Raise unless tensor ``t`` has the device, dtype and shape a kernel
+    takes and is contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _pick(device, cuda_fn, plain_fn):
+    """The kernel for CUDA tensors, its plain version for CPU tensors."""
+    if device.type == "cuda":
+        return cuda_fn
+    if device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"unsupported device {device}")
 
 
 def _inputs():
@@ -110,6 +135,13 @@ def load_library() -> ctypes.CDLL:
     for name in ("tpurt_stack_capacity", "tpurt_params_size"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
+    p = ctypes.c_void_p
+    for name, args in (
+            ("tpurt_morton_codes_launch", [p, i, p, p]),
+            ("tpurt_topology_launch", [p, i, i, p, p, p, p, p, p, p]),
+            ("tpurt_collapse_area_launch", [p, p, i, i, p, p, p, p])):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = args
     from .traverse import STACK_CAPACITY, Params
     if lib.tpurt_stack_capacity() != STACK_CAPACITY:
         raise RuntimeError("kernel STACK_CAPACITY differs from "

@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from ..bvh.wide import WideBVH
+from ._build import _check, _pick
 from .sampling import (lane_axis_onb, onb3, rsqrt, sample_uniforms,
                        sincos_2pi)
 
@@ -828,18 +829,6 @@ def any_point_soft_reference(rays, nodes, tris, scal, *, leaf_size: int,
 # The CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 class Params(ctypes.Structure):
     """One launch's arguments: ``Params`` of csrc/walk.cuh, field for field
     (the loader checks the two sizes agree)."""
@@ -1244,15 +1233,6 @@ def any_point_soft_inputs(bvh: WideBVH, origins, valid, light_pos, radius,
         bvh, origins, valid,
         lambda dev: torch.cat([_f32(light_pos, dev), _f32([radius], dev)]),
         spp, seed, light, t_min, zero_stream, stack_size)
-
-
-def _pick(device: torch.device, cuda_fn, plain_fn):
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
-    if device.type == "cuda":
-        return cuda_fn
-    if device.type == "cpu":
-        return plain_fn
-    raise ValueError(f"unsupported device {device}")
 
 
 def _need_attrs(attr_tables) -> None:

@@ -1,5 +1,9 @@
 """Leaf attribute rows and their encodings (counterpart of the
-attribute-row part of ``tpurt/passes/shading.py``).
+attribute-row part of ``tpurt/passes/shading.py``): built by a gather
+keyed by the sorted original ids (``make_leaf_attr_rows``, once per
+scene), or from columns that rode the rebuild's sort
+(``attr_payload_columns`` -> ``leaf_attr_rows_from_sorted``), and the
+animated mesh's vertex normals (``smooth_normals_device``).
 
 The fused kernel selects the winning triangle's shading attributes from
 leaf-major rows while the candidate is in registers, so the G-buffer needs
@@ -19,7 +23,6 @@ dummy when leaf_size <= 8). ``torch.round`` rounds half to even, as
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..bvh.lbvh import LBVH
@@ -97,25 +100,22 @@ def _pack_attr_rows(rows16: torch.Tensor, num_leaves: int, k: int):
 
 
 def make_leaf_attr_rows(bvh: LBVH, mesh: Mesh):
-    """Leaf-major shading attributes (at0, at1) f32[n_leaves, 128] on the
-    accel's device, for an untextured mesh."""
+    """Leaf-major shading attributes (at0, at1) f32[num_blocks, 128] on the
+    accel's device, for an untextured mesh (fields as numpy arrays or
+    tensors)."""
     k = bvh.leaf_size
     if k > 14:
         raise ValueError("attr rows support leaf_size <= 14 (14*16 lanes)")
     if mesh.textured:
         raise NotImplementedError("textured attribute rows are not ported")
     dev = bvh.tri_id.device
-
-    def t(a, dtype):
-        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
-
+    m = mesh.on(dev)
     tri_id = bvh.tri_id.long()
-    tri = t(mesh.indices, torch.long)[tri_id]               # [Tpad, 3]
-    normals = t(mesh.normals, torch.float32)
-    n0 = pack_oct12(oct_encode(normals[tri[:, 0]]))[:, None]
-    n1 = pack_oct12(oct_encode(normals[tri[:, 1]]))[:, None]
-    n2 = pack_oct12(oct_encode(normals[tri[:, 2]]))[:, None]
-    alb = pack_rgb(t(mesh.albedo, torch.float32)[tri_id])[:, None]
+    tri = m.indices.long()[tri_id]                           # [Tpad, 3]
+    n0 = pack_oct12(oct_encode(m.normals[tri[:, 0]]))[:, None]
+    n1 = pack_oct12(oct_encode(m.normals[tri[:, 1]]))[:, None]
+    n2 = pack_oct12(oct_encode(m.normals[tri[:, 2]]))[:, None]
+    alb = pack_rgb(m.albedo[tri_id])[:, None]
     n = tri.shape[0]
     uv = torch.zeros((n, 6), dtype=torch.float32, device=dev)
     layer = torch.full((n, 1), -1.0, dtype=torch.float32, device=dev)
@@ -123,3 +123,49 @@ def make_leaf_attr_rows(bvh: LBVH, mesh: Mesh):
     pad = torch.zeros((n, 4), dtype=torch.float32, device=dev)
     rows16 = torch.cat([n0, n1, n2, alb, layer, uv, tid, pad], dim=1)
     return _pack_attr_rows(rows16, bvh.num_blocks, k)
+
+
+def attr_payload_columns(mesh: Mesh, device):
+    """Per-triangle ORIGINAL-order attribute columns (f32[T] each) that
+    ride the rebuild's Morton sort as payload (``build_lbvh``
+    ``extra_payload``): the packed oct normals of the three corners and
+    the packed albedo. Untextured meshes only."""
+    if mesh.textured:
+        raise NotImplementedError("textured attribute rows are not ported")
+    m = mesh.on(device)
+    tri = m.indices.long()
+    return (pack_oct12(oct_encode(m.normals[tri[:, 0]])),
+            pack_oct12(oct_encode(m.normals[tri[:, 1]])),
+            pack_oct12(oct_encode(m.normals[tri[:, 2]])),
+            pack_rgb(m.albedo))
+
+
+def leaf_attr_rows_from_sorted(cols, tri_id: torch.Tensor, num_blocks: int,
+                               k: int):
+    """(at0, at1) from the SORTED payload columns (``attr_payload_columns``
+    order) and the sorted original ids: the rebuild's twin of
+    ``make_leaf_attr_rows``, with the same output."""
+    n = tri_id.shape[0]
+    z = torch.zeros((n,), dtype=torch.float32, device=tri_id.device)
+    lay = torch.full((n,), -1.0, dtype=torch.float32, device=tri_id.device)
+    rows16 = torch.stack([cols[0], cols[1], cols[2], cols[3], lay,
+                          z, z, z, z, z, z, tri_id.to(torch.float32),
+                          z, z, z, z], dim=1)                 # [Tpad, 16]
+    return _pack_attr_rows(rows16, num_blocks, k)
+
+
+def smooth_normals_device(vertices: torch.Tensor,
+                          indices: torch.Tensor) -> torch.Tensor:
+    """Area-weighted vertex normals on the vertices' device: the face
+    normals scatter-added into their three corners, then normalised (the
+    animated path's per-frame normals). On the CPU the adds run in index
+    order, as XLA's scatter does; on the card they are atomic, so the
+    normals' last bits can differ from run to run."""
+    tri = indices.long()
+    i0, i1, i2 = tri[:, 0], tri[:, 1], tri[:, 2]
+    fn = torch.linalg.cross(vertices[i1] - vertices[i0],
+                            vertices[i2] - vertices[i0])
+    n = torch.zeros_like(vertices)
+    for i in (i0, i1, i2):
+        n.index_add_(0, i, fn)
+    return normalize(n)

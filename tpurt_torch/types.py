@@ -13,6 +13,7 @@ import dataclasses
 from typing import Any, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -50,6 +51,20 @@ class Mesh:
     def bounds(self) -> Tuple[np.ndarray, np.ndarray]:
         v = np.asarray(self.vertices)
         return v.min(axis=0), v.max(axis=0)
+
+    def on(self, device) -> "Mesh":
+        """This mesh with its geometry as tensors on ``device`` (vertices,
+        normals and albedo float32, indices int32; the texturing fields as
+        they are). Fields already there are not copied."""
+        def t(a, dtype):
+            if isinstance(a, torch.Tensor):
+                return a.to(device=device, dtype=dtype)
+            return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+        return dataclasses.replace(
+            self, vertices=t(self.vertices, torch.float32),
+            normals=t(self.normals, torch.float32),
+            indices=t(self.indices, torch.int32),
+            albedo=t(self.albedo, torch.float32))
 
 
 @dataclasses.dataclass
