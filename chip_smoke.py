@@ -70,10 +70,30 @@ Phases, in order; any failure raises and the exit code is not 0:
    (set_vertices(deform(mesh, t))), finite, with the count of overflow
    recoveries, and one more after a pad forced below the count, which
    must recover.
-10. Timings on one JSON line, then the kernel table on one JSON line, the
+10. The raster G-buffer (tpurt's primary visibility wherever the accel is
+    neither an SBVH nor a clustered rebuild): the same hall, camera and
+    light at 1920x1080, Renderer(gbuffer="raster"). One warm-up and five
+    timed frames, one rasterizer and one any-hit launch each, frames
+    bit-identical, coverage and image against phase 4's ray-cast frame
+    (tests/test_raster.py's bounds: coverage differs on < 0.2% of pixels,
+    the image by more than 2e-2 on < 1%); the rasterizer against its plain
+    version on the whole frame's bins (ids, u, v and 1/w equal, every
+    other channel within 1e-6); the binning's host syncs (must be 0) and
+    its pair, big-row and per-tile statistics; the stage split (binning,
+    kernel, decode, shadow pass, composite); the raster and ray frames in
+    turns; one binning call and one raster frame under torch.profiler
+    (kernel time, launches, the card's idle share, the costliest
+    kernels). Then the two "auto" paths that resolve to raster on the card:
+    sah=False (three frames) and mode="rebuild" with rebuild_splits=0
+    (one warm-up and five timed frames, each with one launch of every
+    build kernel), each image against the raster frame's; and a pair
+    capacity forced to 4096, which must be grown and the frame rendered
+    again, equal to the first.
+11. Timings on one JSON line, then the kernel table on one JSON line, the
     card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
-Tolerances of the kernel-vs-plain checks: valid masks equal; t to rtol
+Tolerances of the walk kernels' checks against their plain versions:
+valid masks equal; t to rtol
 1e-6 / atol 1e-6; tri_id equal on >= 99.9% of valid pixels and every
 other attribute channel within 1e-6 where it is; occlusion, each bit of a
 mask and counts differ on at most 1e-3 of valid (for the shadow-ray
@@ -92,7 +112,11 @@ occluder. Ray set-up, sampling and integer work are not counted. The
 build kernels' operations (integer ones counted at the float32 rate): 52
 per Morton code; per topology node one sparse-table min per level, two
 compares per level of the two searches and 10 to place it; per expanded
-wide node 190 for the six greedy steps and the emission.
+wide node 190 for the six greedy steps and the emission. The rasterizer:
+bytes of the pair rows its tiles read, the big rows every tile reads,
+the run offsets and the 13 output planes; operations counted by the plain
+version on the same bins, 30 per (record, pixel) test and 29 more where
+the record takes the pixel.
 """
 
 from __future__ import annotations
@@ -165,8 +189,9 @@ def kernel(name):
 
 def all_kernels():
     from tpurt_torch.kernels.build import BUILD_KERNELS
+    from tpurt_torch.kernels.raster import RASTER_KERNELS
     from tpurt_torch.kernels.traverse import CUDA_KERNELS
-    return CUDA_KERNELS + BUILD_KERNELS
+    return CUDA_KERNELS + BUILD_KERNELS + RASTER_KERNELS
 
 
 def reset_launches():
@@ -671,7 +696,8 @@ def phase_config1(dev, mesh) -> dict:
     nvalid = int(valid.sum())
     return dict(launches=n["closest_shadow"], frame_ms=frame_ms,
                 frame_ms_mean=mean_ms, kernel=kp, stages_ms=stages,
-                image=kept[0]["image"], valid_share=valid_share,
+                image=kept[0]["image"], valid=valid, renderer=r,
+                valid_share=valid_share,
                 occluded_share=occ_share,
                 peak_mem_mb=peak_mb, tris=mesh.num_triangles,
                 **rays_per_s(MAIN_W * MAIN_H, nvalid, nvalid, mean_ms),
@@ -1075,6 +1101,25 @@ def build_pair(name, args, what) -> dict:
     return dict(max_abs_err=err, mismatch_share=0.0)
 
 
+def rebuild_frames(r, n: int):
+    """n rebuild-mode frames with CUDA events around each -> (kept
+    outputs, frame ms and rebuild ms of all but the first)."""
+    kept, ms, build = [], [], []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = r.render_frame()
+        end.record()
+        torch.cuda.synchronize()
+        kept.append({"image": out["image"], "shadow": out["shadow"],
+                     "valid": out["valid"]})
+        if i > 0:
+            ms.append(start.elapsed_time(end))
+            build.append(r.stats["build_ms"])
+    return kept, ms, build
+
+
 def build_bound(nbytes: int, ops: int) -> dict:
     bytes_ms = nbytes / HBM_RATE * 1e3
     ops_ms = ops / FP32_PEAK * 1e3
@@ -1238,24 +1283,9 @@ def phase_config2(dev, mesh, static_image) -> dict:
         "(nodes, tris, tri_id, at0, at1, count)")
 
     # Config 2 frames through the Renderer.
-    def run(n_frames):
-        kept, ms, build = [], [], []
-        for i in range(n_frames):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = r.render_frame()
-            end.record()
-            torch.cuda.synchronize()
-            kept.append({"image": out["image"], "shadow": out["shadow"],
-                         "valid": out["valid"]})
-            if i > 0:
-                ms.append(start.elapsed_time(end))
-                build.append(r.stats["build_ms"])
-        return kept, ms, build
     (kept, frame_ms, build_ms), n = drive(
         {"closest_shadow": 6, "morton_codes": 6, "topology": 6,
-         "collapse_area": 6}, lambda: run(6))
+         "collapse_area": 6}, lambda: rebuild_frames(r, 6))
     valid_share = check_image(kept[0], MAIN_W, MAIN_H, "config 2")
     for f in kept[1:]:
         if not torch.equal(f["image"], kept[0]["image"]):
@@ -1328,6 +1358,224 @@ def phase_config2(dev, mesh, static_image) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the raster G-buffer
+# ---------------------------------------------------------------------------
+
+RASTER_TPU = "tpurt/kernels/raster.py:217"
+# Float32 operations of the rasterizer per (record, pixel) test: three
+# edge values (2 mul, 2 add each), the d-sum (2 add), the two-sided
+# coverage test (6 compares, 5 logic), 1/w (1 mul), the z-test and its
+# gates (2 compares, 2 logic); and where the record takes the pixel, the
+# d-weighted normal (3 x (3 mul, 2 add)) and 14 state writes.
+OPS_PER_TEST = 30
+OPS_PER_TAKE = 29
+
+
+def raster_compare(kres, pres, what: str) -> dict:
+    """The rasterizer against its plain version on the same bins: ids, u,
+    v and 1/w equal, every other channel within 1e-6."""
+    (kt, ka), (pt, pa) = kres, pres
+    if not torch.equal(kt, pt):
+        raise RuntimeError(f"{what}: tri_id differs on "
+                           f"{int((kt != pt).sum())} pixels")
+    if not torch.equal(ka[0:3], pa[0:3]):
+        raise RuntimeError(f"{what}: u, v or 1/w differ by up to "
+                           f"{float((ka[0:3] - pa[0:3]).abs().max())}")
+    err = float((ka - pa).abs().max())
+    if err > 1e-6:
+        raise RuntimeError(f"{what}: channels differ by {err}")
+    return dict(valid=int((kt >= 0).sum()), max_abs_err=err,
+                mismatch_share=0.0)
+
+
+def profile_device(fn, top: int = 8) -> dict:
+    """One call of fn under torch.profiler (CPU and CUDA activity): the
+    host milliseconds around it (synchronised, the profiler's overhead
+    included), the kernels' summed device time, their launches, the idle
+    share of the card over the call, and the kernels that took the most
+    device time. kernel_ms 0 means the profiler saw no device work."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_time = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    return dict(host_ms=wall, kernel_ms=busy,
+                launches=sum(e.count for e in kernels),
+                idle_share=1.0 - busy / wall if busy else None,
+                top=[[e.key[:72], e.count, e.self_device_time_total / 1e3]
+                     for e in by_time[:top]])
+
+
+def bins_stats(bins) -> dict:
+    """The binning's load: pair rows, big rows and pair rows per tile."""
+    counts = bins.row_counts.double()
+    q = torch.quantile(counts, torch.tensor(
+        [0.5, 0.9, 0.99], dtype=torch.float64, device=counts.device))
+    return dict(cap_rows=int(bins.pair_rows.shape[0]),
+                pair_rows=int(counts.sum()), big_nrows=int(bins.big_nrows),
+                tiles=int(counts.numel()),
+                empty_tiles=int((counts == 0).sum()),
+                rows_per_tile=dict(zip(("mean", "median", "p90", "p99", "max"),
+                                       [float(counts.mean()), *q.tolist(),
+                                        float(counts.max())])),
+                overflow=bool(bins.overflow))
+
+
+def phase_raster(dev, mesh, c1) -> dict:
+    """The raster G-buffer at 1080p; c1: phase 4's image, valid mask and
+    Renderer."""
+    import tpurt_torch.kernels.raster as R
+    from tpurt_torch.app import (Renderer, composite_lights, frame_seed,
+                                 shadow_production)
+    from tpurt_torch.passes.gbuffer import gbuffer_raster_pass
+    from tpurt_torch.raster.setup import bin_rows, default_cap_rows
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    w, h = MAIN_W, MAIN_H
+    cam = sponza_interior_camera()
+    light = Light.directional(SUN_DIR)
+    cfg = RenderConfig(width=w, height=h, leaf_size=14, gbuffer="raster")
+    r = Renderer(mesh, cam, light, cfg, device=dev)
+    if r.route != "unfused" or r.attr_tables is not None:
+        raise RuntimeError(f"raster frame: route {r.route}, attribute rows "
+                           f"{r.attr_tables is not None}")
+    (kept, frame_ms), n = drive({"rasterize_rows": 6, "any": 6},
+                                lambda: frames(r, 6))
+    valid_share = check_image(kept[0], w, h, "raster")
+    for f in kept[1:]:
+        if not torch.equal(f["image"], kept[0]["image"]):
+            raise RuntimeError("raster frames are not bit-identical")
+    valid = kept[0]["valid"]
+    coverage = float((valid != c1["valid"]).float().mean())
+    diff = (kept[0]["image"] - c1["image"]).abs().amax(-1)
+    image_share = float((diff > 2e-2).float().mean())
+    if coverage >= 0.002 or image_share >= 0.01:
+        raise RuntimeError(f"raster frame against the ray-cast one: "
+                           f"coverage differs on {coverage:.2e}, the image "
+                           f"on {image_share:.2e} of pixels")
+    mean_ms = float(np.mean(frame_ms))
+    res = dict(launches=n, frame_ms=frame_ms, frame_ms_mean=mean_ms,
+               valid_share=valid_share, vs_ray_coverage_share=coverage,
+               vs_ray_image_share=image_share,
+               occluded_share=float((kept[0]["shadow"][0][valid] < 1.0)
+                                    .float().mean()),
+               setup=dict(r.stats))
+    log(f"phase 10 raster frames: {json.dumps(res)}")
+
+    # The kernel against its plain version on the frame's bins.
+    cap = default_cap_rows(mesh.num_triangles)
+    bins = bin_rows(cam, r.mesh, w, h, cap)
+    syncs = host_syncs(lambda: bin_rows(cam, r.mesh, w, h, cap))
+    if syncs:
+        raise RuntimeError(f"bin_rows waited for the card: {syncs}")
+    res["bins"] = bins_stats(bins)
+    res["bin_rows_host_syncs"] = len(syncs)
+    log(f"phase 10 bins: {json.dumps(res['bins'])}")
+    before = R.rasterize_rows_cuda.launches
+    kres = R.rasterize_rows_cuda(bins, w, h)
+    torch.cuda.synchronize()
+    if R.rasterize_rows_cuda.launches != before + 1:
+        raise RuntimeError("rasterize_rows: launch counter did not grow")
+    ms = cuda_ms(lambda: R.rasterize_rows_cuda(bins, w, h), 20)
+    R.rasterize_rows_cuda.launches = before
+    stats = {}
+    pres, plain_ms = host_ms(lambda: R.rasterize_rows_reference(
+        bins, w, h, stats=stats))
+    cmp = raster_compare(kres, pres, "phase 10 rasterizer, whole frame")
+    ntiles = int(bins.row_starts.numel())
+    nbytes = ((res["bins"]["pair_rows"] + res["bins"]["big_nrows"] * ntiles)
+              * 512 + 2 * ntiles * 4 + 13 * w * h * 4)
+    ops = OPS_PER_TEST * stats["record_tests"] + OPS_PER_TAKE * stats["takes"]
+    res["kernel"] = dict(ms=ms, plain_ms=plain_ms, compare=cmp,
+                         max_abs_err=cmp["max_abs_err"], mismatch_share=0.0,
+                         **stats, **build_bound(nbytes, ops))
+    log(f"phase 10 rasterizer: {json.dumps(res['kernel'])}")
+
+    # Where the frame's time goes (mean of 5 calls per stage).
+    seed = frame_seed(cfg.seed, 0)
+    gbuf = gbuffer_raster_pass(r.mesh, cam, w, h)
+    vis = shadow_production(r.accel, gbuf, light, seed, 0, r.config)[0]
+    st = {"binning": cuda_ms(lambda: bin_rows(cam, r.mesh, w, h, cap), 5),
+          "raster_kernel": cuda_ms(lambda: R.rasterize_rows_cuda(bins, w, h),
+                                   5),
+          "gbuffer_pass": cuda_ms(lambda: gbuffer_raster_pass(r.mesh, cam, w,
+                                                              h), 5),
+          "shadow_pass_light0": cuda_ms(lambda: shadow_production(
+              r.accel, gbuf, light, seed, 0, r.config), 5),
+          "composite": cuda_ms(lambda: composite_lights(
+              gbuf, [vis], [light], r.config), 5)}
+    st["decode"] = st["gbuffer_pass"] - st["binning"] - st["raster_kernel"]
+    st["counter_read_rest"] = mean_ms - st["gbuffer_pass"] \
+        - st["shadow_pass_light0"] - st["composite"]
+    res["stages_ms"] = st
+    turns = in_turns(c1["renderer"], r)
+    res["in_turns_ms"] = {"ray": turns["a"], "raster": turns["b"]}
+    log(f"phase 10 stages: {json.dumps(st)}; in turns "
+        f"{json.dumps(res['in_turns_ms'])}")
+    res["profile"] = {"binning": profile_device(
+        lambda: bin_rows(cam, r.mesh, w, h, cap)),
+        "raster_frame": profile_device(r.render_frame)}
+    log(f"phase 10 profile: {json.dumps(res['profile'])}")
+
+    # The "auto" paths that take the rasterizer on the card.
+    def against_raster(img, v):
+        d = (img - kept[0]["image"]).abs().amax(-1)
+        return float(((d > 1e-3) & v).sum()) / int(v.sum())
+    r2 = Renderer(mesh, cam, light, RenderConfig(
+        width=w, height=h, leaf_size=14, sah=False), device=dev)
+    if r2.config.gbuffer != "raster":
+        raise RuntimeError("sah=False with gbuffer='auto' took the ray cast")
+    (k2, ms2), n2 = drive({"rasterize_rows": 3, "any": 3},
+                          lambda: frames(r2, 3))
+    share2 = against_raster(k2[0]["image"], k2[0]["valid"])
+    if share2 > 1e-3:
+        raise RuntimeError(f"sah=False raster frame differs on {share2:.2e}")
+    res["sah_false_auto"] = dict(launches=n2, frame_ms=ms2,
+                                 vs_raster_share=share2, setup=r2.stats)
+    rb = Renderer(mesh, cam, light, RenderConfig(
+        width=w, height=h, leaf_size=14, rebuild_splits=0), mode="rebuild",
+        device=dev)
+    if rb.config.gbuffer != "raster" or rb.attr_tables is not None:
+        raise RuntimeError("rebuild_splits=0 with gbuffer='auto' did not "
+                           "take the rasterizer without attribute rows")
+    (k3, ms3, build3), n3 = drive(
+        {"rasterize_rows": 6, "any": 6, "morton_codes": 6, "topology": 6,
+         "collapse_area": 6}, lambda: rebuild_frames(rb, 6))
+    for f in k3[1:]:
+        if not torch.equal(f["image"], k3[0]["image"]):
+            raise RuntimeError("raster rebuild frames are not bit-identical")
+    share3 = against_raster(k3[0]["image"], k3[0]["valid"])
+    if share3 > 1e-3:
+        raise RuntimeError(f"raster rebuild frame differs on {share3:.2e}")
+    res["rebuild_plain_morton"] = dict(
+        launches=n3, frame_ms=ms3, frame_ms_mean=float(np.mean(ms3)),
+        build_ms=build3, build_ms_mean=float(np.mean(build3)),
+        vs_raster_share=share3, nw_pad=rb._nw_pad, wide_depth=rb.depth,
+        setup=dict(rb.stats))
+    log(f"phase 10 auto paths: sah=False {json.dumps(res['sah_false_auto'])}"
+        f"; rebuild {json.dumps(res['rebuild_plain_morton'])}")
+
+    # A pair capacity too small for the view must be grown.
+    r.config = dataclasses.replace(r.config, raster_cap_pairs=4096)
+    grown = r.stats["raster_cap_growths"]
+    out, host = host_ms(r.render_frame)
+    if r.stats["raster_cap_growths"] != grown + 1 or \
+            not torch.equal(out["image"], kept[0]["image"]):
+        raise RuntimeError("the forced pair capacity was not recovered")
+    res["forced_cap"] = dict(cap=4096, new_cap=r.config.raster_cap_pairs,
+                             frame_host_ms=host)
+    log(f"phase 10 forced capacity: {json.dumps(res['forced_cap'])}")
+    return res
+
+
 def build_kernel_row(name, launches_, kp) -> dict:
     return {"name": name, "route": "cuda", "source": CSRC + "build.cu",
             "replaces": f"{BUILD_TPU}{BUILD_KERNEL_LINES[name]}",
@@ -1379,15 +1627,17 @@ def main() -> int:
     c3 = phase_config3(dev, mesh)
     c5 = phase_config5(dev, mesh)
     variants = phase_soft_variants(dev, mesh)
-    static_image = c1.pop("image")
+    phase4 = {k: c1.pop(k) for k in ("image", "valid", "renderer")}
+    static_image = phase4["image"]
     unf = phase_unfused(dev, mesh, static_image)
     c2 = phase_config2(dev, mesh, static_image)
+    ras = phase_raster(dev, mesh, phase4)
     timings = {"card": card, "build_s": build_s,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
                "config3_1080p": c3, "config5_2160p": c5,
                "soft_variants_1080p": variants, "unfused_1080p": unf,
-               "config2_1080p": c2}
+               "config2_1080p": c2, "raster_1080p": ras}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],
@@ -1404,6 +1654,14 @@ def main() -> int:
                                unf[label]["kernels"][name], small))
     rows += [build_kernel_row(name, c2["launches"][name], kp)
              for name, kp in c2["kernels"].items()]
+    kp = ras["kernel"]
+    rows.append({"name": "rasterize_rows", "route": "cuda",
+                 "source": CSRC + "raster.cu", "replaces": RASTER_TPU,
+                 "launches": ras["launches"]["rasterize_rows"],
+                 "max_abs_err": kp["max_abs_err"],
+                 "mismatch_share": kp["mismatch_share"], "ms": kp["ms"],
+                 "plain_ms": kp["plain_ms"], "bound_ms": kp["bound_ms"],
+                 "bound_by": kp["bound_by"], "library_ms": None})
     log(json.dumps({"timings": timings}))
     log(json.dumps({"kernels": rows}))
     log(card)

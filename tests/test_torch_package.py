@@ -29,6 +29,7 @@ def test_port_imports_no_jax():
             "import tpurt_torch.passes.shadow, tpurt_torch.passes.gbuffer\n"
             "import tpurt_torch.kernels.build, tpurt_torch.bvh.morton\n"
             "import tpurt_torch.bvh.lbvh, tpurt_torch.bvh.wide\n"
+            "import tpurt_torch.raster.setup, tpurt_torch.kernels.raster\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'tpurt'\n"
             "       or m.startswith(('jax.', 'tpurt.'))]\n"
             "assert not bad, bad\n"
@@ -121,21 +122,31 @@ def test_renderer_defaults_to_the_card():
     (dict(mode="rebuild", config=dict(rebuild_collapse="fixed")),
      "rebuild_collapse"),
     (dict(config=dict(bvh_width=2)), "bvh_width"),
-    (dict(config=dict(sah=False)), "sah=False with gbuffer='auto'"),
+    (dict(config=dict(gbuffer="raster", raster_deferred=True)),
+     "raster_deferred"),
     (dict(mode="rebuild", config=dict(top_sah=True)), "top_sah"),
-    (dict(mode="rebuild", config=dict(rebuild_splits=0)),
-     "rebuild_splits=0 with gbuffer='auto'"),
-    (dict(config=dict(gbuffer="raster")), "raster"),
+    (dict(mode="rebuild", config=dict(rebuild_splits=0, gbuffer="raster",
+                                      raster_deferred=True)),
+     "raster_deferred"),
+    (dict(config=dict(sah=False, seeded_gbuffer=True)), "seeded_gbuffer"),
     (dict(config=dict(use_pallas=False)), "use_pallas"),
     (dict(config=dict(inkernel_attrs=False)), "inkernel_attrs"),
     (dict(config=dict(seeded_gbuffer=True)), "seeded_gbuffer"),
     (dict(mode="refit"), "refit"),
     (dict(lights="three", config=dict(sort_rays=True)), "sort_rays"),
     (dict(cache_dir="unused"), "cache_dir"),
+    (dict(textured=True, config=dict(gbuffer="raster")), "textured"),
 ])
 def test_outside_the_slice_raises(kwargs, what):
     from tpurt_torch.app import Renderer
     mesh = tscenes.teapot_scene(1500)
+    if kwargs.get("textured"):
+        mesh = dataclasses.replace(
+            mesh, uv=np.zeros((mesh.num_vertices, 2), np.float32),
+            tex_atlas=np.zeros((1, 4, 4, 3), np.float32),
+            tri_tex=np.zeros(mesh.num_triangles, np.int32))
+    # On the CPU gbuffer="auto" resolves to the ray G-buffer, so
+    # sah=False with seeded_gbuffer=True refuses the shade-table path.
     # sort_rays wraps the any-hit tracer of the unfused shadow pass: at spp
     # 4 fused0 takes light 0 and the unfused pass the sun and the hard
     # light 2.

@@ -13,7 +13,8 @@ light set's shadows from the biased hit point. Which kernel runs follows
    directional extras -> light-0 sample counts plus a bitmask;
 3. fused0: light 0 (any number of lights) -> its hard shadow, cone samples
    or disk samples;
-4. unfused (``fused_shadow=False``): the closest-hit kernel alone.
+4. unfused (``fused_shadow=False``, or the raster G-buffer): the
+   closest-hit kernel alone, or the tile rasterizer.
 
 Every light that no fused kernel took (lights 1.. after fused0, every
 light after unfused) goes through the unfused shadow pass
@@ -31,6 +32,16 @@ the topology kernel, the breadth-first area collapse kernel and the
 attribute rows, with no host sync unless the geometry changed. On the
 H100 the accel lives in device memory, so the TPU package's VMEM budgets
 and chunked split have no counterpart here.
+
+The primary visibility follows ``tpurt``'s choice of strategy
+(``use_raster_gbuffer``): ``gbuffer="auto"`` takes the ray cast on an SBVH
+accel and on a clustered rebuild, and otherwise the tile rasterizer on the
+card, the compiled backend, and the ray cast on the CPU, where ``tpurt``
+keeps the ray cast in interpret mode. The raster G-buffer
+(``passes/gbuffer.gbuffer_raster_pass``: on-device binning, one
+rasterizer launch, decode) builds no attribute rows, and every light goes
+through the unfused shadow pass on the accel as built. A frame whose
+binning overflowed the pair capacity is rendered again with a bigger one.
 
 Everything outside this slice raises ``NotImplementedError`` naming the
 missing piece; nothing falls back to another path or device.
@@ -61,10 +72,12 @@ from .kernels.traverse import (MAX_MASK_LIGHTS, check_stack_bound,
                                trace_closest_soft_multi_shadow,
                                trace_closest_soft_shadow)
 from .passes.composite import accumulate, composite_pass
-from .passes.gbuffer import gbuf_from_attr_channels, gbuffer_attr_pass
+from .passes.gbuffer import (gbuf_from_attr_channels, gbuffer_attr_pass,
+                             gbuffer_raster_pass)
 from .passes.shadow import cone_cos, shadow_pass
 from .passes.shading import (attr_payload_columns, leaf_attr_rows_from_sorted,
                              make_leaf_attr_rows, smooth_normals_device)
+from .raster.setup import default_cap_rows
 from .types import (LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT, Camera,
                     Light, Mesh, RenderConfig)
 
@@ -125,6 +138,24 @@ def unfused_lights(route: str, n_lights: int) -> range:
             "unfused": range(n_lights)}.get(route, range(0))
 
 
+def use_raster_gbuffer(cfg: RenderConfig, mode: str, device,
+                       split_blocks: int) -> bool:
+    """Does the frame rasterize its G-buffer? ``tpurt``'s resolution
+    (``use_raster_gbuffer`` with the Renderer's "auto" rules,
+    ``tpurt/app.py:210-217``, ``:651-669``): an explicit "raster" or "ray"
+    stands; "auto" takes the ray cast on an SBVH accel (static, ``sah``)
+    and on a clustered rebuild (``split_blocks``, the resolved
+    ``rebuild_splits``, > 0), and otherwise the rasterizer on the card,
+    the port's compiled backend, and the ray cast on the CPU."""
+    if cfg.gbuffer != "auto":
+        return cfg.gbuffer == "raster"
+    if mode != "rebuild" and cfg.sah:
+        return False
+    if mode == "rebuild" and split_blocks:
+        return False
+    return cfg.use_pallas and torch.device(device).type == "cuda"
+
+
 def _soft(light: Light, spp: int) -> bool:
     """Does ``shadow_pass`` sample the light (cone or point at spp > 1)?"""
     return light.kind in (LIGHT_AREA_CONE, LIGHT_POINT) and spp > 1
@@ -132,7 +163,8 @@ def _soft(light: Light, spp: int) -> bool:
 
 def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
                 mesh: Mesh, cache_dir: Optional[str]) -> None:
-    """Raise NotImplementedError for anything the port does not cover yet."""
+    """Raise NotImplementedError for anything the port does not cover yet.
+    ``config.gbuffer`` is resolved ("ray" or "raster")."""
     if mode not in ("static", "rebuild", "refit"):
         raise ValueError(f"mode={mode!r}")
     missing = []
@@ -145,19 +177,15 @@ def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
                            "output)")
         if config.top_sah:
             missing.append("top_sah=True (the sweep-SAH priorities kernel)")
-        if config.rebuild_splits == 0 and config.gbuffer == "auto":
-            missing.append("rebuild_splits=0 with gbuffer='auto' (tpurt "
-                           "picks the raster G-buffer there)")
-    elif not config.sah and config.gbuffer == "auto":
-        missing.append("sah=False with gbuffer='auto' (tpurt picks the "
-                       "raster G-buffer there)")
     if config.bvh_width != 8:
         missing.append(f"bvh_width={config.bvh_width} (binary traversal)")
     if not config.use_pallas:
         missing.append("use_pallas=False (portable traversal)")
     if config.gbuffer == "raster":
-        missing.append("gbuffer='raster' (tile rasterizer)")
-    if not config.inkernel_attrs or config.seeded_gbuffer:
+        # tpurt reads neither shade-table flag on the raster G-buffer.
+        if config.raster_deferred:
+            missing.append("raster_deferred=True (the z-only rasterizer)")
+    elif not config.inkernel_attrs or config.seeded_gbuffer:
         missing.append("the shade-table G-buffer (inkernel_attrs=False or "
                        "seeded_gbuffer=True)")
     if mesh.textured:
@@ -298,8 +326,15 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
 
 def gbuffer_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
                        cfg: RenderConfig, attr_tables):
-    """The unfused frame's G-buffer: the attribute-tracked closest hit on
-    the camera-ordered accel. Returns (gbuf, walk counts)."""
+    """The unfused frame's G-buffer: the tile rasterizer
+    (``gbuffer="raster"``; ``mesh`` on the device, no walk, zero counts)
+    or the attribute-tracked closest hit on the camera-ordered accel.
+    Returns (gbuf, walk counts)."""
+    if cfg.gbuffer == "raster":
+        gbuf = gbuffer_raster_pass(mesh, cam, cfg.width, cfg.height,
+                                   cap_pairs=cfg.raster_cap_pairs or None)
+        return gbuf, torch.zeros(2, dtype=torch.int32,
+                                 device=bvh.nodes.device)
     return gbuffer_attr_pass(_gb_accel(bvh, cam, cfg), attr_tables, mesh,
                              cam, cfg.width, cfg.height)
 
@@ -365,21 +400,25 @@ def render_frame_fn(bvh: WideBVH, mesh: Mesh, cam: Camera,
 
 
 def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
-                   leaf_size: int, nw_pad: int, split_blocks: int = 0):
+                   leaf_size: int, nw_pad: int, split_blocks: int = 0,
+                   attrs: bool = True):
     """Config 2's per-frame rebuild, no host sync (``tpurt``'s
-    ``_rebuild_fused(tables="attr", collapse="area")``): the deferred-box
-    build with the attribute columns riding the sort, the breadth-first
-    area collapse into ``nw_pad`` rows, and the attribute rows from the
-    sorted columns. Returns (bvh, wide accel, (at0, at1), count i32[]):
-    count > nw_pad means the pad overflowed and the accel is truncated."""
-    bvh, cols = build_lbvh(vertices, indices, leaf_size=leaf_size,
-                           boxes="defer",
-                           extra_payload=attr_payload_columns(
-                               mesh, vertices.device),
-                           split_blocks=split_blocks)
+    ``_rebuild_fused(collapse="area")``): the deferred-box build, the
+    breadth-first area collapse into ``nw_pad`` rows and, with ``attrs``
+    (``tables="attr"``), the attribute columns riding the sort and the
+    attribute rows from them. The raster G-buffer reads no table: its
+    rebuild (``tpurt``'s ``tables="sto"``, whose table only the deferred
+    rasterizer reads) skips both. Returns (bvh, wide accel, (at0, at1) or
+    None, count i32[]): count > nw_pad means the pad overflowed and the
+    accel is truncated."""
+    payload = attr_payload_columns(mesh, vertices.device) if attrs else ()
+    built = build_lbvh(vertices, indices, leaf_size=leaf_size,
+                       boxes="defer", extra_payload=payload,
+                       split_blocks=split_blocks)
+    bvh, cols = built if attrs else (built, ())
     wide, count = widen_area_kernel(bvh, nw_pad)
     at = leaf_attr_rows_from_sorted(cols, bvh.tri_id, bvh.num_blocks,
-                                    leaf_size)
+                                    leaf_size) if attrs else None
     return bvh, wide, at, count
 
 
@@ -393,16 +432,19 @@ class Renderer:
     caller asks for ``"cpu"``) and renders frames.
 
     ``mode="static"`` builds the accel once; ``mode="rebuild"`` (config 2)
-    rebuilds it at the start of every frame.
+    rebuilds it at the start of every frame. ``config.gbuffer`` is
+    resolved at construction (``use_raster_gbuffer``).
 
     ``stats`` holds times in milliseconds. Set-up: ``sah_build_ms`` (host
     SBVH build and conversion, copy to the device included),
     ``lbvh_build_ms`` (on-device Morton build) or, in rebuild mode,
     ``build_and_count_ms`` (a full-box build and the wide-node count that
     fixes the pad), ``collapse_ms`` (8-wide collapse) and
-    ``attr_rows_ms``. Per frame in rebuild mode: ``build_ms``, the rebuild
-    (CUDA events on the card, read after the frame's walk counters), and
-    ``overflow_recoveries``, the rebuilds that outgrew the pad."""
+    ``attr_rows_ms`` (not on the raster G-buffer). Per frame in rebuild
+    mode: ``build_ms``, the rebuild (CUDA events on the card, read after
+    the frame's walk counters), and ``overflow_recoveries``, the rebuilds
+    that outgrew the pad. ``raster_cap_growths``: frames rendered again
+    because the binning overflowed ``config.raster_cap_pairs``."""
 
     def __init__(self, mesh: Mesh, camera: Camera,
                  lights: Union[Light, Sequence[Light]],
@@ -416,9 +458,6 @@ class Renderer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but CUDA is not "
                                "available")
-        check_slice(config, mode, lights, mesh, cache_dir)
-        if config.gbuffer == "auto":
-            config = dataclasses.replace(config, gbuffer="ray")
         # Rebuild mode counts the pad on the same (clustered) trees its
         # frames build; clustered rebuilds never camera-order the accel
         # (tpurt/app.py:656-675).
@@ -427,9 +466,14 @@ class Renderer:
             self._rebuild_splits = (
                 auto_split_blocks(mesh.num_triangles, config.leaf_size)
                 if config.rebuild_splits < 0 else config.rebuild_splits)
+        config = dataclasses.replace(config, gbuffer="raster" if (
+            use_raster_gbuffer(config, mode, self.device,
+                               self._rebuild_splits)) else "ray")
+        check_slice(config, mode, lights, mesh, cache_dir)
         if self._rebuild_splits:
             config = dataclasses.replace(config, order_children=False)
         self.config = config
+        self._raster = config.gbuffer == "raster"
         self.mode = mode
         self.mesh = mesh
         self.camera = camera
@@ -437,7 +481,7 @@ class Renderer:
         self.route = frame_route(config, lights)
         self.frame_index = 0
         self.accum: Optional[torch.Tensor] = None
-        self.stats: Dict[str, float] = {}
+        self.stats: Dict[str, float] = {"raster_cap_growths": 0}
         self._nw_pad: Optional[int] = None
         self._geom_dirty = False
 
@@ -456,14 +500,18 @@ class Renderer:
             self.accel = self._make_accel()
             _sync(self.device)
             t2 = time.perf_counter()
-            self.attr_tables = make_leaf_attr_rows(self.bvh, mesh)
-            _sync(self.device)
-            t3 = time.perf_counter()
             self.stats.update({
                 "sah_build_ms" if config.sah else "lbvh_build_ms":
                     (t1 - t0) * 1e3,
-                "collapse_ms": (t2 - t1) * 1e3,
-                "attr_rows_ms": (t3 - t2) * 1e3})
+                "collapse_ms": (t2 - t1) * 1e3})
+            if self._raster:
+                # The rasterizer bins the mesh on the device every frame.
+                self.mesh = mesh.on(self.device)
+                self.attr_tables = None
+            else:
+                self.attr_tables = make_leaf_attr_rows(self.bvh, mesh)
+                _sync(self.device)
+                self.stats["attr_rows_ms"] = (time.perf_counter() - t2) * 1e3
         self.depth = wide_depth(self.accel)
         check_stack_bound(self.depth)
 
@@ -500,19 +548,21 @@ class Renderer:
         self.accel, count = widen_area_kernel(self.bvh, self._nw_pad)
         self._check_count(count)
         t2 = time.perf_counter()
-        self.attr_tables = make_leaf_attr_rows(self.bvh, self.mesh)
-        _sync(self.device)
-        t3 = time.perf_counter()
         self.stats.update(build_and_count_ms=(t1 - t0) * 1e3,
                           collapse_ms=(t2 - t1) * 1e3,
-                          attr_rows_ms=(t3 - t2) * 1e3,
                           overflow_recoveries=0)
+        self.attr_tables = None
+        if not self._raster:
+            self.attr_tables = make_leaf_attr_rows(self.bvh, self.mesh)
+            _sync(self.device)
+            self.stats["attr_rows_ms"] = (time.perf_counter() - t2) * 1e3
 
     def _rebuild(self):
         return _rebuild_fused(self.mesh.vertices, self.mesh.indices,
                               self.mesh, self.config.leaf_size,
                               self._nw_pad,
-                              split_blocks=self._rebuild_splits)
+                              split_blocks=self._rebuild_splits,
+                              attrs=not self._raster)
 
     def _update_bvh(self) -> None:
         """Rebuild the accel for this frame. The wide-node count is read
@@ -550,7 +600,11 @@ class Renderer:
         Renderer's device). Rebuild mode first rebuilds the accel. The soft
         kernels draw this frame's samples from ``frame_seed(config.seed,
         frame_index)``. Raises if a walk overflowed its stack or hit the
-        iteration cap."""
+        iteration cap. A raster frame whose binning overflowed the pair
+        capacity is rendered again with the capacity doubled, and at least
+        ``default_cap_rows`` (``tpurt/app.py:1055-1072``), so a frame with
+        dropped coverage is never returned; the flag is read in the frame's
+        one host read, with the walk counters."""
         cfg = self.config
         if self.mode == "rebuild":
             timer = _Stopwatch(self.device)
@@ -559,7 +613,19 @@ class Renderer:
         out = render_frame_fn(self.accel, self.mesh, self.camera,
                               self.lights, cfg, self.attr_tables,
                               seed=frame_seed(cfg.seed, self.frame_index))
-        check_walk_counts(out["walk_counts"])
+        flags = out["walk_counts"]
+        if self._raster:
+            flags = torch.cat([flags, out["raster_overflow"].reshape(1)
+                               .to(flags.dtype)])
+        flags = flags.cpu()
+        if self._raster and bool(flags[2]):
+            ntris = self.mesh.num_triangles
+            cap = cfg.raster_cap_pairs or default_cap_rows(ntris)
+            self.config = dataclasses.replace(
+                cfg, raster_cap_pairs=max(2 * cap, default_cap_rows(ntris)))
+            self.stats["raster_cap_growths"] += 1
+            return self.render_frame()
+        check_walk_counts(flags[:2])
         if self.mode == "rebuild":
             self.stats["build_ms"] = timer.ms()
         if cfg.accumulate:

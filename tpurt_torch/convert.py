@@ -16,6 +16,7 @@ import torch
 
 from .bvh.lbvh import LBVH
 from .bvh.wide import WideBVH
+from .raster.setup import RasterRows
 from .types import Camera, Light, Mesh
 
 
@@ -73,6 +74,19 @@ def wide_bvh(fields: Dict[str, Any], device) -> WideBVH:
 
 def attr_tables(at0, at1, device):
     return (_t(at0, torch.float32, device), _t(at1, torch.float32, device))
+
+
+def raster_rows(fields: Dict[str, Any], device) -> RasterRows:
+    """A ``tpurt`` ``RasterRows`` (a NamedTuple: pass ``bins._asdict()``),
+    so the rasterizer can run on the JAX package's own bins."""
+    f32, i32 = torch.float32, torch.int32
+    return RasterRows(
+        pair_rows=_t(fields["pair_rows"], f32, device),
+        row_starts=_t(fields["row_starts"], i32, device),
+        row_counts=_t(fields["row_counts"], i32, device),
+        big_rows=_t(fields["big_rows"], f32, device),
+        big_nrows=_t(fields["big_nrows"], i32, device),
+        overflow=_t(fields["overflow"], torch.bool, device))
 
 
 def mesh(fields: Dict[str, Any]) -> Mesh:

@@ -2,7 +2,8 @@
 kernel wrapper makes at the launch boundary.
 
 Every ``csrc/*.cu`` (the walk kernels include ``csrc/walk.cuh``; the
-build kernels of ``csrc/build.cu`` stand alone) is compiled by its own
+build kernels of ``csrc/build.cu`` and the rasterizer of ``csrc/raster.cu``
+stand alone) is compiled by its own
 ``nvcc``, all started together, and one more ``nvcc`` links the objects
 into one shared library with a plain C interface, bound with ctypes. The
 build runs at first use, never at import, into ``build/tpurt_torch/`` at
@@ -135,11 +136,13 @@ def load_library() -> ctypes.CDLL:
     for name in ("tpurt_stack_capacity", "tpurt_params_size"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
-    p = ctypes.c_void_p
+    p, f = ctypes.c_void_p, ctypes.c_float
     for name, args in (
             ("tpurt_morton_codes_launch", [p, i, p, p]),
             ("tpurt_topology_launch", [p, i, i, p, p, p, p, p, p, p]),
-            ("tpurt_collapse_area_launch", [p, p, i, i, p, p, p, p])):
+            ("tpurt_collapse_area_launch", [p, p, i, i, p, p, p, p]),
+            ("tpurt_raster_rows_launch", [p, i, p, p, p, i, p, i, i, i, i,
+                                          f, f, f, f, p, p, p])):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = args
     from .traverse import STACK_CAPACITY, Params
