@@ -89,13 +89,35 @@ Phases, in order; any failure raises and the exit code is not 0:
     build kernel), each image against the raster frame's; and a pair
     capacity forced to 4096, which must be grown and the frame rendered
     again, equal to the first.
-11. Timings on one JSON line, then the kernel table on one JSON line, the
+11. The shade-table G-buffer (inkernel_attrs=False): the attrs=0 variants
+    of the five fused kernels and the plain closest hit (tpurt's
+    _closest_hit_kernel_w8_b). At 512^2 (phase 3's scene and rays, run
+    right after phase 3) each against its plain version, the samplers with the real generator and
+    the zero stream, the closest hit also with a per-ray t_max, and each
+    against its attrs=1 twin on the same rays (t and the sorted index are
+    the attribute block's channels 0-1, the shadow outputs equal). Then at
+    1920x1080 in the hall, through Renderer(inkernel_attrs=False): config
+    1 fused (HARD attrs=0) and unfused (the plain closest hit + any hit),
+    each in turns with phase 4's attribute frame and its image against
+    phase 4's (the share of pixels off by more than 2e-2); config 3's sun,
+    config 5's three lights, the lamp and the sun with two fills (SOFT,
+    MULTI, PSOFT, SOFT_MULTI attrs=0); one warm-up and five timed frames
+    each with the launches counted; each kernel against its plain version
+    on every 8th row and on the whole frame; the stage split (the table
+    build, the per-pixel row gather, the decode). Last config 2 with the
+    flag: the rebuild's host syncs (must be 0), one warm-up and five
+    rebuilt frames with the shade table of the rebuilt tree, the image
+    against the static one, HARD attrs=0 on the rebuilt tree against its
+    plain version.
+12. Timings on one JSON line, then the kernel table on one JSON line, the
     card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Tolerances of the walk kernels' checks against their plain versions:
 valid masks equal; t to rtol
-1e-6 / atol 1e-6; tri_id equal on >= 99.9% of valid pixels and every
-other attribute channel within 1e-6 where it is; occlusion, each bit of a
+1e-6 / atol 1e-6; tri_id (for the attrs=0 kernels and the plain closest
+hit, the accel's id at the sorted index) equal on >= 99.9% of valid
+pixels and every other attribute channel within 1e-6 where it is;
+occlusion, each bit of a
 mask and counts differ on at most 1e-3 of valid (for the shadow-ray
 kernels: active) pixels, and nothing is set off them. Both are built
 without fused multiply-adds and draw the same random bits, so they agree
@@ -155,7 +177,19 @@ KERNELS = {
     "any": ("shadow_rays.cu", 874),
     "any_soft": ("shadow_rays.cu", 890),
     "any_point_soft": ("shadow_rays.cu", 963),
+    "closest": ("fused_shadows.cu", 1286),
+    "closest_shadow_st": ("fused_shadows.cu", 1450),
+    "closest_multi_shadow_st": ("fused_shadows.cu", 1538),
+    "closest_soft_shadow_st": ("fused_shadows.cu", 1032),
+    "closest_point_soft_shadow_st": ("fused_shadows.cu", 1117),
+    "closest_soft_multi_shadow_st": ("fused_shadows.cu", 1622),
 }
+# The attrs=0 variants of the fused modes (no attribute rows; t and the
+# sorted index out) and the plain closest hit: the shade-table G-buffer's.
+SHADE_TABLE_KERNELS = ("closest", "closest_shadow_st",
+                       "closest_multi_shadow_st", "closest_soft_shadow_st",
+                       "closest_point_soft_shadow_st",
+                       "closest_soft_multi_shadow_st")
 # The kernels that take given shadow rays or origins, no camera rays.
 SHADOW_RAYS = ("any", "any_soft", "any_point_soft")
 
@@ -271,8 +305,21 @@ def compare(kres, pres, what: str, outputs) -> dict:
     if attr_err > 1e-6:
         raise RuntimeError(f"{what}: attribute channels differ by "
                            f"{attr_err}")
+    shares, mism = output_shares(outputs, kres[1:-1], pres[1:-1], valid,
+                                 what)
+    max_abs = max(float((kt - pt).abs().max()), attr_err)
+    return dict(valid=nvalid, tri_id_equal=tri_frac, mismatch_share=mism,
+                mismatch_shares=shares, max_abs_err=max_abs)
+
+
+def output_shares(outputs, kouts, pouts, valid, what) -> tuple:
+    """The shares of valid rays on which each count or mask bit of the
+    kernel's i32 outputs differs from the plain version's -> (shares, the
+    largest); raises above 1e-3, or where an output is set off the hit
+    set."""
+    nvalid = int(valid.sum())
     shares = []
-    for (kind, n), ki, pi in zip(outputs, kres[1:-1], pres[1:-1]):
+    for (kind, n), ki, pi in zip(outputs, kouts, pouts):
         if bool((ki[~valid] != 0).any()):
             raise RuntimeError(f"{what}: shadow output set off the hit set")
         planes = [(ki, pi)] if kind == "count" else \
@@ -283,9 +330,43 @@ def compare(kres, pres, what: str, outputs) -> dict:
     if mism > 1e-3:
         raise RuntimeError(f"{what}: shadow outputs differ on {mism:.2e} "
                            f"of valid rays ({shares})")
-    max_abs = max(float((kt - pt).abs().max()), attr_err)
+    return shares, mism
+
+
+def compare_st(kres, pres, what: str, outputs, tri_id) -> dict:
+    """Hold an attrs=0 kernel's or the plain closest hit's (t, sidx, *i32
+    outputs, counts) against the plain version's: valid masks equal, t
+    within 1e-6, tri_id (``tri_id`` of the accel at sidx) equal on >=
+    99.9% of valid rays, the i32 outputs as ``compare`` holds them."""
+    kc, pc = kres[-1].tolist(), pres[-1].tolist()
+    if kc != [0, 0] or pc != [0, 0]:
+        raise RuntimeError(f"{what}: walk counters kernel {kc} plain {pc}")
+    ks, ps = kres[1], pres[1]
+    kvalid, valid = ks >= 0, ps >= 0
+    if not torch.equal(kvalid, valid):
+        raise RuntimeError(f"{what}: valid masks differ on "
+                           f"{int((kvalid != valid).sum())} rays")
+    nvalid = int(valid.sum())
+    if nvalid == 0:
+        raise RuntimeError(f"{what}: no ray hit the scene")
+    kt, pt = kres[0].double()[valid], pres[0].double()[valid]
+    if not torch.all((kt - pt).abs() <= 1e-6 + 1e-6 * pt.abs()):
+        raise RuntimeError(f"{what}: t differs by up to "
+                           f"{float((kt - pt).abs().max())}")
+    if not (torch.all(kres[0][~valid] == pres[0][~valid])
+            and torch.all(ks[~valid] == -1)):
+        raise RuntimeError(f"{what}: misses are not (BIG, -1)")
+    n = tri_id.shape[0]
+    ktid = tri_id[ks.clamp(0, n - 1).long()]
+    ptid = tri_id[ps.clamp(0, n - 1).long()]
+    tri_frac = float(((ktid == ptid) & valid).sum()) / nvalid
+    if tri_frac < 0.999:
+        raise RuntimeError(f"{what}: tri_id equal on only {tri_frac:.5f}")
+    shares, mism = output_shares(outputs, kres[2:-1], pres[2:-1], valid,
+                                 what)
     return dict(valid=nvalid, tri_id_equal=tri_frac, mismatch_share=mism,
-                mismatch_shares=shares, max_abs_err=max_abs)
+                mismatch_shares=shares,
+                max_abs_err=float((kt - pt).abs().max()))
 
 
 def compare_rays(kres, pres, active, what: str) -> dict:
@@ -309,8 +390,12 @@ def compare_rays(kres, pres, active, what: str) -> dict:
                 max_abs_err=float((k - p).abs().max()))
 
 
-def check(name, kres, pres, args, kw, what) -> dict:
-    """The comparison that fits kernel ``name``'s outputs."""
+def check(name, kres, pres, args, kw, what, tri_id=None) -> dict:
+    """The comparison that fits kernel ``name``'s outputs; ``tri_id``: the
+    accel's sorted->original ids, for the kernels that return a sorted
+    index alone."""
+    if name in SHADE_TABLE_KERNELS:
+        return compare_st(kres, pres, what, outputs_of(name, kw), tri_id)
     if name in SHADOW_RAYS:
         rays = args[0]
         active = rays[:, 9] > kw["t_min"] if name == "any" \
@@ -345,18 +430,19 @@ def bound(stats: dict, args, res) -> dict:
 
 def outputs_of(name, kw):
     """The kernel's i32 outputs for ``compare``."""
+    name = name[:-len("_st")] if name.endswith("_st") else name
     if name == "closest_shadow":
         return [("bits", 1)]
     if name == "closest_multi_shadow":
         return [("bits", len(kw["points"]))]
     if name == "closest_soft_multi_shadow":
         return [("count", 0), ("bits", kw["n_extra"])]
-    if name == "closest_attrs":
+    if name in ("closest_attrs", "closest"):
         return []
     return [("count", 0)]
 
 
-def check_pair(name, args, kw, what) -> tuple:
+def check_pair(name, args, kw, what, tri_id=None) -> tuple:
     """The kernel and its plain version on the same inputs -> (comparison,
     kernel result)."""
     kfn, pfn = kernel(name)
@@ -367,12 +453,12 @@ def check_pair(name, args, kw, what) -> tuple:
         raise RuntimeError(f"{name}: launch counter did not grow")
     pres = pfn(*args, **kw)
     torch.cuda.synchronize()
-    res = check(name, kres, pres, args, kw, what)
+    res = check(name, kres, pres, args, kw, what, tri_id)
     kfn.launches = before
     return res, kres
 
 
-def time_pair(name, args, kw, reps: int = 10) -> dict:
+def time_pair(name, args, kw, reps: int = 10, tri_id=None) -> dict:
     """Kernel time (CUDA events) and plain time (one run, host clock) on
     the same inputs, the comparison, and the bound from the plain
     version's counted visits."""
@@ -383,7 +469,7 @@ def time_pair(name, args, kw, reps: int = 10) -> dict:
     kfn.launches = before
     stats = {}
     pres, plain_ms = host_ms(lambda: pfn(*args, stats=stats, **kw))
-    cmp = check(name, kres, pres, args, kw, f"{name} whole block")
+    cmp = check(name, kres, pres, args, kw, f"{name} whole block", tri_id)
     return dict(ms=ms, plain_ms=plain_ms, compare=cmp,
                 **bound(stats, args, kres))
 
@@ -393,8 +479,13 @@ def time_pair(name, args, kw, reps: int = 10) -> dict:
 # ---------------------------------------------------------------------------
 
 def inputs(name, acc, attr_tables, o, d, **spec):
-    """The kernel's arguments for these rays, as the frame packs them."""
+    """The kernel's arguments for these rays, as the frame packs them (the
+    attrs=0 variants and the plain closest hit take no tables)."""
     import tpurt_torch.kernels.traverse as tr
+    if name == "closest":
+        return tr.closest_inputs(acc, o, d, **spec)[:2]
+    if name.endswith("_st"):
+        name, attr_tables = name[:-len("_st")], None
     args, kw, _, _ = getattr(tr, f"{name}_inputs")(
         acc, o, d, bias=BIAS, attr_tables=attr_tables, **spec)
     return args, kw
@@ -609,16 +700,18 @@ def frame_inputs(name, r, w, h, **spec):
 
 
 def kernel_vs_plain(name, r, w, h, what, **spec) -> dict:
-    return vs_plain(name, *frame_inputs(name, r, w, h, **spec), what)
+    from tpurt_torch.app import _gb_accel
+    return vs_plain(name, *frame_inputs(name, r, w, h, **spec), what,
+                    tri_id=_gb_accel(r.accel, r.camera, r.config).tri_id)
 
 
-def vs_plain(name, full_inputs, sub_inputs, what) -> dict:
+def vs_plain(name, full_inputs, sub_inputs, what, tri_id=None) -> dict:
     """The kernel against its plain version on every 8th row, then timed
     and compared on the whole frame."""
     (args, kw), (sargs, skw) = full_inputs, sub_inputs
-    sub, _ = check_pair(name, sargs, skw, f"{what} every 8th row")
+    sub, _ = check_pair(name, sargs, skw, f"{what} every 8th row", tri_id)
     log(f"{what} every 8th row: {json.dumps(sub)}")
-    full = time_pair(name, args, kw)
+    full = time_pair(name, args, kw, tri_id=tri_id)
     log(f"{what} whole frame: {json.dumps(full)}")
     full["subsample"] = sub
     full["max_abs_err"] = max(sub["max_abs_err"],
@@ -1576,6 +1669,298 @@ def phase_raster(dev, mesh, c1) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the shade-table G-buffer
+# ---------------------------------------------------------------------------
+
+def with_attrs1_twin(name, kres, args1, kw1) -> None:
+    """Fail unless the attrs=0 kernel's result ``kres`` (t, sidx, *i32
+    outputs, counts) is the attrs=1 kernel's on the same rays: t and sidx
+    its attribute block's channels 0-1, the i32 outputs equal."""
+    base = name[:-len("_st")] if name != "closest" else "closest_attrs"
+    kfn = kernel(base)[0]
+    before = kfn.launches
+    ares = kfn(*args1, **kw1)
+    kfn.launches = before
+    torch.cuda.synchronize()
+    same = (torch.equal(kres[0], ares[0][:, 0])
+            and torch.equal(kres[1], ares[0][:, 1].to(torch.int32))
+            and all(torch.equal(a, b) for a, b in zip(kres[2:-1],
+                                                      ares[1:-1])))
+    if not same:
+        raise RuntimeError(f"{name}: differs from the attrs=1 kernel "
+                           f"{base} on the same rays")
+
+
+def small_shade_table(dev) -> dict:
+    """Row 6 and the five attrs=0 modes against their plain versions at
+    phase 3's size (teapot 10k, 512x512, leaf 14), and against their
+    attrs=1 twins."""
+    from tpurt_torch.app import Renderer
+    from tpurt_torch.bvh.wide import order_children_for_point
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.scenes import default_camera_for, teapot_scene
+    from tpurt_torch.types import Light, RenderConfig
+    mesh = teapot_scene(SMALL_TRIS)
+    cam = default_camera_for(mesh)
+    bmin, bmax = mesh.bounds()
+    lpos = 0.5 * (bmin + bmax) + np.float32([2.0, 6.0, 1.0])
+    sun = Light.directional((0.45, 0.8, 0.3)).direction
+    fill = Light.directional((-0.5, 0.7, 0.2)).direction
+    fill2 = Light.directional((0.1, 0.9, -0.4)).direction
+    cone_cos = float(np.cos(np.float32(np.deg2rad(4.0))))
+    r = Renderer(mesh, cam, Light.directional(sun),
+                 RenderConfig(width=SMALL_RES, height=SMALL_RES,
+                              leaf_size=14), device=dev)
+    acc = order_children_for_point(r.accel, cam.position)
+    o, d = generate_rays(cam, SMALL_RES, SMALL_RES, dev)
+    sampled = dict(spp=SPP, seed=11)
+    specs = {
+        "closest_shadow_st": [
+            ("directional", dict(light_dir=sun)),
+            ("point", dict(light_dir=sun, light_pos=lpos))],
+        "closest_multi_shadow_st": [
+            ("3 lights", dict(lights=[(sun, None), (None, lpos),
+                                      (fill, None)]))],
+        "closest_soft_shadow_st": [
+            ("cone", dict(axis_dir=sun, cone_cos=cone_cos, **sampled))],
+        "closest_point_soft_shadow_st": [
+            ("disk", dict(light_pos=lpos, radius=0.4, **sampled))],
+        "closest_soft_multi_shadow_st": [
+            ("cone+2", dict(light0=("cone", sun, cone_cos),
+                            extra_dirs=[fill, fill2], **sampled)),
+            ("disk+1", dict(light0=("disk", lpos, 0.4), extra_dirs=[fill],
+                            **sampled))],
+    }
+    out = {}
+    for name, cases in specs.items():
+        for label, spec in cases:
+            zeros = (False, True) if "spp" in spec else (None,)
+            for zero in zeros:
+                sp = spec if zero is None else dict(spec, zero_stream=zero)
+                what = f"512^2 {name} {label} zero_stream={zero}"
+                args, kw = inputs(name, acc, None, o, d, **sp)
+                res, kres = check_pair(name, args, kw, what, acc.tri_id)
+                with_attrs1_twin(name, kres, *inputs(
+                    name[:-len("_st")], acc, r.attr_tables, o, d, **sp))
+                if not zero:
+                    res.update(time_pair(name, args, kw, 20, acc.tri_id))
+                out[f"{name}/{label}/zero={zero}"] = res
+                log(f"phase 11 {what}: {json.dumps(res)}")
+    # Row 6: the plain closest hit, then with a per-ray t_max of half the
+    # closest t on every other row (those rays must miss) and 1.001 times
+    # it on the others.
+    import tpurt_torch.kernels.traverse as tr
+    args, kw = inputs("closest", acc, None, o, d)
+    res, kres = check_pair("closest", args, kw, "512^2 closest", acc.tri_id)
+    with_attrs1_twin("closest", kres,
+                     *tr.closest_attrs_inputs(acc, o, d, r.attr_tables)[:2])
+    res.update(time_pair("closest", args, kw, 20, acc.tri_id))
+    out["closest"] = res
+    log(f"phase 11 512^2 closest: {json.dumps(res)}")
+    t = tr.trace_closest(acc, o, d)[0]
+    scale = torch.full_like(t, 1.001)
+    scale[::2] = 0.5
+    t_max = torch.where(torch.isfinite(t), t * scale, 1e3)
+    args, kw = inputs("closest", acc, None, o, d, t_max=t_max)
+    res, kres = check_pair("closest", args, kw, "512^2 closest, t_max",
+                           acc.tri_id)
+    capped = tr._unpack(kres[1], ("img", SMALL_RES, SMALL_RES))[::2]
+    if bool((capped >= 0).any()):
+        raise RuntimeError("closest: a ray capped at half its t hit")
+    out["closest/t_max"] = res
+    log(f"phase 11 512^2 closest, per-ray t_max: {json.dumps(res)}")
+    return out
+
+
+def stage_ms_shade_table(r, trace, frame_ms_mean: float,
+                         reps: int = 5) -> dict:
+    """Where a shade-table frame's time goes: CUDA events around each
+    stage, run by hand on the Renderer's state (mean of reps calls).
+    ``trace(accel, origins, dirs)`` returns (t, sidx, ..., walk counts):
+    the G-buffer's closest-hit wrapper, alone or fused. The table
+    build is a set-up stage of a static scene and a stage of every
+    rebuild; ``gbuf_from_table`` is the per-pixel row gather plus the
+    decode (position, barycentrics, normals, albedo, tri_id, flips,
+    depth)."""
+    from tpurt_torch.app import _gb_accel
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.passes.gbuffer import gbuf_from_table
+    from tpurt_torch.passes.shading import gather_table_rows, \
+        make_shade_table
+    cfg, cam = r.config, r.camera
+    acc = _gb_accel(r.accel, cam, cfg)
+    o, d = generate_rays(cam, cfg.width, cfg.height, r.device)
+    res = trace(acc, o, d)
+    t, sidx = res[0], res[1]
+    out = {
+        "table_build": cuda_ms(lambda: make_shade_table(r.bvh, r.mesh),
+                               reps),
+        "generate_rays": cuda_ms(lambda: generate_rays(
+            cam, cfg.width, cfg.height, r.device), reps),
+        "order_children": cuda_ms(lambda: _gb_accel(r.accel, cam, cfg),
+                                  reps),
+        "trace": cuda_ms(lambda: trace(acc, o, d), reps),
+        "table_gather": cuda_ms(lambda: gather_table_rows(r.shade_table,
+                                                          sidx), reps),
+        "gbuf_from_table": cuda_ms(lambda: gbuf_from_table(
+            t, None, sidx, o, d, cam, r.mesh, r.shade_table), reps),
+    }
+    out["decode"] = out["gbuf_from_table"] - out["table_gather"]
+    out["composite_and_rest"] = frame_ms_mean - (
+        out["generate_rays"] + out["order_children"] + out["trace"]
+        + out["gbuf_from_table"])
+    return out
+
+
+def phase_shade_table(dev, mesh, c1) -> dict:
+    """The shade-table frames at 1080p (static, every route) and config 2
+    with the flag; c1: phase 4's image, valid mask and Renderer."""
+    from tpurt_torch.app import Renderer, frame_seed
+    from tpurt_torch.kernels.traverse import (trace_closest,
+                                              trace_closest_shadow)
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    cam = sponza_interior_camera()
+    hard = Light.directional(SUN_DIR)
+    sun = Light.sun(SUN_DIR, angular_radius_deg=2.0)
+    fills = config5_lights()[1:]
+    lamp = Light.point(LAMP_POS, radius=LAMP_RADIUS)
+    seed = frame_seed(0, 0)
+    cone = float(np.cos(sun.angular_radius))
+    # label: (lights, config fields, route, the kernel of the case and
+    # its spec, the launches per frame by kernel)
+    cases = {
+        "config1": ([hard], {}, "fused0", "closest_shadow_st",
+                    dict(light_dir=hard.direction),
+                    {"closest_shadow_st": 1}),
+        "config1_unfused": ([hard], dict(fused_shadow=False), "unfused",
+                            "closest", {}, {"closest": 1, "any": 1}),
+        "config3": ([sun], dict(spp=SPP), "fused0", "closest_soft_shadow_st",
+                    dict(axis_dir=sun.direction, cone_cos=cone, spp=SPP,
+                         seed=seed), {"closest_soft_shadow_st": 1}),
+        "config5_lights": (config5_lights(), {}, "fusedN",
+                           "closest_multi_shadow_st",
+                           dict(lights=[(l.direction, None)
+                                        for l in config5_lights()]),
+                           {"closest_multi_shadow_st": 1}),
+        "lamp": ([lamp], dict(spp=SPP), "fused0",
+                 "closest_point_soft_shadow_st",
+                 dict(light_pos=lamp.position, radius=LAMP_RADIUS, spp=SPP,
+                      seed=seed), {"closest_point_soft_shadow_st": 1}),
+        "sun_fills": ([sun] + fills, dict(spp=SPP), "fusedSM",
+                      "closest_soft_multi_shadow_st",
+                      dict(light0=("cone", sun.direction, cone),
+                           extra_dirs=[l.direction for l in fills], spp=SPP,
+                           seed=seed), {"closest_soft_multi_shadow_st": 1}),
+    }
+    out, kernels, launched = {}, {}, {}
+    static = None
+    for label, (lights, fields, route, name, spec, per_frame) in \
+            cases.items():
+        cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=14,
+                           inkernel_attrs=False, **fields)
+        r = Renderer(mesh, cam, lights, cfg, device=dev)
+        if (r.route != route or r.attr_tables is not None
+                or r.shade_table is None):
+            raise RuntimeError(f"shade table {label}: route {r.route}")
+        (kept, frame_ms), n = drive({k: 6 * v for k, v in per_frame.items()},
+                                    lambda: frames(r, 6))
+        for f in kept:
+            check_image(f, MAIN_W, MAIN_H, f"shade table {label}")
+        valid = kept[0]["valid"]
+        res = dict(route=route, launches=n, frame_ms=frame_ms,
+                   frame_ms_mean=float(np.mean(frame_ms)),
+                   setup=dict(r.stats),
+                   occluded_shares=[float((s[valid] < 1).float().mean())
+                                    for s in kept[0]["shadow"]])
+        if "spp" in fields:
+            vis = kept[0]["shadow"][0][valid]
+            res["penumbra_share"] = float(((vis > 0) & (vis < 1)).float()
+                                          .mean())
+            if not res["penumbra_share"] > 0:
+                raise RuntimeError(f"shade table {label}: no penumbra")
+        if label.startswith("config1"):
+            for f in kept[1:]:
+                if not torch.equal(f["image"], kept[0]["image"]):
+                    raise RuntimeError(f"shade table {label}: frames are "
+                                       f"not bit-identical")
+            diff = (kept[0]["image"] - c1["image"]).abs().amax(-1)
+            res["vs_attr_image_share"] = float((diff > 2e-2).float().mean())
+            res["vs_attr_coverage_share"] = float(
+                (valid != c1["valid"]).float().mean())
+            if res["vs_attr_image_share"] > 1e-2:
+                raise RuntimeError(f"shade table {label}: image differs "
+                                   f"from phase 4's on "
+                                   f"{res['vs_attr_image_share']:.2e}")
+            turns = in_turns(c1["renderer"], r)
+            res["in_turns_ms"] = {"attr": turns["a"],
+                                  "shade_table": turns["b"]}
+        if label == "config1":
+            static = kept[0]["image"]
+            res["stages_ms"] = stage_ms_shade_table(
+                r, lambda acc, o, d: trace_closest_shadow(
+                    acc, o, d, hard.direction, BIAS), res["frame_ms_mean"])
+        if label == "config1_unfused":
+            def plain_closest(acc, o, d):
+                t, _, sidx, counts = trace_closest(
+                    acc, o, d, return_sorted=True, gather_tri_id=False)
+                return t, sidx, counts
+            res["stages_ms"] = stage_ms_shade_table(
+                r, plain_closest, res["frame_ms_mean"])
+        kernels[name] = kernel_vs_plain(name, r, MAIN_W, MAIN_H,
+                                        f"phase 11 {label} {name}", **spec)
+        launched[name] = n[name]
+        res["kernel"] = kernels[name]
+        out[label] = res
+        log(f"phase 11 {label}: {json.dumps(res)}")
+
+    # Config 2 with the shade table: the rebuilt tree's table every frame.
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=14,
+                       inkernel_attrs=False)
+    r = Renderer(mesh, cam, hard, cfg, mode="rebuild", device=dev)
+    if r.route != "fused0" or r.shade_table is None:
+        raise RuntimeError(f"shade table config 2: route {r.route}")
+    syncs = host_syncs(r._rebuild)
+    if syncs:
+        raise RuntimeError(f"the shade-table rebuild waited for the card: "
+                           f"{syncs}")
+    (kept, frame_ms, build_ms), n = drive(
+        {"closest_shadow_st": 6, "morton_codes": 6, "topology": 6,
+         "collapse_area": 6}, lambda: rebuild_frames(r, 6))
+    valid_share = check_image(kept[0], MAIN_W, MAIN_H,
+                              "shade table config 2")
+    for f in kept[1:]:
+        if not torch.equal(f["image"], kept[0]["image"]):
+            raise RuntimeError("shade table config 2 frames are not "
+                               "bit-identical")
+    valid = kept[0]["valid"]
+    diff = (kept[0]["image"] - static).abs().amax(-1)
+    share = float(((diff > 1e-3) & valid).sum()) / int(valid.sum())
+    if share > 1e-3:
+        raise RuntimeError(f"shade table config 2 image differs from the "
+                           f"static one on {share:.2e} of valid pixels")
+    mean_ms = float(np.mean(frame_ms))
+    rebuilt = dict(
+        launches=n, frame_ms=frame_ms, frame_ms_mean=mean_ms,
+        build_ms=build_ms, build_ms_mean=float(np.mean(build_ms)),
+        rebuild_host_syncs=len(syncs), valid_share=valid_share,
+        vs_static_share=share, nw_pad=r._nw_pad, setup=dict(r.stats),
+        stages_ms=stage_ms_shade_table(
+            r, lambda acc, o, d: trace_closest_shadow(
+                acc, o, d, hard.direction, BIAS),
+            mean_ms - float(np.mean(build_ms))),
+        closest_shadow_st=kernel_vs_plain(
+            "closest_shadow_st", r, MAIN_W, MAIN_H,
+            "phase 11 config 2 closest_shadow_st on the rebuilt tree",
+            light_dir=hard.direction))
+    out["config2"] = rebuilt
+    log(f"phase 11 config 2: {json.dumps(rebuilt)}")
+    out["kernels"] = kernels
+    out["launches"] = launched
+    return out
+
+
 def build_kernel_row(name, launches_, kp) -> dict:
     return {"name": name, "route": "cuda", "source": CSRC + "build.cu",
             "replaces": f"{BUILD_TPU}{BUILD_KERNEL_LINES[name]}",
@@ -1622,6 +2007,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     small = phase_small(dev)
+    small.update(small_shade_table(dev))
     mesh = sponza_scene(MAIN_TRIS)
     c1 = phase_config1(dev, mesh)
     c3 = phase_config3(dev, mesh)
@@ -1632,12 +2018,15 @@ def main() -> int:
     unf = phase_unfused(dev, mesh, static_image)
     c2 = phase_config2(dev, mesh, static_image)
     ras = phase_raster(dev, mesh, phase4)
+    stab = phase_shade_table(dev, mesh, phase4)
     timings = {"card": card, "build_s": build_s,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
                "config3_1080p": c3, "config5_2160p": c5,
                "soft_variants_1080p": variants, "unfused_1080p": unf,
-               "config2_1080p": c2, "raster_1080p": ras}
+               "config2_1080p": c2, "raster_1080p": ras,
+               "shade_table_1080p": {k: v for k, v in stab.items()
+                                     if k not in ("kernels", "launches")}}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],
@@ -1654,6 +2043,8 @@ def main() -> int:
                                unf[label]["kernels"][name], small))
     rows += [build_kernel_row(name, c2["launches"][name], kp)
              for name, kp in c2["kernels"].items()]
+    rows += [kernel_row(name, stab["launches"][name], stab["kernels"][name],
+                        small) for name in SHADE_TABLE_KERNELS]
     kp = ras["kernel"]
     rows.append({"name": "rasterize_rows", "route": "cuda",
                  "source": CSRC + "raster.cu", "replaces": RASTER_TPU,

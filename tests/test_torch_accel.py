@@ -17,7 +17,10 @@ import tpurt_torch.bvh.wide as twide
 import tpurt_torch.passes.shading as tshading
 import tpurt_torch.scenes as tscenes
 
+from test_torch_native import ensure_native_libraries
+
 torch.set_num_threads(1)
+ensure_native_libraries()
 
 CASES = {"teapot": ("teapot_scene", 1500, 8),
          "sponza": ("sponza_scene", 30_000, 14)}

@@ -18,19 +18,22 @@ from tpurt_torch.app import Renderer
 from tpurt_torch.io.image import read_png, to_uint8
 from tpurt_torch.types import Light, RenderConfig
 
+from test_torch_native import ensure_native_libraries
+
 torch.set_num_threads(1)
+ensure_native_libraries()
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 DIRECTION = (0.45, 0.8, 0.3)
 
 
-def _jax_frame(mesh, cam, light, cfg):
+def _jax_frame(mesh, cam, light, cfg, mode="static"):
     # JAX's internal consistency checks (on in conftest) double the
     # interpret-mode tracing time and check jax, not the port.
     checks = jax.config.jax_enable_checks
     jax.config.update("jax_enable_checks", False)
     try:
-        return np.asarray(JRenderer(mesh, cam, light, cfg)
+        return np.asarray(JRenderer(mesh, cam, light, cfg, mode)
                           .render_frame()["image"])
     finally:
         jax.config.update("jax_enable_checks", checks)

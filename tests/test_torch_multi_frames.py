@@ -21,8 +21,10 @@ from tpurt_torch.io.image import read_png, to_uint8
 from tpurt_torch.kernels.traverse import trace_closest_multi_shadow
 
 from test_torch_app import GOLDEN, _assert_close_frames, _jax_frame
+from test_torch_native import ensure_native_libraries
 
 torch.set_num_threads(1)
+ensure_native_libraries()
 
 
 def _golden(name):

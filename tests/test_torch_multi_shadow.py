@@ -29,10 +29,12 @@ from tpurt.passes.shading import make_leaf_attr_rows as jmake_leaf_attr_rows
 import tpurt_torch.convert as convert
 from tpurt_torch.kernels.traverse import trace_closest_multi_shadow
 
+from test_torch_native import ensure_native_libraries
 from test_torch_traverse import BIAS, LIGHT_DIR, LIGHT_POS, _check_attrs, \
     _check_hits
 
 torch.set_num_threads(1)
+ensure_native_libraries()
 
 FILL_DIR = np.float32([-0.5, 0.7, 0.2]) / np.float32(
     np.linalg.norm([-0.5, 0.7, 0.2]))

@@ -130,7 +130,8 @@ def test_renderer_defaults_to_the_card():
      "raster_deferred"),
     (dict(config=dict(sah=False, seeded_gbuffer=True)), "seeded_gbuffer"),
     (dict(config=dict(use_pallas=False)), "use_pallas"),
-    (dict(config=dict(inkernel_attrs=False)), "inkernel_attrs"),
+    (dict(config=dict(inkernel_attrs=False, seeded_gbuffer=True)),
+     "seeded_gbuffer"),
     (dict(config=dict(seeded_gbuffer=True)), "seeded_gbuffer"),
     (dict(mode="refit"), "refit"),
     (dict(lights="three", config=dict(sort_rays=True)), "sort_rays"),

@@ -24,7 +24,10 @@ from tpurt_torch.passes.gbuffer import gbuffer_raster_pass
 from tpurt_torch.scenes import default_camera_for, deform, teapot_scene
 from tpurt_torch.types import Light, RenderConfig
 
+from test_torch_native import ensure_native_libraries
+
 torch.set_num_threads(1)
+ensure_native_libraries()
 
 W, H = 96, 64
 DIRECTION = (0.45, 0.8, 0.3)

@@ -28,7 +28,10 @@ import tpurt_torch.passes.shading as tshading
 import tpurt_torch.scenes as tscenes
 from tpurt_torch.types import Light, RenderConfig
 
+from test_torch_native import ensure_native_libraries
+
 torch.set_num_threads(1)
+ensure_native_libraries()
 
 LEAF = 14
 

@@ -29,7 +29,10 @@ from tpurt_torch.passes.gbuffer import gbuf_from_attr_channels
 from tpurt_torch.scenes import default_camera_for, teapot_scene
 from tpurt_torch.types import Light, RenderConfig
 
+from test_torch_native import ensure_native_libraries
+
 torch.set_num_threads(1)
+ensure_native_libraries()
 
 N = 1 << 16
 

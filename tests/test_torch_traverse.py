@@ -43,7 +43,10 @@ from tpurt_torch.kernels.traverse import (_ray_packets_packed,
 from tpurt_torch.passes.shading import make_leaf_attr_rows
 from tpurt_torch.types import Mesh
 
+from test_torch_native import ensure_native_libraries
+
 torch.set_num_threads(1)
+ensure_native_libraries()
 
 LIGHT_DIR = np.float32([0.45, 0.8, 0.3]) / np.float32(
     np.linalg.norm([0.45, 0.8, 0.3]))

@@ -21,8 +21,10 @@ from tpurt_torch.io.image import read_png, to_uint8
 from test_torch_app import GOLDEN, _assert_close_frames, _jax_frame
 from test_torch_multi_frames import _multilight
 from test_torch_multi_shadow import jax_checks_off
+from test_torch_native import ensure_native_libraries
 
 torch.set_num_threads(1)
+ensure_native_libraries()
 
 DIRECTION = (0.45, 0.8, 0.3)
 

@@ -120,8 +120,14 @@ def kernel_inputs(name, acc, at, o, d):
     if name in fused:
         return getattr(tr, f"{name}_inputs")(
             acc, o, d, bias=1e-3, attr_tables=at, **fused[name])[:2]
+    if name.endswith("_st") and name[:-3] in fused:
+        # The attrs=0 variant: the same inputs without attribute tables.
+        return getattr(tr, f"{name[:-3]}_inputs")(
+            acc, o, d, bias=1e-3, attr_tables=None, **fused[name[:-3]])[:2]
     if name == "closest_attrs":
         return tr.closest_attrs_inputs(acc, o, d, at)[:2]
+    if name == "closest":
+        return tr.closest_inputs(acc, o, d)[:2]
     gb = _gbuf(acc, at, o, d)
     so = gb["position"] + gb["gnormal"] * 1e-3
     if name == "any":
@@ -137,7 +143,9 @@ def kernel_inputs(name, acc, at, o, d):
 
 
 @pytest.mark.parametrize("name", ["closest_shadow", "closest_multi_shadow",
-                                  "closest_soft_shadow", "any", "any_soft"])
+                                  "closest_soft_shadow", "any", "any_soft",
+                                  "closest_shadow_st",
+                                  "closest_soft_multi_shadow_st"])
 def test_counting_leaves_the_result_alone(teapot, name):
     """The same outputs with and without stats; the early exits are taken
     (fewer any-hit tests than whole leaves, fewer slab tests than slots)."""
@@ -160,6 +168,20 @@ def test_closest_attrs_counts_only_the_closest_walk(teapot):
     stats = {}
     tr.closest_attrs_reference(*args, stats=stats, **kw)
     assert stats["closest_tris"] > 0 and "anyhit_tris" not in stats
+
+
+def test_closest_counts_only_the_closest_walk(teapot):
+    """The plain closest hit counts the same walk as the attribute-tracked
+    one: the same pops, slab tests and triangle tests."""
+    acc, at, o, d = teapot
+    plain, attrs = {}, {}
+    args, kw = kernel_inputs("closest", acc, at, o, d)
+    tr.closest_reference(*args, stats=plain, **kw)
+    args, kw = kernel_inputs("closest_attrs", acc, at, o, d)
+    tr.closest_attrs_reference(*args, stats=attrs, **kw)
+    assert {k: int(v) for k, v in plain.items()} == \
+        {k: int(v) for k, v in attrs.items()}
+    assert plain["closest_tris"] > 0 and "anyhit_tris" not in plain
 
 
 def _struct_fields(src: str, name: str):
@@ -193,7 +215,7 @@ def test_params_mirror_the_cuda_struct():
     assert _modes(_csrc("fused_shadows.cu")) == {
         "HARD": tr.HARD, "MULTI": tr.MULTI, "SOFT": tr.SOFT,
         "PSOFT": tr.PSOFT, "SOFT_MULTI": tr.SOFT_MULTI,
-        "CLOSEST": tr.CLOSEST}
+        "CLOSEST": tr.CLOSEST, "NEAREST": tr.NEAREST}
     assert _modes(_csrc("shadow_rays.cu")) == {
         "ANY": tr.ANY, "ANY_SOFT": tr.ANY_SOFT, "ANY_PSOFT": tr.ANY_PSOFT}
 

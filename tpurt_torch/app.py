@@ -4,8 +4,12 @@
 One fused frame: camera rays -> near-first child ordering of the accel ->
 ONE fused kernel launch -> G-buffer decode -> composite. The kernel finds
 the closest hit with the winner's shading attributes, then traces the
-light set's shadows from the biased hit point. Which kernel runs follows
-``tpurt``'s routing order (``render_frame_fn``):
+light set's shadows from the biased hit point. With
+``inkernel_attrs=False`` the frame reads the packed shade table instead of
+the leaf attribute rows: the kernels (their attrs=0 variants, and the
+plain closest hit on the unfused route) return t and the sorted hit index,
+and the G-buffer gathers one table row per pixel (``gbuf_from_table``).
+Which kernel runs follows ``tpurt``'s routing order (``render_frame_fn``):
 
 1. fusedN: every light hard (directional; point or cone at spp 1) and at
    least two of them -> one hard walk per light, an occlusion bitmask;
@@ -14,7 +18,8 @@ light set's shadows from the biased hit point. Which kernel runs follows
 3. fused0: light 0 (any number of lights) -> its hard shadow, cone samples
    or disk samples;
 4. unfused (``fused_shadow=False``, or the raster G-buffer): the
-   closest-hit kernel alone, or the tile rasterizer.
+   closest-hit kernel alone (attribute-tracked, or the plain one with the
+   shade table), or the tile rasterizer.
 
 Every light that no fused kernel took (lights 1.. after fused0, every
 light after unfused) goes through the unfused shadow pass
@@ -24,12 +29,14 @@ G-buffer walks the camera-ordered copy, as in ``tpurt``).
 
 Unlike ``tpurt`` the soft paths are not gated on the backend: the port's
 in-kernel generator is real on the CPU too. In ``mode="static"`` the accel
-is built once per scene: host SBVH build (or, with ``sah=False``, the
-on-device Morton build), 8-wide area collapse, leaf attribute rows. In
+is built once per scene: host SBVH build (or, with ``sah=False`` or
+without the native library, the on-device Morton build, as ``tpurt``
+does), 8-wide area collapse, leaf attribute rows or the shade table. In
 ``mode="rebuild"`` (config 2) every frame rebuilds it on the device
 (``_rebuild_fused``): Morton codes, one payload sort, sub-leaf clustering,
 the topology kernel, the breadth-first area collapse kernel and the
-attribute rows, with no host sync unless the geometry changed. On the
+attribute rows or the shade table, with no host sync unless the geometry
+changed. On the
 H100 the accel lives in device memory, so the TPU package's VMEM budgets
 and chunked split have no counterpart here.
 
@@ -66,17 +73,20 @@ from .camera import generate_rays
 from .kernels.traverse import (MAX_MASK_LIGHTS, check_stack_bound,
                                check_walk_counts, trace_any,
                                trace_any_point_soft, trace_any_soft,
-                               trace_closest_multi_shadow,
+                               trace_closest, trace_closest_multi_shadow,
                                trace_closest_point_soft_shadow,
                                trace_closest_shadow,
                                trace_closest_soft_multi_shadow,
                                trace_closest_soft_shadow)
 from .passes.composite import accumulate, composite_pass
-from .passes.gbuffer import (gbuf_from_attr_channels, gbuffer_attr_pass,
+from .native import available as native_available
+from .passes.gbuffer import (gbuf_from_attr_channels, gbuf_from_table,
+                             gbuffer_attr_pass, gbuffer_pass,
                              gbuffer_raster_pass)
 from .passes.shadow import cone_cos, shadow_pass
 from .passes.shading import (attr_payload_columns, leaf_attr_rows_from_sorted,
-                             make_leaf_attr_rows, smooth_normals_device)
+                             make_leaf_attr_rows, make_shade_table,
+                             smooth_normals_device)
 from .raster.setup import default_cap_rows
 from .types import (LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT, Camera,
                     Light, Mesh, RenderConfig)
@@ -143,8 +153,9 @@ def use_raster_gbuffer(cfg: RenderConfig, mode: str, device,
     """Does the frame rasterize its G-buffer? ``tpurt``'s resolution
     (``use_raster_gbuffer`` with the Renderer's "auto" rules,
     ``tpurt/app.py:210-217``, ``:651-669``): an explicit "raster" or "ray"
-    stands; "auto" takes the ray cast on an SBVH accel (static, ``sah``)
-    and on a clustered rebuild (``split_blocks``, the resolved
+    stands; "auto" takes the ray cast on an SBVH accel (static, ``sah``:
+    the Renderer passes the effective flag, False without the native
+    library) and on a clustered rebuild (``split_blocks``, the resolved
     ``rebuild_splits``, > 0), and otherwise the rasterizer on the card,
     the port's compiled backend, and the ray cast on the CPU."""
     if cfg.gbuffer != "auto":
@@ -185,9 +196,8 @@ def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
         # tpurt reads neither shade-table flag on the raster G-buffer.
         if config.raster_deferred:
             missing.append("raster_deferred=True (the z-only rasterizer)")
-    elif not config.inkernel_attrs or config.seeded_gbuffer:
-        missing.append("the shade-table G-buffer (inkernel_attrs=False or "
-                       "seeded_gbuffer=True)")
+    elif config.seeded_gbuffer:
+        missing.append("seeded_gbuffer=True (the seeded first-hit kernel)")
     if mesh.textured:
         missing.append("textured meshes")
     if not lights:
@@ -247,55 +257,75 @@ def _mask_visibility(valid, mask, n: int, first_bit: int = 0):
         ((mask >> (first_bit + i)) & 1) > 0, 0.0, 1.0)) for i in range(n)]
 
 
+def _fused_gbuf(trace, attr_tables, shade_table, mesh: Mesh, cam: Camera,
+                cfg: RenderConfig, device):
+    """Camera rays -> ``trace(origins, dirs)``, a fused wrapper -> the
+    G-buffer: from the attribute channels with the leaf attribute rows,
+    else from t and the sorted index through the shade table
+    (``gbuf_from_table``). Returns (gbuf, the wrapper's shadow outputs,
+    walk counts)."""
+    origins, dirs = generate_rays(cam, cfg.width, cfg.height, device)
+    res = trace(origins, dirs)
+    if attr_tables is not None:
+        ch, *shadow, counts = res
+        return (gbuf_from_attr_channels(ch, origins, dirs, cam, mesh),
+                shadow, counts)
+    t, sidx, *shadow, counts = res
+    return (gbuf_from_table(t, None, sidx, origins, dirs, cam, mesh,
+                            shade_table), shadow, counts)
+
+
 def gbuffer_shadow_fused_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
                                     cfg: RenderConfig, light: Light,
-                                    attr_tables, seed: int = 0):
-    """ONE kernel launch returns the hit set with its shading attributes
-    and light 0's visibility: hard (directional, point, or a cone at spp 1
-    along its axis), cone-sampled for an area light at spp > 1, or
-    disk-sampled for a point light at spp > 1 (visibility = 1 - counts /
-    spp). Returns (gbuf, visibility, walk counts)."""
-    dev = bvh.nodes.device
+                                    attr_tables, seed: int = 0,
+                                    shade_table=None):
+    """ONE kernel launch returns the hit set and light 0's visibility: hard
+    (directional, point, or a cone at spp 1 along its axis), cone-sampled
+    for an area light at spp > 1, or disk-sampled for a point light at spp
+    > 1 (visibility = 1 - counts / spp). The hit set carries its shading
+    attributes (``attr_tables``) or keys the shade table (attrs=0). Returns
+    (gbuf, visibility, walk counts)."""
     gb_accel = _gb_accel(bvh, cam, cfg)
-    origins, dirs = generate_rays(cam, cfg.width, cfg.height, dev)
     soft = light.kind == LIGHT_AREA_CONE and cfg.spp > 1
     psoft = light.kind == LIGHT_POINT and cfg.spp > 1
     if psoft:
-        ch, cnt, counts = trace_closest_point_soft_shadow(
-            gb_accel, origins, dirs, light.position, light.radius, cfg.spp,
-            seed, cfg.shadow_bias, attr_tables=attr_tables)
-        vis = 1.0 - cnt.to(torch.float32) / cfg.spp
+        def trace(o, d):
+            return trace_closest_point_soft_shadow(
+                gb_accel, o, d, light.position, light.radius, cfg.spp, seed,
+                cfg.shadow_bias, attr_tables=attr_tables)
     elif soft:
-        ch, cnt, counts = trace_closest_soft_shadow(
-            gb_accel, origins, dirs, light.direction, cone_cos(light),
-            cfg.spp, seed, cfg.shadow_bias, attr_tables=attr_tables)
-        vis = 1.0 - cnt.to(torch.float32) / cfg.spp
+        def trace(o, d):
+            return trace_closest_soft_shadow(
+                gb_accel, o, d, light.direction, cone_cos(light), cfg.spp,
+                seed, cfg.shadow_bias, attr_tables=attr_tables)
     else:
         lpos = light.position if light.kind == LIGHT_POINT else None
-        ch, occ, counts = trace_closest_shadow(
-            gb_accel, origins, dirs, light.direction, cfg.shadow_bias,
-            light_pos=lpos, attr_tables=attr_tables)
-        vis = torch.where(occ, 0.0, 1.0)
-    gbuf = gbuf_from_attr_channels(ch, origins, dirs, cam, mesh)
+
+        def trace(o, d):
+            return trace_closest_shadow(
+                gb_accel, o, d, light.direction, cfg.shadow_bias,
+                light_pos=lpos, attr_tables=attr_tables)
+    gbuf, (out,), counts = _fused_gbuf(trace, attr_tables, shade_table,
+                                       mesh, cam, cfg, bvh.nodes.device)
+    vis = 1.0 - out.to(torch.float32) / cfg.spp if soft or psoft \
+        else torch.where(out, 0.0, 1.0)
     return gbuf, _visibility(gbuf["valid"], vis), counts
 
 
 def gbuffer_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
                                           cam: Camera, cfg: RenderConfig,
                                           lights: Sequence[Light],
-                                          attr_tables):
+                                          attr_tables, shade_table=None):
     """ONE kernel launch for an all-hard light set: the hit set and one
     occlusion bit per light (cones at spp 1 along their axes). Returns
     (gbuf, [visibility per light], walk counts)."""
-    dev = bvh.nodes.device
     gb_accel = _gb_accel(bvh, cam, cfg)
     spec = [(None, l.position) if l.kind == LIGHT_POINT
             else (l.direction, None) for l in lights]
-    origins, dirs = generate_rays(cam, cfg.width, cfg.height, dev)
-    ch, mask, counts = trace_closest_multi_shadow(
-        gb_accel, origins, dirs, spec, cfg.shadow_bias,
-        attr_tables=attr_tables)
-    gbuf = gbuf_from_attr_channels(ch, origins, dirs, cam, mesh)
+    gbuf, (mask,), counts = _fused_gbuf(
+        lambda o, d: trace_closest_multi_shadow(
+            gb_accel, o, d, spec, cfg.shadow_bias, attr_tables=attr_tables),
+        attr_tables, shade_table, mesh, cam, cfg, bvh.nodes.device)
     return gbuf, _mask_visibility(gbuf["valid"], mask, len(lights)), counts
 
 
@@ -303,21 +333,21 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
                                                cam: Camera,
                                                cfg: RenderConfig,
                                                lights: Sequence[Light],
-                                               attr_tables, seed: int = 0):
+                                               attr_tables, seed: int = 0,
+                                               shade_table=None):
     """ONE kernel launch for a soft light 0 (cone or disk) with hard
     directional extras: the hit set, light 0's sample counts and the
     extras' occlusion bits. Returns (gbuf, [visibility per light], walk
     counts)."""
-    dev = bvh.nodes.device
     gb_accel = _gb_accel(bvh, cam, cfg)
     l0 = lights[0]
     light0 = ("disk", l0.position, l0.radius) if l0.kind == LIGHT_POINT \
         else ("cone", l0.direction, cone_cos(l0))
-    origins, dirs = generate_rays(cam, cfg.width, cfg.height, dev)
-    ch, cnt, mask, counts = trace_closest_soft_multi_shadow(
-        gb_accel, origins, dirs, light0, [l.direction for l in lights[1:]],
-        cfg.spp, seed, cfg.shadow_bias, attr_tables=attr_tables)
-    gbuf = gbuf_from_attr_channels(ch, origins, dirs, cam, mesh)
+    gbuf, (cnt, mask), counts = _fused_gbuf(
+        lambda o, d: trace_closest_soft_multi_shadow(
+            gb_accel, o, d, light0, [l.direction for l in lights[1:]],
+            cfg.spp, seed, cfg.shadow_bias, attr_tables=attr_tables),
+        attr_tables, shade_table, mesh, cam, cfg, bvh.nodes.device)
     valid = gbuf["valid"]
     vises = [_visibility(valid, 1.0 - cnt.to(torch.float32) / cfg.spp)]
     vises += _mask_visibility(valid, mask, len(lights) - 1)
@@ -325,18 +355,25 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
 
 
 def gbuffer_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
-                       cfg: RenderConfig, attr_tables):
+                       cfg: RenderConfig, attr_tables, shade_table=None):
     """The unfused frame's G-buffer: the tile rasterizer
-    (``gbuffer="raster"``; ``mesh`` on the device, no walk, zero counts)
-    or the attribute-tracked closest hit on the camera-ordered accel.
-    Returns (gbuf, walk counts)."""
+    (``gbuffer="raster"``; ``mesh`` on the device, no walk, zero counts),
+    the attribute-tracked closest hit, or the plain closest hit and the
+    shade table's row gather (``attr_tables`` None), on the camera-ordered
+    accel. Returns (gbuf, walk counts)."""
     if cfg.gbuffer == "raster":
         gbuf = gbuffer_raster_pass(mesh, cam, cfg.width, cfg.height,
                                    cap_pairs=cfg.raster_cap_pairs or None)
         return gbuf, torch.zeros(2, dtype=torch.int32,
                                  device=bvh.nodes.device)
-    return gbuffer_attr_pass(_gb_accel(bvh, cam, cfg), attr_tables, mesh,
-                             cam, cfg.width, cfg.height)
+    gb_accel = _gb_accel(bvh, cam, cfg)
+    if attr_tables is not None:
+        return gbuffer_attr_pass(gb_accel, attr_tables, mesh, cam,
+                                 cfg.width, cfg.height)
+    return gbuffer_pass(
+        lambda o, d: trace_closest(gb_accel, o, d, return_sorted=True,
+                                   gather_tri_id=False),
+        mesh, cam, cfg.width, cfg.height, shade_table)
 
 
 def shadow_production(bvh: WideBVH, gbuf, light: Light, seed: int,
@@ -371,25 +408,32 @@ def composite_lights(gbuf, shadows, lights: Sequence[Light],
 
 def render_frame_fn(bvh: WideBVH, mesh: Mesh, cam: Camera,
                     lights: Sequence[Light], cfg: RenderConfig,
-                    attr_tables, seed: int = 0) -> Dict[str, torch.Tensor]:
+                    attr_tables, seed: int = 0,
+                    shade_table=None) -> Dict[str, torch.Tensor]:
     """One frame: G-buffer + the fused route's shadows -> the unfused
     shadow pass for every other light -> composite (sum of per-light
-    direct terms + one ambient term). ``seed``: the frame's generator key
-    (``frame_seed``); light i samples with the key (seed, i).
-    ``walk_counts`` sums the walk counters of every launch of the frame."""
-    route = frame_route(cfg, lights)
+    direct terms + one ambient term). The hit set reads the leaf
+    attribute rows ``attr_tables`` or, without them, the packed
+    ``shade_table``; with neither (the raster G-buffer) no fused kernel
+    runs, as ``tpurt``'s ``tabs`` gate has it. ``seed``: the frame's
+    generator key (``frame_seed``); light i samples with the key (seed,
+    i). ``walk_counts`` sums the walk counters of every launch of the
+    frame."""
+    tabs = attr_tables is not None or shade_table is not None
+    route = frame_route(cfg, lights) if tabs else "unfused"
     if route == "fusedN":
         gbuf, shadows, counts = gbuffer_multi_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights, attr_tables)
+            bvh, mesh, cam, cfg, lights, attr_tables, shade_table)
     elif route == "fusedSM":
         gbuf, shadows, counts = gbuffer_soft_multi_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights, attr_tables, seed)
+            bvh, mesh, cam, cfg, lights, attr_tables, seed, shade_table)
     elif route == "fused0":
         gbuf, vis0, counts = gbuffer_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights[0], attr_tables, seed)
+            bvh, mesh, cam, cfg, lights[0], attr_tables, seed, shade_table)
         shadows = [vis0]
     else:
-        gbuf, counts = gbuffer_production(bvh, mesh, cam, cfg, attr_tables)
+        gbuf, counts = gbuffer_production(bvh, mesh, cam, cfg, attr_tables,
+                                          shade_table)
         shadows = []
     for li in unfused_lights(route, len(lights)):
         vis, c = shadow_production(bvh, gbuf, lights[li], seed, li, cfg)
@@ -401,25 +445,34 @@ def render_frame_fn(bvh: WideBVH, mesh: Mesh, cam: Camera,
 
 def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
                    leaf_size: int, nw_pad: int, split_blocks: int = 0,
-                   attrs: bool = True):
+                   tables: Optional[str] = "attr"):
     """Config 2's per-frame rebuild, no host sync (``tpurt``'s
     ``_rebuild_fused(collapse="area")``): the deferred-box build, the
-    breadth-first area collapse into ``nw_pad`` rows and, with ``attrs``
-    (``tables="attr"``), the attribute columns riding the sort and the
-    attribute rows from them. The raster G-buffer reads no table: its
-    rebuild (``tpurt``'s ``tables="sto"``, whose table only the deferred
-    rasterizer reads) skips both. Returns (bvh, wide accel, (at0, at1) or
-    None, count i32[]): count > nw_pad means the pad overflowed and the
-    accel is truncated."""
+    breadth-first area collapse into ``nw_pad`` rows and the shading table
+    the frame reads: ``tables="attr"``, the attribute columns riding the
+    sort and the attribute rows from them; ``"st"``, the packed shade
+    table of the rebuilt, payload-sorted tree (``tpurt``'s
+    ``tables="st"``, whose original-order table only the deferred
+    rasterizer reads); None for the raster G-buffer, which reads no table
+    (``tpurt``'s ``"sto"``, for the same reason). Returns (bvh, wide
+    accel, (at0, at1) or the shade table or None, count i32[]): count >
+    nw_pad means the pad overflowed and the accel is truncated."""
+    if tables not in ("attr", "st", None):
+        raise ValueError(f"tables={tables!r}")
+    attrs = tables == "attr"
     payload = attr_payload_columns(mesh, vertices.device) if attrs else ()
     built = build_lbvh(vertices, indices, leaf_size=leaf_size,
                        boxes="defer", extra_payload=payload,
                        split_blocks=split_blocks)
     bvh, cols = built if attrs else (built, ())
     wide, count = widen_area_kernel(bvh, nw_pad)
-    at = leaf_attr_rows_from_sorted(cols, bvh.tri_id, bvh.num_blocks,
-                                    leaf_size) if attrs else None
-    return bvh, wide, at, count
+    table = None
+    if attrs:
+        table = leaf_attr_rows_from_sorted(cols, bvh.tri_id, bvh.num_blocks,
+                                           leaf_size)
+    elif tables == "st":
+        table = make_shade_table(bvh, mesh)
+    return bvh, wide, table, count
 
 
 def _sync(device: torch.device) -> None:
@@ -435,12 +488,21 @@ class Renderer:
     rebuilds it at the start of every frame. ``config.gbuffer`` is
     resolved at construction (``use_raster_gbuffer``).
 
+    ``mode="static"`` takes the host SBVH build when ``config.sah`` is
+    set and the native library builds and loads (``native.available``);
+    otherwise it builds on the device, as ``tpurt`` does, and "auto"
+    resolves as for ``sah=False``. ``rebuild_threshold`` is stored for
+    refit mode, which is not ported. ``config.inkernel_attrs=False`` makes
+    the frames read the packed shade table (``shade_table``) in place of
+    the leaf attribute rows (``attr_tables``).
+
     ``stats`` holds times in milliseconds. Set-up: ``sah_build_ms`` (host
     SBVH build and conversion, copy to the device included),
     ``lbvh_build_ms`` (on-device Morton build) or, in rebuild mode,
     ``build_and_count_ms`` (a full-box build and the wide-node count that
     fixes the pad), ``collapse_ms`` (8-wide collapse) and
-    ``attr_rows_ms`` (not on the raster G-buffer). Per frame in rebuild
+    ``attr_rows_ms`` or ``shade_table_ms`` (not on the raster G-buffer).
+    Per frame in rebuild
     mode: ``build_ms``, the rebuild (CUDA events on the card, read after
     the frame's walk counters), and ``overflow_recoveries``, the rebuilds
     that outgrew the pad. ``raster_cap_growths``: frames rendered again
@@ -449,8 +511,8 @@ class Renderer:
     def __init__(self, mesh: Mesh, camera: Camera,
                  lights: Union[Light, Sequence[Light]],
                  config: RenderConfig = RenderConfig(),
-                 mode: str = "static", cache_dir: Optional[str] = None, *,
-                 device="cuda"):
+                 mode: str = "static", rebuild_threshold: float = 1.6,
+                 cache_dir: Optional[str] = None, *, device="cuda"):
         if isinstance(lights, Light):
             lights = [lights]
         lights = list(lights)
@@ -466,15 +528,28 @@ class Renderer:
             self._rebuild_splits = (
                 auto_split_blocks(mesh.num_triangles, config.leaf_size)
                 if config.rebuild_splits < 0 else config.rebuild_splits)
-        config = dataclasses.replace(config, gbuffer="raster" if (
-            use_raster_gbuffer(config, mode, self.device,
-                               self._rebuild_splits)) else "ray")
+        # The host SBVH build needs the native library; without it the
+        # static scene builds on the device and "auto" resolves as for
+        # sah=False (tpurt/app.py:648-652).
+        self._use_sah = (config.sah and mode != "rebuild"
+                         and native_available())
+        raster = use_raster_gbuffer(
+            dataclasses.replace(config, sah=self._use_sah), mode,
+            self.device, self._rebuild_splits)
+        config = dataclasses.replace(config,
+                                     gbuffer="raster" if raster else "ray")
         check_slice(config, mode, lights, mesh, cache_dir)
         if self._rebuild_splits:
             config = dataclasses.replace(config, order_children=False)
         self.config = config
         self._raster = config.gbuffer == "raster"
+        # The table the frames read: none on the raster G-buffer, else the
+        # leaf attribute rows or the shade table (tpurt's _use_attrs, whose
+        # VMEM budget has no counterpart on the card).
+        self._tables = None if self._raster else (
+            "attr" if config.inkernel_attrs else "st")
         self.mode = mode
+        self.rebuild_threshold = rebuild_threshold
         self.mesh = mesh
         self.camera = camera
         self.lights = lights
@@ -484,12 +559,14 @@ class Renderer:
         self.stats: Dict[str, float] = {"raster_cap_growths": 0}
         self._nw_pad: Optional[int] = None
         self._geom_dirty = False
+        self.attr_tables = None
+        self.shade_table = None
 
         if mode == "rebuild":
             self._setup_rebuild()
         else:
             t0 = time.perf_counter()
-            if config.sah:
+            if self._use_sah:
                 self.bvh = build_sah_lbvh(mesh, self.device, config.leaf_size)
             else:
                 dm = mesh.on(self.device)
@@ -501,19 +578,27 @@ class Renderer:
             _sync(self.device)
             t2 = time.perf_counter()
             self.stats.update({
-                "sah_build_ms" if config.sah else "lbvh_build_ms":
+                "sah_build_ms" if self._use_sah else "lbvh_build_ms":
                     (t1 - t0) * 1e3,
                 "collapse_ms": (t2 - t1) * 1e3})
             if self._raster:
                 # The rasterizer bins the mesh on the device every frame.
                 self.mesh = mesh.on(self.device)
-                self.attr_tables = None
             else:
-                self.attr_tables = make_leaf_attr_rows(self.bvh, mesh)
-                _sync(self.device)
-                self.stats["attr_rows_ms"] = (time.perf_counter() - t2) * 1e3
+                self._make_tables(mesh, t2)
         self.depth = wide_depth(self.accel)
         check_stack_bound(self.depth)
+
+    def _make_tables(self, mesh: Mesh, t0: float) -> None:
+        """The static tree's shading table, timed from ``t0``: the leaf
+        attribute rows or the shade table."""
+        if self._tables == "attr":
+            self.attr_tables = make_leaf_attr_rows(self.bvh, mesh)
+        else:
+            self.shade_table = make_shade_table(self.bvh, mesh)
+        _sync(self.device)
+        key = "attr_rows_ms" if self._tables == "attr" else "shade_table_ms"
+        self.stats[key] = (time.perf_counter() - t0) * 1e3
 
     def _make_accel(self) -> WideBVH:
         """8-wide area collapse of a static tree. The leaf slots take the
@@ -551,18 +636,15 @@ class Renderer:
         self.stats.update(build_and_count_ms=(t1 - t0) * 1e3,
                           collapse_ms=(t2 - t1) * 1e3,
                           overflow_recoveries=0)
-        self.attr_tables = None
         if not self._raster:
-            self.attr_tables = make_leaf_attr_rows(self.bvh, self.mesh)
-            _sync(self.device)
-            self.stats["attr_rows_ms"] = (time.perf_counter() - t2) * 1e3
+            self._make_tables(self.mesh, t2)
 
     def _rebuild(self):
         return _rebuild_fused(self.mesh.vertices, self.mesh.indices,
                               self.mesh, self.config.leaf_size,
                               self._nw_pad,
                               split_blocks=self._rebuild_splits,
-                              attrs=not self._raster)
+                              tables=self._tables)
 
     def _update_bvh(self) -> None:
         """Rebuild the accel for this frame. The wide-node count is read
@@ -571,15 +653,19 @@ class Renderer:
         ``tpurt`` instead renders that full-box build's XLA area collapse:
         the same tree with its wide ids in binary-node order, where the
         rerun keeps the breadth-first ids every other frame has."""
-        bvh, accel, at, count = self._rebuild()
+        bvh, accel, table, count = self._rebuild()
         if self._geom_dirty:
             self._geom_dirty = False
             if int(count) > self._nw_pad:
                 self._nw_pad = self._count_pad()
                 self.stats["overflow_recoveries"] += 1
-                bvh, accel, at, count = self._rebuild()
+                bvh, accel, table, count = self._rebuild()
                 self._check_count(count)
-        self.bvh, self.accel, self.attr_tables = bvh, accel, at
+        self.bvh, self.accel = bvh, accel
+        if self._tables == "attr":
+            self.attr_tables = table
+        elif self._tables == "st":
+            self.shade_table = table
 
     def set_vertices(self, vertices) -> None:
         """Animate (rebuild mode): new vertex positions f32[V, 3], same
@@ -612,7 +698,8 @@ class Renderer:
             timer.stop()
         out = render_frame_fn(self.accel, self.mesh, self.camera,
                               self.lights, cfg, self.attr_tables,
-                              seed=frame_seed(cfg.seed, self.frame_index))
+                              seed=frame_seed(cfg.seed, self.frame_index),
+                              shade_table=self.shade_table)
         flags = out["walk_counts"]
         if self._raster:
             flags = torch.cat([flags, out["raster_overflow"].reshape(1)

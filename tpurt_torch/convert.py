@@ -76,6 +76,13 @@ def attr_tables(at0, at1, device):
     return (_t(at0, torch.float32, device), _t(at1, torch.float32, device))
 
 
+def shade_table(table, device) -> torch.Tensor:
+    """A ``tpurt`` shade table f32[Tpad, 24], bits unchanged: lane 16 holds
+    int32 ids as bits, so it is carried as int32 and viewed back."""
+    bits = np.ascontiguousarray(np.asarray(table, np.float32)).view(np.int32)
+    return torch.from_numpy(bits.copy()).to(device).view(torch.float32)
+
+
 def raster_rows(fields: Dict[str, Any], device) -> RasterRows:
     """A ``tpurt`` ``RasterRows`` (a NamedTuple: pass ``bins._asdict()``),
     so the rasterizer can run on the JAX package's own bins."""

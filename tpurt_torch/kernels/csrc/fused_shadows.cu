@@ -1,7 +1,6 @@
 // Closest hit, alone or fused with shadows, over an 8-wide BVH, for
-// Hopper: one kernel template, six modes, each replacing one TPU kernel of
-// tpurt/kernels/traverse.py in its attrs=1 variant (attribute tracking, no
-// textures):
+// Hopper: one kernel template, seven modes, each replacing one TPU kernel
+// of tpurt/kernels/traverse.py (textures are not handled):
 //
 //   HARD        _closest_shadow_kernel_w8_b         light 0's hard shadow,
 //                                                   directional or point
@@ -18,17 +17,34 @@
 //   CLOSEST     _closest_attr_kernel_w8_b           the closest hit and its
 //                                                   attributes alone (the
 //                                                   unfused G-buffer)
+//   NEAREST     _closest_hit_kernel_w8_b            the closest hit alone:
+//                                                   t and the sorted index
+//                                                   (the shade-table
+//                                                   G-buffer's unfused cast)
+//
+// The second template parameter is the JAX kernels' ``attrs``: the five
+// shadow modes come in both variants. attrs=1 (and CLOSEST) walks with the
+// leaf attribute rows and writes the 15 attribute channels; attrs=0 (and
+// NEAREST) reads no attribute row and writes t and the sorted index, which
+// key the shade table (the G-buffer's one row gather per pixel). attrs=0
+// phase 1 still keeps the winner's geometric normal, which the shadow
+// phase offsets the hit point along (_w8_closest_walk_n); NEAREST keeps
+// nothing but t and the index.
 //
 // Their plain PyTorch versions are closest_{,multi_,soft_,point_soft_,
-// soft_multi_}shadow_reference and closest_attrs_reference in
+// soft_multi_}shadow_reference (attrs=0: the *_st_reference twins),
+// closest_attrs_reference and closest_reference in
 // tpurt_torch/kernels/traverse.py. All follow one contract:
 //
 //   rays    f32[PB,10,8,128]  o.xyz, d.xyz, clamped 1/d.xyz, t_max (SoA)
 //   nodes   f32[Nw,128]       8 children x [bmin.xyz, bmax.xyz, ref, pad]
 //   tris    f32[L,128]        k x (v0, e1, e2) per leaf
-//   at0/at1 f32[L,128]        leaf attribute rows (at1 read only if k > 8)
-//   out     f32[PB,15,8,128]  t, sidx, u, v, uv(2), kd, layer, tri_id,
-//                             packed oct n0..n2, geometric normal
+//   at0/at1 f32[L,128]        leaf attribute rows (at1 read only if k > 8;
+//                             attrs=1 only)
+//   out     f32[PB,15,8,128]  attrs=1: t, sidx, u, v, uv(2), kd, layer,
+//                             tri_id, packed oct n0..n2, geometric normal
+//   out     f32[PB,8,128]     attrs=0: t (BIG on a miss)
+//   sidx_out i32[PB,8,128]    attrs=0: sorted index (-1 on a miss)
 //   counts  i32[2]            stack overflows, walks cut at the cap
 //
 // with the JAX wrappers' scalar blocks:
@@ -43,15 +59,15 @@
 //   SOFT_MULTI  [bias, root min(3), root max(3)], light 0 (disk: position(3),
 //               radius; cone: axis(3), t0(3), t1(3), cone_cos), then per
 //               extra light dir(3) + clamped 1/dir(3)
-//   CLOSEST     none
+//   CLOSEST, NEAREST  none
 //
 // and i32[PB,8,128] outputs: mask (bit l = light l occluded; SOFT_MULTI:
 // bit i = extra light i) and/or counts in [0, spp].
 //
 // Design: one thread per ray, blocks of 128 threads. The ray index is
 // (packet, lane), so neighbouring threads read neighbouring words of the
-// SoA ray block. Phase 1 is the attribute-tracked closest walk (all that
-// CLOSEST runs); phase 2 runs every light or sample in the same thread,
+// SoA ray block. Phase 1 is the closest walk (all that CLOSEST and
+// NEAREST run; NEAREST honours each ray's t_max, row 9); phase 2 runs every light or sample in the same thread,
 // from the same biased hit point, reusing the per-ray stack in local
 // memory; each shadow walk has its own iteration cap, and dropped pushes
 // and capped walks of all walks are summed into counts (the walks are in
@@ -89,7 +105,8 @@ enum Mode {
   SOFT = 2,
   PSOFT = 3,
   SOFT_MULTI = 4,
-  CLOSEST = 5
+  CLOSEST = 5,
+  NEAREST = 6
 };
 
 // Hard directional light at scal d[0..5] (dir, inverse).
@@ -177,8 +194,10 @@ __device__ __forceinline__ void shadow_phase(const Params& P, const Ray& r,
   }
 }
 
-template <int MODE>
+template <int MODE, int ATTRS>
 __global__ void __launch_bounds__(128) fused_shadows_kernel(Params P) {
+  constexpr int TRACK = ATTRS ? TRACK_ATTRS
+                              : (MODE == NEAREST ? TRACK_T : TRACK_NORMAL);
   int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= P.num_rays) return;
   int p = gid / LANES, lane = gid % LANES;
@@ -197,10 +216,13 @@ __global__ void __launch_bounds__(128) fused_shadows_kernel(Params P) {
 
   int stack[STACK_CAPACITY];
   WalkCounts wc;
-  Hit h = closest_walk(P.nodes, P.tris, P.at0, P.at1, P.k, r, tmax, P.t_min,
-                       P.max_iters, P.stack_size, stack, wc);
-  write_attrs(P.out, p, lane, h);
-  if constexpr (MODE != CLOSEST)
+  Hit h = closest_walk<TRACK>(P.nodes, P.tris, P.at0, P.at1, P.k, r, tmax,
+                              P.t_min, P.max_iters, P.stack_size, stack, wc);
+  if constexpr (ATTRS)
+    write_attrs(P.out, p, lane, h);
+  else
+    write_hit(P.out, P.sidx_out, gid, h);
+  if constexpr (MODE != CLOSEST && MODE != NEAREST)
     shadow_phase<MODE>(P, r, h, gid, stack, wc);
   if (wc.overflow) atomicAdd(P.counts, wc.overflow);
   if (wc.capped) atomicAdd(P.counts + 1, wc.capped);
@@ -210,33 +232,49 @@ extern "C" int tpurt_stack_capacity() { return STACK_CAPACITY; }
 
 extern "C" int tpurt_params_size() { return (int)sizeof(Params); }
 
-// Launches ``mode`` on ``stream`` with the arguments in *P; allocates
-// nothing and returns cudaGetLastError() (cudaErrorInvalidValue for an
-// unknown mode).
+template <int MODE>
+static void launch_mode(const Params* P, dim3 grid, dim3 block,
+                        cudaStream_t st) {
+  if (P->attrs)
+    fused_shadows_kernel<MODE, 1><<<grid, block, 0, st>>>(*P);
+  else
+    fused_shadows_kernel<MODE, 0><<<grid, block, 0, st>>>(*P);
+}
+
+// Launches ``mode`` in the variant P->attrs (0 or 1) on ``stream`` with
+// the arguments in *P; allocates nothing and returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unknown mode or variant: CLOSEST exists
+// only with attrs=1, NEAREST only with attrs=0).
 extern "C" int tpurt_fused_shadows_launch(int mode, const Params* P,
                                           void* stream) {
+  if (P->attrs != 0 && P->attrs != 1) return (int)cudaErrorInvalidValue;
   if (P->num_rays <= 0) return (int)cudaGetLastError();
   dim3 block(128);
   dim3 grid((P->num_rays + 127) / 128);
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case HARD:
-      fused_shadows_kernel<HARD><<<grid, block, 0, st>>>(*P);
+      launch_mode<HARD>(P, grid, block, st);
       break;
     case MULTI:
-      fused_shadows_kernel<MULTI><<<grid, block, 0, st>>>(*P);
+      launch_mode<MULTI>(P, grid, block, st);
       break;
     case SOFT:
-      fused_shadows_kernel<SOFT><<<grid, block, 0, st>>>(*P);
+      launch_mode<SOFT>(P, grid, block, st);
       break;
     case PSOFT:
-      fused_shadows_kernel<PSOFT><<<grid, block, 0, st>>>(*P);
+      launch_mode<PSOFT>(P, grid, block, st);
       break;
     case SOFT_MULTI:
-      fused_shadows_kernel<SOFT_MULTI><<<grid, block, 0, st>>>(*P);
+      launch_mode<SOFT_MULTI>(P, grid, block, st);
       break;
     case CLOSEST:
-      fused_shadows_kernel<CLOSEST><<<grid, block, 0, st>>>(*P);
+      if (!P->attrs) return (int)cudaErrorInvalidValue;
+      fused_shadows_kernel<CLOSEST, 1><<<grid, block, 0, st>>>(*P);
+      break;
+    case NEAREST:
+      if (P->attrs) return (int)cudaErrorInvalidValue;
+      fused_shadows_kernel<NEAREST, 0><<<grid, block, 0, st>>>(*P);
       break;
     default:
       return (int)cudaErrorInvalidValue;

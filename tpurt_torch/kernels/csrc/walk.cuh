@@ -1,7 +1,8 @@
 // Device walks over an 8-wide BVH, shared by the kernels of
 // fused_shadows.cu and shadow_rays.cu: the slab and Moller-Trumbore tests,
-// the attribute-tracked closest walk (tpurt/kernels/traverse.py
-// _w8_closest_walk_attr), the any-hit walk (_w8_anyhit_walk), the biased
+// the closest walk (tpurt/kernels/traverse.py _w8_closest_walk_attr with
+// the attribute rows, _w8_closest_walk_n without them, and the plain walk
+// of _closest_w8_b_impl), the any-hit walk (_w8_anyhit_walk), the biased
 // shadow origin (_biased_hit_origin), the scene-exit cap
 // (_scene_exit_cap), the counter-based generator and the cone and disk
 // samplers of the soft kernels (_uniform01, _sincos_2pi, _lane_axis_onb),
@@ -105,9 +106,21 @@ struct Hit {
   int idx;
 };
 
+// What a closest walk keeps of its winner besides t and the sorted index:
+// TRACK_ATTRS the attribute rows' channels and the geometric normal (the
+// attrs=1 kernels), TRACK_NORMAL the unnormalised geometric normal e1 x e2
+// alone (the attrs=0 fused kernels, whose shadow phase offsets the hit
+// point along it), TRACK_T nothing more (the plain closest hit). The
+// fields a walk does not keep stay 0 and are never stored.
+enum Track { TRACK_T = 0, TRACK_NORMAL = 1, TRACK_ATTRS = 2 };
+
 // Closest-hit test of one leaf: division by det, eps 1e-9, inclusive
 // barycentric bounds, strictly smaller t wins (the first hit found wins a
-// tie). The winner's attributes are read from the leaf attribute rows.
+// tie). With TRACK_ATTRS the winner's attributes are read from the leaf
+// attribute rows, in the statement order of the attrs=1 kernels' first
+// version (so their registers stay as they were); the other modes never
+// read them.
+template <int TRACK>
 __device__ __forceinline__ void leaf_closest(
     const float* __restrict__ tris, const float* __restrict__ at0,
     const float* __restrict__ at1, int leaf, int k, const Ray& r,
@@ -124,22 +137,38 @@ __device__ __forceinline__ void leaf_closest(
     ok = ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f;
     t = ok ? t : BIG;
     if (t > t_min && t < h.t && active0) {
-      const float* a = (j < 8) ? at0 + (size_t)leaf * 128 + 16 * j
-                               : at1 + (size_t)leaf * 128 + 16 * (j - 8);
-      float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4), e1z = __ldg(tri + 5);
-      float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7), e2z = __ldg(tri + 8);
-      h.t = t;
-      h.idx = leaf * k + j;
-      h.u = u;
-      h.v = v;
-      h.kd = __ldg(a + 3);
-      h.tid = __ldg(a + 11);
-      h.o0 = __ldg(a + 0);
-      h.o1 = __ldg(a + 1);
-      h.o2 = __ldg(a + 2);
-      h.nx = e1y * e2z - e1z * e2y;
-      h.ny = e1z * e2x - e1x * e2z;
-      h.nz = e1x * e2y - e1y * e2x;
+      if constexpr (TRACK == TRACK_ATTRS) {
+        const float* a = (j < 8) ? at0 + (size_t)leaf * 128 + 16 * j
+                                 : at1 + (size_t)leaf * 128 + 16 * (j - 8);
+        float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4),
+              e1z = __ldg(tri + 5);
+        float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7),
+              e2z = __ldg(tri + 8);
+        h.t = t;
+        h.idx = leaf * k + j;
+        h.u = u;
+        h.v = v;
+        h.kd = __ldg(a + 3);
+        h.tid = __ldg(a + 11);
+        h.o0 = __ldg(a + 0);
+        h.o1 = __ldg(a + 1);
+        h.o2 = __ldg(a + 2);
+        h.nx = e1y * e2z - e1z * e2y;
+        h.ny = e1z * e2x - e1x * e2z;
+        h.nz = e1x * e2y - e1y * e2x;
+      } else {
+        h.t = t;
+        h.idx = leaf * k + j;
+        if constexpr (TRACK == TRACK_NORMAL) {
+          float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4),
+                e1z = __ldg(tri + 5);
+          float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7),
+                e2z = __ldg(tri + 8);
+          h.nx = e1y * e2z - e1z * e2y;
+          h.ny = e1z * e2x - e1x * e2z;
+          h.nz = e1x * e2y - e1y * e2x;
+        }
+      }
     }
   }
 }
@@ -161,7 +190,9 @@ __device__ __forceinline__ bool leaf_occluded(const float* __restrict__ tris,
   return false;
 }
 
-// Phase 1: closest hit in (t_min, tmax) with attribute tracking.
+// Phase 1: closest hit in (t_min, tmax), keeping what TRACK asks for of
+// the winner (at0 and at1 are read only with TRACK_ATTRS).
+template <int TRACK>
 __device__ __forceinline__ Hit closest_walk(
     const float* __restrict__ nodes, const float* __restrict__ tris,
     const float* __restrict__ at0, const float* __restrict__ at1, int k,
@@ -182,8 +213,8 @@ __device__ __forceinline__ Hit closest_walk(
       if (!(mask >> c & 1u)) continue;
       int ref = (int)__ldg(row + 16 * c + 6);
       if (ref < 0) {
-        leaf_closest(tris, at0, at1, max(-ref - 1, 0), k, r, t_min, active0,
-                     h);
+        leaf_closest<TRACK>(tris, at0, at1, max(-ref - 1, 0), k, r, t_min,
+                            active0, h);
       } else if (sp < stack_size) {
         stack[sp++] = ref;
       } else {
@@ -215,6 +246,15 @@ __device__ __forceinline__ void write_attrs(float* __restrict__ out, int p,
   ob[12 * LANES] = h.nx;
   ob[13 * LANES] = h.ny;
   ob[14 * LANES] = h.nz;
+}
+
+// Store an attrs=0 phase 1 of ray gid: t (BIG on a miss) and the sorted
+// index (-1 on a miss) into two f32 / i32 [PB, 8, 128] planes.
+__device__ __forceinline__ void write_hit(float* __restrict__ t_out,
+                                          int* __restrict__ sidx_out,
+                                          int gid, const Hit& h) {
+  t_out[gid] = h.idx >= 0 ? h.t : BIG;
+  sidx_out[gid] = h.idx;
 }
 
 // Any hit in (t_min, tmax); a ray with tmax <= t_min tests no box.
@@ -425,11 +465,13 @@ struct Params {
   const float* at1;
   const float* rays;  // f32[PB,10,8,128]; ANY_SOFT, ANY_PSOFT: f32[PB,4,8,128]
   const float* scal;
-  float* out;         // fused modes and CLOSEST
+  float* out;         // attrs=1: f32[PB,15,8,128]; attrs=0: t f32[PB,8,128]
+  int* sidx_out;      // attrs=0: sorted hit index i32[PB,8,128]
   int* cnt_out;       // SOFT, PSOFT, SOFT_MULTI, ANY_SOFT, ANY_PSOFT
   int* mask_out;      // HARD, MULTI, SOFT_MULTI, ANY
   int* counts;
   int num_rays, k, max_iters, stack_size;
+  int attrs;  // closest modes: 1 with the attribute rows, 0 without
   float t_min;
   int nlights, point_mask;  // HARD (bit 0: point light), MULTI
   int spp, zero_stream, disk, n_extra;  // sampling modes

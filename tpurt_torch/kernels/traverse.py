@@ -14,23 +14,31 @@
   ``_closest_soft_multi_shadow_kernel_w8_b``: soft light 0 (cone or disk)
   -> counts, hard directional extras -> bitmask.
 
+Each of the five takes the leaf attribute rows (attrs=1: the winner's
+attribute channels) or none (attrs=0, ``attr_tables=None``: t and the
+sorted index, the keys of the shade table).
+
 The unfused frame's kernels:
 
 - ``trace_closest_attrs`` -> ``_closest_attr_kernel_w8_b``: the closest
   hit and its attribute channels alone;
+- ``trace_closest`` -> ``_closest_hit_kernel_w8_b``: the closest hit
+  alone, t and the sorted index (the shade-table G-buffer);
 - ``trace_any`` -> ``_any_hit_kernel_w8_b``: any hit of given rays;
 - ``trace_any_soft`` -> ``_any_hit_kernel_w8_soft`` and
   ``trace_any_point_soft`` -> ``_any_hit_kernel_w8_psoft``: spp cone or
   disk samples from given biased origins, counts.
 
-The first five and ``trace_closest_attrs`` are modes of one CUDA kernel
-template (``csrc/fused_shadows.cu``), the three shadow-ray kernels modes of
-another (``csrc/shadow_rays.cu``). Each function has three pieces that
-share one contract on the packed ray block:
+The first five (both variants), ``trace_closest_attrs`` and
+``trace_closest`` are modes of one CUDA kernel template
+(``csrc/fused_shadows.cu``), the three shadow-ray kernels modes of another
+(``csrc/shadow_rays.cu``). Each function has three pieces that share one
+contract on the packed ray block:
 
 - ``*_cuda``: the hand-written CUDA kernel in its mode, one thread per
   ray. It takes CUDA tensors only and launches or raises; ``.launches``
-  counts its launches.
+  counts its launches. The attrs=0 variants of the five fused modes are
+  ``*_st_cuda`` (no attribute tables in their arguments).
 - ``*_reference``: the same function in plain PyTorch, a vectorised
   per-ray stack walk. The wrapper takes it only for CPU tensors.
 - ``trace_*``: the wrapper the frame calls. It packs the rays, picks one
@@ -46,7 +54,8 @@ The layouts at the kernel boundary are the JAX package's: nodes
 f32[Nw,128], leaf rows f32[L,128], attribute rows f32[nblk,128], rays
 f32[PB,10,8,128] (o, d, clamped 1/d, t_max), soft-shadow origins
 f32[PB,4,8,128] (o, valid flag), the float32 scalar blocks of the JAX
-wrappers, outputs f32[PB,15,8,128] attribute channels and i32[PB,8,128]
+wrappers, outputs f32[PB,15,8,128] attribute channels (attrs=1) or t
+f32[PB,8,128] and sorted index i32[PB,8,128] (attrs=0), and i32[PB,8,128]
 occlusion, mask or counts.
 """
 
@@ -344,6 +353,10 @@ def _count_pops(stats, rec) -> None:
 
 def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
                   max_iters, stack_size, stats=None):
+    """Closest hit of n rays -> (best_t, best_i, attr f32[n, 10],
+    overflow, capped). attr: u, v, kd, tid, oct0..2 read from the
+    attribute rows (zeros when ``at0`` is None, the attrs=0 walk, which
+    reads none), then the winner's unnormalised geometric normal."""
     n = tmax.shape[0]
     dev = tmax.device
     active0 = tmax > t_min
@@ -380,19 +393,22 @@ def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
                 sel = j[:, None]
                 best_t[r] = tj[better]
                 best_i[r] = (leaf * k + j).to(torch.int32)
-                ar = at0[leaf] if k <= 8 else torch.cat(
-                    [at0[leaf], at1[leaf]], dim=1)
-                a = ar[:, :16 * k].reshape(-1, k, 16).gather(
-                    1, sel[:, :, None].expand(-1, 1, 16))[:, 0]
                 e1x, e1y, e1z, e2x, e2y, e2z = (
                     x.gather(1, sel)[:, 0] for x in tri[3:9])
-                attr[r] = torch.stack([
-                    u[better].gather(1, sel)[:, 0],
-                    v[better].gather(1, sel)[:, 0],
-                    a[:, 3], a[:, 11], a[:, 0], a[:, 1], a[:, 2],
-                    e1y * e2z - e1z * e2y,
-                    e1z * e2x - e1x * e2z,
-                    e1x * e2y - e1y * e2x], dim=1)
+                normal = [e1y * e2z - e1z * e2y, e1z * e2x - e1x * e2z,
+                          e1x * e2y - e1y * e2x]
+                if at0 is None:
+                    attr[r, 7:] = torch.stack(normal, dim=1)
+                else:
+                    ar = at0[leaf] if k <= 8 else torch.cat(
+                        [at0[leaf], at1[leaf]], dim=1)
+                    a = ar[:, :16 * k].reshape(-1, k, 16).gather(
+                        1, sel[:, :, None].expand(-1, 1, 16))[:, 0]
+                    attr[r] = torch.stack([
+                        u[better].gather(1, sel)[:, 0],
+                        v[better].gather(1, sel)[:, 0],
+                        a[:, 3], a[:, 11], a[:, 0], a[:, 1], a[:, 2],
+                        *normal], dim=1)
             push_m = hit[:, c] & (refs[:, c] >= 0)
             if bool(push_m.any()):
                 w.push(rows[push_m], refs[push_m, c])
@@ -564,10 +580,12 @@ class _Walks:
 
 
 class _Phase1(_Walks):
-    """The shared phase 1 of every closest-hit plain version: the
-    attribute-tracked closest walk over the packed rays and its 15 output
-    channels; the shadow walks of phase 2 start at t = 0 and add to its
-    walk counters."""
+    """The shared phase 1 of every closest-hit plain version: the closest
+    walk over the packed rays and its outputs ``outs``: with the attribute
+    rows (attrs=1) the 15 channels f32[PB,15,8,128], without them (``at0``
+    None, attrs=0) t f32[PB,8,128] (BIG on a miss) and the sorted index
+    i32[PB,8,128] (-1). The shadow walks of phase 2 start at t = 0 and add
+    to its walk counters."""
 
     def __init__(self, rays, nodes, tris, at0, at1, k, t_min, max_iters,
                  stack_size, stats):
@@ -582,13 +600,17 @@ class _Phase1(_Walks):
         best_t, best_i, attr, self.ovf, self.cap = _closest_walk(
             nodes, tris, at0, at1, k, self.o, self.d, inv, tmax, t_min,
             max_iters, stack_size, stats)
-        zero = torch.zeros(n, dtype=torch.float32, device=tmax.device)
-        chans = [torch.where(best_i >= 0, best_t, _BIG),
-                 best_i.to(torch.float32), attr[:, 0], attr[:, 1], zero,
-                 zero, attr[:, 2], zero, attr[:, 3], attr[:, 4], attr[:, 5],
-                 attr[:, 6], attr[:, 7], attr[:, 8], attr[:, 9]]
-        self.out = torch.stack(chans).reshape(ATTR_CH, pb, 8, 128).permute(
-            1, 0, 2, 3).contiguous()
+        t_out = torch.where(best_i >= 0, best_t, _BIG)
+        if at0 is None:
+            self.outs = (t_out.reshape(pb, 8, 128), self.image(best_i))
+        else:
+            zero = torch.zeros(n, dtype=torch.float32, device=tmax.device)
+            chans = [t_out, best_i.to(torch.float32), attr[:, 0],
+                     attr[:, 1], zero, zero, attr[:, 2], zero, attr[:, 3],
+                     attr[:, 4], attr[:, 5], attr[:, 6], attr[:, 7],
+                     attr[:, 8], attr[:, 9]]
+            self.outs = (torch.stack(chans).reshape(ATTR_CH, pb, 8, 128)
+                         .permute(1, 0, 2, 3).contiguous(),)
         self.best_t = best_t
         self.hitm = best_i >= 0
         self.gn = (attr[:, 7], attr[:, 8], attr[:, 9])
@@ -603,7 +625,9 @@ def closest_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
     """Plain PyTorch version of the fused kernel, on any device.
 
     rays f32[PB,10,8,128] -> (out f32[PB,15,8,128], occ i32[PB,8,128],
-    counts i32[2]). Each ray walks its own stack [N, stack_size]; the loop
+    counts i32[2]); with ``at0`` None (attrs=0) (t f32[PB,8,128], sidx
+    i32[PB,8,128], occ, counts), as every fused plain version here. Each
+    ray walks its own stack [N, stack_size]; the loop
     runs until every stack is empty. Children of a popped node are tested
     against the cap at pop time and handled in slot order (leaf tests in
     place, internal children pushed), as the kernel does. ``stats``: an
@@ -618,7 +642,7 @@ def closest_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
         ray = _dir_ray(scal[0:3], scal[3:6], scal[7:10], scal[10:13], so,
                        ph.hitm)
     occ = ph.occluded(so, ray)
-    return ph.out, ph.image(occ), ph.counts()
+    return (*ph.outs, ph.image(occ), ph.counts())
 
 
 MAX_MASK_LIGHTS = 31   # bits of the i32 occlusion mask
@@ -660,7 +684,7 @@ def closest_multi_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
                            ph.hitm)
             s += 6
         mask |= ph.occluded(so, ray).to(torch.int32) << li
-    return ph.out, ph.image(mask), ph.counts()
+    return (*ph.outs, ph.image(mask), ph.counts())
 
 
 def _sampled_counts(walks, so, spp, seed, zero_stream, make_ray,
@@ -705,7 +729,7 @@ def closest_soft_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
     so = ph.origin(scal[16])
     sample = _cone_sampler(scal, 0, scal[10:13], scal[13:16], so, ph.hitm)
     cnt = _sampled_counts(ph, so, spp, seed, zero_stream, sample)
-    return ph.out, ph.image(cnt), ph.counts()
+    return (*ph.outs, ph.image(cnt), ph.counts())
 
 
 def closest_point_soft_shadow_reference(rays, nodes, tris, at0, at1, scal,
@@ -722,7 +746,7 @@ def closest_point_soft_shadow_reference(rays, nodes, tris, at0, at1, scal,
     so = ph.origin(scal[4])
     sample = _disk_sampler(scal, 0, so, ph.hitm)
     cnt = _sampled_counts(ph, so, spp, seed, zero_stream, sample)
-    return ph.out, ph.image(cnt), ph.counts()
+    return (*ph.outs, ph.image(cnt), ph.counts())
 
 
 def _soft_multi_scal_len(disk: bool, n_extra: int) -> int:
@@ -759,7 +783,7 @@ def closest_soft_multi_shadow_reference(rays, nodes, tris, at0, at1, scal,
         ray = _dir_ray(scal[s:s + 3], scal[s + 3:s + 6], rmin, rmax, so,
                        ph.hitm)
         mask |= ph.occluded(so, ray).to(torch.int32) << li
-    return ph.out, ph.image(cnt), ph.image(mask), ph.counts()
+    return (*ph.outs, ph.image(cnt), ph.image(mask), ph.counts())
 
 
 def closest_attrs_reference(rays, nodes, tris, at0, at1, *, leaf_size: int,
@@ -769,7 +793,52 @@ def closest_attrs_reference(rays, nodes, tris, at0, at1, *, leaf_size: int,
     rays f32[PB,10,8,128] -> (out f32[PB,15,8,128], counts i32[2])."""
     ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
                  stack_size, stats)
-    return ph.out, ph.counts()
+    return (*ph.outs, ph.counts())
+
+
+def closest_reference(rays, nodes, tris, *, leaf_size: int, t_min: float,
+                      max_iters: int, stack_size: int, stats=None):
+    """Plain version of ``_closest_hit_kernel_w8_b``: phase 1 without
+    attribute rows, each ray capped at its own t_max (row 9). rays
+    f32[PB,10,8,128] -> (t f32[PB,8,128], BIG on a miss; sidx
+    i32[PB,8,128], -1 on a miss; counts i32[2])."""
+    ph = _Phase1(rays, nodes, tris, None, None, leaf_size, t_min,
+                 max_iters, stack_size, stats)
+    return (*ph.outs, ph.counts())
+
+
+# The attrs=0 plain versions of the fused modes, called as their kernels
+# ``*_st_cuda`` are: no attribute tables -> (t, sidx, *i32 outputs,
+# counts).
+
+def closest_shadow_st_reference(rays, nodes, tris, scal, **kw):
+    """Plain version of HARD attrs=0."""
+    return closest_shadow_reference(rays, nodes, tris, None, None, scal,
+                                    **kw)
+
+
+def closest_multi_shadow_st_reference(rays, nodes, tris, scal, **kw):
+    """Plain version of MULTI attrs=0."""
+    return closest_multi_shadow_reference(rays, nodes, tris, None, None,
+                                          scal, **kw)
+
+
+def closest_soft_shadow_st_reference(rays, nodes, tris, scal, **kw):
+    """Plain version of SOFT attrs=0."""
+    return closest_soft_shadow_reference(rays, nodes, tris, None, None,
+                                         scal, **kw)
+
+
+def closest_point_soft_shadow_st_reference(rays, nodes, tris, scal, **kw):
+    """Plain version of PSOFT attrs=0."""
+    return closest_point_soft_shadow_reference(rays, nodes, tris, None,
+                                               None, scal, **kw)
+
+
+def closest_soft_multi_shadow_st_reference(rays, nodes, tris, scal, **kw):
+    """Plain version of SOFT_MULTI attrs=0."""
+    return closest_soft_multi_shadow_reference(rays, nodes, tris, None,
+                                               None, scal, **kw)
 
 
 def any_reference(rays, nodes, tris, *, leaf_size: int, t_min: float,
@@ -833,10 +902,10 @@ class Params(ctypes.Structure):
     """One launch's arguments: ``Params`` of csrc/walk.cuh, field for field
     (the loader checks the two sizes agree)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "nodes", "tris", "at0", "at1", "rays", "scal", "out", "cnt_out",
-        "mask_out", "counts")]
+        "nodes", "tris", "at0", "at1", "rays", "scal", "out", "sidx_out",
+        "cnt_out", "mask_out", "counts")]
         + [(n, ctypes.c_int) for n in ("num_rays", "k", "max_iters",
-                                       "stack_size")]
+                                       "stack_size", "attrs")]
         + [("t_min", ctypes.c_float)]
         + [(n, ctypes.c_int) for n in ("nlights", "point_mask", "spp",
                                        "zero_stream", "disk", "n_extra")]
@@ -845,7 +914,7 @@ class Params(ctypes.Structure):
 
 # The kernel templates' modes: csrc/fused_shadows.cu ``Mode`` (closest hit,
 # alone or with shadows) and csrc/shadow_rays.cu ``Mode`` (shadow rays).
-HARD, MULTI, SOFT, PSOFT, SOFT_MULTI, CLOSEST = range(6)
+HARD, MULTI, SOFT, PSOFT, SOFT_MULTI, CLOSEST, NEAREST = range(7)
 ANY, ANY_SOFT, ANY_PSOFT = range(3)
 _FUSED = "tpurt_fused_shadows_launch"
 _SHADOW_RAYS = "tpurt_shadow_rays_launch"
@@ -853,15 +922,17 @@ _SHADOW_RAYS = "tpurt_shadow_rays_launch"
 
 def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
             ray_comps: int, attrs, leaf_size: int, t_min: float,
-            max_iters: int, stack_size: int, scal_len: int, **extra):
+            max_iters: int, stack_size: int, scal_len: int,
+            closest: bool = False, **extra):
     """Check a launch's inputs, allocate its outputs, launch ``mode`` of the
     C entry point ``entry`` on the current stream. rays: the
-    f32[PB,ray_comps,8,128] block; attrs: the attribute tables (at0, at1)
-    of the closest walk, which also returns out f32[PB,15,8,128], or None;
-    scal: f32[scal_len], or None when scal_len is 0; outputs: the
-    i32[PB,8,128] blocks to return, a tuple of "cnt_out" / "mask_out";
-    extra: the mode's Params fields. -> ([out], *outputs, counts); raises on
-    a refused launch."""
+    f32[PB,ray_comps,8,128] block; ``closest``: the mode runs the closest
+    walk, which returns out f32[PB,15,8,128] with the attribute tables
+    ``attrs`` = (at0, at1) (attrs=1), or t f32[PB,8,128] and sidx
+    i32[PB,8,128] with ``attrs`` None (attrs=0); scal: f32[scal_len], or
+    None when scal_len is 0; outputs: the i32[PB,8,128] blocks to return,
+    a tuple of "cnt_out" / "mask_out"; extra: the mode's Params fields. ->
+    (closest outputs, *outputs, counts); raises on a refused launch."""
     from ._build import load_library
     dev = rays.device
     if dev.type != "cuda":
@@ -877,14 +948,19 @@ def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
     _check(nodes, "nodes", torch.float32, (nodes.shape[0], 128), dev)
     _check(tris, "tris", torch.float32, (nl, 128), dev)
     ptrs, res = {}, []
-    if attrs is not None:
+    if closest and attrs is not None:
         at0, at1 = attrs
         _check(at0, "at0", torch.float32, (nl, 128), dev)
         _check(at1, "at1", torch.float32, ((nl if k > 8 else 1), 128), dev)
         res.append(torch.empty((pb, ATTR_CH, 8, 128), dtype=torch.float32,
                                device=dev))
         ptrs.update(at0=at0.data_ptr(), at1=at1.data_ptr(),
-                    out=res[0].data_ptr())
+                    out=res[0].data_ptr(), attrs=1)
+    elif closest:
+        res += [torch.empty((pb, 8, 128), dtype=torch.float32, device=dev),
+                torch.empty((pb, 8, 128), dtype=torch.int32, device=dev)]
+        ptrs.update(out=res[0].data_ptr(), sidx_out=res[1].data_ptr(),
+                    attrs=0)
     if scal_len:
         _check(scal, "scal", torch.float32, (scal_len,), dev)
         ptrs["scal"] = scal.data_ptr()
@@ -906,10 +982,11 @@ def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
     return (*res, *blocks, counts)
 
 
-def _fused(mode: int, outputs, rays, nodes, tris, at0, at1, scal, **kw):
-    """A launch of csrc/fused_shadows.cu: the closest walk's modes."""
+def _fused(mode: int, outputs, rays, nodes, tris, attrs, scal, **kw):
+    """A launch of csrc/fused_shadows.cu, the closest walk's modes: attrs
+    (at0, at1) for the attrs=1 variant, None for attrs=0."""
     return _launch(_FUSED, mode, outputs, rays, nodes, tris, scal,
-                   ray_comps=10, attrs=(at0, at1), **kw)
+                   ray_comps=10, attrs=attrs, closest=True, **kw)
 
 
 def _sampling(spp: int, seed: int, zero_stream: bool,
@@ -921,89 +998,137 @@ def _sampling(spp: int, seed: int, zero_stream: bool,
                 zero_stream=int(zero_stream), light=int(light) & 0xFFFFFFFF)
 
 
+def _hard_fields(point: bool) -> dict:
+    return dict(scal_len=4 if point else 13, nlights=1,
+                point_mask=int(bool(point)))
+
+
+def _multi_fields(points) -> dict:
+    _check_mask_lights(len(points))
+    return dict(scal_len=_multi_scal_len(points), nlights=len(points),
+                point_mask=sum(1 << i for i, p in enumerate(points) if p))
+
+
+def _soft_multi_fields(disk: bool, n_extra: int) -> dict:
+    if n_extra:
+        _check_mask_lights(n_extra)
+    return dict(scal_len=_soft_multi_scal_len(disk, n_extra),
+                disk=int(bool(disk)), n_extra=int(n_extra))
+
+
 # Each *_cuda launches one mode of csrc/fused_shadows.cu or
 # csrc/shadow_rays.cu, with the contract of its *_reference; it takes CUDA
 # tensors only, builds the kernel library on first use, raises on anything
 # the kernel does not take and on a refused launch, and counts its launches
-# in ``.launches``.
+# in ``.launches``. The fused modes' *_st_cuda are their attrs=0 variants.
 
-def closest_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
-                        leaf_size: int, point: bool, t_min: float,
-                        max_iters: int, stack_size: int):
+def closest_shadow_cuda(rays, nodes, tris, at0, at1, scal, *, point: bool,
+                        **walk):
     """Mode HARD: light 0's hard shadow."""
-    res = _fused(HARD, ("mask_out",), rays, nodes, tris, at0, at1, scal,
-                 leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
-                 stack_size=stack_size, scal_len=4 if point else 13,
-                 nlights=1, point_mask=int(bool(point)))
+    res = _fused(HARD, ("mask_out",), rays, nodes, tris, (at0, at1), scal,
+                 **walk, **_hard_fields(point))
     closest_shadow_cuda.launches += 1
     return res
 
 
-def closest_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
-                              leaf_size: int, points, t_min: float,
-                              max_iters: int, stack_size: int):
+def closest_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *, points,
+                              **walk):
     """Mode MULTI: one hard shadow per light."""
-    _check_mask_lights(len(points))
-    res = _fused(MULTI, ("mask_out",), rays, nodes, tris, at0, at1, scal,
-                 leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
-                 stack_size=stack_size, scal_len=_multi_scal_len(points),
-                 nlights=len(points),
-                 point_mask=sum(1 << i for i, p in enumerate(points) if p))
+    res = _fused(MULTI, ("mask_out",), rays, nodes, tris, (at0, at1), scal,
+                 **walk, **_multi_fields(points))
     closest_multi_shadow_cuda.launches += 1
     return res
 
 
 def closest_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
-                             leaf_size: int, spp: int, seed: int,
-                             zero_stream: bool, t_min: float,
-                             max_iters: int, stack_size: int):
+                             spp: int, seed: int, zero_stream: bool, **walk):
     """Mode SOFT: spp cone samples of a sun."""
-    res = _fused(SOFT, ("cnt_out",), rays, nodes, tris, at0, at1, scal,
-                 leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
-                 stack_size=stack_size, scal_len=17,
-                 **_sampling(spp, seed, zero_stream))
+    res = _fused(SOFT, ("cnt_out",), rays, nodes, tris, (at0, at1), scal,
+                 **walk, scal_len=17, **_sampling(spp, seed, zero_stream))
     closest_soft_shadow_cuda.launches += 1
     return res
 
 
 def closest_point_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
-                                   leaf_size: int, spp: int, seed: int,
-                                   zero_stream: bool, t_min: float,
-                                   max_iters: int, stack_size: int):
+                                   spp: int, seed: int, zero_stream: bool,
+                                   **walk):
     """Mode PSOFT: spp disk samples of a point light."""
-    res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, at0, at1, scal,
-                 leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
-                 stack_size=stack_size, scal_len=5,
-                 **_sampling(spp, seed, zero_stream))
+    res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, (at0, at1), scal,
+                 **walk, scal_len=5, **_sampling(spp, seed, zero_stream))
     closest_point_soft_shadow_cuda.launches += 1
     return res
 
 
 def closest_soft_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
-                                   leaf_size: int, spp: int, seed: int,
-                                   zero_stream: bool, disk: bool,
-                                   n_extra: int, t_min: float,
-                                   max_iters: int, stack_size: int):
+                                   spp: int, seed: int, zero_stream: bool,
+                                   disk: bool, n_extra: int, **walk):
     """Mode SOFT_MULTI: soft light 0 plus hard directional extras."""
-    if n_extra:
-        _check_mask_lights(n_extra)
     res = _fused(SOFT_MULTI, ("cnt_out", "mask_out"), rays, nodes, tris,
-                 at0, at1, scal, leaf_size=leaf_size, t_min=t_min,
-                 max_iters=max_iters, stack_size=stack_size,
-                 scal_len=_soft_multi_scal_len(disk, n_extra),
-                 disk=int(bool(disk)), n_extra=int(n_extra),
+                 (at0, at1), scal, **walk, **_soft_multi_fields(disk, n_extra),
                  **_sampling(spp, seed, zero_stream))
     closest_soft_multi_shadow_cuda.launches += 1
     return res
 
 
-def closest_attrs_cuda(rays, nodes, tris, at0, at1, *, leaf_size: int,
-                       t_min: float, max_iters: int, stack_size: int):
+def closest_shadow_st_cuda(rays, nodes, tris, scal, *, point: bool, **walk):
+    """Mode HARD attrs=0: t, sidx and light 0's hard shadow."""
+    res = _fused(HARD, ("mask_out",), rays, nodes, tris, None, scal, **walk,
+                 **_hard_fields(point))
+    closest_shadow_st_cuda.launches += 1
+    return res
+
+
+def closest_multi_shadow_st_cuda(rays, nodes, tris, scal, *, points,
+                                 **walk):
+    """Mode MULTI attrs=0."""
+    res = _fused(MULTI, ("mask_out",), rays, nodes, tris, None, scal,
+                 **walk, **_multi_fields(points))
+    closest_multi_shadow_st_cuda.launches += 1
+    return res
+
+
+def closest_soft_shadow_st_cuda(rays, nodes, tris, scal, *, spp: int,
+                                seed: int, zero_stream: bool, **walk):
+    """Mode SOFT attrs=0."""
+    res = _fused(SOFT, ("cnt_out",), rays, nodes, tris, None, scal, **walk,
+                 scal_len=17, **_sampling(spp, seed, zero_stream))
+    closest_soft_shadow_st_cuda.launches += 1
+    return res
+
+
+def closest_point_soft_shadow_st_cuda(rays, nodes, tris, scal, *, spp: int,
+                                      seed: int, zero_stream: bool, **walk):
+    """Mode PSOFT attrs=0."""
+    res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, None, scal, **walk,
+                 scal_len=5, **_sampling(spp, seed, zero_stream))
+    closest_point_soft_shadow_st_cuda.launches += 1
+    return res
+
+
+def closest_soft_multi_shadow_st_cuda(rays, nodes, tris, scal, *, spp: int,
+                                      seed: int, zero_stream: bool,
+                                      disk: bool, n_extra: int, **walk):
+    """Mode SOFT_MULTI attrs=0."""
+    res = _fused(SOFT_MULTI, ("cnt_out", "mask_out"), rays, nodes, tris,
+                 None, scal, **walk, **_soft_multi_fields(disk, n_extra),
+                 **_sampling(spp, seed, zero_stream))
+    closest_soft_multi_shadow_st_cuda.launches += 1
+    return res
+
+
+def closest_attrs_cuda(rays, nodes, tris, at0, at1, **walk):
     """Mode CLOSEST: the closest hit and its attributes alone."""
-    res = _fused(CLOSEST, (), rays, nodes, tris, at0, at1, None,
-                 leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
-                 stack_size=stack_size, scal_len=0)
+    res = _fused(CLOSEST, (), rays, nodes, tris, (at0, at1), None, **walk,
+                 scal_len=0)
     closest_attrs_cuda.launches += 1
+    return res
+
+
+def closest_cuda(rays, nodes, tris, **walk):
+    """Mode NEAREST: the closest hit alone, t and the sorted index."""
+    res = _fused(NEAREST, (), rays, nodes, tris, None, None, **walk,
+                 scal_len=0)
+    closest_cuda.launches += 1
     return res
 
 
@@ -1044,7 +1169,11 @@ def any_point_soft_cuda(rays, nodes, tris, scal, *, leaf_size: int,
 CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
                 closest_soft_shadow_cuda, closest_point_soft_shadow_cuda,
                 closest_soft_multi_shadow_cuda, closest_attrs_cuda, any_cuda,
-                any_soft_cuda, any_point_soft_cuda)
+                any_soft_cuda, any_point_soft_cuda, closest_cuda,
+                closest_shadow_st_cuda, closest_multi_shadow_st_cuda,
+                closest_soft_shadow_st_cuda,
+                closest_point_soft_shadow_st_cuda,
+                closest_soft_multi_shadow_st_cuda)
 for _fn in CUDA_KERNELS:
     _fn.launches = 0
 
@@ -1092,11 +1221,13 @@ def _walk_kwargs(bvh: WideBVH, t_min, stack_size) -> dict:
 def _fused_inputs(bvh: WideBVH, origins, dirs, attr_tables, t_max, t_min,
                   stack_size, scal_fn, **kw):
     """Pack image rays for a fused kernel -> (args, kwargs, p, meta):
-    ``kernel(*args, **kwargs)`` or its plain version; ``p`` and ``meta``
-    unpack the outputs. ``scal_fn(device)`` makes the scalar block."""
+    ``kernel(*args, **kwargs)`` or its plain version (with
+    ``attr_tables`` None, the attrs=0 ``*_st`` pair, whose arguments hold
+    no tables); ``p`` and ``meta`` unpack the outputs. ``scal_fn(device)``
+    makes the scalar block."""
     rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
-    args = (rays, bvh.nodes, bvh.tris, attr_tables[0], attr_tables[1],
-            scal_fn(rays.device))
+    tables = () if attr_tables is None else tuple(attr_tables)
+    args = (rays, bvh.nodes, bvh.tris, *tables, scal_fn(rays.device))
     return args, dict(_walk_kwargs(bvh, t_min, stack_size), **kw), p, meta
 
 
@@ -1193,6 +1324,15 @@ def closest_attrs_inputs(bvh: WideBVH, origins, dirs, attr_tables,
     return args, _walk_kwargs(bvh, t_min, stack_size), p, meta
 
 
+def closest_inputs(bvh: WideBVH, origins, dirs, t_max=_BIG,
+                   t_min: float = 0.0, stack_size: int = STACK_CAPACITY):
+    """Inputs of ``closest_cuda`` / ``closest_reference``: rays (H, W, 3) or
+    (N, 3), t_max a scalar or per ray -> (args, kwargs, p, meta)."""
+    rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
+    args = (rays, bvh.nodes, bvh.tris)
+    return args, _walk_kwargs(bvh, t_min, stack_size), p, meta
+
+
 def any_inputs(bvh: WideBVH, origins, dirs, t_max, t_min: float = 0.0,
                stack_size: int = STACK_CAPACITY):
     """Inputs of ``any_cuda`` / ``any_reference``: rays (H, W, 3) or (N,
@@ -1235,10 +1375,25 @@ def any_point_soft_inputs(bvh: WideBVH, origins, valid, light_pos, radius,
         spp, seed, light, t_min, zero_stream, stack_size)
 
 
-def _need_attrs(attr_tables) -> None:
+def _fused_pair(attr_tables, cuda_fn, plain_fn, st_cuda_fn, st_plain_fn,
+                device):
+    """The kernel or plain version of a fused mode for ``device``: the
+    attrs=1 pair with attribute tables, the attrs=0 (``*_st``) pair
+    without."""
     if attr_tables is None:
-        raise NotImplementedError(
-            "the attrs=0 variant (t/sidx outputs) is not ported")
+        return _pick(device, st_cuda_fn, st_plain_fn)
+    return _pick(device, cuda_fn, plain_fn)
+
+
+def _hit_outputs(res, p, meta, attrs: bool):
+    """A closest launch's phase-1 outputs, image-shaped -> (head, rest):
+    head (channel dict,) with the attribute tables, else (t, sidx) with
+    misses (inf, -1), as ``tpurt``'s wrappers return them; rest: the
+    launch's other outputs."""
+    if attrs:
+        return (_attr_channels(res[0], p, meta),), res[1:]
+    t, sidx = _unpack(res[0][:p], meta), _unpack(res[1][:p], meta)
+    return (torch.where(sidx >= 0, t, torch.inf), sidx), res[2:]
 
 
 def trace_closest_shadow(bvh: WideBVH, origins, dirs, light_dir, bias,
@@ -1250,16 +1405,19 @@ def trace_closest_shadow(bvh: WideBVH, origins, dirs, light_dir, bias,
     ``light_pos`` is None); light_pos f32[3] for a hard point light; bias:
     the normal-offset shadow bias; attr_tables (at0, at1): the leaf
     attribute rows. Returns (channel dict, occluded bool[H, W], counts
-    i32[2]). CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
-    _need_attrs(attr_tables)
-    fn = _pick(origins.device, closest_shadow_cuda, closest_shadow_reference)
+    i32[2]); without attribute tables (attrs=0) (t f32[H, W], sidx
+    i32[H, W], occluded, counts), misses (inf, -1). Every fused wrapper
+    returns its t and sidx so. CUDA tensors launch the kernel; CPU tensors
+    take the plain version."""
+    fn = _fused_pair(attr_tables, closest_shadow_cuda,
+                     closest_shadow_reference, closest_shadow_st_cuda,
+                     closest_shadow_st_reference, origins.device)
     args, kwargs, p, meta = closest_shadow_inputs(
         bvh, origins, dirs, light_dir, bias, attr_tables, t_max, t_min,
         light_pos, stack_size)
-    out, occ, counts = fn(*args, **kwargs)
-    occ = _unpack(occ[:p], meta)
-    return _attr_channels(out, p, meta), occ > 0, counts
+    head, (occ, counts) = _hit_outputs(fn(*args, **kwargs), p, meta,
+                                       attr_tables is not None)
+    return (*head, _unpack(occ[:p], meta) > 0, counts)
 
 
 def trace_closest_multi_shadow(bvh: WideBVH, origins, dirs, lights, bias,
@@ -1270,15 +1428,17 @@ def trace_closest_multi_shadow(bvh: WideBVH, origins, dirs, lights, bias,
     lights: (light_dir, light_pos) pairs as ``tpurt``'s
     ``trace_closest_multi_shadow_pallas`` takes them (at most 31). Returns
     (channel dict, occ_mask i32[H, W] with bit l = light l occluded,
-    counts i32[2])."""
-    _need_attrs(attr_tables)
-    fn = _pick(origins.device, closest_multi_shadow_cuda,
-               closest_multi_shadow_reference)
+    counts i32[2]), or (t, sidx, occ_mask, counts) without tables."""
+    fn = _fused_pair(attr_tables, closest_multi_shadow_cuda,
+                     closest_multi_shadow_reference,
+                     closest_multi_shadow_st_cuda,
+                     closest_multi_shadow_st_reference, origins.device)
     args, kwargs, p, meta = closest_multi_shadow_inputs(
         bvh, origins, dirs, lights, bias, attr_tables, t_max, t_min,
         stack_size)
-    out, mask, counts = fn(*args, **kwargs)
-    return _attr_channels(out, p, meta), _unpack(mask[:p], meta), counts
+    head, (mask, counts) = _hit_outputs(fn(*args, **kwargs), p, meta,
+                                        attr_tables is not None)
+    return (*head, _unpack(mask[:p], meta), counts)
 
 
 def trace_closest_soft_shadow(bvh: WideBVH, origins, dirs, axis_dir,
@@ -1288,15 +1448,18 @@ def trace_closest_soft_shadow(bvh: WideBVH, origins, dirs, axis_dir,
                               stack_size: int = STACK_CAPACITY):
     """Fused primary visibility + area-light (cone) soft shadows (ONE
     kernel launch). Returns (channel dict, occlusion counts i32[H, W] in
-    [0, spp], walk counts i32[2]); visibility = 1 - counts / spp."""
-    _need_attrs(attr_tables)
-    fn = _pick(origins.device, closest_soft_shadow_cuda,
-               closest_soft_shadow_reference)
+    [0, spp], walk counts i32[2]), or (t, sidx, counts, walk counts)
+    without tables; visibility = 1 - counts / spp."""
+    fn = _fused_pair(attr_tables, closest_soft_shadow_cuda,
+                     closest_soft_shadow_reference,
+                     closest_soft_shadow_st_cuda,
+                     closest_soft_shadow_st_reference, origins.device)
     args, kwargs, p, meta = closest_soft_shadow_inputs(
         bvh, origins, dirs, axis_dir, cone_cos, spp, seed, bias,
         attr_tables, t_max, t_min, zero_stream, stack_size)
-    out, cnt, counts = fn(*args, **kwargs)
-    return _attr_channels(out, p, meta), _unpack(cnt[:p], meta), counts
+    head, (cnt, counts) = _hit_outputs(fn(*args, **kwargs), p, meta,
+                                       attr_tables is not None)
+    return (*head, _unpack(cnt[:p], meta), counts)
 
 
 def trace_closest_point_soft_shadow(bvh: WideBVH, origins, dirs, light_pos,
@@ -1307,15 +1470,17 @@ def trace_closest_point_soft_shadow(bvh: WideBVH, origins, dirs, light_pos,
                                     stack_size: int = STACK_CAPACITY):
     """Fused primary visibility + point-light penumbra (ONE kernel
     launch). Returns (channel dict, counts i32[H, W] in [0, spp], walk
-    counts i32[2])."""
-    _need_attrs(attr_tables)
-    fn = _pick(origins.device, closest_point_soft_shadow_cuda,
-               closest_point_soft_shadow_reference)
+    counts i32[2]), or (t, sidx, counts, walk counts) without tables."""
+    fn = _fused_pair(attr_tables, closest_point_soft_shadow_cuda,
+                     closest_point_soft_shadow_reference,
+                     closest_point_soft_shadow_st_cuda,
+                     closest_point_soft_shadow_st_reference, origins.device)
     args, kwargs, p, meta = closest_point_soft_shadow_inputs(
         bvh, origins, dirs, light_pos, radius, spp, seed, bias, attr_tables,
         t_max, t_min, zero_stream, stack_size)
-    out, cnt, counts = fn(*args, **kwargs)
-    return _attr_channels(out, p, meta), _unpack(cnt[:p], meta), counts
+    head, (cnt, counts) = _hit_outputs(fn(*args, **kwargs), p, meta,
+                                       attr_tables is not None)
+    return (*head, _unpack(cnt[:p], meta), counts)
 
 
 def trace_closest_soft_multi_shadow(bvh: WideBVH, origins, dirs, light0,
@@ -1327,16 +1492,18 @@ def trace_closest_soft_multi_shadow(bvh: WideBVH, origins, dirs, light0,
     """Fused primary + soft light 0 + hard directional extras (ONE kernel
     launch). light0: ("cone", axis, cone_cos) or ("disk", position,
     radius). Returns (channel dict, counts0 i32[H, W], occ_mask i32[H, W]
-    with bit i = extra light i, walk counts i32[2])."""
-    _need_attrs(attr_tables)
-    fn = _pick(origins.device, closest_soft_multi_shadow_cuda,
-               closest_soft_multi_shadow_reference)
+    with bit i = extra light i, walk counts i32[2]), or (t, sidx, counts0,
+    occ_mask, walk counts) without tables."""
+    fn = _fused_pair(attr_tables, closest_soft_multi_shadow_cuda,
+                     closest_soft_multi_shadow_reference,
+                     closest_soft_multi_shadow_st_cuda,
+                     closest_soft_multi_shadow_st_reference, origins.device)
     args, kwargs, p, meta = closest_soft_multi_shadow_inputs(
         bvh, origins, dirs, light0, extra_dirs, spp, seed, bias, attr_tables,
         t_max, t_min, zero_stream, stack_size)
-    out, cnt, mask, counts = fn(*args, **kwargs)
-    return (_attr_channels(out, p, meta), _unpack(cnt[:p], meta),
-            _unpack(mask[:p], meta), counts)
+    head, (cnt, mask, counts) = _hit_outputs(fn(*args, **kwargs), p, meta,
+                                             attr_tables is not None)
+    return (*head, _unpack(cnt[:p], meta), _unpack(mask[:p], meta), counts)
 
 
 def trace_closest_attrs(bvh: WideBVH, origins, dirs, attr_tables,
@@ -1349,6 +1516,32 @@ def trace_closest_attrs(bvh: WideBVH, origins, dirs, attr_tables,
         bvh, origins, dirs, attr_tables, t_max, t_min, stack_size)
     out, counts = fn(*args, **kwargs)
     return _attr_channels(out, p, meta), counts
+
+
+def trace_closest(bvh: WideBVH, origins, dirs, t_max=_BIG,
+                  t_min: float = 0.0, return_sorted: bool = False,
+                  gather_tri_id: bool = True,
+                  stack_size: int = STACK_CAPACITY):
+    """Closest hit (ONE kernel launch), ``tpurt``'s
+    ``trace_closest_pallas``: origins/dirs (H, W, 3) or (N, 3), t_max a
+    scalar or per ray. Returns (t, tri_id, walk counts) with misses (inf,
+    -1); ``return_sorted`` adds the sorted hit index, the key of the shade
+    table: (t, tri_id, sidx, walk counts); ``gather_tri_id=False`` (with
+    ``return_sorted``) leaves tri_id to the table's id lane: (t, None,
+    sidx, walk counts)."""
+    if not (gather_tri_id or return_sorted):
+        raise ValueError("gather_tri_id=False requires return_sorted")
+    fn = _pick(origins.device, closest_cuda, closest_reference)
+    args, kwargs, p, meta = closest_inputs(bvh, origins, dirs, t_max, t_min,
+                                           stack_size)
+    (t, sidx), (counts,) = _hit_outputs(fn(*args, **kwargs), p, meta, False)
+    if not gather_tri_id:
+        return t, None, sidx, counts
+    n = bvh.tri_id.shape[0]
+    tri_id = torch.where(sidx >= 0,
+                         bvh.tri_id[torch.clamp(sidx, 0, n - 1).long()], -1)
+    return (t, tri_id, sidx, counts) if return_sorted \
+        else (t, tri_id, counts)
 
 
 def trace_any(bvh: WideBVH, origins, dirs, t_max, t_min: float = 0.0,

@@ -3,15 +3,18 @@
 
 The library source lives in ``native/`` and is shared with the JAX
 package, not copied: ``native/Makefile`` builds ``native/libtpurt_native.so``
-on first use. Unlike the JAX package, which falls back to its on-device
-Morton build when the library is missing, the port raises: that fallback
-needs build kernels the port does not have yet.
+on first use, into a name of this process's own that is then renamed into
+place, so that processes starting together never load a half-written
+library. ``load_library`` raises when the build or the load fails;
+``available`` says whether it succeeds, and the Renderer builds a static
+scene on the device when it does not, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import os
 import subprocess
 
@@ -42,8 +45,29 @@ class CpuBVH:
     tri_order: np.ndarray
 
 
+def _build(path: str) -> None:
+    """``make`` the library into a temporary name beside ``path`` and
+    rename it into place (an atomic replace), under an exclusive lock on
+    the source directory so that concurrent first uses build it once.
+    Raises with make's output on a failure."""
+    fd = os.open(_NATIVE_DIR, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run(["make", "-C", _NATIVE_DIR, f"TARGET={tmp}"],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0 or not os.path.exists(tmp):
+            raise RuntimeError(
+                f"building {path} failed:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        os.close(fd)
+
+
 class _Library:
-    """The loaded library, built with ``make`` on first use."""
+    """The loaded library, built on first use."""
 
     handle = None
 
@@ -52,11 +76,7 @@ class _Library:
         if cls.handle is not None:
             return cls.handle
         if not os.path.exists(_LIB_PATH):
-            proc = subprocess.run(["make", "-C", _NATIVE_DIR],
-                                  capture_output=True, text=True, timeout=300)
-            if proc.returncode != 0 or not os.path.exists(_LIB_PATH):
-                raise RuntimeError(
-                    f"building {_LIB_PATH} failed:\n{proc.stdout}{proc.stderr}")
+            _build(_LIB_PATH)
         lib = ctypes.CDLL(_LIB_PATH)
         c_float_p = ctypes.POINTER(ctypes.c_float)
         c_int_p = ctypes.POINTER(ctypes.c_int32)
@@ -80,6 +100,16 @@ class _Library:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the native library; raises on failure."""
     return _Library.get()
+
+
+def available() -> bool:
+    """Does the native library build and load? (``tpurt.native.available``;
+    a failure is not remembered, so a later call tries again.)"""
+    try:
+        load_library()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _fp(a: np.ndarray):

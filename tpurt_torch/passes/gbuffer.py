@@ -1,14 +1,16 @@
 """The G-buffers (counterpart of ``tpurt/passes/gbuffer.py``): the
 attribute-tracked ray cast (``gbuffer_attr_pass``,
 ``gbuf_from_attr_channels``), where the closest-hit kernel returns the
-winner's attribute channels, and the raster G-buffer
-(``gbuffer_raster_pass``), where the tile rasterizer's z-fight selects
-them. Either way the decode is elementwise tensor code, no per-pixel
-gather."""
+winner's attribute channels; the shade-table ray cast (``gbuffer_pass``,
+``gbuf_from_table``), where the kernel returns t and the sorted hit index
+and ONE row gather per pixel reads the packed shade table; and the raster
+G-buffer (``gbuffer_raster_pass``), where the tile rasterizer's z-fight
+selects the attributes. Apart from the shade table's gather, the decode
+is elementwise tensor code."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -18,7 +20,8 @@ from ..kernels.raster import rasterize_rows
 from ..kernels.traverse import trace_closest_attrs
 from ..raster.setup import bin_rows, default_cap_rows
 from ..types import Camera, Mesh
-from .shading import oct_decode, unpack_rgb
+from .shading import (gather_table_rows, oct_decode, shade_from_table,
+                      table_tri_id, unpack_rgb)
 
 
 def gbuffer_attr_pass(bvh, attr_tables, mesh: Mesh, cam: Camera,
@@ -31,6 +34,62 @@ def gbuffer_attr_pass(bvh, attr_tables, mesh: Mesh, cam: Camera,
     origins, dirs = rays
     ch, counts = trace_closest_attrs(bvh, origins, dirs, attr_tables)
     return gbuf_from_attr_channels(ch, origins, dirs, cam, mesh), counts
+
+
+def _viewer_facing(gnormal, dirs) -> torch.Tensor:
+    """+1 or -1 per pixel: the sign that turns the geometric normal toward
+    the viewer (+1 where it is perpendicular to the ray)."""
+    gd = gnormal * dirs
+    facing = torch.sign(-(gd[..., 0:1] + gd[..., 1:2] + gd[..., 2:3]))
+    return torch.where(facing == 0, 1.0, facing)
+
+
+def gbuffer_pass(trace_closest: Callable, mesh: Mesh, cam: Camera,
+                 width: int, height: int, shade_table=None, rays=None):
+    """The ray-cast G-buffer through the packed shade table
+    (``tpurt``'s ``gbuffer_pass`` with a table): camera rays (or the given
+    (origins, dirs)) -> ``trace_closest(origins, dirs)``, which returns
+    (t, tri_id or None, sidx, walk counts) -> ``gbuf_from_table``. Returns
+    (G-buffer, walk counts)."""
+    if shade_table is None:
+        raise NotImplementedError(
+            "the G-buffer without a shade table (shade_attributes, the "
+            "portable and chunked paths) is not ported")
+    if rays is None:
+        rays = generate_rays(cam, width, height, shade_table.device)
+    origins, dirs = rays
+    t, tri_id, sidx, counts = trace_closest(origins, dirs)
+    return gbuf_from_table(t, tri_id, sidx, origins, dirs, cam, mesh,
+                           shade_table), counts
+
+
+def gbuf_from_table(t, tri_id, sidx, origins, dirs, cam: Camera, mesh: Mesh,
+                    shade_table) -> Dict[str, torch.Tensor]:
+    """A closest hit's t, tri_id (or None) and sorted index -> full
+    G-buffer: ONE row gather per pixel keyed by sidx gives the
+    interpolated smooth normal, the geometric normal and the albedo, and
+    tri_id from the row's id lane where the tracer left it out; both
+    normals are turned toward the viewer."""
+    if mesh.textured:
+        raise NotImplementedError("textured G-buffer decode is not ported")
+    valid = sidx >= 0 if tri_id is None else tri_id >= 0
+    position = origins + dirs * torch.where(valid, t, 0.0)[..., None]
+    rows = gather_table_rows(shade_table, sidx)
+    attrs = shade_from_table(rows, position, valid)
+    if tri_id is None:
+        tri_id = table_tri_id(rows, valid)
+    flip = _viewer_facing(attrs["gnormal"], dirs)
+    return {
+        "position": position,
+        "normal": attrs["normal"] * flip,
+        "gnormal": attrs["gnormal"] * flip,
+        "albedo": attrs["albedo"],
+        "depth": view_depth(cam, position, valid),
+        "t": t,
+        "tri_id": tri_id,
+        "valid": valid,
+        "view_dir": dirs,
+    }
 
 
 def gbuf_from_attr_channels(ch: Dict[str, torch.Tensor], origins, dirs,
@@ -57,9 +116,7 @@ def gbuf_from_attr_channels(ch: Dict[str, torch.Tensor], origins, dirs,
     smooth = torch.where(vmask, smooth, zeros)
     gnormal = torch.where(vmask, gnormal, zeros)
     albedo = torch.where(vmask, albedo, zeros)
-    gd = gnormal * dirs
-    facing = torch.sign(-(gd[..., 0:1] + gd[..., 1:2] + gd[..., 2:3]))
-    flip = torch.where(facing == 0, 1.0, facing)
+    flip = _viewer_facing(gnormal, dirs)
     return {
         "position": position,
         "normal": smooth * flip,
@@ -101,9 +158,7 @@ def gbuffer_raster_pass(mesh: Mesh, cam: Camera, width: int, height: int,
     position = origins + dirs * torch.where(valid, t, 0.0)[..., None]
     smooth = at[3:6].permute(1, 2, 0)
     gnormal = at[6:9].permute(1, 2, 0)
-    gd = gnormal * dirs
-    facing = torch.sign(-(gd[..., 0:1] + gd[..., 1:2] + gd[..., 2:3]))
-    flip = torch.where(facing == 0, 1.0, facing)
+    flip = _viewer_facing(gnormal, dirs)
     return {
         "position": position,
         "normal": smooth * flip,

@@ -1,9 +1,11 @@
-"""Leaf attribute rows and their encodings (counterpart of the
-attribute-row part of ``tpurt/passes/shading.py``): built by a gather
+"""Shading tables and their encodings (counterpart of
+``tpurt/passes/shading.py``): the leaf attribute rows, built by a gather
 keyed by the sorted original ids (``make_leaf_attr_rows``, once per
-scene), or from columns that rode the rebuild's sort
-(``attr_payload_columns`` -> ``leaf_attr_rows_from_sorted``), and the
-animated mesh's vertex normals (``smooth_normals_device``).
+scene) or from columns that rode the rebuild's sort
+(``attr_payload_columns`` -> ``leaf_attr_rows_from_sorted``); the packed
+shade table (``make_shade_table``) and its per-pixel decode
+(``table_tri_id``, ``barycentrics_from_position``, ``shade_from_table``);
+and the animated mesh's vertex normals (``smooth_normals_device``).
 
 The fused kernel selects the winning triangle's shading attributes from
 leaf-major rows while the candidate is in registers, so the G-buffer needs
@@ -19,6 +21,21 @@ no per-pixel gather. Per-triangle lanes inside a row (base 16*j):
 Slots 0..7 of a leaf live in ``at0``, slots 8..13 in ``at1`` (a (1, 128)
 dummy when leaf_size <= 8). ``torch.round`` rounds half to even, as
 ``jnp.round`` does, so the packed values are bit-identical.
+
+The shade table is the G-buffer's table when the kernels track no
+attributes (``inkernel_attrs=False``): one f32[Tpad, 24] row per sorted
+triangle slot, read with ONE row gather per pixel keyed by the kernel's
+sorted hit index:
+
+    [0:9]   v0, e1, e2
+    [9:15]  oct(n0), oct(n1), oct(n2), unpacked pairs
+    [15]    packed 8-bit rgb albedo
+    [16]    the original triangle id as int32 BITS (not a value: ids at
+            and above 2^23 read as denormals or NaNs as floats), so the
+            column is only ever concatenated, gathered and viewed, through
+            int32 views, never computed on
+    [17:23] uv0, uv1, uv2 (zeros: textured tables are not ported)
+    [23]    texture layer (-1)
 """
 
 from __future__ import annotations
@@ -26,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from ..bvh.lbvh import LBVH
-from ..camera import normalize
+from ..camera import _cross, normalize
 from ..types import Mesh
 
 ATTR_STRIDE = 16
@@ -169,3 +186,98 @@ def smooth_normals_device(vertices: torch.Tensor,
     for i in (i0, i1, i2):
         n.index_add_(0, i, fn)
     return normalize(n)
+
+
+SHADE_TABLE_WIDTH = 24
+TID_LANE = 16
+
+
+def make_shade_table(bvh: LBVH, mesh: Mesh) -> torch.Tensor:
+    """f32[Tpad, 24] shading rows in the accel's sorted triangle order, on
+    the accel's device (``tpurt``'s ``make_shade_table``), for an
+    untextured mesh. Every padded slot (SBVH duplicates, the leaves' and
+    the Morton build's repeat padding) holds a real triangle's id, so the
+    mesh gathers stay in range. No host sync: the rebuild makes it every
+    frame."""
+    if mesh.textured:
+        raise NotImplementedError("textured shade tables are not ported")
+    dev = bvh.tri_id.device
+    m = mesh.on(dev)
+    tri_id = bvh.tri_id.long()
+    tri = m.indices.long()[tri_id]                           # [Tpad, 3]
+    n = tri.shape[0]
+    geometry = torch.cat(
+        [bvh.tri_v0, bvh.tri_e1, bvh.tri_e2,
+         oct_encode(m.normals[tri[:, 0]]), oct_encode(m.normals[tri[:, 1]]),
+         oct_encode(m.normals[tri[:, 2]]),
+         pack_rgb(m.albedo[tri_id])[:, None]], dim=1)       # [Tpad, 16]
+    tail = torch.cat([torch.zeros((n, 6), dtype=torch.float32, device=dev),
+                      torch.full((n, 1), -1.0, dtype=torch.float32,
+                                 device=dev)], dim=1)        # uv, layer
+    # The id lane joins the float lanes as bits: an integer concatenation.
+    return torch.cat([geometry.view(torch.int32),
+                      bvh.tri_id.to(torch.int32)[:, None],
+                      tail.view(torch.int32)], dim=1).view(torch.float32)
+
+
+def gather_table_rows(table: torch.Tensor, sidx: torch.Tensor
+                      ) -> torch.Tensor:
+    """One row per pixel: table[sidx] (misses read row 0) -> f32[..., 24],
+    gathered through an int32 view so the id lane's bits are copied, not
+    loaded as floats."""
+    n = table.shape[0]
+    idx = torch.clamp(sidx, 0, n - 1).long()
+    return table.view(torch.int32)[idx].view(torch.float32)
+
+
+def table_tri_id(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Original triangle ids out of gathered rows (lane 16); -1 invalid."""
+    tid = rows.view(torch.int32)[..., TID_LANE]
+    return torch.where(valid, tid, -1)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] \
+        + a[..., 2] * b[..., 2]
+
+
+def barycentrics_from_position(v0: torch.Tensor, e1: torch.Tensor,
+                               e2: torch.Tensor, position: torch.Tensor):
+    """(u, v) of ``position`` against triangle (v0, e1, e2), clipped to
+    [0, 1]: the 2x2 normal-equations solve of p - v0 = u e1 + v e2 in the
+    triangle's plane, without fused multiply-adds."""
+    w = position - v0
+    d11 = _dot3(e1, e1)
+    d12 = _dot3(e1, e2)
+    d22 = _dot3(e2, e2)
+    dw1 = _dot3(w, e1)
+    dw2 = _dot3(w, e2)
+    det = torch.clamp(d11 * d22 - d12 * d12, min=1e-20)
+    u = torch.clamp((d22 * dw1 - d12 * dw2) / det, 0.0, 1.0)
+    v = torch.clamp((d11 * dw2 - d12 * dw1) / det, 0.0, 1.0)
+    return u, v
+
+
+def shade_from_table(rows: torch.Tensor, position: torch.Tensor,
+                     valid: torch.Tensor):
+    """Gathered table rows [..., 24] and hit positions -> {normal (smooth,
+    interpolated at the position's barycentrics), gnormal, albedo, u, v},
+    zero off the valid mask."""
+    v0, e1, e2 = rows[..., 0:3], rows[..., 3:6], rows[..., 6:9]
+    u, v = barycentrics_from_position(v0, e1, e2, position)
+    n0 = oct_decode(rows[..., 9:11])
+    n1 = oct_decode(rows[..., 11:13])
+    n2 = oct_decode(rows[..., 13:15])
+    smooth = normalize(n0 + u[..., None] * (n1 - n0)
+                       + v[..., None] * (n2 - n0))
+    gnormal = normalize(_cross(e1, e2))
+    albedo = unpack_rgb(rows[..., 15])
+    zeros = torch.zeros_like(smooth)
+    vmask = valid[..., None]
+    return {
+        "normal": torch.where(vmask, smooth, zeros),
+        "gnormal": torch.where(vmask, gnormal, zeros),
+        "albedo": torch.where(vmask, albedo, zeros),
+        "u": u,
+        "v": v,
+    }
