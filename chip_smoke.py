@@ -6,10 +6,11 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 1. Device check: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. There is no CPU path.
-2. Build the CUDA kernel library (csrc/fused_shadows.cu and
-   csrc/shadow_rays.cu, templates with a mode per walk kernel, and
-   csrc/build.cu, the rebuild's kernels; one nvcc per source, in
-   parallel), and print ptxas's register and spill report.
+2. Build the CUDA kernel library (csrc/fused_shadows.cu,
+   csrc/shadow_rays.cu and csrc/binary.cu, templates with a mode per walk
+   kernel, csrc/build.cu, the rebuild's kernels, and csrc/raster.cu; one
+   nvcc per source, in parallel), and print ptxas's register and spill
+   report.
 3. Every kernel against its plain PyTorch version on the card: teapot
    scene, 10k triangles, 512x512, leaf 14. closest_shadow with a
    directional and a point light; multi with directional + point +
@@ -109,7 +110,31 @@ Phases, in order; any failure raises and the exit code is not 0:
     rebuilt frames with the shade table of the rebuilt tree, the image
     against the static one, HARD attrs=0 on the rebuilt tree against its
     plain version.
-12. Timings on one JSON line, then the kernel table on one JSON line, the
+12. The binary tree (bvh_width=2; csrc/binary.cu's BIN_CLOSEST and
+    BIN_ANY, tpurt's _closest_hit_kernel and _any_hit_kernel over the
+    packed LBVH) and the 60-bit Morton codes. (a) Right after phase 11's
+    512^2 checks, on phase 3's scene and rays packed at leaf 14 and leaf
+    8: both kernels against their plain versions on camera rays, a
+    per-ray t_max with inactive rays, directional and point shadow rays
+    from the binary G-buffer and flat (N, 3) rays with a t_min. (b) The
+    hall at 1920x1080 through Renderer(bvh_width=2, leaf_size=14,
+    gbuffer="ray"): the tree's depth and stack bound, one warm-up and
+    five timed frames with one launch of each kernel, bit-identical
+    repeats, the image against phase 4's (coverage off on < 0.2% of
+    pixels, the image off by more than 2e-2 on < 1%), both kernels
+    against their plain versions on every 8th row and on the whole frame,
+    the stage split, and the frame in turns with phase 4's. (c) "auto"
+    (the rasterizer and BIN_ANY): three frames, each against (b)'s. (d)
+    Config 3's 2 deg sun at spp 8: 8 BIN_ANY launches a frame, a
+    penumbra, a second Renderer with the same seed giving bit-identical
+    frames. (e) mode="rebuild" with rebuild_splits=0: no host sync in the
+    rebuild, five timed frames, the image against (c)'s. (f)
+    morton_codes60 against its plain version on the hall's centroids (bit
+    for bit), build_lbvh(morton_bits=60) with the kernels against the
+    plain versions (equal), and tpurt's compile-check route (teapot 2000,
+    256x256, leaf 8, a plain LBVH and no tables) on a 30-bit and a 60-bit
+    tree.
+13. Timings on one JSON line, then the kernel table on one JSON line, the
     card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Tolerances of the walk kernels' checks against their plain versions:
@@ -130,15 +155,16 @@ kernel performs, counted by the plain version's walks on the same inputs:
 per node pop 8 empty-slot compares, 25 per slab test of a non-empty child
 box, and 56 per triangle test, where the closest walk tests every
 triangle of a leaf it visits and an any-hit walk stops at the first
-occluder. Ray set-up, sampling and integer work are not counted. The
+occluder; a binary walk's pop is its two slab tests, with no empty-slot
+compares. Ray set-up, sampling and integer work are not counted. The
 build kernels' operations (integer ones counted at the float32 rate): 52
-per Morton code; per topology node one sparse-table min per level, two
-compares per level of the two searches and 10 to place it; per expanded
-wide node 190 for the six greedy steps and the emission. The rasterizer:
-bytes of the pair rows its tiles read, the big rows every tile reads,
-the run offsets and the 13 output planes; operations counted by the plain
-version on the same bins, 30 per (record, pixel) test and 29 more where
-the record takes the pixel.
+per Morton code, 104 per 60-bit key; per topology node one sparse-table
+min per level, two compares per level of the two searches and 10 to
+place it; per expanded wide node 190 for the six greedy steps and the
+emission. The rasterizer: bytes of the pair rows its tiles read, the big
+rows every tile reads, the run offsets and the 13 output planes;
+operations counted by the plain version on the same bins, 30 per
+(record, pixel) test and 29 more where the record takes the pixel.
 """
 
 from __future__ import annotations
@@ -183,6 +209,8 @@ KERNELS = {
     "closest_soft_shadow_st": ("fused_shadows.cu", 1032),
     "closest_point_soft_shadow_st": ("fused_shadows.cu", 1117),
     "closest_soft_multi_shadow_st": ("fused_shadows.cu", 1622),
+    "binary_closest": ("binary.cu", 287),
+    "binary_any": ("binary.cu", 222),
 }
 # The attrs=0 variants of the fused modes (no attribute rows; t and the
 # sorted index out) and the plain closest hit: the shade-table G-buffer's.
@@ -394,31 +422,36 @@ def check(name, kres, pres, args, kw, what, tri_id=None) -> dict:
     """The comparison that fits kernel ``name``'s outputs; ``tri_id``: the
     accel's sorted->original ids, for the kernels that return a sorted
     index alone."""
-    if name in SHADE_TABLE_KERNELS:
+    if name in SHADE_TABLE_KERNELS or name == "binary_closest":
         return compare_st(kres, pres, what, outputs_of(name, kw), tri_id)
-    if name in SHADOW_RAYS:
+    if name in SHADOW_RAYS or name == "binary_any":
         rays = args[0]
-        active = rays[:, 9] > kw["t_min"] if name == "any" \
+        active = rays[:, 9] > kw["t_min"] if name in ("any", "binary_any") \
             else rays[:, 3] > 0.0
         return compare_rays(kres, pres, active, what)
     return compare(kres, pres, what, outputs_of(name, kw))
 
 
-def bound(stats: dict, args, res) -> dict:
+def bound(stats: dict, args, res, binary: bool = False) -> dict:
     """Least time for the same work on the card: bytes of every input and
     output once over the memory rate, the kernel's float32 operations
     (from the plain version's counted visits) over the float32 peak.
     ``ops_upper`` ignores the kernel's early exits (every child slot
     slab-tested, every triangle of a visited leaf tested) and shows what
-    they save."""
+    they save. ``binary``: a binary walk's pop tests its two boxes (counted
+    in slab_tests) and compares no empty slots."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)] + list(res)
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     n = {k: int(stats.get(k, 0)) for k in (
         "pops", "slab_tests", "closest_tris", "anyhit_tris",
         "anyhit_leaf_tris")}
-    ops = (n["pops"] * OPS_PER_POP + n["slab_tests"] * OPS_PER_SLAB
+    # (ops per pop, child slots per pop, ops per slot where every slot is
+    # tested: its slab test and, on the wide rows, its empty-slot compare)
+    per_pop, slots, per_slot = (0, 2, OPS_PER_SLAB) if binary else \
+        (OPS_PER_POP, 8, OPS_PER_SLAB + 1)
+    ops = (n["pops"] * per_pop + n["slab_tests"] * OPS_PER_SLAB
            + (n["closest_tris"] + n["anyhit_tris"]) * OPS_PER_TRI)
-    ops_upper = (n["pops"] * 8 * (OPS_PER_SLAB + 1)
+    ops_upper = (n["pops"] * slots * per_slot
                  + (n["closest_tris"] + n["anyhit_leaf_tris"]) * OPS_PER_TRI)
     bytes_ms = nbytes / HBM_RATE * 1e3
     ops_ms = ops / FP32_PEAK * 1e3
@@ -437,7 +470,7 @@ def outputs_of(name, kw):
         return [("bits", len(kw["points"]))]
     if name == "closest_soft_multi_shadow":
         return [("count", 0), ("bits", kw["n_extra"])]
-    if name in ("closest_attrs", "closest"):
+    if name in ("closest_attrs", "closest", "binary_closest"):
         return []
     return [("count", 0)]
 
@@ -471,7 +504,7 @@ def time_pair(name, args, kw, reps: int = 10, tri_id=None) -> dict:
     pres, plain_ms = host_ms(lambda: pfn(*args, stats=stats, **kw))
     cmp = check(name, kres, pres, args, kw, f"{name} whole block", tri_id)
     return dict(ms=ms, plain_ms=plain_ms, compare=cmp,
-                **bound(stats, args, kres))
+                **bound(stats, args, kres, name in BINARY_KERNELS))
 
 
 # ---------------------------------------------------------------------------
@@ -1127,7 +1160,7 @@ class plain_build_kernels:
     """Within the block the build wrappers take their plain versions on
     CUDA tensors too (the twin of a rebuild made with the kernels)."""
 
-    NAMES = ("morton_codes", "topology", "collapse_area")
+    NAMES = ("morton_codes", "topology", "collapse_area", "morton_codes60")
 
     def __enter__(self):
         import tpurt_torch.kernels.build as b
@@ -1961,6 +1994,363 @@ def phase_shade_table(dev, mesh, c1) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the binary tree
+# ---------------------------------------------------------------------------
+
+# The binary walks' modes (csrc/binary.cu) and their TPU kernels.
+BINARY_KERNELS = ("binary_closest", "binary_any")
+# The 60-bit codes: two interleaves per coordinate, twice the 30-bit
+# code's operations.
+OPS_PER_CODE60 = 2 * OPS_PER_CODE
+
+
+def binary_accel(mesh_dev, leaf: int, morton_bits: int = 30):
+    """The on-device Morton build of ``mesh_dev`` and its packed rows."""
+    from tpurt_torch.bvh.lbvh import build_lbvh
+    from tpurt_torch.kernels.pack import pack_bvh
+    bvh = build_lbvh(mesh_dev.vertices, mesh_dev.indices, leaf_size=leaf,
+                     morton_bits=morton_bits)
+    return bvh, pack_bvh(bvh)
+
+
+def binary_gbuf(packed, mesh_dev, cam, w, h, table):
+    """The binary frame's G-buffer: the closest hit, then the shade
+    table's rows."""
+    from tpurt_torch.app import gbuffer_production
+    from tpurt_torch.types import RenderConfig
+    cfg = RenderConfig(width=w, height=h, bvh_width=2, gbuffer="ray")
+    return gbuffer_production(packed, mesh_dev, cam, cfg, None, table)[0]
+
+
+def binary_shadow_inputs(packed, gbuf, light, step: int = 1):
+    """BIN_ANY's inputs for the shadow rays the unfused pass makes from
+    ``gbuf`` toward ``light``, on every ``step``-th row."""
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.passes.shadow import shadow_ray_batch
+    so, sd, stm = shadow_ray_batch(gbuf, light, BIAS, None,
+                                   (packed.root_min, packed.root_max))
+    return tr.binary_any_inputs(packed, so[::step].contiguous(),
+                                sd[::step].contiguous(),
+                                stm[::step].contiguous())[:2]
+
+
+def small_binary(dev) -> dict:
+    """(a) BIN_CLOSEST and BIN_ANY against their plain versions at phase
+    3's size (teapot 10k, 512x512) on the packed Morton tree at leaf 14
+    and at leaf 8: camera rays, a per-ray t_max with inactive rays,
+    directional and point shadow rays from the binary G-buffer, and flat
+    (N, 3) rays with a t_min."""
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.passes.shading import make_shade_table
+    from tpurt_torch.scenes import default_camera_for, teapot_scene
+    from tpurt_torch.types import Light
+    mesh = teapot_scene(SMALL_TRIS)
+    mdev = mesh.on(dev)
+    cam = default_camera_for(mesh)
+    bmin, bmax = mesh.bounds()
+    lpos = 0.5 * (bmin + bmax) + np.float32([2.0, 6.0, 1.0])
+    sun = Light.directional((0.45, 0.8, 0.3))
+    o, d = generate_rays(cam, SMALL_RES, SMALL_RES, dev)
+    img = ("img", SMALL_RES, SMALL_RES)
+    out = {}
+    for leaf in (14, 8):
+        bvh, pk = binary_accel(mdev, leaf)
+
+        def run(name, args, kw, label, timed=False):
+            what = f"512^2 leaf {leaf} {name} {label}"
+            res, kres = check_pair(name, args, kw, what, pk.tri_id)
+            if timed:
+                res.update(time_pair(name, args, kw, 20, pk.tri_id))
+            out[f"{name}/leaf{leaf}/{label}"] = res
+            log(f"phase 12 {what}: {json.dumps(res)}")
+            return kres
+        args, kw = tr.binary_closest_inputs(pk, o, d)[:2]
+        kres = run("binary_closest", args, kw, "camera rays", timed=True)
+        t = tr._unpack(kres[0], img)
+        scale = torch.full_like(t, 1.001)
+        scale[::2] = 0.5
+        t_max = torch.where(tr._unpack(kres[1], img) >= 0, t * scale, 1e3)
+        t_max[:, ::5] = 0.0                                # inactive
+        args, kw = tr.binary_closest_inputs(pk, o, d, t_max)[:2]
+        sidx = tr._unpack(run("binary_closest", args, kw,
+                              "per-ray t_max, inactive")[1], img)
+        if bool((sidx[::2] >= 0).any()) or bool((sidx[:, ::5] >= 0).any()):
+            raise RuntimeError("binary_closest: a capped or inactive ray "
+                               "hit")
+        gbuf = binary_gbuf(pk, mdev, cam, SMALL_RES, SMALL_RES,
+                           make_shade_table(bvh, mdev))
+        for kind, light in (("directional", sun),
+                            ("point", Light.point(lpos))):
+            args, kw = binary_shadow_inputs(pk, gbuf, light)
+            run("binary_any", args, kw, kind, timed=kind == "directional")
+        # Flat rays: from the hit points toward the sun as (N, 3), N not
+        # a multiple of 1024, with a t_min.
+        n = SMALL_RES * SMALL_RES - 1001
+        origins = gbuf["position"].reshape(-1, 3)[:n].contiguous()
+        dirs = torch.as_tensor(sun.direction, device=dev).expand(n, 3)
+        tm = torch.where(gbuf["valid"].reshape(-1)[:n], 1e3, 0.0)
+        for name, fn in (("binary_closest", tr.binary_closest_inputs),
+                         ("binary_any", tr.binary_any_inputs)):
+            args, kw = fn(pk, origins, dirs.contiguous(), tm,
+                          t_min=1e-3)[:2]
+            run(name, args, kw, "flat rays")
+    return out
+
+
+def stage_ms_binary(r, frame_ms_mean: float, reps: int = 5) -> dict:
+    """Where a binary frame's time goes (mean of reps calls per stage):
+    the G-buffer (camera rays, BIN_CLOSEST, the table's row gather and
+    decode), BIN_CLOSEST alone, the shadow pass (ray set-up and BIN_ANY)
+    and the composite; the rest (the counter read) by difference."""
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.app import (composite_lights, frame_seed,
+                                 gbuffer_production, shadow_production)
+    from tpurt_torch.camera import generate_rays
+    cfg, cam = r.config, r.camera
+    o, d = generate_rays(cam, cfg.width, cfg.height, r.device)
+    seed = frame_seed(cfg.seed, 0)
+
+    def gb():
+        return gbuffer_production(r.accel, r.mesh, cam, cfg, None,
+                                  r.shade_table)
+    gbuf = gb()[0]
+    vis = [shadow_production(r.accel, gbuf, l, seed, i, cfg)[0]
+           for i, l in enumerate(r.lights)]
+    out = {"gbuffer": cuda_ms(gb, reps),
+           "closest_trace": cuda_ms(lambda: tr.trace_closest(
+               r.accel, o, d, return_sorted=True, gather_tri_id=False),
+               reps)}
+    for i, light in enumerate(r.lights):
+        out[f"shadow_pass_light{i}"] = cuda_ms(
+            lambda: shadow_production(r.accel, gbuf, light, seed, i, cfg),
+            reps)
+    out["composite"] = cuda_ms(
+        lambda: composite_lights(gbuf, vis, r.lights, cfg), reps)
+    out["counter_read_rest"] = frame_ms_mean - out["gbuffer"] - sum(
+        v for k, v in out.items() if k.startswith("shadow_pass")) \
+        - out["composite"]
+    return out
+
+
+def image_against(img, valid, ref_img, ref_valid) -> dict:
+    """Coverage and image against a reference frame (tests/test_raster.py's
+    bounds: coverage off on < 0.2% of pixels, the image off by more than
+    2e-2 on < 1%)."""
+    coverage = float((valid != ref_valid).float().mean())
+    diff = (img - ref_img).abs().amax(-1)
+    share = float((diff > 2e-2).float().mean())
+    return dict(coverage_share=coverage, image_share=share,
+                ok=coverage < 0.002 and share < 0.01)
+
+
+def phase_binary(dev, mesh, c1) -> dict:
+    """The binary tree at 1080p in the hall ((b)-(e)) and the 60-bit codes
+    ((f)); c1: phase 4's image, valid mask and Renderer."""
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.app import Renderer
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    w, h = MAIN_W, MAIN_H
+    cam = sponza_interior_camera()
+    light = Light.directional(SUN_DIR)
+    out = {}
+
+    # (b) The ray G-buffer: BIN_CLOSEST, the shade table, BIN_ANY.
+    cfg = RenderConfig(width=w, height=h, bvh_width=2, leaf_size=14,
+                       gbuffer="ray")
+    r = Renderer(mesh, cam, light, cfg, device=dev)
+    if r.route != "unfused" or r.shade_table is None:
+        raise RuntimeError(f"binary frame: route {r.route}")
+    setup = dict(num_internal=r.accel.num_internal, depth=r.depth,
+                 stack_bound=r.depth + 1,
+                 stack_capacity=tr.STACK_CAPACITY, **r.stats)
+    log(f"phase 12 setup: {json.dumps(setup)}")
+    (kept, frame_ms), n = drive({"binary_closest": 6, "binary_any": 6},
+                                lambda: frames(r, 6))
+    valid_share = check_image(kept[0], w, h, "binary")
+    for f in kept[1:]:
+        if not torch.equal(f["image"], kept[0]["image"]):
+            raise RuntimeError("binary frames are not bit-identical")
+    vs4 = image_against(kept[0]["image"], kept[0]["valid"], c1["image"],
+                        c1["valid"])
+    if not vs4["ok"]:
+        raise RuntimeError(f"binary frame against phase 4's: {vs4}")
+    mean_ms = float(np.mean(frame_ms))
+    o, d = generate_rays(cam, w, h, dev)
+    gbuf = binary_gbuf(r.accel, r.mesh, cam, w, h, r.shade_table)
+    kernels = {
+        "binary_closest": vs_plain(
+            "binary_closest", tr.binary_closest_inputs(r.accel, o, d)[:2],
+            tr.binary_closest_inputs(r.accel, o[::8].contiguous(),
+                                     d[::8].contiguous())[:2],
+            "phase 12 binary_closest", tri_id=r.accel.tri_id),
+        "binary_any": vs_plain(
+            "binary_any", binary_shadow_inputs(r.accel, gbuf, light),
+            binary_shadow_inputs(r.accel, gbuf, light, 8),
+            "phase 12 binary_any")}
+    res = dict(launches=n, frame_ms=frame_ms, frame_ms_mean=mean_ms,
+               valid_share=valid_share, vs_phase4=vs4, setup=setup,
+               occluded_share=float((kept[0]["shadow"][0][kept[0]["valid"]]
+                                     < 1.0).float().mean()),
+               stages_ms=stage_ms_binary(r, mean_ms))
+    turns = in_turns(c1["renderer"], r)
+    res["in_turns_ms"] = {"wide_fused": turns["a"], "binary": turns["b"]}
+    out["ray_1080p"] = res
+    log(f"phase 12 binary 1080p: {json.dumps(res)}")
+
+    # (c) "auto": the rasterizer and BIN_ANY.
+    ra = Renderer(mesh, cam, light, RenderConfig(
+        width=w, height=h, bvh_width=2, leaf_size=14), device=dev)
+    if ra.config.gbuffer != "raster" or ra.shade_table is not None:
+        raise RuntimeError("binary auto did not take the rasterizer")
+    (ka, ms_a), na = drive({"rasterize_rows": 3, "binary_any": 3},
+                           lambda: frames(ra, 3))
+    against = [image_against(f["image"], f["valid"], kept[0]["image"],
+                             kept[0]["valid"]) for f in ka]
+    if not all(a["ok"] for a in against):
+        raise RuntimeError(f"binary raster frames against the ray frame: "
+                           f"{against}")
+    out["auto_raster"] = dict(launches=na, frame_ms=ms_a,
+                              vs_binary_ray=against, setup=dict(ra.stats))
+    log(f"phase 12 auto: {json.dumps(out['auto_raster'])}")
+
+    # (d) Config 3's 2 deg sun at spp 8: the pass's loop over samples.
+    sun = Light.sun(SUN_DIR, angular_radius_deg=2.0)
+    cfg3 = RenderConfig(width=w, height=h, bvh_width=2, leaf_size=14,
+                        spp=SPP, accumulate=True, gbuffer="ray")
+    r3 = Renderer(mesh, cam, sun, cfg3, device=dev)
+    (k3, ms3), n3 = drive({"binary_closest": 4, "binary_any": 4 * SPP},
+                          lambda: frames(r3, 4))
+    v3 = k3[0]["valid"]
+    vis = k3[0]["shadow"][0][v3]
+    pen = float(((vis > 0) & (vis < 1)).float().mean())
+    if not pen > 0:
+        raise RuntimeError("binary sun: no penumbra")
+    if torch.equal(k3[0]["shadow"], k3[1]["shadow"]):
+        raise RuntimeError("binary sun: successive frames drew the same "
+                           "samples")
+    again, _ = frames(Renderer(mesh, cam, sun, cfg3, device=dev), 4)
+    for i, (a, b) in enumerate(zip(k3, again)):
+        if not torch.equal(a["image"], b["image"]):
+            raise RuntimeError(f"binary sun frame {i}: same seed, other "
+                               f"image")
+    out["sun_spp8"] = dict(launches=n3, frame_ms=ms3,
+                           frame_ms_mean=float(np.mean(ms3)),
+                           penumbra_share=pen,
+                           occluded_share=float((vis < 1).float().mean()))
+    log(f"phase 12 sun spp 8: {json.dumps(out['sun_spp8'])}")
+
+    # (e) The rebuild, rebuild_splits=0: Morton tree, packed rows and the
+    # rasterizer every frame.
+    rb = Renderer(mesh, cam, light, RenderConfig(
+        width=w, height=h, bvh_width=2, leaf_size=14, rebuild_splits=0),
+        mode="rebuild", device=dev)
+    if rb.config.gbuffer != "raster":
+        raise RuntimeError("binary rebuild did not take the rasterizer")
+    syncs = host_syncs(rb._rebuild)
+    if syncs:
+        raise RuntimeError(f"the binary rebuild waited for the card: "
+                           f"{syncs}")
+    (kb, ms_b, build_b), nb = drive(
+        {"rasterize_rows": 6, "binary_any": 6, "morton_codes": 6,
+         "topology": 6}, lambda: rebuild_frames(rb, 6))
+    for f in kb[1:]:
+        if not torch.equal(f["image"], kb[0]["image"]):
+            raise RuntimeError("binary rebuild frames are not "
+                               "bit-identical")
+    diff = (kb[0]["image"] - ka[0]["image"]).abs().amax(-1)
+    vb = kb[0]["valid"]
+    share = float(((diff > 1e-3) & vb).sum()) / int(vb.sum())
+    if share > 1e-3:
+        raise RuntimeError(f"binary rebuild frame differs from the static "
+                           f"one on {share:.2e}")
+    out["rebuild"] = dict(launches=nb, frame_ms=ms_b,
+                          frame_ms_mean=float(np.mean(ms_b)),
+                          build_ms=build_b,
+                          build_ms_mean=float(np.mean(build_b)),
+                          rebuild_host_syncs=len(syncs),
+                          vs_static_share=share, setup=dict(rb.stats))
+    log(f"phase 12 rebuild: {json.dumps(out['rebuild'])}")
+
+    out.update(phase_morton60(dev, mesh))
+    out["kernels"] = kernels
+    return out
+
+
+def phase_morton60(dev, mesh) -> dict:
+    """(f) The 60-bit codes: the kernel against its plain version on the
+    hall's centroids, build_lbvh(morton_bits=60) with the kernels against
+    the plain versions, then entry()'s route (teapot 2000, 256x256, leaf
+    8, no tables) on a 30-bit and a 60-bit tree."""
+    import tpurt_torch.kernels.build as B
+    from tpurt_torch.app import render_frame_fn
+    from tpurt_torch.bvh import lbvh as L
+    from tpurt_torch.bvh.morton import unit_coords
+    from tpurt_torch.kernels.pack import tree_depth
+    from tpurt_torch.scenes import default_camera_for, teapot_scene
+    from tpurt_torch.types import Light, RenderConfig
+    mdev = mesh.on(dev)
+    tpad = L._round_up(max(mesh.num_triangles, 28), 14)
+    cen, smin, smax = L._triangle_data(mdev.vertices, mdev.indices,
+                                       tpad)[4:]
+    unit = unit_coords(cen, smin, smax).contiguous()
+    kp = build_pair("morton_codes60", (unit,), "phase 12 morton_codes60")
+    kp.update(time_build("morton_codes60", (unit,)))
+    n = unit.shape[0]
+    kp.update(build_bound(20 * n, OPS_PER_CODE60 * n))
+    codes30 = B.morton_codes(cen, smin, smax)
+    kp["dup_share_30"] = 1.0 - float(torch.unique(codes30).numel()) / n
+    hi, lo = B.morton_codes60(cen, smin, smax)
+    kp["dup_share_60"] = 1.0 - float(torch.unique(
+        (hi.long() << 30) | lo.long()).numel()) / n
+    log(f"phase 12 morton_codes60: {json.dumps(kp)}")
+
+    def build60():
+        return L.build_lbvh(mdev.vertices, mdev.indices, leaf_size=14,
+                            morton_bits=60)
+    kb, nb = drive({"morton_codes60": 1, "topology": 1}, build60)
+    with plain_build_kernels():
+        pb = build60()
+    for name in ("nodes_box", "nodes_child", "nodes_first", "nodes_last",
+                 "tri_v0", "tri_e1", "tri_e2", "tri_sorted", "tri_id",
+                 "root_min", "root_max"):
+        if not torch.equal(getattr(kb, name), getattr(pb, name)):
+            raise RuntimeError(f"60-bit build: {name} differs from the "
+                               f"plain build")
+    depths = {"depth_60": tree_depth(kb.nodes_child),
+              "depth_30": tree_depth(binary_accel(mdev, 14)[0].nodes_child)}
+    log(f"phase 12 60-bit build: launches {nb}, {json.dumps(depths)}")
+
+    tmesh = teapot_scene(2000)
+    tdev = tmesh.on(dev)
+    cam = default_camera_for(tmesh)
+    cfg = RenderConfig(width=256, height=256, leaf_size=8)
+    light = Light.directional((0.45, 0.8, 0.3))
+    entry = {}
+    for bits in (30, 60):
+        bvh = binary_accel(tdev, 8, bits)[0]
+        res, ne = drive({"binary_closest": 1, "binary_any": 1},
+                        lambda: render_frame_fn(bvh, tdev, cam, [light],
+                                                cfg))
+        check_image(res, 256, 256, f"entry route, {bits}-bit")
+        if res["walk_counts"].tolist() != [0, 0]:
+            raise RuntimeError(f"entry route {bits}-bit: walk counters")
+        entry[bits] = res
+    e = image_against(entry[60]["image"], entry[60]["valid"],
+                      entry[30]["image"], entry[30]["valid"])
+    if not e["ok"]:
+        raise RuntimeError(f"entry route: 60-bit against 30-bit {e}")
+    res = {"morton_codes60": kp, "build60_launches": nb, **depths,
+           "entry_route": dict(launches=ne, vs_30bit=e,
+                               valid_share=float(entry[60]["valid"].float()
+                                                 .mean()))}
+    log(f"phase 12 entry route: {json.dumps(res['entry_route'])}")
+    return res
+
+
 def build_kernel_row(name, launches_, kp) -> dict:
     return {"name": name, "route": "cuda", "source": CSRC + "build.cu",
             "replaces": f"{BUILD_TPU}{BUILD_KERNEL_LINES[name]}",
@@ -2008,6 +2398,7 @@ def main() -> int:
     t_start = time.perf_counter()
     small = phase_small(dev)
     small.update(small_shade_table(dev))
+    small.update(small_binary(dev))
     mesh = sponza_scene(MAIN_TRIS)
     c1 = phase_config1(dev, mesh)
     c3 = phase_config3(dev, mesh)
@@ -2019,6 +2410,7 @@ def main() -> int:
     c2 = phase_config2(dev, mesh, static_image)
     ras = phase_raster(dev, mesh, phase4)
     stab = phase_shade_table(dev, mesh, phase4)
+    binary = phase_binary(dev, mesh, phase4)
     timings = {"card": card, "build_s": build_s,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
@@ -2026,7 +2418,9 @@ def main() -> int:
                "soft_variants_1080p": variants, "unfused_1080p": unf,
                "config2_1080p": c2, "raster_1080p": ras,
                "shade_table_1080p": {k: v for k, v in stab.items()
-                                     if k not in ("kernels", "launches")}}
+                                     if k not in ("kernels", "launches")},
+               "binary_1080p": {k: v for k, v in binary.items()
+                                if k != "kernels"}}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],
@@ -2045,6 +2439,17 @@ def main() -> int:
              for name, kp in c2["kernels"].items()]
     rows += [kernel_row(name, stab["launches"][name], stab["kernels"][name],
                         small) for name in SHADE_TABLE_KERNELS]
+    rows += [kernel_row(name, binary["ray_1080p"]["launches"][name],
+                        binary["kernels"][name], small)
+             for name in BINARY_KERNELS]
+    kp = binary["morton_codes60"]
+    rows.append({"name": "morton_codes60", "route": "cuda",
+                 "source": CSRC + "build.cu", "replaces": f"{BUILD_TPU}410",
+                 "launches": binary["build60_launches"]["morton_codes60"],
+                 "max_abs_err": kp["max_abs_err"],
+                 "mismatch_share": kp["mismatch_share"], "ms": kp["ms"],
+                 "plain_ms": kp["plain_ms"], "bound_ms": kp["bound_ms"],
+                 "bound_by": kp["bound_by"], "library_ms": None})
     kp = ras["kernel"]
     rows.append({"name": "rasterize_rows", "route": "cuda",
                  "source": CSRC + "raster.cu", "replaces": RASTER_TPU,

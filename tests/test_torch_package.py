@@ -121,7 +121,8 @@ def test_renderer_defaults_to_the_card():
 @pytest.mark.parametrize("kwargs,what", [
     (dict(mode="rebuild", config=dict(rebuild_collapse="fixed")),
      "rebuild_collapse"),
-    (dict(config=dict(bvh_width=2)), "bvh_width"),
+    (dict(mode="rebuild", config=dict(bvh_width=2)),
+     "clustered binary rebuild"),
     (dict(config=dict(gbuffer="raster", raster_deferred=True)),
      "raster_deferred"),
     (dict(mode="rebuild", config=dict(top_sah=True)), "top_sah"),

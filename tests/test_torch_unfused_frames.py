@@ -168,12 +168,28 @@ def test_walk_counts_sum_every_launch(monkeypatch):
 
 
 def test_soft_light_without_a_sampler_raises():
-    """tpurt's scan over jax.random samples needs the portable traversal:
-    the port raises instead of falling back."""
+    """A soft light without an in-kernel sampler (the binary accel's case)
+    takes tpurt's loop over samples, one any-hit call of jittered rays per
+    sample; it raises only where the tracer itself does. (Before the binary
+    tree was ported it raised NotImplementedError.)"""
     from tpurt_torch.passes.shadow import shadow_pass
     r, out = _render(ttypes.Light.directional(DIRECTION), fused_shadow=False)
-    with pytest.raises(NotImplementedError, match="portable traversal"):
-        shadow_pass(None, out, ttypes.Light.sun(DIRECTION), 4, 0, 0, 1e-3)
+    calls = []
+
+    def tracer(o, d, t_max):
+        calls.append(d.clone())
+        return torch.zeros(t_max.shape, dtype=torch.bool), \
+            torch.zeros(2, dtype=torch.int32)
+    vis, counts = shadow_pass(tracer, out, ttypes.Light.sun(DIRECTION), 4, 0,
+                              0, 1e-3)
+    assert len(calls) == 4 and not torch.equal(calls[0], calls[1])
+    assert torch.equal(vis, torch.ones_like(vis))
+    assert counts.tolist() == [0, 0]
+
+    def failing(o, d, t_max):
+        raise RuntimeError("tracer failed")
+    with pytest.raises(RuntimeError, match="tracer failed"):
+        shadow_pass(failing, out, ttypes.Light.sun(DIRECTION), 4, 0, 0, 1e-3)
 
 
 def test_sort_rays_with_only_soft_unfused_lights_renders():

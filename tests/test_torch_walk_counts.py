@@ -128,6 +128,13 @@ def kernel_inputs(name, acc, at, o, d):
         return tr.closest_attrs_inputs(acc, o, d, at)[:2]
     if name == "closest":
         return tr.closest_inputs(acc, o, d)[:2]
+    if name in ("binary_closest", "binary_any"):
+        # The binary walks take the packed Morton tree of the same mesh.
+        from tpurt_torch.bvh.lbvh import build_lbvh
+        from tpurt_torch.kernels.pack import pack_bvh
+        m = teapot_scene(1500).on("cpu")
+        packed = pack_bvh(build_lbvh(m.vertices, m.indices, leaf_size=8))
+        return tr.binary_closest_inputs(packed, o, d)[:2]
     gb = _gbuf(acc, at, o, d)
     so = gb["position"] + gb["gnormal"] * 1e-3
     if name == "any":

@@ -50,6 +50,19 @@ rasterizer launch, decode) builds no attribute rows, and every light goes
 through the unfused shadow pass on the accel as built. A frame whose
 binning overflowed the pair capacity is rendered again with a bigger one.
 
+``bvh_width=2`` walks the binary LBVH packed into the binary kernels'
+rows (``kernels/pack.py``): the on-device Morton build, packed once per
+scene in ``mode="static"`` (``tpurt`` packs per call; the rows are the
+same) or rebuilt and packed every frame with ``rebuild_splits=0``. As in
+``tpurt``, no fused kernel takes a binary accel: the frame is unfused,
+with the shade-table G-buffer (the binary closest hit, then one table
+row per pixel), the raster G-buffer where "auto" resolves to it, and the
+binary any hit for every light; a soft light loops over its samples
+(``tpurt`` gives its in-kernel samplers to the 8-wide accel alone).
+``render_frame_fn`` also takes a plain ``LBVH`` with no tables at all
+(``tpurt``'s ``__graft_entry__.entry()`` route): the G-buffer then reads
+the mesh by triangle id (``passes/gbuffer.shade_attributes``).
+
 Everything outside this slice raises ``NotImplementedError`` naming the
 missing piece; nothing falls back to another path or device.
 """
@@ -70,8 +83,11 @@ from .bvh.wide import (WideBVH, count_wide, leaf_boxes_from_nodes,
                        round_up_bucket, wide_depth, widen_area_kernel,
                        widen_from_plan)
 from .camera import generate_rays
-from .kernels.traverse import (MAX_MASK_LIGHTS, check_stack_bound,
-                               check_walk_counts, trace_any,
+from .kernels.build import D_MAX
+from .kernels.pack import binary_vmem_bytes, pack_bvh, tree_depth
+from .kernels.traverse import (MAX_MASK_LIGHTS, as_packed,
+                               check_binary_stack_bound, check_stack_bound,
+                               check_walk_counts, is_binary, trace_any,
                                trace_any_point_soft, trace_any_soft,
                                trace_closest, trace_closest_multi_shadow,
                                trace_closest_point_soft_shadow,
@@ -127,10 +143,16 @@ def fused_soft_multi_applicable(cfg: RenderConfig, lights) -> bool:
             and all(l.kind == LIGHT_DIRECTIONAL for l in lights[1:]))
 
 
-def frame_route(cfg: RenderConfig, lights) -> str:
+def frame_route(cfg: RenderConfig, lights, accel=None) -> str:
     """The path a frame takes, in ``tpurt``'s order: "fusedN", "fusedSM",
     "fused0" (light 0 whatever the number of lights) or "unfused" (no
-    fused kernel)."""
+    fused kernel). ``accel``: the accel the frame walks, where it is known;
+    every fused kernel needs the 8-wide one (``tpurt``'s gates ask for a
+    WideBVH), so a binary accel, or ``bvh_width=2`` where ``accel`` is not
+    given, routes "unfused"."""
+    binary = cfg.bvh_width == 2 if accel is None else is_binary(accel)
+    if binary:
+        return "unfused"
     if fused_multi_applicable(cfg, lights):
         return "fusedN"
     if fused_soft_multi_applicable(cfg, lights):
@@ -172,6 +194,13 @@ def _soft(light: Light, spp: int) -> bool:
     return light.kind in (LIGHT_AREA_CONE, LIGHT_POINT) and spp > 1
 
 
+# tpurt's budget for the binary kernels' VMEM-resident rows
+# (Renderer._check_vmem_budget): past it, tpurt traces with its portable
+# traversal instead.
+BINARY_BUDGET_BYTES = 20_000_000
+BINARY_OVERHEAD_BYTES = 1_500_000
+
+
 def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
                 mesh: Mesh, cache_dir: Optional[str]) -> None:
     """Raise NotImplementedError for anything the port does not cover yet.
@@ -188,15 +217,32 @@ def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
                            "output)")
         if config.top_sah:
             missing.append("top_sah=True (the sweep-SAH priorities kernel)")
-    if config.bvh_width != 8:
-        missing.append(f"bvh_width={config.bvh_width} (binary traversal)")
+    binary = config.bvh_width == 2
+    if config.bvh_width not in (2, 8):
+        missing.append(f"bvh_width={config.bvh_width} (tpurt walks 2- or "
+                       "8-wide trees)")
+    if binary and mode == "rebuild" and config.rebuild_splits != 0:
+        missing.append(
+            "a clustered binary rebuild (bvh_width=2 with rebuild_splits="
+            f"{config.rebuild_splits}): tpurt's pack_bvh fails on a sub-leaf "
+            "clustered tree; rebuild_splits=0 rebuilds the plain tree")
+    if binary and config.use_pallas:
+        need = binary_vmem_bytes(mesh.num_triangles, config.leaf_size) \
+            + BINARY_OVERHEAD_BYTES
+        if need > BINARY_BUDGET_BYTES:
+            missing.append(
+                f"a binary scene of {need} bytes past tpurt's "
+                f"{BINARY_BUDGET_BYTES}-byte budget at leaf_size="
+                f"{config.leaf_size}, where tpurt falls back to its portable "
+                "traversal (use_pallas=False)")
     if not config.use_pallas:
         missing.append("use_pallas=False (portable traversal)")
     if config.gbuffer == "raster":
         # tpurt reads neither shade-table flag on the raster G-buffer.
         if config.raster_deferred:
             missing.append("raster_deferred=True (the z-only rasterizer)")
-    elif config.seeded_gbuffer:
+    elif config.seeded_gbuffer and not binary:
+        # tpurt reads the flag on the 8-wide accel alone.
         missing.append("seeded_gbuffer=True (the seeded first-hit kernel)")
     if mesh.textured:
         missing.append("textured meshes")
@@ -241,9 +287,13 @@ def frame_seed(seed: int, frame_index: int) -> int:
     return _mix32(_mix32(seed) + 0x9E3779B9 * (frame_index + 1))
 
 
-def _gb_accel(bvh: WideBVH, cam: Camera, cfg: RenderConfig) -> WideBVH:
-    return order_children_for_point(bvh, cam.position) \
-        if cfg.order_children else bvh
+def _gb_accel(bvh, cam: Camera, cfg: RenderConfig):
+    """The accel the G-buffer walks: the 8-wide one ordered near-first for
+    the camera (``order_children``); a binary accel as it is, since
+    ``tpurt`` orders only WideBVH children."""
+    if is_binary(bvh) or not cfg.order_children:
+        return bvh
+    return order_children_for_point(bvh, cam.position)
 
 
 def _visibility(valid: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
@@ -354,43 +404,53 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
     return gbuf, vises, counts
 
 
-def gbuffer_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
-                       cfg: RenderConfig, attr_tables, shade_table=None):
+def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
+                       attr_tables, shade_table=None):
     """The unfused frame's G-buffer: the tile rasterizer
     (``gbuffer="raster"``; ``mesh`` on the device, no walk, zero counts),
-    the attribute-tracked closest hit, or the plain closest hit and the
-    shade table's row gather (``attr_tables`` None), on the camera-ordered
-    accel. Returns (gbuf, walk counts)."""
+    the attribute-tracked closest hit, the plain closest hit and the shade
+    table's row gather (``attr_tables`` None), or, with neither table, the
+    closest hit and ``shade_attributes``' gathers of the mesh (moved to
+    the device here); on the camera-ordered accel, or on the binary one
+    as it is. Returns (gbuf, walk counts)."""
     if cfg.gbuffer == "raster":
         gbuf = gbuffer_raster_pass(mesh, cam, cfg.width, cfg.height,
                                    cap_pairs=cfg.raster_cap_pairs or None)
         return gbuf, torch.zeros(2, dtype=torch.int32,
-                                 device=bvh.nodes.device)
+                                 device=bvh.tri_id.device)
     gb_accel = _gb_accel(bvh, cam, cfg)
     if attr_tables is not None:
         return gbuffer_attr_pass(gb_accel, attr_tables, mesh, cam,
                                  cfg.width, cfg.height)
+    if shade_table is None:
+        return gbuffer_pass(lambda o, d: trace_closest(gb_accel, o, d),
+                            mesh.on(bvh.tri_id.device), cam, cfg.width,
+                            cfg.height)
     return gbuffer_pass(
         lambda o, d: trace_closest(gb_accel, o, d, return_sorted=True,
                                    gather_tri_id=False),
         mesh, cam, cfg.width, cfg.height, shade_table)
 
 
-def shadow_production(bvh: WideBVH, gbuf, light: Light, seed: int,
+def shadow_production(bvh, gbuf, light: Light, seed: int,
                       light_index: int, cfg: RenderConfig):
     """One light's unfused shadow pass on the accel as built (``tpurt``
     measured camera or light ordering as no gain for the any-hit walks).
     The tracers are ``tpurt``'s ``make_tracers`` any-hit half and its
-    ``make_soft_tracer`` / ``make_point_soft_tracer`` without their gates:
-    ``check_slice`` refuses the configs they would gate off (no portable
-    traversal, no ray sorting), and the port's generator is real on every
-    device. Returns (visibility, walk counts)."""
+    ``make_soft_tracer`` / ``make_point_soft_tracer`` without their
+    backend gates: ``check_slice`` refuses the configs they would gate off
+    (no portable traversal, no ray sorting), and the port's generator is
+    real on every device. As there, the samplers exist for the 8-wide
+    accel alone: on a binary accel a soft light takes the pass's loop over
+    samples. Returns (visibility, walk counts)."""
+    wide = not is_binary(bvh)
     return shadow_pass(
         functools.partial(trace_any, bvh), gbuf, light, cfg.spp, seed,
         light_index, cfg.shadow_bias,
         scene_bounds=(bvh.root_min, bvh.root_max),
-        trace_soft=functools.partial(trace_any_soft, bvh),
-        trace_soft_point=functools.partial(trace_any_point_soft, bvh))
+        trace_soft=functools.partial(trace_any_soft, bvh) if wide else None,
+        trace_soft_point=(functools.partial(trace_any_point_soft, bvh)
+                          if wide else None))
 
 
 def composite_lights(gbuf, shadows, lights: Sequence[Light],
@@ -406,21 +466,32 @@ def composite_lights(gbuf, shadows, lights: Sequence[Light],
     return img
 
 
-def render_frame_fn(bvh: WideBVH, mesh: Mesh, cam: Camera,
+def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
                     lights: Sequence[Light], cfg: RenderConfig,
-                    attr_tables, seed: int = 0,
+                    attr_tables=None, seed: int = 0,
                     shade_table=None) -> Dict[str, torch.Tensor]:
     """One frame: G-buffer + the fused route's shadows -> the unfused
     shadow pass for every other light -> composite (sum of per-light
-    direct terms + one ambient term). The hit set reads the leaf
-    attribute rows ``attr_tables`` or, without them, the packed
-    ``shade_table``; with neither (the raster G-buffer) no fused kernel
-    runs, as ``tpurt``'s ``tabs`` gate has it. ``seed``: the frame's
-    generator key (``frame_seed``); light i samples with the key (seed,
-    i). ``walk_counts`` sums the walk counters of every launch of the
+    direct terms + one ambient term). ``bvh``: the 8-wide accel, or a
+    binary one (a PackedBVH, or an LBVH, packed here once for the frame,
+    which ``tpurt`` does per call), which no fused kernel takes. The hit
+    set reads the leaf attribute rows ``attr_tables`` (8-wide only) or,
+    without them, the packed ``shade_table``; with neither (the raster
+    G-buffer, or ``tpurt``'s compile-check entry on a plain LBVH) no fused
+    kernel runs, as ``tpurt``'s ``tabs`` gate has it, and the ray cast
+    reads the mesh by triangle id. ``seed``: the frame's generator key
+    (``frame_seed``); light i samples with the key (seed, i).
+    ``walk_counts`` sums the walk counters of every launch of the
     frame."""
+    if is_binary(bvh):
+        if attr_tables is not None:
+            raise ValueError("a binary accel has no leaf attribute rows")
+        bvh = as_packed(bvh)
+        if bvh.root_min is None:
+            raise ValueError("the binary accel needs its scene box "
+                             "(root_min, root_max) for the shadow pass")
     tabs = attr_tables is not None or shade_table is not None
-    route = frame_route(cfg, lights) if tabs else "unfused"
+    route = frame_route(cfg, lights, bvh) if tabs else "unfused"
     if route == "fusedN":
         gbuf, shadows, counts = gbuffer_multi_shadow_fused_production(
             bvh, mesh, cam, cfg, lights, attr_tables, shade_table)
@@ -475,6 +546,27 @@ def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
     return bvh, wide, table, count
 
 
+# The deepest internal node of a Karras tree, from the deltas' range:
+# deltas grow strictly from a node to its children, so the binary stack
+# bound holds for every rebuilt tree without a read of its depth.
+KARRAS_DEPTH_BOUND = D_MAX - 1
+
+
+def _rebuild_binary(vertices: torch.Tensor, indices: torch.Tensor,
+                    mesh: Mesh, leaf_size: int, tables: Optional[str] = "st"):
+    """``bvh_width=2``'s per-frame rebuild, no host sync (``tpurt``'s
+    ``_build_jit`` and ``_make_accel`` on a binary config): the full-box
+    Morton build, the packed rows and the shade table of the rebuilt tree
+    (``tables="st"``) or none (None, the raster G-buffer). Returns (bvh,
+    packed accel, table or None)."""
+    if tables not in ("st", None):
+        raise ValueError(f"tables={tables!r}")
+    bvh = build_lbvh(vertices, indices, leaf_size=leaf_size)
+    check_binary_stack_bound(KARRAS_DEPTH_BOUND)
+    table = make_shade_table(bvh, mesh) if tables == "st" else None
+    return bvh, pack_bvh(bvh), table
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -489,19 +581,25 @@ class Renderer:
     resolved at construction (``use_raster_gbuffer``).
 
     ``mode="static"`` takes the host SBVH build when ``config.sah`` is
-    set and the native library builds and loads (``native.available``);
-    otherwise it builds on the device, as ``tpurt`` does, and "auto"
-    resolves as for ``sah=False``. ``rebuild_threshold`` is stored for
-    refit mode, which is not ported. ``config.inkernel_attrs=False`` makes
-    the frames read the packed shade table (``shade_table``) in place of
-    the leaf attribute rows (``attr_tables``).
+    set, the accel is 8-wide and the native library builds and loads
+    (``native.available``); otherwise it builds on the device, as
+    ``tpurt`` does, and "auto" resolves as for ``sah=False``. With
+    ``bvh_width=2`` the accel is the packed binary tree, built once or
+    (``mode="rebuild"``, ``rebuild_splits=0``) every frame.
+    ``rebuild_threshold`` is stored for refit mode, which is not ported.
+    ``config.inkernel_attrs=False`` makes the frames read the packed shade
+    table (``shade_table``) in place of the leaf attribute rows
+    (``attr_tables``).
 
     ``stats`` holds times in milliseconds. Set-up: ``sah_build_ms`` (host
     SBVH build and conversion, copy to the device included),
     ``lbvh_build_ms`` (on-device Morton build) or, in rebuild mode,
     ``build_and_count_ms`` (a full-box build and the wide-node count that
-    fixes the pad), ``collapse_ms`` (8-wide collapse) and
-    ``attr_rows_ms`` or ``shade_table_ms`` (not on the raster G-buffer).
+    fixes the pad), ``collapse_ms`` (8-wide collapse) or, with
+    ``bvh_width=2`` (static or rebuild), ``lbvh_build_ms`` and ``pack_ms``
+    (the binary rows), and ``attr_rows_ms`` or ``shade_table_ms`` (not on
+    the raster G-buffer). ``depth``: the accel's depth the per-ray stack
+    was checked against.
     Per frame in rebuild
     mode: ``build_ms``, the rebuild (CUDA events on the card, read after
     the frame's walk counters), and ``overflow_recoveries``, the rebuilds
@@ -528,10 +626,11 @@ class Renderer:
             self._rebuild_splits = (
                 auto_split_blocks(mesh.num_triangles, config.leaf_size)
                 if config.rebuild_splits < 0 else config.rebuild_splits)
-        # The host SBVH build needs the native library; without it the
-        # static scene builds on the device and "auto" resolves as for
-        # sah=False (tpurt/app.py:648-652).
+        # The host SBVH build needs the native library and the 8-wide
+        # kernels; without either the static scene builds on the device
+        # and "auto" resolves as for sah=False (tpurt/app.py:641-652).
         self._use_sah = (config.sah and mode != "rebuild"
+                         and config.use_pallas and config.bvh_width == 8
                          and native_available())
         raster = use_raster_gbuffer(
             dataclasses.replace(config, sah=self._use_sah), mode,
@@ -543,11 +642,14 @@ class Renderer:
             config = dataclasses.replace(config, order_children=False)
         self.config = config
         self._raster = config.gbuffer == "raster"
+        self._binary = config.bvh_width == 2
         # The table the frames read: none on the raster G-buffer, else the
         # leaf attribute rows or the shade table (tpurt's _use_attrs, whose
-        # VMEM budget has no counterpart on the card).
+        # VMEM budget has no counterpart on the card). Attribute rows
+        # exist for the 8-wide accel alone (tpurt's _make_accel), so a
+        # binary frame reads the shade table.
         self._tables = None if self._raster else (
-            "attr" if config.inkernel_attrs else "st")
+            "attr" if config.inkernel_attrs and not self._binary else "st")
         self.mode = mode
         self.rebuild_threshold = rebuild_threshold
         self.mesh = mesh
@@ -562,7 +664,7 @@ class Renderer:
         self.attr_tables = None
         self.shade_table = None
 
-        if mode == "rebuild":
+        if mode == "rebuild" and not self._binary:
             self._setup_rebuild()
         else:
             t0 = time.perf_counter()
@@ -580,14 +682,20 @@ class Renderer:
             self.stats.update({
                 "sah_build_ms" if self._use_sah else "lbvh_build_ms":
                     (t1 - t0) * 1e3,
-                "collapse_ms": (t2 - t1) * 1e3})
-            if self._raster:
-                # The rasterizer bins the mesh on the device every frame.
+                "pack_ms" if self._binary else "collapse_ms":
+                    (t2 - t1) * 1e3})
+            if self._raster or mode == "rebuild":
+                # The rasterizer bins the mesh on the device every frame,
+                # and a binary rebuild builds from it.
                 self.mesh = mesh.on(self.device)
-            else:
+            if not self._raster:
                 self._make_tables(mesh, t2)
-        self.depth = wide_depth(self.accel)
-        check_stack_bound(self.depth)
+        if self._binary:
+            self.depth = tree_depth(self.bvh.nodes_child)
+            check_binary_stack_bound(self.depth)
+        else:
+            self.depth = wide_depth(self.accel)
+            check_stack_bound(self.depth)
 
     def _make_tables(self, mesh: Mesh, t0: float) -> None:
         """The static tree's shading table, timed from ``t0``: the leaf
@@ -600,9 +708,12 @@ class Renderer:
         key = "attr_rows_ms" if self._tables == "attr" else "shade_table_ms"
         self.stats[key] = (time.perf_counter() - t0) * 1e3
 
-    def _make_accel(self) -> WideBVH:
-        """8-wide area collapse of a static tree. The leaf slots take the
-        builder's stored (on SBVH: clipped) boxes."""
+    def _make_accel(self):
+        """8-wide area collapse of a static tree (the leaf slots take the
+        builder's stored, on SBVH clipped, boxes), or with
+        ``bvh_width=2`` the binary kernels' rows."""
+        if self._binary:
+            return pack_bvh(self.bvh)
         nw_pad = round_up_bucket(max(count_wide(self.bvh), 1))
         plan = make_wide_plan(self.bvh, nw_pad)
         return widen_from_plan(plan, self.bvh, leaf_boxes_from_nodes(self.bvh))
@@ -640,6 +751,10 @@ class Renderer:
             self._make_tables(self.mesh, t2)
 
     def _rebuild(self):
+        if self._binary:
+            return _rebuild_binary(self.mesh.vertices, self.mesh.indices,
+                                   self.mesh, self.config.leaf_size,
+                                   tables=self._tables)
         return _rebuild_fused(self.mesh.vertices, self.mesh.indices,
                               self.mesh, self.config.leaf_size,
                               self._nw_pad,
@@ -652,7 +767,12 @@ class Renderer:
         recounted on a full-box build and the frame rebuilt with it.
         ``tpurt`` instead renders that full-box build's XLA area collapse:
         the same tree with its wide ids in binary-node order, where the
-        rerun keeps the breadth-first ids every other frame has."""
+        rerun keeps the breadth-first ids every other frame has. A binary
+        rebuild has no pad to outgrow."""
+        if self._binary:
+            self._geom_dirty = False
+            self.bvh, self.accel, self.shade_table = self._rebuild()
+            return
         bvh, accel, table, count = self._rebuild()
         if self._geom_dirty:
             self._geom_dirty = False

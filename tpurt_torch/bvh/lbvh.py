@@ -13,8 +13,12 @@ the deltas (``topology_pallas``, equal to ``karras_topology_scan``). The
 JAX package builds with it on the TPU below its 30k-leaf SMEM gate and
 with the binary-search builder ``karras_topology`` elsewhere (its CPU
 runs, bigger scenes); the two trees are the same with other internal node
-ids. The card has no such gate. The search builder, ``top_sah`` and 60-bit
-codes are not ported.
+ids. The card has no such gate. The search builder and ``top_sah`` are
+not ported.
+
+``morton_bits=60`` keys every triangle by two words (a kernel too) and
+sorts them lexicographically, as one stable sort of the int64 key
+``hi << 30 | lo``; the deltas read both words.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels.build import morton_codes, topology
+from ..kernels.build import morton_codes, morton_codes60, topology
 
 INT32_MIN = -(2 ** 31)
 _BIG = 3.4e38
@@ -112,15 +116,20 @@ def _clz32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, 31 - _floor_log2(x), 32).to(torch.int32)
 
 
-def adjacent_deltas(codes: torch.Tensor) -> torch.Tensor:
-    """D[g] = delta(g, g+1) of the sorted 30-bit leaf codes i32[n]: the
-    common-prefix length clz(code[g] ^ code[g+1]), or 64 + clz(g ^ (g+1))
-    for equal codes. D fully determines the Karras radix tree."""
-    g = torch.arange(codes.shape[0] - 1, dtype=torch.int32,
-                     device=codes.device)
-    xh = codes[:-1] ^ codes[1:]
-    tie = 64 + _clz32(g ^ (g + 1))
-    return torch.where(xh == 0, tie, _clz32(xh))
+def adjacent_deltas(codes) -> torch.Tensor:
+    """D[g] = delta(g, g+1) of the sorted leaf codes: 30-bit codes i32[n],
+    or 60-bit keys as a (hi, lo) pair of i32[n]. The common-prefix length
+    clz(hi[g] ^ hi[g+1]), where the hi words agree 32 + clz(lo[g] ^
+    lo[g+1]), and for equal keys 64 + clz(g ^ (g+1)). D fully determines
+    the Karras radix tree."""
+    hi, lo = codes if isinstance(codes, tuple) else (codes, None)
+    g = torch.arange(hi.shape[0] - 1, dtype=torch.int32, device=hi.device)
+    xh = hi[:-1] ^ hi[1:]
+    d_lo = 64 + _clz32(g ^ (g + 1))
+    if lo is not None:
+        xl = lo[:-1] ^ lo[1:]
+        d_lo = torch.where(xl == 0, d_lo, 32 + _clz32(xl))
+    return torch.where(xh == 0, d_lo, _clz32(xh))
 
 
 def range_table(leaf_min: torch.Tensor, leaf_max: torch.Tensor
@@ -305,11 +314,14 @@ def build_lbvh(vertices: torch.Tensor, indices: torch.Tensor,
     wide nodes' boxes from the sparse table).
 
     vertices f32[V, 3], indices i32[T, 3] (tensors on the build's device).
-    ``extra_payload``: per-triangle [T] columns to co-sort; when non-empty
-    the return is (LBVH, tuple of sorted columns)."""
-    if morton_bits != 30:
-        raise NotImplementedError("morton_bits=60 (two-word keys) is not "
-                                  "ported")
+    ``morton_bits``: 30 (one word per key) or 60 (two words, sorted
+    lexicographically; not with ``split_blocks``, which ``tpurt``
+    asserts). ``extra_payload``: per-triangle [T] columns to co-sort; when
+    non-empty the return is (LBVH, tuple of sorted columns)."""
+    if morton_bits not in (30, 60):
+        raise ValueError(f"morton_bits={morton_bits}")
+    if morton_bits == 60 and split_blocks:
+        raise ValueError("sub-leaf clustering needs 30-bit codes")
     if top_sah:
         raise NotImplementedError("top_sah (the sweep-SAH priorities "
                                   "kernel) is not ported")
@@ -319,7 +331,11 @@ def build_lbvh(vertices: torch.Tensor, indices: torch.Tensor,
     tpad = _round_up(max(num_tris, 2 * leaf_size), leaf_size)
     tri, v0, e1, e2, centroid, scene_min, scene_max = _triangle_data(
         vertices, indices, tpad)
-    codes = morton_codes(centroid, scene_min, scene_max)
+    if morton_bits == 60:
+        hi, lo = morton_codes60(centroid, scene_min, scene_max)
+        codes = (hi.to(torch.int64) << 30) | lo.to(torch.int64)
+    else:
+        codes = morton_codes(centroid, scene_min, scene_max)
 
     order = torch.arange(tpad, dtype=torch.int32, device=codes.device)
     chs, s = _sort_payload(codes, [order, v0, e1, e2, tri]
@@ -338,6 +354,9 @@ def build_lbvh(vertices: torch.Tensor, indices: torch.Tensor,
     else:
         lmin, lmax, _, _ = _leaf_boxes(sv0, se1, se2, leaf_size)
         leaf_codes = chs[::leaf_size]
+        if morton_bits == 60:
+            leaf_codes = ((leaf_codes >> 30).to(torch.int32),
+                          (leaf_codes & ((1 << 30) - 1)).to(torch.int32))
 
     child, first, last = topology(adjacent_deltas(leaf_codes))
 

@@ -1,9 +1,10 @@
-"""30-bit Morton (Z-order) codes (counterpart of ``tpurt/bvh/morton.py``).
+"""30-bit Morton (Z-order) codes and the 60-bit two-word keys (counterpart
+of ``tpurt/bvh/morton.py``).
 
 Codes are held as int32: 30 bits fit without touching the sign bit, so
 shifts, ands and ors give the JAX package's uint32 values bit for bit,
-and comparisons and sorts order them the same way. The 60-bit two-word
-keys (``morton_bits=60``) are not ported.
+and comparisons and sorts order them the same way. A 60-bit key is two
+such words, hi (the coarse 10 bits per axis) and lo (the next 10).
 """
 
 from __future__ import annotations
@@ -53,3 +54,11 @@ def quantize_points(p: torch.Tensor, scene_min, scene_max,
 def morton_of_points(p: torch.Tensor, scene_min, scene_max) -> torch.Tensor:
     """World-space points f32[n, 3] -> i32[n] 30-bit Morton codes."""
     return morton_encode(quantize_points(p, scene_min, scene_max))
+
+
+def morton_of_points_60(p: torch.Tensor, scene_min, scene_max):
+    """World-space points f32[n, 3] -> 60-bit Morton keys as two i32[n]
+    words (hi, lo): the points on the 2^20 lattice of the scene box, hi
+    the interleave of each coordinate's top 10 bits, lo of its low 10."""
+    q = quantize_points(p, scene_min, scene_max, bits=20)
+    return morton_encode(q >> 10), morton_encode(q & 0x3FF)

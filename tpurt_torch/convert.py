@@ -16,6 +16,7 @@ import torch
 
 from .bvh.lbvh import LBVH
 from .bvh.wide import WideBVH
+from .kernels.pack import PackedBVH
 from .raster.setup import RasterRows
 from .types import Camera, Light, Mesh
 
@@ -70,6 +71,21 @@ def wide_bvh(fields: Dict[str, Any], device) -> WideBVH:
                    root_max=_t(fields["root_max"], f32, device),
                    num_wide=int(fields["num_wide"]),
                    leaf_size=int(fields["leaf_size"]))
+
+
+def packed_bvh(fields: Dict[str, Any], device) -> PackedBVH:
+    """A ``tpurt`` ``PackedBVH`` (the binary kernels' rows); it carries no
+    scene box, so ``root_min``/``root_max`` stay None unless the fields
+    hold them."""
+    f32 = torch.float32
+    return PackedBVH(nodes=_t(fields["nodes"], f32, device),
+                     tris=_t(fields["tris"], f32, device),
+                     tri_id=_t(fields["tri_id"], torch.int32, device),
+                     num_internal=int(fields["num_internal"]),
+                     num_leaves=int(fields["num_leaves"]),
+                     leaf_size=int(fields["leaf_size"]),
+                     root_min=_opt(fields.get("root_min"), f32, device),
+                     root_max=_opt(fields.get("root_max"), f32, device))
 
 
 def attr_tables(at0, at1, device):

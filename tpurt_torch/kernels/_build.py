@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernel library, and the checks every
 kernel wrapper makes at the launch boundary.
 
-Every ``csrc/*.cu`` (the walk kernels include ``csrc/walk.cuh``; the
+Every ``csrc/*.cu`` (the walk kernels of ``fused_shadows.cu``,
+``shadow_rays.cu`` and ``binary.cu`` include ``csrc/walk.cuh``; the
 build kernels of ``csrc/build.cu`` and the rasterizer of ``csrc/raster.cu``
 stand alone) is compiled by its own
 ``nvcc``, all started together, and one more ``nvcc`` links the objects
@@ -130,7 +131,8 @@ def load_library() -> ctypes.CDLL:
     BuildInfo.path = path
     lib = ctypes.CDLL(path)
     i = ctypes.c_int
-    for name in ("tpurt_fused_shadows_launch", "tpurt_shadow_rays_launch"):
+    for name in ("tpurt_fused_shadows_launch", "tpurt_shadow_rays_launch",
+                 "tpurt_binary_launch"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = [i, ctypes.c_void_p, ctypes.c_void_p]
     for name in ("tpurt_stack_capacity", "tpurt_params_size"):
@@ -139,6 +141,7 @@ def load_library() -> ctypes.CDLL:
     p, f = ctypes.c_void_p, ctypes.c_float
     for name, args in (
             ("tpurt_morton_codes_launch", [p, i, p, p]),
+            ("tpurt_morton_codes60_launch", [p, i, p, p, p]),
             ("tpurt_topology_launch", [p, i, i, p, p, p, p, p, p, p]),
             ("tpurt_collapse_area_launch", [p, p, i, i, p, p, p, p]),
             ("tpurt_raster_rows_launch", [p, i, p, p, p, i, p, i, i, i, i,

@@ -3,6 +3,8 @@
 
 - ``morton_codes`` -> ``morton_codes_pallas``: 30-bit Morton codes of the
   triangle centroids (quantise + interleave);
+- ``morton_codes60`` -> ``morton_codes60_pallas``: the 60-bit keys of
+  ``build_lbvh(morton_bits=60)``, two words (hi, lo) per centroid;
 - ``topology`` -> ``topology_pallas``: the Karras radix tree as the
   min-Cartesian tree over the adjacent deltas, root renumbered to node 0;
 - ``collapse_area`` -> ``collapse_area_pallas``: the breadth-first
@@ -32,9 +34,11 @@ from ._build import _check, _pick
 
 EMPTY = -(2 ** 31)        # an empty wide slot (wide.EMPTY)
 WIDE_FACTOR = 8
-# Adjacent deltas of 30-bit codes lie in [0, 95]: clz of a non-zero code
-# xor (<= 31), else 64 + clz(g ^ (g + 1)). The scan formulation keeps one
-# column per possible value.
+# Adjacent deltas lie in [0, 95]: clz of a non-zero code xor (<= 31; for
+# 60-bit keys 32 + clz of the lo words' xor where the hi words agree), else
+# 64 + clz(g ^ (g + 1)). The scan formulation keeps one column per
+# possible value. Deltas grow strictly from a node to its children, so a
+# Karras tree's internal nodes lie at most D_MAX - 1 levels below the root.
 D_MAX = 96
 
 
@@ -84,6 +88,40 @@ def morton_codes(centroid: torch.Tensor, scene_min, scene_max
     stays outside the kernel, as in ``morton_codes_pallas``."""
     unit = unit_coords(centroid, scene_min, scene_max).contiguous()
     fn = _pick(unit.device, morton_codes_cuda, morton_codes_reference)
+    return fn(unit)
+
+
+def morton_codes60_reference(unit: torch.Tensor):
+    """unit-cube coordinates f32[n, 3] -> (hi, lo) i32[n]: the 2^20 lattice,
+    hi the interleave of each coordinate's top 10 bits, lo of its low
+    10."""
+    q = quantize_unit(unit, bits=20)
+    return morton_encode(q >> 10), morton_encode(q & 0x3FF)
+
+
+def morton_codes60_cuda(unit: torch.Tensor):
+    """The kernel of ``morton_codes60_reference``: one thread per point,
+    both words written."""
+    from ._build import load_library
+    _need_cuda(unit)
+    n = unit.shape[0]
+    _check(unit, "unit", torch.float32, (n, 3), unit.device)
+    hi = torch.empty((n,), dtype=torch.int32, device=unit.device)
+    lo = torch.empty((n,), dtype=torch.int32, device=unit.device)
+    lib = load_library()
+    _raise_on(lib.tpurt_morton_codes60_launch(
+        unit.data_ptr(), n, hi.data_ptr(), lo.data_ptr(),
+        _stream(unit.device)), "tpurt_morton_codes60_launch")
+    morton_codes60_cuda.launches += 1
+    return hi, lo
+
+
+def morton_codes60(centroid: torch.Tensor, scene_min, scene_max):
+    """Centroids f32[n, 3] + scene bounds -> (hi, lo) i32[n], bit-exact with
+    ``bvh.morton.morton_of_points_60``; the unit-cube normalisation stays
+    outside the kernel, as in ``morton_codes60_pallas``."""
+    unit = unit_coords(centroid, scene_min, scene_max).contiguous()
+    fn = _pick(unit.device, morton_codes60_cuda, morton_codes60_reference)
     return fn(unit)
 
 
@@ -284,6 +322,7 @@ def collapse_area(child: torch.Tensor, area: torch.Tensor, nw_pad: int):
               area.to(torch.float32).contiguous(), int(nw_pad))
 
 
-BUILD_KERNELS = (morton_codes_cuda, topology_cuda, collapse_area_cuda)
+BUILD_KERNELS = (morton_codes_cuda, topology_cuda, collapse_area_cuda,
+                 morton_codes60_cuda)
 for _fn in BUILD_KERNELS:
     _fn.launches = 0

@@ -1,6 +1,7 @@
 // The per-frame rebuild's kernels (counterparts of tpurt/kernels/build.py):
 //
 //   morton codes   <- morton_codes_pallas (:353) -> _codes_kernel (:325)
+//   60-bit codes   <- morton_codes60_pallas (:410) -> _codes60_kernel (:384)
 //   topology       <- topology_pallas (:265) -> _topology_call (:215)
 //                     -> _build_kernel (:60, with_boxes=False,
 //                     with_depth=False), root renumbered as _renumber (:249)
@@ -12,8 +13,9 @@
 // tpurt_torch/kernels/build.py allocate every output and scratch buffer.
 //
 // What bounds them on the H100, and what the design does about it:
-// - Morton codes: 12 bytes in, 4 out per triangle, a few dozen integer
-//   operations: bound by bytes. One thread per point, coalesced.
+// - Morton codes: 12 bytes in, 4 out per triangle (8 for the 60-bit
+//   keys), a few dozen integer operations: bound by bytes. One thread per
+//   point, coalesced.
 // - Topology: the TPU kernel is one serial monotonic-stack sweep on the
 //   scalar core. Here every gap g finds, in parallel, L[g] = the nearest
 //   j < g with D[j] <= D[g] and R[g] = the nearest j > g with D[j] < D[g]
@@ -70,6 +72,37 @@ extern "C" int tpurt_morton_codes_launch(const float* unit, int n, int* codes,
                                          cudaStream_t stream) {
   if (n > 0) {
     morton_codes_kernel<<<(n + 255) / 256, 256, 0, stream>>>(unit, n, codes);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 60-bit keys: each coordinate on the 2^20 lattice (jnp.clip(u * 2^20, 0,
+// 2^20 - 1), truncated; exact below 2^24), hi the interleave of its top 10
+// bits, lo of its low 10.
+__device__ __forceinline__ int quantize20(float u) {
+  float q = fminf(fmaxf(u * 1048576.0f, 0.0f), 1048575.0f);
+  return static_cast<int>(q);
+}
+
+__global__ void morton_codes60_kernel(const float* __restrict__ unit, int n,
+                                      int* __restrict__ hi,
+                                      int* __restrict__ lo) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int qx = quantize20(unit[3 * i + 0]);
+  int qy = quantize20(unit[3 * i + 1]);
+  int qz = quantize20(unit[3 * i + 2]);
+  hi[i] = (expand_bits_10(qx >> 10) << 2) | (expand_bits_10(qy >> 10) << 1)
+      | expand_bits_10(qz >> 10);
+  lo[i] = (expand_bits_10(qx) << 2) | (expand_bits_10(qy) << 1)
+      | expand_bits_10(qz);
+}
+
+extern "C" int tpurt_morton_codes60_launch(const float* unit, int n, int* hi,
+                                           int* lo, cudaStream_t stream) {
+  if (n > 0) {
+    morton_codes60_kernel<<<(n + 255) / 256, 256, 0, stream>>>(unit, n, hi,
+                                                               lo);
   }
   return static_cast<int>(cudaGetLastError());
 }

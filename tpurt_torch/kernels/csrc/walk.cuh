@@ -6,7 +6,8 @@
 // shadow origin (_biased_hit_origin), the scene-exit cap
 // (_scene_exit_cap), the counter-based generator and the cone and disk
 // samplers of the soft kernels (_uniform01, _sincos_2pi, _lane_axis_onb),
-// and the launch arguments both files take (Params).
+// and the launch arguments both files take (Params). binary.cu's walks
+// over the packed binary tree reuse the leaf tests and Params.
 //
 // One thread walks one ray with its own stack in local memory. Every
 // function evaluates in the order of the plain PyTorch version
@@ -453,7 +454,7 @@ __device__ __forceinline__ float disk_sample(const Disk& b, float u1,
 }
 
 // ---------------------------------------------------------------------------
-// One launch's arguments, for every mode of both kernel files;
+// One launch's arguments, for every mode of the three walk kernel files;
 // tpurt_torch/kernels/traverse.py Params mirrors it field for field (the
 // loader checks the sizes agree).
 // ---------------------------------------------------------------------------

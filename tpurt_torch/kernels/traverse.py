@@ -29,10 +29,18 @@ The unfused frame's kernels:
   ``trace_any_point_soft`` -> ``_any_hit_kernel_w8_psoft``: spp cone or
   disk samples from given biased origins, counts.
 
+Over the packed binary LBVH (``kernels/pack.py``; ``bvh_width=2`` and a
+plain ``build_lbvh`` tree) ``trace_closest`` and ``trace_any`` take the
+binary walks instead:
+
+- ``trace_closest`` -> ``_closest_hit_kernel``: t and the sorted index;
+- ``trace_any`` -> ``_any_hit_kernel``: any hit of given rays.
+
 The first five (both variants), ``trace_closest_attrs`` and
 ``trace_closest`` are modes of one CUDA kernel template
 (``csrc/fused_shadows.cu``), the three shadow-ray kernels modes of another
-(``csrc/shadow_rays.cu``). Each function has three pieces that share one
+(``csrc/shadow_rays.cu``), the two binary walks modes of a third
+(``csrc/binary.cu``). Each function has three pieces that share one
 contract on the packed ray block:
 
 - ``*_cuda``: the hand-written CUDA kernel in its mode, one thread per
@@ -51,7 +59,8 @@ and every shadow walk. A correct frame leaves both at zero;
 counter-based generator of ``sampling.py``.
 
 The layouts at the kernel boundary are the JAX package's: nodes
-f32[Nw,128], leaf rows f32[L,128], attribute rows f32[nblk,128], rays
+f32[Nw,128] (binary: f32[Nr,128], 8 records per row), leaf rows
+f32[L,128], attribute rows f32[nblk,128], rays
 f32[PB,10,8,128] (o, d, clamped 1/d, t_max), soft-shadow origins
 f32[PB,4,8,128] (o, valid flag), the float32 scalar blocks of the JAX
 wrappers, outputs f32[PB,15,8,128] attribute channels (attrs=1) or t
@@ -68,8 +77,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..bvh.lbvh import LBVH
 from ..bvh.wide import WideBVH
 from ._build import _check, _pick
+from .pack import NODE_STRIDE, PackedBVH, pack_bvh
 from .sampling import (lane_axis_onb, onb3, rsqrt, sample_uniforms,
                        sincos_2pi)
 
@@ -82,10 +93,11 @@ LANES = 8 * 128
 STACK_CAPACITY = 256
 
 
-def iter_cap(num_wide: int) -> int:
+def iter_cap(num_nodes: int) -> int:
     """Walk iteration cap: every node is pushed at most once, so a walk
-    that reaches it is corrupted (the JAX package's 2*num_wide+64)."""
-    return 2 * num_wide + 64
+    that reaches it is corrupted (the JAX package's 2*num_wide+64, and
+    ``_iter_cap``'s 2*num_internal+64 for the binary tree)."""
+    return 2 * num_nodes + 64
 
 
 def stack_bound(depth: int) -> int:
@@ -99,6 +111,16 @@ def check_stack_bound(depth: int, capacity: int = STACK_CAPACITY) -> None:
         raise ValueError(
             f"wide BVH depth {depth} needs a per-ray stack of "
             f"{stack_bound(depth)} entries; the kernel has {capacity}")
+
+
+def check_binary_stack_bound(depth: int,
+                             capacity: int = STACK_CAPACITY) -> None:
+    """Raise when a binary tree whose deepest internal node lies at
+    ``depth`` (root = 0) could overflow a per-ray stack of ``capacity``
+    entries: the binary walk needs depth + 1."""
+    if depth + 1 > capacity:
+        raise ValueError(f"binary BVH depth {depth} needs a per-ray stack of "
+                         f"{depth + 1} entries; the kernel has {capacity}")
 
 
 def check_walk_counts(counts: torch.Tensor) -> None:
@@ -236,6 +258,13 @@ def _slab8(rec, o, inv, t_min, cap):
     f32[n, 8, 16], o/inv tuples of f32[n] -> bool[n, 8]. Empty slots have
     inverted boxes that the slab test alone accepts, so it also demands
     bmin.x <= bmax.x."""
+    return _slab(rec, o, inv, t_min, cap) & (rec[:, :, 0] <= rec[:, :, 3])
+
+
+def _slab(rec, o, inv, t_min, cap):
+    """Slab test of c boxes per ray: rec f32[n, c, >=6] holding bmin.xyz,
+    bmax.xyz first -> bool[n, c], hit iff max(lx, ly, lz, t_min) <=
+    min(hx, hy, hz, cap)."""
     lo = None
     hi = None
     for a in range(3):
@@ -249,7 +278,7 @@ def _slab8(rec, o, inv, t_min, cap):
         else:
             enter = torch.maximum(lo, torch.clamp(lo_a, min=t_min))
             exit_ = torch.minimum(hi, torch.minimum(hi_a, cap[:, None]))
-    return (enter <= exit_) & (rec[:, :, 0] <= rec[:, :, 3])
+    return enter <= exit_
 
 
 def _leaf_tris(tris, leaf, k):
@@ -895,6 +924,142 @@ def any_point_soft_reference(rays, nodes, tris, scal, *, leaf_size: int,
 
 
 # ---------------------------------------------------------------------------
+# The binary walks (the packed LBVH of kernels/pack.py)
+# ---------------------------------------------------------------------------
+
+def _binary_pop(w, rows, nodes, stats):
+    """Pop one node per ray of ``rows`` -> (boxes f32[m, 2, 6] left and
+    right, refs i32[m, 2]). Each pop slab-tests both child boxes."""
+    rec = nodes.reshape(-1, NODE_STRIDE)[w.pop(rows)]
+    if stats is not None:
+        _count(stats, "pops", rec.shape[0])
+        _count(stats, "slab_tests", 2 * rec.shape[0])
+    return rec[:, :12].reshape(-1, 2, 6), rec[:, 12:14].to(torch.int32)
+
+
+def _binary_closest_walk(nodes, tris, k, o, d, inv, tmax, t_min, max_iters,
+                         stack_size, stats=None):
+    """Closest hit of n rays over the packed binary tree -> (best_t,
+    best_i, overflow, capped). Pop a node, test both boxes against the
+    running best t, then visit the left child and the right: a leaf is
+    tested at once, an internal child pushed (the right pops first)."""
+    n = tmax.shape[0]
+    dev = tmax.device
+    active0 = tmax > t_min
+    best_t = torch.where(active0, tmax, -_BIG)
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    w = _Walk(n, stack_size, dev)
+    while True:
+        rows = torch.nonzero((w.sp > 0) & (w.it < max_iters))[:, 0]
+        if rows.numel() == 0:
+            break
+        boxes, refs = _binary_pop(w, rows, nodes, stats)
+        cap = torch.where(active0[rows], best_t[rows], -_BIG)
+        hit = _slab(boxes, tuple(c[rows] for c in o),
+                    tuple(c[rows] for c in inv), t_min, cap)
+        for c in range(2):
+            leaf_m = hit[:, c] & (refs[:, c] < 0)
+            if bool(leaf_m.any()):
+                _count(stats, "closest_tris", leaf_m.sum() * k)
+                r = rows[leaf_m]
+                leaf = torch.clamp(-refs[leaf_m, c] - 1, min=0).long()
+                t, _, _ = _leaf_closest_t(_leaf_tris(tris, leaf, k),
+                                          tuple(x[r] for x in o),
+                                          tuple(x[r] for x in d))
+                cand = torch.where(t > t_min, t, float("inf"))
+                j = torch.argmin(cand, dim=1)      # first minimum
+                tj = cand.gather(1, j[:, None])[:, 0]
+                better = (tj < best_t[r]) & active0[r]
+                best_t[r[better]] = tj[better]
+                best_i[r[better]] = (leaf * k + j)[better].to(torch.int32)
+            push_m = hit[:, c] & (refs[:, c] >= 0)
+            if bool(push_m.any()):
+                w.push(rows[push_m], refs[push_m, c])
+        w.it[rows] += 1
+    capped = ((w.sp > 0).sum()).to(torch.int32)
+    return best_t, best_i, w.overflow, capped
+
+
+def _binary_anyhit_walk(nodes, tris, k, o, d, inv, tmax, t_min, max_iters,
+                        stack_size, stats=None):
+    """Any hit in (t_min, tmax) of n rays over the packed binary tree ->
+    (occluded, overflow, capped). The walk stops at the first occluder,
+    the right child unvisited if the left leaf occludes."""
+    n = tmax.shape[0]
+    dev = tmax.device
+    active0 = tmax > t_min
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    w = _Walk(n, stack_size, dev)
+    while True:
+        rows = torch.nonzero((w.sp > 0) & (w.it < max_iters) & ~occ)[:, 0]
+        if rows.numel() == 0:
+            break
+        boxes, refs = _binary_pop(w, rows, nodes, stats)
+        cap = torch.where(active0[rows], tmax[rows], -_BIG)
+        hit = _slab(boxes, tuple(c[rows] for c in o),
+                    tuple(c[rows] for c in inv), t_min, cap)
+        done = torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
+        for c in range(2):
+            leaf_m = hit[:, c] & (refs[:, c] < 0) & ~done
+            if bool(leaf_m.any()):
+                r = rows[leaf_m]
+                leaf = torch.clamp(-refs[leaf_m, c] - 1, min=0).long()
+                ok = _leaf_occluders(_leaf_tris(tris, leaf, k),
+                                     tuple(x[r] for x in o),
+                                     tuple(x[r] for x in d), t_min, tmax[r])
+                h = ok.any(dim=1)
+                if stats is not None:
+                    first = ok.to(torch.int32).argmax(dim=1) + 1
+                    _count(stats, "anyhit_tris",
+                           torch.where(h, first, k).sum())
+                    _count(stats, "anyhit_leaf_tris", leaf_m.sum() * k)
+                occ[r] = h
+                done[leaf_m] = h
+            push_m = hit[:, c] & (refs[:, c] >= 0) & ~done
+            if bool(push_m.any()):
+                w.push(rows[push_m], refs[push_m, c])
+        w.it[rows] += 1
+    capped = ((w.sp > 0) & ~occ).sum().to(torch.int32)
+    return occ, w.overflow, capped
+
+
+def _binary_rays(rays):
+    c = _components(rays)
+    return (c[0], c[1], c[2]), (c[3], c[4], c[5]), (c[6], c[7], c[8]), c[9]
+
+
+def binary_closest_reference(rays, nodes, tris, *, leaf_size: int,
+                             t_min: float, max_iters: int, stack_size: int,
+                             stats=None):
+    """Plain version of ``_closest_hit_kernel`` (mode BIN_CLOSEST): the
+    closest hit in (t_min, t_max) of each ray of the f32[PB,10,8,128]
+    block over the packed binary tree (nodes f32[Nr,128], leaf rows
+    f32[L,128]); a ray with t_max <= t_min is inactive. -> (t
+    f32[PB,8,128], BIG on a miss; sorted index i32[PB,8,128], -1 on a
+    miss; counts i32[2])."""
+    o, d, inv, tmax = _binary_rays(rays)
+    best_t, best_i, ovf, cap = _binary_closest_walk(
+        nodes, tris, leaf_size, o, d, inv, tmax, t_min, max_iters,
+        stack_size, stats)
+    t_out = torch.where(best_i >= 0, best_t, _BIG)
+    return (t_out.reshape(-1, 8, 128), best_i.reshape(-1, 8, 128),
+            torch.stack([ovf, cap]).to(torch.int32))
+
+
+def binary_any_reference(rays, nodes, tris, *, leaf_size: int, t_min: float,
+                         max_iters: int, stack_size: int, stats=None):
+    """Plain version of ``_any_hit_kernel`` (mode BIN_ANY): any hit in
+    (t_min, t_max) of each ray of the f32[PB,10,8,128] block over the
+    packed binary tree. -> (occ i32[PB,8,128], counts i32[2])."""
+    o, d, inv, tmax = _binary_rays(rays)
+    occ, ovf, cap = _binary_anyhit_walk(nodes, tris, leaf_size, o, d, inv,
+                                        tmax, t_min, max_iters, stack_size,
+                                        stats)
+    return (occ.to(torch.int32).reshape(-1, 8, 128),
+            torch.stack([ovf, cap]).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -916,8 +1081,11 @@ class Params(ctypes.Structure):
 # alone or with shadows) and csrc/shadow_rays.cu ``Mode`` (shadow rays).
 HARD, MULTI, SOFT, PSOFT, SOFT_MULTI, CLOSEST, NEAREST = range(7)
 ANY, ANY_SOFT, ANY_PSOFT = range(3)
+# csrc/binary.cu ``Mode``: the walks over the packed binary tree.
+BIN_CLOSEST, BIN_ANY = range(2)
 _FUSED = "tpurt_fused_shadows_launch"
 _SHADOW_RAYS = "tpurt_shadow_rays_launch"
+_BINARY = "tpurt_binary_launch"
 
 
 def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
@@ -1166,6 +1334,32 @@ def any_point_soft_cuda(rays, nodes, tris, scal, *, leaf_size: int,
     return res
 
 
+def _check_records(nodes) -> None:
+    """The binary kernels read a node record as four 16-byte loads."""
+    if nodes.data_ptr() % 16:
+        raise ValueError("binary node rows are not 16-byte aligned")
+
+
+def binary_closest_cuda(rays, nodes, tris, **walk):
+    """Mode BIN_CLOSEST of csrc/binary.cu: the closest hit over the packed
+    binary tree, t and the sorted index."""
+    _check_records(nodes)
+    res = _launch(_BINARY, BIN_CLOSEST, (), rays, nodes, tris, None,
+                  ray_comps=10, attrs=None, closest=True, scal_len=0, **walk)
+    binary_closest_cuda.launches += 1
+    return res
+
+
+def binary_any_cuda(rays, nodes, tris, **walk):
+    """Mode BIN_ANY of csrc/binary.cu: any hit over the packed binary
+    tree."""
+    _check_records(nodes)
+    res = _launch(_BINARY, BIN_ANY, ("mask_out",), rays, nodes, tris, None,
+                  ray_comps=10, attrs=None, scal_len=0, **walk)
+    binary_any_cuda.launches += 1
+    return res
+
+
 CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
                 closest_soft_shadow_cuda, closest_point_soft_shadow_cuda,
                 closest_soft_multi_shadow_cuda, closest_attrs_cuda, any_cuda,
@@ -1173,7 +1367,8 @@ CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
                 closest_shadow_st_cuda, closest_multi_shadow_st_cuda,
                 closest_soft_shadow_st_cuda,
                 closest_point_soft_shadow_st_cuda,
-                closest_soft_multi_shadow_st_cuda)
+                closest_soft_multi_shadow_st_cuda, binary_closest_cuda,
+                binary_any_cuda)
 for _fn in CUDA_KERNELS:
     _fn.launches = 0
 
@@ -1340,6 +1535,37 @@ def any_inputs(bvh: WideBVH, origins, dirs, t_max, t_min: float = 0.0,
     rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
     args = (rays, bvh.nodes, bvh.tris)
     return args, _walk_kwargs(bvh, t_min, stack_size), p, meta
+
+
+def as_packed(bvh):
+    """The accel a tracer walks: an LBVH is packed (``tpurt``'s
+    ``_as_packed``, per call); a PackedBVH or a WideBVH is taken as it
+    is."""
+    return pack_bvh(bvh) if isinstance(bvh, LBVH) else bvh
+
+
+def is_binary(bvh) -> bool:
+    """Does the accel go through the binary walks?"""
+    return isinstance(bvh, (LBVH, PackedBVH))
+
+
+def binary_closest_inputs(bvh, origins, dirs, t_max=_BIG, t_min: float = 0.0,
+                          stack_size: int = STACK_CAPACITY):
+    """Inputs of ``binary_closest_cuda`` / ``binary_closest_reference`` on
+    an LBVH (packed here) or a PackedBVH: rays (H, W, 3) or (N, 3), t_max
+    a scalar or per ray -> (args, kwargs, p, meta). The ray block's
+    clamped 1/d is the binary kernels' in-kernel ``_inv3``, bit for
+    bit."""
+    packed = as_packed(bvh)
+    rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
+    kwargs = dict(leaf_size=packed.leaf_size, t_min=float(t_min),
+                  max_iters=iter_cap(packed.num_internal),
+                  stack_size=stack_size)
+    return (rays, packed.nodes, packed.tris), kwargs, p, meta
+
+
+# The any-hit walk takes the same block and tree.
+binary_any_inputs = binary_closest_inputs
 
 
 def _soft_inputs(bvh, origins, valid, scal_fn, spp, seed, light, t_min,
@@ -1518,22 +1744,31 @@ def trace_closest_attrs(bvh: WideBVH, origins, dirs, attr_tables,
     return _attr_channels(out, p, meta), counts
 
 
-def trace_closest(bvh: WideBVH, origins, dirs, t_max=_BIG,
+def trace_closest(bvh, origins, dirs, t_max=_BIG,
                   t_min: float = 0.0, return_sorted: bool = False,
                   gather_tri_id: bool = True,
                   stack_size: int = STACK_CAPACITY):
     """Closest hit (ONE kernel launch), ``tpurt``'s
-    ``trace_closest_pallas``: origins/dirs (H, W, 3) or (N, 3), t_max a
-    scalar or per ray. Returns (t, tri_id, walk counts) with misses (inf,
+    ``trace_closest_pallas``: over a WideBVH the plain closest hit (mode
+    NEAREST), over an LBVH (packed per call) or a PackedBVH the binary
+    walk (BIN_CLOSEST). origins/dirs (H, W, 3) or (N, 3), t_max a scalar
+    or per ray. Returns (t, tri_id, walk counts) with misses (inf,
     -1); ``return_sorted`` adds the sorted hit index, the key of the shade
     table: (t, tri_id, sidx, walk counts); ``gather_tri_id=False`` (with
     ``return_sorted``) leaves tri_id to the table's id lane: (t, None,
     sidx, walk counts)."""
     if not (gather_tri_id or return_sorted):
         raise ValueError("gather_tri_id=False requires return_sorted")
-    fn = _pick(origins.device, closest_cuda, closest_reference)
-    args, kwargs, p, meta = closest_inputs(bvh, origins, dirs, t_max, t_min,
-                                           stack_size)
+    if is_binary(bvh):
+        bvh = as_packed(bvh)
+        fn = _pick(origins.device, binary_closest_cuda,
+                   binary_closest_reference)
+        inputs_fn = binary_closest_inputs
+    else:
+        fn = _pick(origins.device, closest_cuda, closest_reference)
+        inputs_fn = closest_inputs
+    args, kwargs, p, meta = inputs_fn(bvh, origins, dirs, t_max, t_min,
+                                      stack_size)
     (t, sidx), (counts,) = _hit_outputs(fn(*args, **kwargs), p, meta, False)
     if not gather_tri_id:
         return t, None, sidx, counts
@@ -1544,15 +1779,21 @@ def trace_closest(bvh: WideBVH, origins, dirs, t_max=_BIG,
         else (t, tri_id, counts)
 
 
-def trace_any(bvh: WideBVH, origins, dirs, t_max, t_min: float = 0.0,
+def trace_any(bvh, origins, dirs, t_max, t_min: float = 0.0,
               stack_size: int = STACK_CAPACITY):
-    """Occlusion query (ONE kernel launch): True where something lies in
+    """Occlusion query (ONE kernel launch; mode ANY over a WideBVH,
+    BIN_ANY over an LBVH or a PackedBVH): True where something lies in
     (t_min, t_max); rays with t_max <= t_min are inactive and return
     False. origins/dirs (H, W, 3) or (N, 3). Returns (occluded bool[H, W]
     or [N], walk counts i32[2])."""
-    fn = _pick(origins.device, any_cuda, any_reference)
-    args, kwargs, p, meta = any_inputs(bvh, origins, dirs, t_max, t_min,
-                                       stack_size)
+    if is_binary(bvh):
+        fn = _pick(origins.device, binary_any_cuda, binary_any_reference)
+        inputs_fn = binary_any_inputs
+    else:
+        fn = _pick(origins.device, any_cuda, any_reference)
+        inputs_fn = any_inputs
+    args, kwargs, p, meta = inputs_fn(bvh, origins, dirs, t_max, t_min,
+                                      stack_size)
     occ, counts = fn(*args, **kwargs)
     return _unpack(occ[:p], meta) > 0, counts
 

@@ -3,10 +3,12 @@ attribute-tracked ray cast (``gbuffer_attr_pass``,
 ``gbuf_from_attr_channels``), where the closest-hit kernel returns the
 winner's attribute channels; the shade-table ray cast (``gbuffer_pass``,
 ``gbuf_from_table``), where the kernel returns t and the sorted hit index
-and ONE row gather per pixel reads the packed shade table; and the raster
-G-buffer (``gbuffer_raster_pass``), where the tile rasterizer's z-fight
-selects the attributes. Apart from the shade table's gather, the decode
-is elementwise tensor code."""
+and ONE row gather per pixel reads the packed shade table; the ray cast
+without a table (``gbuffer_pass`` with none, ``shade_attributes``: t and
+tri_id, then gathers of the mesh by tri_id); and the raster G-buffer
+(``gbuffer_raster_pass``), where the tile rasterizer's z-fight selects the
+attributes. Apart from the gathers, the decode is elementwise tensor
+code."""
 
 from __future__ import annotations
 
@@ -14,14 +16,14 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..camera import (as_f32, camera_basis, generate_rays, normalize,
-                      view_depth)
+from ..camera import (_cross, as_f32, camera_basis, generate_rays,
+                      normalize, view_depth)
 from ..kernels.raster import rasterize_rows
 from ..kernels.traverse import trace_closest_attrs
 from ..raster.setup import bin_rows, default_cap_rows
 from ..types import Camera, Mesh
-from .shading import (gather_table_rows, oct_decode, shade_from_table,
-                      table_tri_id, unpack_rgb)
+from .shading import (barycentrics_from_position, gather_table_rows,
+                      oct_decode, shade_from_table, table_tri_id, unpack_rgb)
 
 
 def gbuffer_attr_pass(bvh, attr_tables, mesh: Mesh, cam: Camera,
@@ -44,23 +46,72 @@ def _viewer_facing(gnormal, dirs) -> torch.Tensor:
     return torch.where(facing == 0, 1.0, facing)
 
 
+def shade_attributes(mesh: Mesh, tri_id: torch.Tensor,
+                     position: torch.Tensor, valid: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+    """Interpolated vertex attributes at hit points, by gathers of the mesh
+    (``mesh`` on the device, ``Mesh.on``): barycentrics from the hit
+    position against the hit triangle, the smooth normal at them, the
+    geometric normal e1 x e2 and the triangle's albedo; zero off the valid
+    mask."""
+    tid = torch.clamp(tri_id, min=0).long()
+    tri = mesh.indices.long()[tid]                           # [..., 3]
+    v0 = mesh.vertices[tri[..., 0]]
+    e1 = mesh.vertices[tri[..., 1]] - v0
+    e2 = mesh.vertices[tri[..., 2]] - v0
+    u, v = barycentrics_from_position(v0, e1, e2, position)
+    n0 = mesh.normals[tri[..., 0]]
+    n1 = mesh.normals[tri[..., 1]]
+    n2 = mesh.normals[tri[..., 2]]
+    smooth = normalize(n0 + u[..., None] * (n1 - n0)
+                       + v[..., None] * (n2 - n0))
+    gnormal = normalize(_cross(e1, e2))
+    albedo = mesh.albedo[tid]
+    zeros = torch.zeros_like(smooth)
+    vmask = valid[..., None]
+    return {
+        "normal": torch.where(vmask, smooth, zeros),
+        "gnormal": torch.where(vmask, gnormal, zeros),
+        "albedo": torch.where(vmask, albedo, zeros),
+    }
+
+
 def gbuffer_pass(trace_closest: Callable, mesh: Mesh, cam: Camera,
                  width: int, height: int, shade_table=None, rays=None):
-    """The ray-cast G-buffer through the packed shade table
-    (``tpurt``'s ``gbuffer_pass`` with a table): camera rays (or the given
-    (origins, dirs)) -> ``trace_closest(origins, dirs)``, which returns
-    (t, tri_id or None, sidx, walk counts) -> ``gbuf_from_table``. Returns
-    (G-buffer, walk counts)."""
-    if shade_table is None:
-        raise NotImplementedError(
-            "the G-buffer without a shade table (shade_attributes, the "
-            "portable and chunked paths) is not ported")
+    """The ray-cast G-buffer (``tpurt``'s ``gbuffer_pass``): camera rays
+    (or the given (origins, dirs)) -> ``trace_closest(origins, dirs)``.
+    With the packed shade table the tracer returns (t, tri_id or None,
+    sidx, walk counts) -> ``gbuf_from_table``; without one it returns (t,
+    tri_id, walk counts) and the attributes come from
+    ``shade_attributes`` on ``mesh`` (on the device). Returns (G-buffer,
+    walk counts)."""
     if rays is None:
-        rays = generate_rays(cam, width, height, shade_table.device)
+        dev = (shade_table if shade_table is not None
+               else mesh.vertices).device
+        rays = generate_rays(cam, width, height, dev)
     origins, dirs = rays
-    t, tri_id, sidx, counts = trace_closest(origins, dirs)
-    return gbuf_from_table(t, tri_id, sidx, origins, dirs, cam, mesh,
-                           shade_table), counts
+    if shade_table is not None:
+        t, tri_id, sidx, counts = trace_closest(origins, dirs)
+        return gbuf_from_table(t, tri_id, sidx, origins, dirs, cam, mesh,
+                               shade_table), counts
+    if mesh.textured:
+        raise NotImplementedError("textured G-buffer decode is not ported")
+    t, tri_id, counts = trace_closest(origins, dirs)
+    valid = tri_id >= 0
+    position = origins + dirs * torch.where(valid, t, 0.0)[..., None]
+    attrs = shade_attributes(mesh, tri_id, position, valid)
+    flip = _viewer_facing(attrs["gnormal"], dirs)
+    return {
+        "position": position,
+        "normal": attrs["normal"] * flip,
+        "gnormal": attrs["gnormal"] * flip,
+        "albedo": attrs["albedo"],
+        "depth": view_depth(cam, position, valid),
+        "t": t,
+        "tri_id": tri_id,
+        "valid": valid,
+        "view_dir": dirs,
+    }, counts
 
 
 def gbuf_from_table(t, tri_id, sidx, origins, dirs, cam: Camera, mesh: Mesh,

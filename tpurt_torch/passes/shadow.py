@@ -6,9 +6,13 @@ A hard light (directional at any spp; point or cone at spp 1) builds one
 ray per pixel with ``shadow_ray_batch`` and traces it with the any-hit
 kernel. A cone or point light at spp > 1 hands the biased origins to the
 in-kernel samplers (``kernels/traverse.trace_any_soft`` and
-``trace_any_point_soft``), keyed by (frame seed, light index). ``tpurt``'s
-scan over ``jax.random`` samples needs the portable traversal, which is
-not ported: without a soft tracer a soft light raises.
+``trace_any_point_soft``), keyed by (frame seed, light index). Where the
+caller has no such sampler (the binary accel: ``tpurt`` gives its soft
+tracers to the 8-wide accel alone), the pass loops over the samples as
+``tpurt``'s scan does: per sample one jittered ray per pixel and one
+any-hit launch. Its uniforms come from the port's Philox generator
+(``kernels/sampling.sample_uniforms``), keyed by (frame seed, light index)
+and counted by (pixel index, sample), in place of ``jax.random``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from ..camera import as_f32, normalize
+from ..kernels.sampling import sample_uniforms
 from ..types import LIGHT_AREA_CONE, LIGHT_POINT, Light
 
 _BIG = 3.4e38
@@ -131,7 +136,9 @@ def shadow_pass(trace_any: Callable, gbuf: Dict[str, torch.Tensor],
     trace_soft(origins, valid, axis_dir, cone_cos, spp, seed, light) and
     trace_soft_point(origins, valid, light_pos, radius, spp, seed, light)
     -> (counts in [0, spp], walk counts): the in-kernel samplers for cone
-    and point lights at spp > 1, keyed by (seed, light_index)."""
+    and point lights at spp > 1, keyed by (seed, light_index). Without
+    the one a soft light needs, spp any-hit launches of jittered rays
+    (``_scan_samples``)."""
     valid = gbuf["valid"]
     soft = light.kind in (LIGHT_AREA_CONE, LIGHT_POINT) and spp > 1
     if not soft:
@@ -149,9 +156,30 @@ def shadow_pass(trace_any: Callable, gbuf: Dict[str, torch.Tensor],
                                        float(light.radius), spp, seed,
                                        light_index)
     else:
-        raise NotImplementedError(
-            "soft shadows without an in-kernel sampler (tpurt's scan over "
-            "jax.random samples through the portable traversal) are not "
-            "ported")
+        return _scan_samples(trace_any, gbuf, light, spp, seed, light_index,
+                             bias, scene_bounds)
     vis = 1.0 - cnt.to(torch.float32) / spp
     return torch.where(valid, vis, 1.0), counts
+
+
+def _scan_samples(trace_any: Callable, gbuf, light: Light, spp: int,
+                  seed: int, light_index: int, bias: float, scene_bounds):
+    """``tpurt``'s scan over samples: for each sample s the whole frame's
+    uniforms (u1, u2 of the pixel's row-major index and s, keyed by (seed,
+    light_index)), one jittered shadow ray per pixel and one any-hit
+    launch; visibility = the lit samples / spp. -> (visibility, walk
+    counts summed over the samples)."""
+    valid = gbuf["valid"]
+    h, w = valid.shape
+    pix = torch.arange(h * w, dtype=torch.int64,
+                       device=valid.device).reshape(h, w)
+    acc = torch.zeros((h, w), dtype=torch.float32, device=valid.device)
+    counts = torch.zeros(2, dtype=torch.int32, device=valid.device)
+    for s in range(spp):
+        u = torch.stack(sample_uniforms(seed, light_index, pix, s), dim=-1)
+        origins, dirs, t_max = shadow_ray_batch(gbuf, light, bias, u,
+                                                scene_bounds=scene_bounds)
+        occluded, c = trace_any(origins, dirs, t_max)
+        acc = acc + torch.where(occluded, 0.0, 1.0)
+        counts = counts + c
+    return torch.where(valid, acc / spp, 1.0), counts
