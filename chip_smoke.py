@@ -134,7 +134,37 @@ Phases, in order; any failure raises and the exit code is not 0:
     plain versions (equal), and tpurt's compile-check route (teapot 2000,
     256x256, leaf 8, a plain LBVH and no tables) on a 30-bit and a 60-bit
     tree.
-13. Timings on one JSON line, then the kernel table on one JSON line, the
+13. Textured scenes (attrs=2): the hall written as an OBJ (v, vt per
+    corner from a box projection of world position, vn), an MTL of 25
+    materials, 20 of them with a 1024^2 procedural diffuse map (PNG) and
+    5 flat, loaded through tpurt_torch.io.obj.load_obj with the native
+    parser (timed). Through Renderer(device="cuda") at 1920x1080: the
+    fused frame (HARD attrs=2, six frames, bit-identical, coverage against
+    phase 4's untextured twin, the two in turns, the stage split with the
+    texture pass as a stage), the unfused frame (CLOSEST attrs=2 + any),
+    config 5's three lights (MULTI), the 2 deg sun (SOFT), the lamp
+    (PSOFT) and the sun with two fills (SOFT_MULTI), two frames each, with
+    every launch counted and each attrs=2 kernel against its plain
+    version on every 8th row and on the whole frame (t, attributes, uv
+    within 1e-6, layer equal); the shade-table and binary frames of the
+    textured hall against the fused one (the raster bounds), and the
+    raster frame too, there on the pixels where both look up the same
+    texels (the raster G-buffer's positions from 1/w are off the ray's
+    hits, which a texture shows; the rest is reported); and
+    config 2 on it: no host sync in a rebuild, the rebuilt accel and
+    textured attribute rows equal to the plain versions', six frames
+    against the static textured one (at most 1e-3 of valid pixels off by
+    more than 1e-3).
+14. Config 2 with rebuild_collapse="fixed": the topology's depth output
+    (topology_depth_cuda) against its plain version on config 2's
+    clustered deltas and on 30k leaves of 64 codes (equal), timed with
+    the topology alone beside it; no host sync in a rebuild; the rebuilt
+    accel equal to the plain versions'; six frames, bit-identical, one
+    launch of each kernel, the image against phase 9's area rebuild (at
+    most 1e-3 of valid pixels off by more than 1e-3), the wide depth
+    against the fixed cut's bound (32), closest_shadow on the fixed cut's
+    tree against its plain version.
+15. Timings on one JSON line, then the kernel table on one JSON line, the
     card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Tolerances of the walk kernels' checks against their plain versions:
@@ -160,9 +190,10 @@ compares. Ray set-up, sampling and integer work are not counted. The
 build kernels' operations (integer ones counted at the float32 rate): 52
 per Morton code, 104 per 60-bit key; per topology node one sparse-table
 min per level, two compares per level of the two searches and 10 to
-place it; per expanded wide node 190 for the six greedy steps and the
-emission. The rasterizer: bytes of the pair rows its tiles read, the big
-rows every tile reads, the run offsets and the 13 output planes;
+place it, and for the depth output 2 per step up the parent pointers
+(the sum of the depths); per expanded wide node 190 for the six greedy
+steps and the emission. The rasterizer: bytes of the pair rows its tiles
+read, the big rows every tile reads, the run offsets and the 13 output planes;
 operations counted by the plain version on the same bins, 30 per
 (record, pixel) test and 29 more where the record takes the pixel.
 """
@@ -211,6 +242,12 @@ KERNELS = {
     "closest_soft_multi_shadow_st": ("fused_shadows.cu", 1622),
     "binary_closest": ("binary.cu", 287),
     "binary_any": ("binary.cu", 222),
+    "closest_shadow_tex": ("fused_shadows.cu", 1450),
+    "closest_multi_shadow_tex": ("fused_shadows.cu", 1538),
+    "closest_soft_shadow_tex": ("fused_shadows.cu", 1032),
+    "closest_point_soft_shadow_tex": ("fused_shadows.cu", 1117),
+    "closest_soft_multi_shadow_tex": ("fused_shadows.cu", 1622),
+    "closest_attrs_tex": ("fused_shadows.cu", 1429),
 }
 # The attrs=0 variants of the fused modes (no attribute rows; t and the
 # sorted index out) and the plain closest hit: the shade-table G-buffer's.
@@ -218,6 +255,12 @@ SHADE_TABLE_KERNELS = ("closest", "closest_shadow_st",
                        "closest_multi_shadow_st", "closest_soft_shadow_st",
                        "closest_point_soft_shadow_st",
                        "closest_soft_multi_shadow_st")
+# The attrs=2 variants (textured meshes): the attribute kernels' walk with
+# the winner's interpolated uv (channels 4-5) and layer (channel 7).
+TEXTURED_KERNELS = ("closest_shadow_tex", "closest_multi_shadow_tex",
+                    "closest_soft_shadow_tex",
+                    "closest_point_soft_shadow_tex",
+                    "closest_soft_multi_shadow_tex", "closest_attrs_tex")
 # The kernels that take given shadow rays or origins, no camera rays.
 SHADOW_RAYS = ("any", "any_soft", "any_point_soft")
 
@@ -333,6 +376,8 @@ def compare(kres, pres, what: str, outputs) -> dict:
     if attr_err > 1e-6:
         raise RuntimeError(f"{what}: attribute channels differ by "
                            f"{attr_err}")
+    if not torch.equal(ko[:, 7][same], po[:, 7][same]):
+        raise RuntimeError(f"{what}: texture layers differ")
     shares, mism = output_shares(outputs, kres[1:-1], pres[1:-1], valid,
                                  what)
     max_abs = max(float((kt - pt).abs().max()), attr_err)
@@ -461,9 +506,18 @@ def bound(stats: dict, args, res, binary: bool = False) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def variant_stem(name: str) -> str:
+    """A kernel's mode without its attrs=0 (_st) or attrs=2 (_tex)
+    suffix."""
+    for suffix in ("_st", "_tex"):
+        if name.endswith(suffix):
+            return name[:-len(suffix)]
+    return name
+
+
 def outputs_of(name, kw):
     """The kernel's i32 outputs for ``compare``."""
-    name = name[:-len("_st")] if name.endswith("_st") else name
+    name = variant_stem(name)
     if name == "closest_shadow":
         return [("bits", 1)]
     if name == "closest_multi_shadow":
@@ -513,12 +567,14 @@ def time_pair(name, args, kw, reps: int = 10, tri_id=None) -> dict:
 
 def inputs(name, acc, attr_tables, o, d, **spec):
     """The kernel's arguments for these rays, as the frame packs them (the
-    attrs=0 variants and the plain closest hit take no tables)."""
+    attrs=0 variants and the plain closest hit take no tables; the attrs=2
+    variants take the attrs=1 inputs)."""
     import tpurt_torch.kernels.traverse as tr
     if name == "closest":
         return tr.closest_inputs(acc, o, d, **spec)[:2]
     if name.endswith("_st"):
-        name, attr_tables = name[:-len("_st")], None
+        attr_tables = None
+    name = variant_stem(name)
     args, kw, _, _ = getattr(tr, f"{name}_inputs")(
         acc, o, d, bias=BIAS, attr_tables=attr_tables, **spec)
     return args, kw
@@ -983,7 +1039,7 @@ def unfused_inputs(name, r, light_index: int, step: int):
 
     def rows(x):
         return x[::step].contiguous()
-    if name == "closest_attrs":
+    if name in ("closest_attrs", "closest_attrs_tex"):
         o, d = generate_rays(r.camera, cfg.width, cfg.height, r.device)
         return tr.closest_attrs_inputs(_gb_accel(r.accel, r.camera, cfg),
                                        rows(o), rows(d), r.attr_tables)[:2]
@@ -1150,17 +1206,20 @@ def phase_unfused(dev, mesh, fused_config1_image) -> dict:
 
 BUILD_TPU = "tpurt/kernels/build.py:"
 BUILD_KERNEL_LINES = {"morton_codes": 353, "topology": 265,
-                      "collapse_area": 742}
+                      "collapse_area": 742, "topology_depth": 265}
 OPS_PER_CODE = 52
 OPS_PER_TOPOLOGY_PLACE = 10
 OPS_PER_WIDE_NODE = 190
+# The depth output: per step up the parent pointers a compare and an add.
+OPS_PER_DEPTH_STEP = 2
 
 
 class plain_build_kernels:
     """Within the block the build wrappers take their plain versions on
     CUDA tensors too (the twin of a rebuild made with the kernels)."""
 
-    NAMES = ("morton_codes", "topology", "collapse_area", "morton_codes60")
+    NAMES = ("morton_codes", "topology", "collapse_area", "morton_codes60",
+             "topology_depth")
 
     def __enter__(self):
         import tpurt_torch.kernels.build as b
@@ -1481,6 +1540,7 @@ def phase_config2(dev, mesh, static_image) -> dict:
     res["animated"]["forced_overflow"] = dict(
         pad=count // 2, new_pad=r._nw_pad, frame_host_ms=ms)
     log(f"phase 9 animated: {json.dumps(res['animated'])}")
+    res["image"], res["valid"] = kept[0]["image"], valid
     return res
 
 
@@ -2351,6 +2411,416 @@ def phase_morton60(dev, mesh) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: textured scenes (attrs=2)
+# ---------------------------------------------------------------------------
+
+# The hall's materials, as Crytek Sponza's: 25, of which 20 carry a diffuse
+# map (procedural content, 1024^2 PNG) and 5 a flat Kd. uv is a box
+# projection of world position in scene units (the triangle's dominant
+# normal axis dropped), so it runs far outside [0, 1) and REPEAT wraps.
+HALL_MATERIALS = 25
+HALL_MAPS = 20
+MAP_RES = 1024
+UV_PER_UNIT = 0.5
+
+
+def write_textured_hall(mesh, root: str) -> dict:
+    """The hall as an OBJ (v, vt per triangle corner, vn; faces grouped by
+    material) with its MTL and diffuse maps under ``root``. Harness code:
+    the scene a user would load, written here because the repo carries
+    no assets."""
+    import os
+    from tpurt_torch.io.image import write_png
+    v = np.asarray(mesh.vertices, np.float32)
+    nrm = np.asarray(mesh.normals, np.float32)
+    idx = np.asarray(mesh.indices, np.int64)
+    p = v[idx]                                              # [T, 3, 3]
+    fn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    keep = np.array([[1, 2], [0, 2], [0, 1]])[np.abs(fn).argmax(1)]
+    uv = np.take_along_axis(p, keep[:, None, :].repeat(3, 1), axis=2)
+    uv = (uv * UV_PER_UNIT).astype(np.float32)              # [T, 3, 2]
+    cell = np.floor(p.mean(1) / 3.0).astype(np.int64)
+    mat = (cell[:, 0] * 73856093 ^ cell[:, 1] * 19349663
+           ^ cell[:, 2] * 83492791) % HALL_MATERIALS
+    t0 = time.perf_counter()
+    yy, xx = np.mgrid[0:MAP_RES, 0:MAP_RES].astype(np.float32) / MAP_RES
+    with open(os.path.join(root, "hall.mtl"), "w") as f:
+        for m in range(HALL_MATERIALS):
+            f.write(f"newmtl m{m:02d}\nKd 0.7 0.7 0.7\n")
+            if m < HALL_MAPS:
+                f.write(f"map_Kd m{m:02d}.png\n")
+                k = 2.0 + m
+                img = np.stack([0.5 + 0.5 * np.sin(2 * np.pi * k * xx),
+                                0.5 + 0.5 * np.sin(2 * np.pi * (k + 1) * yy),
+                                0.5 + 0.5 * np.cos(2 * np.pi * k * (xx + yy))
+                                ], -1)
+                write_png(os.path.join(root, f"m{m:02d}.png"),
+                          (img * 255 + 0.5).astype(np.uint8))
+    maps_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    order = np.argsort(mat, kind="stable")
+    t = idx.shape[0]
+    with open(os.path.join(root, "hall.obj"), "w") as f:
+        f.write("mtllib hall.mtl\n")
+        np.savetxt(f, v, fmt="v %.9g %.9g %.9g")
+        np.savetxt(f, nrm, fmt="vn %.9g %.9g %.9g")
+        np.savetxt(f, uv.reshape(-1, 2), fmt="vt %.9g %.9g")
+        corner = np.arange(3 * t).reshape(t, 3) + 1
+        faces = np.stack([idx + 1, corner, idx + 1], axis=2).reshape(t, 9)
+        for m in range(HALL_MATERIALS):
+            sel = order[mat[order] == m]
+            f.write(f"usemtl m{m:02d}\n")
+            np.savetxt(f, faces[sel], fmt="f %d/%d/%d %d/%d/%d %d/%d/%d")
+    return dict(path=os.path.join(root, "hall.obj"), maps_s=maps_s,
+                obj_s=time.perf_counter() - t0,
+                obj_mb=os.path.getsize(os.path.join(root, "hall.obj")) / 2**20)
+
+
+def stage_ms_textured(r, trace, frame_ms_mean: float, reps: int = 5) -> dict:
+    """stage_ms of a textured attribute frame plus the texture pass (the
+    atlas sampled at the kernel's uv and layer) as its own stage."""
+    from tpurt_torch.app import _gb_accel
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.passes.gbuffer import gbuf_from_attr_channels
+    from tpurt_torch.passes.texture import apply_textures
+    cfg, cam = r.config, r.camera
+    acc = _gb_accel(r.accel, cam, cfg)
+    o, d = generate_rays(cam, cfg.width, cfg.height, r.device)
+    gbuf = gbuf_from_attr_channels(trace(acc, o, d)[0], o, d, cam, r.mesh)
+    tex_ms = cuda_ms(lambda: apply_textures(r.mesh, gbuf), reps)
+    out = stage_ms(r, trace, frame_ms_mean - tex_ms, reps)
+    out["texture_pass"] = tex_ms
+    return out
+
+
+def raster_texture_against(r, fused) -> dict:
+    """The textured raster frame against the fused ray-cast one. The raster
+    G-buffer reconstructs its positions from 1/w, which moves them off the
+    ray's hit along the view ray (untextured, the raster bounds hold), and a
+    texture turns a position error into an albedo error as large as the
+    texels' contrast. So the raster bounds (coverage off on < 0.2% of
+    pixels, the image off by more than 2e-2 on < 1%) are held where both
+    frames look up the same texels: the same triangle and uv within half
+    a texel of the atlas. The share of pixels where the lookups differ,
+    the image share over every pixel and the depth error are reported."""
+    from tpurt_torch.io.obj import ATLAS_RES
+    from tpurt_torch.passes.texture import interpolate_uv
+    ras = r.render_frame()
+    ray = fused["renderer"].render_frame()
+    both = ras["valid"] & ray["valid"]
+    same_tri = both & (ras["tri_id"] == ray["tri_id"])
+    uv = interpolate_uv(r.mesh, ras["tri_id"], ras["position"])
+    same_texels = same_tri & ((uv - ray["uv"]).abs().amax(-1)
+                              < 0.5 / ATLAS_RES)
+    off = (ras["image"] - ray["image"]).abs().amax(-1) > 2e-2
+    depth_rel = ((ras["depth"] - ray["depth"]).abs()
+                 / ray["depth"].abs())[same_tri].double()
+    npix = off.numel()
+    res = dict(coverage_share=float((ras["valid"] != ray["valid"]).float()
+                                    .mean()),
+               tri_id_equal=float(same_tri.sum()) / int(both.sum()),
+               other_texels_share=float((both & ~same_texels).sum()) / npix,
+               image_share_same_texels=float((off & same_texels).sum())
+               / npix,
+               image_share_all=float(off.float().mean()),
+               depth_rel_err_p50_p99_max=[
+                   float(torch.quantile(depth_rel[:1_000_000], q))
+                   for q in (0.5, 0.99)] + [float(depth_rel.max())])
+    res["ok"] = (res["coverage_share"] < 0.002
+                 and res["tri_id_equal"] >= 0.999
+                 and res["image_share_same_texels"] < 0.01)
+    return res
+
+
+def phase_textured(dev, mesh, c1) -> dict:
+    """The textured hall at 1080p: written as OBJ/MTL/PNG, loaded through
+    the port's loader, then every route that reads a texture; c1: phase
+    4's image, valid mask and Renderer (the untextured twin)."""
+    import tempfile
+    from tpurt_torch.app import Renderer, frame_seed
+    from tpurt_torch.io.obj import load_obj
+    from tpurt_torch.kernels.traverse import trace_closest_shadow
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    cam = sponza_interior_camera()
+    hard = Light.directional(SUN_DIR)
+    sun = Light.sun(SUN_DIR, angular_radius_deg=2.0)
+    fills = config5_lights()[1:]
+    lamp = Light.point(LAMP_POS, radius=LAMP_RADIUS)
+    seed = frame_seed(0, 0)
+    cone = float(np.cos(sun.angular_radius))
+    with tempfile.TemporaryDirectory() as root:
+        files = write_textured_hall(mesh, root)
+        t0 = time.perf_counter()
+        tmesh = load_obj(files["path"], use_native=True)
+        files["load_s"] = time.perf_counter() - t0
+    layers = set(np.unique(np.asarray(tmesh.tri_tex)).tolist())
+    if not (tmesh.textured and tmesh.num_triangles == mesh.num_triangles
+            and tmesh.tex_atlas.shape[0] == HALL_MAPS
+            and layers == set(range(-1, HALL_MAPS))):
+        raise RuntimeError(f"textured hall loaded as {tmesh.num_triangles} "
+                           f"triangles, layers {sorted(layers)}")
+    files.update(vertices=tmesh.num_vertices, triangles=tmesh.num_triangles,
+                 atlas=list(tmesh.tex_atlas.shape))
+    log(f"phase 13 textured hall: {json.dumps(files)}")
+
+    # label: (lights, config fields, route, the attrs=2 kernel and its
+    # spec, launches per frame by kernel, frames)
+    cases = {
+        "fused": ([hard], {}, "fused0", "closest_shadow_tex",
+                  dict(light_dir=hard.direction),
+                  {"closest_shadow_tex": 1}, 6),
+        "unfused": ([hard], dict(fused_shadow=False), "unfused",
+                    "closest_attrs_tex", None,
+                    {"closest_attrs_tex": 1, "any": 1}, 2),
+        "three_lights": (config5_lights(), {}, "fusedN",
+                         "closest_multi_shadow_tex",
+                         dict(lights=[(l.direction, None)
+                                      for l in config5_lights()]),
+                         {"closest_multi_shadow_tex": 1}, 2),
+        "sun": ([sun], dict(spp=SPP), "fused0", "closest_soft_shadow_tex",
+                dict(axis_dir=sun.direction, cone_cos=cone, spp=SPP,
+                     seed=seed), {"closest_soft_shadow_tex": 1}, 2),
+        "lamp": ([lamp], dict(spp=SPP), "fused0",
+                 "closest_point_soft_shadow_tex",
+                 dict(light_pos=lamp.position, radius=LAMP_RADIUS, spp=SPP,
+                      seed=seed), {"closest_point_soft_shadow_tex": 1}, 2),
+        "sun_fills": ([sun] + fills, dict(spp=SPP), "fusedSM",
+                      "closest_soft_multi_shadow_tex",
+                      dict(light0=("cone", sun.direction, cone),
+                           extra_dirs=[l.direction for l in fills], spp=SPP,
+                           seed=seed), {"closest_soft_multi_shadow_tex": 1},
+                      2),
+    }
+    out, kernels, launched = {"scene": files}, {}, {}
+    fused = None
+    for label, (lights, fields, route, name, spec, per_frame, nf) in \
+            cases.items():
+        cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=14,
+                           **fields)
+        r = Renderer(tmesh, cam, lights, cfg, device=dev)
+        if r.route != route or r.attr_tables is None:
+            raise RuntimeError(f"textured {label}: route {r.route}")
+        (kept, frame_ms), n = drive({k: nf * v for k, v in per_frame.items()},
+                                    lambda: frames(r, nf))
+        for f in kept:
+            check_image(f, MAIN_W, MAIN_H, f"textured {label}")
+        valid = kept[0]["valid"]
+        res = dict(route=route, launches=n, frame_ms=frame_ms,
+                   frame_ms_mean=float(np.mean(frame_ms)),
+                   setup=dict(r.stats),
+                   occluded_shares=[float((s[valid] < 1).float().mean())
+                                    for s in kept[0]["shadow"]])
+        if label == "fused":
+            for f in kept[1:]:
+                if not torch.equal(f["image"], kept[0]["image"]):
+                    raise RuntimeError("textured frames are not "
+                                       "bit-identical")
+            fused = dict(image=kept[0]["image"], valid=valid, renderer=r)
+            res["vs_untextured"] = image_against(
+                kept[0]["image"], valid, c1["image"], c1["valid"])
+            if res["vs_untextured"]["coverage_share"] >= 0.002:
+                raise RuntimeError("textured frame: coverage differs from "
+                                   "the untextured one")
+            turns = in_turns(c1["renderer"], r)
+            res["in_turns_ms"] = {"untextured": turns["a"],
+                                  "textured": turns["b"]}
+            res["stages_ms"] = stage_ms_textured(
+                r, lambda acc, o, d: trace_closest_shadow(
+                    acc, o, d, hard.direction, BIAS,
+                    attr_tables=r.attr_tables, textured=True),
+                res["frame_ms_mean"])
+        if spec is None:
+            kernels[name] = vs_plain(name, unfused_inputs(name, r, 0, 1),
+                                     unfused_inputs(name, r, 0, 8),
+                                     f"phase 13 {label} {name}")
+        else:
+            kernels[name] = kernel_vs_plain(name, r, MAIN_W, MAIN_H,
+                                            f"phase 13 {label} {name}",
+                                            **spec)
+        # The attrs=1 twin on the same inputs: what the texture lanes cost.
+        args, kw = unfused_inputs(name, r, 0, 1) if spec is None else \
+            frame_inputs(name, r, MAIN_W, MAIN_H, **spec)[0]
+        twin = kernel(variant_stem(name))[0]
+        before = twin.launches
+        kernels[name]["attrs1_twin_ms"] = cuda_ms(
+            lambda: twin(*args, **kw), 10)
+        twin.launches = before
+        launched[name] = n[name]
+        res["kernel"] = kernels[name]
+        out[label] = res
+        log(f"phase 13 textured {label}: {json.dumps(res)}")
+
+    # The other G-buffers of the textured hall, each against the fused
+    # textured frame within the raster bounds.
+    others = {
+        "shade_table": (dict(inkernel_attrs=False), "static",
+                        {"closest_shadow_st": 1}),
+        "raster": (dict(gbuffer="raster"), "static",
+                   {"rasterize_rows": 1, "any": 1}),
+        "binary": (dict(bvh_width=2, gbuffer="ray"), "static",
+                   {"binary_closest": 1, "binary_any": 1}),
+    }
+    for label, (fields, mode, per_frame) in others.items():
+        cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=14,
+                           **fields)
+        r = Renderer(tmesh, cam, hard, cfg, mode=mode, device=dev)
+        (kept, frame_ms), n = drive({k: 3 * v for k, v in per_frame.items()},
+                                    lambda: frames(r, 3))
+        for f in kept:
+            check_image(f, MAIN_W, MAIN_H, f"textured {label}")
+        against = image_against(kept[0]["image"], kept[0]["valid"],
+                                fused["image"], fused["valid"])
+        if label == "raster":
+            against = raster_texture_against(r, fused)
+        if not against["ok"]:
+            raise RuntimeError(f"textured {label} frame against the fused "
+                               f"one: {against}")
+        out[label] = dict(route=r.route, launches=n, frame_ms=frame_ms,
+                          frame_ms_mean=float(np.mean(frame_ms)),
+                          vs_fused=against, setup=dict(r.stats))
+        log(f"phase 13 textured {label}: {json.dumps(out[label])}")
+
+    # Config 2 on the textured hall: the payload carries the layer and uv.
+    r = Renderer(tmesh, cam, hard, RenderConfig(width=MAIN_W, height=MAIN_H,
+                                                leaf_size=14),
+                 mode="rebuild", device=dev)
+    syncs = host_syncs(r._rebuild)
+    if syncs:
+        raise RuntimeError(f"textured rebuild host syncs: {syncs}")
+    _, kw, kat, _ = r._rebuild()
+    with plain_build_kernels():
+        _, pw, pat, _ = r._rebuild()
+    if not (torch.equal(kw.nodes, pw.nodes) and torch.equal(kat[0], pat[0])
+            and torch.equal(kat[1], pat[1])):
+        raise RuntimeError("textured rebuild: kernels differ from the plain "
+                           "versions")
+    (kept, frame_ms, build_ms), n = drive(
+        {"closest_shadow_tex": 6, "morton_codes": 6, "topology": 6,
+         "collapse_area": 6}, lambda: rebuild_frames(r, 6))
+    check_image(kept[0], MAIN_W, MAIN_H, "textured rebuild")
+    valid = kept[0]["valid"]
+    diff = (kept[0]["image"] - fused["image"]).abs().amax(-1)
+    share = float(((diff > 1e-3) & valid).sum()) / int(valid.sum())
+    if share > 1e-3:
+        raise RuntimeError(f"textured rebuild image differs from the static "
+                           f"one on {share:.2e} of valid pixels")
+    out["rebuild"] = dict(launches=n, frame_ms=frame_ms,
+                          frame_ms_mean=float(np.mean(frame_ms)),
+                          build_ms=build_ms,
+                          build_ms_mean=float(np.mean(build_ms)),
+                          host_syncs=len(syncs), vs_static_share=share,
+                          nw_pad=r._nw_pad)
+    log(f"phase 13 textured rebuild: {json.dumps(out['rebuild'])}")
+    out["kernels"], out["launches"] = kernels, launched
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the rebuild's fixed cut
+# ---------------------------------------------------------------------------
+
+def clustered_deltas(r):
+    """The adjacent deltas of the rebuild's clustered leaf codes, as
+    _rebuild_fused computes them on the Renderer's geometry."""
+    from tpurt_torch.bvh import lbvh as L
+    from tpurt_torch.kernels.build import morton_codes
+    m, k, splits = r.mesh, r.config.leaf_size, r._rebuild_splits
+    tpad = r.bvh.num_sorted_tris
+    _, v0, e1, e2, cen, smin, smax = L._triangle_data(m.vertices, m.indices,
+                                                      tpad)
+    chs, (sv0, se1, se2) = L._sort_payload(morton_codes(cen, smin, smax),
+                                           [v0, e1, e2])
+    split = L._subleaf_split(chs, *L._leaf_boxes(sv0, se1, se2, k)[2:], k,
+                             splits)
+    return L.adjacent_deltas(split[1]).contiguous()
+
+
+def phase_fixed_cut(dev, mesh, area) -> dict:
+    """Config 2 with rebuild_collapse="fixed" at 1080p; area: phase 9's
+    image and valid mask (the area collapse's rebuild)."""
+    import tpurt_torch.kernels.build as B
+    from tpurt_torch.app import FIXED_CUT_DEPTH_BOUND, Renderer
+    from tpurt_torch.bvh.lbvh import adjacent_deltas
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    cam = sponza_interior_camera()
+    light = Light.directional(SUN_DIR)
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=14,
+                       rebuild_collapse="fixed")
+    t0 = time.perf_counter()
+    r = Renderer(mesh, cam, light, cfg, mode="rebuild", device=dev)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    if r.depth > FIXED_CUT_DEPTH_BOUND:
+        raise RuntimeError(f"fixed cut: wide depth {r.depth} past the bound")
+    d = clustered_deltas(r)
+    rng = np.random.default_rng(2)
+    synth = torch.from_numpy(np.sort(rng.choice(
+        rng.integers(0, 1 << 30, 64), 30_000)).astype(np.int32)).to(dev)
+    checks = [build_pair("topology_depth", (d,), "depth, config 2"),
+              build_pair("topology_depth", (adjacent_deltas(synth)
+                                            .contiguous(),),
+                         "depth, 30k leaves of 64 codes")]
+    depth = B.topology_depth_reference(d)[3]
+    ni = int(d.shape[0])
+    levels = max(1, ni.bit_length())
+    steps = int(depth.sum())
+    kp = dict(gaps=ni, max_depth=int(depth.max()), depth_steps=steps,
+              **build_bound(ni * 4 + ni * 8 + ni * 8 + ni * 4,
+                            (levels - 1) * ni + 2 * levels * ni
+                            + OPS_PER_TOPOLOGY_PLACE * (ni + 1)
+                            + OPS_PER_DEPTH_STEP * steps))
+    kp.update(time_build("topology_depth", (d,)))
+    kp["topology_alone_ms"] = time_build("topology", (d,))["ms"]
+    kp["depth_kernel_ms"] = kp["ms"] - kp["topology_alone_ms"]
+    kp.update(checks=checks, max_abs_err=0.0, mismatch_share=0.0)
+    log(f"phase 14 topology_depth: {json.dumps(kp)}")
+
+    syncs = host_syncs(r._rebuild)
+    if syncs:
+        raise RuntimeError(f"fixed rebuild host syncs: {syncs}")
+    _, kw, kat, kcnt = r._rebuild()
+    with plain_build_kernels():
+        _, pw, pat, pcnt = r._rebuild()
+    for what, a, b in (("nodes", kw.nodes, pw.nodes), ("at0", kat[0], pat[0]),
+                       ("at1", kat[1], pat[1]), ("count", kcnt, pcnt)):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"fixed rebuild: {what} differs between the "
+                               f"kernels and the plain versions")
+    (kept, frame_ms, build_ms), n = drive(
+        {"closest_shadow": 6, "morton_codes": 6, "topology_depth": 6},
+        lambda: rebuild_frames(r, 6))
+    check_image(kept[0], MAIN_W, MAIN_H, "fixed cut")
+    for f in kept[1:]:
+        if not torch.equal(f["image"], kept[0]["image"]):
+            raise RuntimeError("fixed-cut frames are not bit-identical")
+    valid = kept[0]["valid"]
+    diff = (kept[0]["image"] - area["image"]).abs().amax(-1)
+    share = float(((diff > 1e-3) & valid).sum()) / int(valid.sum())
+    if share > 1e-3:
+        raise RuntimeError(f"fixed-cut image differs from the area "
+                           f"rebuild's on {share:.2e} of valid pixels")
+    # The fused kernel on the fixed cut's tree (more wide nodes than the
+    # area collapse's, each less full).
+    hard = kernel_vs_plain("closest_shadow", r, MAIN_W, MAIN_H,
+                           "phase 14 closest_shadow on the fixed-cut tree",
+                           light_dir=light.direction)
+    res = dict(launches=n, frame_ms=frame_ms,
+               frame_ms_mean=float(np.mean(frame_ms)), build_ms=build_ms,
+               build_ms_mean=float(np.mean(build_ms)), host_syncs=len(syncs),
+               closest_shadow={k: hard[k] for k in (
+                   "ms", "plain_ms", "bound_ms", "pops", "closest_tris",
+                   "anyhit_tris", "max_abs_err", "mismatch_share")},
+               vs_area_share=share, nw_pad=r._nw_pad, wide_count=int(kcnt),
+               wide_depth=r.depth, depth_bound=FIXED_CUT_DEPTH_BOUND,
+               setup_ms=setup_ms, setup=dict(r.stats),
+               kernel={k: v for k, v in kp.items() if k != "checks"})
+    log(f"phase 14 fixed cut: {json.dumps(res)}")
+    return res
+
+
 def build_kernel_row(name, launches_, kp) -> dict:
     return {"name": name, "route": "cuda", "source": CSRC + "build.cu",
             "replaces": f"{BUILD_TPU}{BUILD_KERNEL_LINES[name]}",
@@ -2408,9 +2878,12 @@ def main() -> int:
     static_image = phase4["image"]
     unf = phase_unfused(dev, mesh, static_image)
     c2 = phase_config2(dev, mesh, static_image)
+    area = {k: c2.pop(k) for k in ("image", "valid")}
     ras = phase_raster(dev, mesh, phase4)
     stab = phase_shade_table(dev, mesh, phase4)
     binary = phase_binary(dev, mesh, phase4)
+    tex = phase_textured(dev, mesh, phase4)
+    fixed = phase_fixed_cut(dev, mesh, area)
     timings = {"card": card, "build_s": build_s,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
@@ -2420,7 +2893,10 @@ def main() -> int:
                "shade_table_1080p": {k: v for k, v in stab.items()
                                      if k not in ("kernels", "launches")},
                "binary_1080p": {k: v for k, v in binary.items()
-                                if k != "kernels"}}
+                                if k != "kernels"},
+               "textured_1080p": {k: v for k, v in tex.items()
+                                  if k not in ("kernels", "launches")},
+               "fixed_cut_1080p": fixed}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],
@@ -2450,6 +2926,11 @@ def main() -> int:
                  "mismatch_share": kp["mismatch_share"], "ms": kp["ms"],
                  "plain_ms": kp["plain_ms"], "bound_ms": kp["bound_ms"],
                  "bound_by": kp["bound_by"], "library_ms": None})
+    rows += [kernel_row(name, tex["launches"][name], tex["kernels"][name],
+                        small) for name in TEXTURED_KERNELS]
+    rows.append(build_kernel_row("topology_depth",
+                                 fixed["launches"]["topology_depth"],
+                                 fixed["kernel"]))
     kp = ras["kernel"]
     rows.append({"name": "rasterize_rows", "route": "cuda",
                  "source": CSRC + "raster.cu", "replaces": RASTER_TPU,

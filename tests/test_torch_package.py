@@ -119,7 +119,7 @@ def test_renderer_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(mode="rebuild", config=dict(rebuild_collapse="fixed")),
+    (dict(mode="rebuild", config=dict(rebuild_collapse="bfs")),
      "rebuild_collapse"),
     (dict(mode="rebuild", config=dict(bvh_width=2)),
      "clustered binary rebuild"),
@@ -137,16 +137,10 @@ def test_renderer_defaults_to_the_card():
     (dict(mode="refit"), "refit"),
     (dict(lights="three", config=dict(sort_rays=True)), "sort_rays"),
     (dict(cache_dir="unused"), "cache_dir"),
-    (dict(textured=True, config=dict(gbuffer="raster")), "textured"),
 ])
 def test_outside_the_slice_raises(kwargs, what):
     from tpurt_torch.app import Renderer
     mesh = tscenes.teapot_scene(1500)
-    if kwargs.get("textured"):
-        mesh = dataclasses.replace(
-            mesh, uv=np.zeros((mesh.num_vertices, 2), np.float32),
-            tex_atlas=np.zeros((1, 4, 4, 3), np.float32),
-            tri_tex=np.zeros(mesh.num_triangles, np.int32))
     # On the CPU gbuffer="auto" resolves to the ray G-buffer, so
     # sah=False with seeded_gbuffer=True refuses the shade-table path.
     # sort_rays wraps the any-hit tracer of the unfused shadow pass: at spp
@@ -161,3 +155,29 @@ def test_outside_the_slice_raises(kwargs, what):
         Renderer(mesh, tscenes.default_camera_for(mesh), lights, cfg,
                  mode=kwargs.get("mode", "static"),
                  cache_dir=kwargs.get("cache_dir"), device="cpu")
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(mode="rebuild", config=dict(rebuild_collapse="fixed")),
+    dict(textured=True, config=dict(gbuffer="raster")),
+], ids=["fixed_cut", "textured_raster"])
+def test_formerly_refused_configs_render(kwargs):
+    """The fixed cut and textured meshes were refused until they were
+    ported: each now renders a finite frame on the CPU."""
+    from tpurt_torch.app import Renderer
+    mesh = tscenes.teapot_scene(1500)
+    if kwargs.get("textured"):
+        mesh = dataclasses.replace(
+            mesh, uv=np.asarray(mesh.vertices)[:, :2] * 0.3,
+            tex_atlas=np.full((1, 4, 4, 3), 0.25, np.float32),
+            tri_tex=np.zeros(mesh.num_triangles, np.int32))
+    r = Renderer(mesh, tscenes.default_camera_for(mesh),
+                 ttypes.Light.directional((0.45, 0.8, 0.3)),
+                 ttypes.RenderConfig(width=32, height=32, leaf_size=8,
+                                     **kwargs["config"]),
+                 mode=kwargs.get("mode", "static"), device="cpu")
+    out = r.render_frame()
+    assert torch.isfinite(out["image"]).all() and out["valid"].any()
+    if kwargs.get("textured"):
+        assert torch.allclose(out["albedo"][out["valid"]],
+                              torch.tensor(0.25))

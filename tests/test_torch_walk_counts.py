@@ -105,6 +105,10 @@ def _gbuf(acc, at, o, d):
 
 def kernel_inputs(name, acc, at, o, d):
     """(args, kwargs) of each *_cuda / *_reference pair on the teapot."""
+    if name.endswith("_tex"):
+        # The attrs=2 variant: the attrs=1 inputs (the tables hold the
+        # texture lanes; the variant decides whether the walk reads them).
+        name = name[:-len("_tex")]
     fused = {
         "closest_shadow": dict(light_dir=(0.45, 0.8, 0.3)),
         "closest_multi_shadow": dict(lights=[((0.45, 0.8, 0.3), None),

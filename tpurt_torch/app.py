@@ -34,9 +34,13 @@ without the native library, the on-device Morton build, as ``tpurt``
 does), 8-wide area collapse, leaf attribute rows or the shade table. In
 ``mode="rebuild"`` (config 2) every frame rebuilds it on the device
 (``_rebuild_fused``): Morton codes, one payload sort, sub-leaf clustering,
-the topology kernel, the breadth-first area collapse kernel and the
-attribute rows or the shade table, with no host sync unless the geometry
-changed. On the
+the topology kernel, the breadth-first area collapse kernel (or, with
+``rebuild_collapse="fixed"``, the depth-3 cut masked by the topology
+kernel's depth output) and the attribute rows or the shade table, with
+no host sync unless the geometry changed. A textured mesh (``io/obj.py``)
+renders on every route: the attribute kernels' attrs=2 variants carry
+each winner's uv and layer, and the albedo is sampled from the atlas as a
+post-pass on every G-buffer (``passes/texture.py``). On the
 H100 the accel lives in device memory, so the TPU package's VMEM budgets
 and chunked split have no counterpart here.
 
@@ -80,8 +84,8 @@ from .bvh.lbvh import auto_split_blocks, build_lbvh
 from .bvh.sah import build_sah_lbvh
 from .bvh.wide import (WideBVH, count_wide, leaf_boxes_from_nodes,
                        make_wide_plan, order_children_for_point,
-                       round_up_bucket, wide_depth, widen_area_kernel,
-                       widen_from_plan)
+                       round_up_bucket, wide_count_device, wide_depth,
+                       widen_area_kernel, widen_from_plan, widen_lbvh)
 from .camera import generate_rays
 from .kernels.build import D_MAX
 from .kernels.pack import binary_vmem_bytes, pack_bvh, tree_depth
@@ -103,6 +107,7 @@ from .passes.shadow import cone_cos, shadow_pass
 from .passes.shading import (attr_payload_columns, leaf_attr_rows_from_sorted,
                              make_leaf_attr_rows, make_shade_table,
                              smooth_normals_device)
+from .passes.texture import apply_textures
 from .raster.setup import default_cap_rows
 from .types import (LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT, Camera,
                     Light, Mesh, RenderConfig)
@@ -211,10 +216,9 @@ def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
     if mode == "refit":
         missing.append("mode='refit' (per-frame refit)")
     if mode == "rebuild":
-        if config.rebuild_collapse != "area":
+        if config.rebuild_collapse not in ("area", "fixed"):
             missing.append(f"rebuild_collapse={config.rebuild_collapse!r} "
-                           "(the fixed cut needs the topology's depth "
-                           "output)")
+                           "(tpurt collapses by 'area' or 'fixed')")
         if config.top_sah:
             missing.append("top_sah=True (the sweep-SAH priorities kernel)")
     binary = config.bvh_width == 2
@@ -244,8 +248,6 @@ def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
     elif config.seeded_gbuffer and not binary:
         # tpurt reads the flag on the 8-wide accel alone.
         missing.append("seeded_gbuffer=True (the seeded first-hit kernel)")
-    if mesh.textured:
-        missing.append("textured meshes")
     if not lights:
         missing.append("an empty light set")
     else:
@@ -307,22 +309,35 @@ def _mask_visibility(valid, mask, n: int, first_bit: int = 0):
         ((mask >> (first_bit + i)) & 1) > 0, 0.0, 1.0)) for i in range(n)]
 
 
+def _apply_mesh_textures(gbuf, mesh: Mesh):
+    """A textured mesh's albedo sampled from its atlas as a post-pass on
+    every G-buffer (``tpurt``'s ``_apply_mesh_textures``): from the
+    G-buffer's uv and layer where it carries them, else from (tri_id,
+    position). ``mesh`` is moved to the G-buffer's device, a no-op for the
+    Renderer's, which lives there."""
+    if mesh.textured:
+        gbuf = {**gbuf, "albedo": apply_textures(
+            mesh.on(gbuf["valid"].device), gbuf)}
+    return gbuf
+
+
 def _fused_gbuf(trace, attr_tables, shade_table, mesh: Mesh, cam: Camera,
                 cfg: RenderConfig, device):
     """Camera rays -> ``trace(origins, dirs)``, a fused wrapper -> the
     G-buffer: from the attribute channels with the leaf attribute rows,
     else from t and the sorted index through the shade table
-    (``gbuf_from_table``). Returns (gbuf, the wrapper's shadow outputs,
-    walk counts)."""
+    (``gbuf_from_table``), then the mesh's textures. Returns (gbuf, the
+    wrapper's shadow outputs, walk counts)."""
     origins, dirs = generate_rays(cam, cfg.width, cfg.height, device)
     res = trace(origins, dirs)
     if attr_tables is not None:
         ch, *shadow, counts = res
-        return (gbuf_from_attr_channels(ch, origins, dirs, cam, mesh),
-                shadow, counts)
-    t, sidx, *shadow, counts = res
-    return (gbuf_from_table(t, None, sidx, origins, dirs, cam, mesh,
-                            shade_table), shadow, counts)
+        gbuf = gbuf_from_attr_channels(ch, origins, dirs, cam, mesh)
+    else:
+        t, sidx, *shadow, counts = res
+        gbuf = gbuf_from_table(t, None, sidx, origins, dirs, cam, mesh,
+                               shade_table)
+    return _apply_mesh_textures(gbuf, mesh), shadow, counts
 
 
 def gbuffer_shadow_fused_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
@@ -342,19 +357,22 @@ def gbuffer_shadow_fused_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
         def trace(o, d):
             return trace_closest_point_soft_shadow(
                 gb_accel, o, d, light.position, light.radius, cfg.spp, seed,
-                cfg.shadow_bias, attr_tables=attr_tables)
+                cfg.shadow_bias, attr_tables=attr_tables,
+                textured=mesh.textured)
     elif soft:
         def trace(o, d):
             return trace_closest_soft_shadow(
                 gb_accel, o, d, light.direction, cone_cos(light), cfg.spp,
-                seed, cfg.shadow_bias, attr_tables=attr_tables)
+                seed, cfg.shadow_bias, attr_tables=attr_tables,
+                textured=mesh.textured)
     else:
         lpos = light.position if light.kind == LIGHT_POINT else None
 
         def trace(o, d):
             return trace_closest_shadow(
                 gb_accel, o, d, light.direction, cfg.shadow_bias,
-                light_pos=lpos, attr_tables=attr_tables)
+                light_pos=lpos, attr_tables=attr_tables,
+                textured=mesh.textured)
     gbuf, (out,), counts = _fused_gbuf(trace, attr_tables, shade_table,
                                        mesh, cam, cfg, bvh.nodes.device)
     vis = 1.0 - out.to(torch.float32) / cfg.spp if soft or psoft \
@@ -374,7 +392,8 @@ def gbuffer_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
             else (l.direction, None) for l in lights]
     gbuf, (mask,), counts = _fused_gbuf(
         lambda o, d: trace_closest_multi_shadow(
-            gb_accel, o, d, spec, cfg.shadow_bias, attr_tables=attr_tables),
+            gb_accel, o, d, spec, cfg.shadow_bias, attr_tables=attr_tables,
+            textured=mesh.textured),
         attr_tables, shade_table, mesh, cam, cfg, bvh.nodes.device)
     return gbuf, _mask_visibility(gbuf["valid"], mask, len(lights)), counts
 
@@ -396,7 +415,8 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
     gbuf, (cnt, mask), counts = _fused_gbuf(
         lambda o, d: trace_closest_soft_multi_shadow(
             gb_accel, o, d, light0, [l.direction for l in lights[1:]],
-            cfg.spp, seed, cfg.shadow_bias, attr_tables=attr_tables),
+            cfg.spp, seed, cfg.shadow_bias, attr_tables=attr_tables,
+            textured=mesh.textured),
         attr_tables, shade_table, mesh, cam, cfg, bvh.nodes.device)
     valid = gbuf["valid"]
     vises = [_visibility(valid, 1.0 - cnt.to(torch.float32) / cfg.spp)]
@@ -412,24 +432,27 @@ def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
     table's row gather (``attr_tables`` None), or, with neither table, the
     closest hit and ``shade_attributes``' gathers of the mesh (moved to
     the device here); on the camera-ordered accel, or on the binary one
-    as it is. Returns (gbuf, walk counts)."""
+    as it is; then the mesh's textures. Returns (gbuf, walk counts)."""
     if cfg.gbuffer == "raster":
         gbuf = gbuffer_raster_pass(mesh, cam, cfg.width, cfg.height,
                                    cap_pairs=cfg.raster_cap_pairs or None)
-        return gbuf, torch.zeros(2, dtype=torch.int32,
-                                 device=bvh.tri_id.device)
-    gb_accel = _gb_accel(bvh, cam, cfg)
-    if attr_tables is not None:
-        return gbuffer_attr_pass(gb_accel, attr_tables, mesh, cam,
-                                 cfg.width, cfg.height)
-    if shade_table is None:
-        return gbuffer_pass(lambda o, d: trace_closest(gb_accel, o, d),
-                            mesh.on(bvh.tri_id.device), cam, cfg.width,
-                            cfg.height)
-    return gbuffer_pass(
-        lambda o, d: trace_closest(gb_accel, o, d, return_sorted=True,
-                                   gather_tri_id=False),
-        mesh, cam, cfg.width, cfg.height, shade_table)
+        counts = torch.zeros(2, dtype=torch.int32, device=bvh.tri_id.device)
+    else:
+        gb_accel = _gb_accel(bvh, cam, cfg)
+        if attr_tables is not None:
+            gbuf, counts = gbuffer_attr_pass(gb_accel, attr_tables, mesh, cam,
+                                             cfg.width, cfg.height)
+        elif shade_table is None:
+            gbuf, counts = gbuffer_pass(
+                lambda o, d: trace_closest(gb_accel, o, d),
+                mesh.on(bvh.tri_id.device), cam, cfg.width, cfg.height)
+        else:
+            gbuf, counts = gbuffer_pass(
+                lambda o, d: trace_closest(gb_accel, o, d,
+                                           return_sorted=True,
+                                           gather_tri_id=False),
+                mesh, cam, cfg.width, cfg.height, shade_table)
+    return _apply_mesh_textures(gbuf, mesh), counts
 
 
 def shadow_production(bvh, gbuf, light: Light, seed: int,
@@ -516,13 +539,16 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
 
 def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
                    leaf_size: int, nw_pad: int, split_blocks: int = 0,
-                   tables: Optional[str] = "attr"):
+                   tables: Optional[str] = "attr", collapse: str = "area"):
     """Config 2's per-frame rebuild, no host sync (``tpurt``'s
-    ``_rebuild_fused(collapse="area")``): the deferred-box build, the
-    breadth-first area collapse into ``nw_pad`` rows and the shading table
-    the frame reads: ``tables="attr"``, the attribute columns riding the
-    sort and the attribute rows from them; ``"st"``, the packed shade
-    table of the rebuilt, payload-sorted tree (``tpurt``'s
+    ``_rebuild_fused``): the deferred-box build, the 8-wide collapse into
+    ``nw_pad`` rows and the shading table the frame reads. ``collapse``:
+    "area", the breadth-first area collapse kernel, or "fixed", the
+    depth-3 cut (``widen_lbvh(mode="fixed")``) masked by the topology
+    kernel's depth output, its count a device scalar. ``tables="attr"``:
+    the attribute columns riding the sort (a textured mesh's layer and uv
+    columns too) and the attribute rows from them; ``"st"``, the packed
+    shade table of the rebuilt, payload-sorted tree (``tpurt``'s
     ``tables="st"``, whose original-order table only the deferred
     rasterizer reads); None for the raster G-buffer, which reads no table
     (``tpurt``'s ``"sto"``, for the same reason). Returns (bvh, wide
@@ -530,17 +556,29 @@ def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
     nw_pad means the pad overflowed and the accel is truncated."""
     if tables not in ("attr", "st", None):
         raise ValueError(f"tables={tables!r}")
+    if collapse not in ("area", "fixed"):
+        raise ValueError(f"collapse={collapse!r}")
     attrs = tables == "attr"
+    fixed = collapse == "fixed"
     payload = attr_payload_columns(mesh, vertices.device) if attrs else ()
     built = build_lbvh(vertices, indices, leaf_size=leaf_size,
                        boxes="defer", extra_payload=payload,
-                       split_blocks=split_blocks)
-    bvh, cols = built if attrs else (built, ())
-    wide, count = widen_area_kernel(bvh, nw_pad)
+                       want_depth=fixed, split_blocks=split_blocks)
+    if not isinstance(built, tuple):
+        built = (built,)
+    bvh = built[0]
+    cols = built[1] if attrs else ()
+    if fixed:
+        depth = built[-1]
+        check_stack_bound(FIXED_CUT_DEPTH_BOUND)
+        wide = widen_lbvh(bvh, nw_pad, mode="fixed", depths=depth)
+        count = wide_count_device(bvh, mode="fixed", depths=depth)
+    else:
+        wide, count = widen_area_kernel(bvh, nw_pad)
     table = None
     if attrs:
         table = leaf_attr_rows_from_sorted(cols, bvh.tri_id, bvh.num_blocks,
-                                           leaf_size)
+                                           leaf_size, mesh.textured)
     elif tables == "st":
         table = make_shade_table(bvh, mesh)
     return bvh, wide, table, count
@@ -550,6 +588,11 @@ def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
 # deltas grow strictly from a node to its children, so the binary stack
 # bound holds for every rebuilt tree without a read of its depth.
 KARRAS_DEPTH_BOUND = D_MAX - 1
+# The fixed cut's wide nodes are the binary ones at depth 0, 3, ..., so a
+# tree of depth <= 95 has at most 32 wide levels, and the per-ray stack
+# needs 7 * 32 + 1 = 225 <= STACK_CAPACITY entries: every fixed rebuild is
+# checked without a read-back.
+FIXED_CUT_DEPTH_BOUND = KARRAS_DEPTH_BOUND // 3 + 1
 
 
 def _rebuild_binary(vertices: torch.Tensor, indices: torch.Tensor,
@@ -684,9 +727,10 @@ class Renderer:
                     (t1 - t0) * 1e3,
                 "pack_ms" if self._binary else "collapse_ms":
                     (t2 - t1) * 1e3})
-            if self._raster or mode == "rebuild":
+            if self._raster or mode == "rebuild" or mesh.textured:
                 # The rasterizer bins the mesh on the device every frame,
-                # and a binary rebuild builds from it.
+                # a binary rebuild builds from it, and the texture pass
+                # samples its atlas.
                 self.mesh = mesh.on(self.device)
             if not self._raster:
                 self._make_tables(mesh, t2)
@@ -720,11 +764,13 @@ class Renderer:
 
     def _count_pad(self) -> int:
         """A full-box build of the current geometry and the padded count of
-        its area collapse (host sync): the rebuild's ``nw_pad``."""
+        its collapse in ``rebuild_collapse``'s mode (host sync): the
+        rebuild's ``nw_pad``."""
         self.bvh = build_lbvh(self.mesh.vertices, self.mesh.indices,
                               leaf_size=self.config.leaf_size,
                               split_blocks=self._rebuild_splits)
-        return round_up_bucket(max(count_wide(self.bvh), 1))
+        return round_up_bucket(max(count_wide(
+            self.bvh, mode=self.config.rebuild_collapse), 1))
 
     def _check_count(self, count: torch.Tensor) -> None:
         """Raise if a collapse outgrew the pad just counted (host sync)."""
@@ -735,13 +781,18 @@ class Renderer:
     def _setup_rebuild(self) -> None:
         """Rebuild mode's set-up: the mesh on the device, the pad from a
         full-box build, and the set-up accel from that tree through the
-        per-frame collapse, so its wide depth is checked against the stack
-        once (frames rely on the walk counters)."""
+        per-frame collapse's mode (the area kernel, or the fixed cut), so
+        its wide depth is checked against the stack once (area frames rely
+        on the walk counters, fixed ones on ``FIXED_CUT_DEPTH_BOUND``)."""
         self.mesh = self.mesh.on(self.device)
         t0 = time.perf_counter()
         self._nw_pad = self._count_pad()
         t1 = time.perf_counter()
-        self.accel, count = widen_area_kernel(self.bvh, self._nw_pad)
+        if self.config.rebuild_collapse == "fixed":
+            self.accel = widen_lbvh(self.bvh, self._nw_pad, mode="fixed")
+            count = wide_count_device(self.bvh, mode="fixed")
+        else:
+            self.accel, count = widen_area_kernel(self.bvh, self._nw_pad)
         self._check_count(count)
         t2 = time.perf_counter()
         self.stats.update(build_and_count_ms=(t1 - t0) * 1e3,
@@ -759,7 +810,8 @@ class Renderer:
                               self.mesh, self.config.leaf_size,
                               self._nw_pad,
                               split_blocks=self._rebuild_splits,
-                              tables=self._tables)
+                              tables=self._tables,
+                              collapse=self.config.rebuild_collapse)
 
     def _update_bvh(self) -> None:
         """Rebuild the accel for this frame. The wide-node count is read

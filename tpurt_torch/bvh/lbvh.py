@@ -306,7 +306,8 @@ def _sort_payload(codes, columns):
 def build_lbvh(vertices: torch.Tensor, indices: torch.Tensor,
                leaf_size: int = 4, morton_bits: int = 30,
                boxes: str = "full", extra_payload: tuple = (),
-               top_sah: bool = False, split_blocks: int = 0):
+               want_depth: bool = False, top_sah: bool = False,
+               split_blocks: int = 0):
     """The on-device build: Morton codes, a stable key sort carrying every
     per-triangle column, sub-leaf clustering when ``split_blocks`` > 0,
     the topology kernel, then node boxes (``boxes="full"``) or only the
@@ -316,8 +317,11 @@ def build_lbvh(vertices: torch.Tensor, indices: torch.Tensor,
     vertices f32[V, 3], indices i32[T, 3] (tensors on the build's device).
     ``morton_bits``: 30 (one word per key) or 60 (two words, sorted
     lexicographically; not with ``split_blocks``, which ``tpurt``
-    asserts). ``extra_payload``: per-triangle [T] columns to co-sort; when
-    non-empty the return is (LBVH, tuple of sorted columns)."""
+    asserts). ``extra_payload``: per-triangle [T] columns to co-sort.
+    ``want_depth``: also every internal node's depth i32[Ni] (root 0),
+    the topology kernel's depth output, which the fixed cut reads. The
+    return is the LBVH alone, or a tuple in ``tpurt``'s order: (LBVH,
+    sorted columns if ``extra_payload``, depth if ``want_depth``)."""
     if morton_bits not in (30, 60):
         raise ValueError(f"morton_bits={morton_bits}")
     if morton_bits == 60 and split_blocks:
@@ -358,7 +362,8 @@ def build_lbvh(vertices: torch.Tensor, indices: torch.Tensor,
             leaf_codes = ((leaf_codes >> 30).to(torch.int32),
                           (leaf_codes & ((1 << 30) - 1)).to(torch.int32))
 
-    child, first, last = topology(adjacent_deltas(leaf_codes))
+    topo = topology(adjacent_deltas(leaf_codes), want_depth=want_depth)
+    child, first, last = topo[:3]
 
     if boxes == "defer":
         # The root box reduces the leaf boxes (rebuilt corners round ~1
@@ -375,4 +380,9 @@ def build_lbvh(vertices: torch.Tensor, indices: torch.Tensor,
                leaf_block=leaf_block,
                leaf_min=lmin if leaf_block is not None else None,
                leaf_max=lmax if leaf_block is not None else None)
-    return (out, sorted_extras) if extra_payload else out
+    ret = (out,)
+    if extra_payload:
+        ret += (sorted_extras,)
+    if want_depth:
+        ret += (topo[3],)
+    return ret if len(ret) > 1 else out

@@ -1,7 +1,7 @@
 """Binary LBVH -> 8-wide BVH collapse (counterpart of
-``tpurt/bvh/wide.py`` for the area frontier).
+``tpurt/bvh/wide.py``): the area frontier and the fixed depth-3 cut.
 
-Two collapses of the same greedy rule:
+Two collapses of the area-greedy rule:
 
 - once per scene (static path, and the rebuild path's pad count): plain
   tensor code, the area-greedy frontiers of every node, the 64-sweep
@@ -11,6 +11,14 @@ Two collapses of the same greedy rule:
   collapse kernel (``kernels/build.collapse_area``), whose wide ids are BFS
   positions, and the same kind of row assembly, with node boxes from range
   queries over the leaf boxes (tests/test_torch_rebuild.py).
+
+The fixed cut (``mode="fixed"``, the rebuild's ``rebuild_collapse=
+"fixed"``) takes every internal node at depth % 3 == 0 as a wide node,
+whose children are its 3-level frontier: ``widen_lbvh`` on a full- or
+deferred-box build, with the topology kernel's depths or
+``node_depths``' pointer doubling, dense wide ids in binary-node order,
+and no host sync (``wide_count_device`` gives the count as a device
+scalar).
 
 Then the per-frame near-first child ordering. Every step reproduces the
 JAX package's arrays exactly.
@@ -24,8 +32,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..kernels.build import EMPTY, WIDE_FACTOR, collapse_area, greedy_slots
-from .lbvh import LBVH, _leaf_boxes, range_query, range_table
+from ..kernels.build import (EMPTY, WIDE_FACTOR, collapse_area, greedy_slots,
+                             node_depths)
+from .lbvh import LBVH, _leaf_boxes, range_boxes, range_query, range_table
 
 _BIG = 3.4e38
 
@@ -100,17 +109,65 @@ def wide_roots_reachable(child: torch.Tensor, front: torch.Tensor,
     return wide > 0
 
 
-def _front_and_mask(child, nodes_box):
-    """The area frontier (the reference's static-scene FRONTIER_MODE) and
-    its wide-root mask, with the reference's 64 sweeps."""
-    front = frontiers_area(child, nodes_box)
-    return front, wide_roots_reachable(child, front, sweeps=64)
+def frontiers(child: torch.Tensor) -> torch.Tensor:
+    """i32[Ni, 8]: every internal node's 3-level frontier (internal ids >=
+    0, leaves as -(leaf+1), EMPTY): two expansion levels, each one batched
+    gather over the current slots, left child in place and right child
+    after it."""
+    ni = child.shape[0]
+    refs = child                                        # [Ni, 2]
+    for _ in range(2):                                  # levels 2 and 3
+        is_int = refs >= 0
+        kids = child[refs.clamp(0, ni - 1).long()]      # [Ni, k, 2]
+        left = torch.where(is_int, kids[..., 0], refs)
+        right = torch.where(is_int, kids[..., 1], EMPTY)
+        refs = torch.stack([left, right], dim=-1).reshape(ni, -1)
+    return refs
 
 
-def count_wide(bvh: LBVH) -> int:
-    """Host sync: number of wide nodes (for choosing the padded size)."""
-    _, mask = _front_and_mask(bvh.nodes_child, bvh.nodes_box)
+def wide_roots(child: torch.Tensor) -> torch.Tensor:
+    """bool[Ni]: the fixed cut's wide nodes. Internal refs sit in a
+    frontier exactly 3 levels below its wide node (only leaves end
+    early), so the wide nodes are those at depth % 3 == 0."""
+    return node_depths(child) % 3 == 0
+
+
+# The static scenes' frontier: the area-greedy one (tpurt's FRONTIER_MODE).
+FRONTIER_MODE = "area"
+
+
+def _front_and_mask(child, nodes_box=None, mode=None, depths=None):
+    """(frontiers i32[Ni, 8], wide mask bool[Ni]) of ``mode``: "area" (the
+    default; the reference's 64 sweeps of reachability) or "fixed" (the
+    depth-3 cut, its mask from ``depths`` where given, else
+    ``node_depths``). A deferred-box build has no node areas, so "area"
+    resolves to "fixed" there, as in ``tpurt``."""
+    mode = mode or FRONTIER_MODE
+    if mode not in ("area", "fixed"):
+        raise NotImplementedError(f"frontier mode {mode!r} is not ported")
+    if mode == "area" and nodes_box is not None:
+        front = frontiers_area(child, nodes_box)
+        return front, wide_roots_reachable(child, front, sweeps=64)
+    front = frontiers(child)
+    if depths is not None:
+        return front, depths % 3 == 0
+    return front, wide_roots(child)
+
+
+def count_wide(bvh: LBVH, mode: str = None) -> int:
+    """Host sync: number of wide nodes (for choosing the padded size);
+    ``mode`` must be the one the widen uses."""
+    _, mask = _front_and_mask(bvh.nodes_child, bvh.nodes_box, mode=mode)
     return int(mask.sum())
+
+
+def wide_count_device(bvh: LBVH, mode: str = None,
+                      depths=None) -> torch.Tensor:
+    """The wide-node count as a device scalar i32[] (no host sync), for a
+    rebuild's overflow check; ``depths`` as the widen was given them."""
+    _, mask = _front_and_mask(bvh.nodes_child, bvh.nodes_box, mode=mode,
+                              depths=depths)
+    return mask.sum().to(torch.int32)
 
 
 def leaf_boxes_from_nodes(bvh: LBVH) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -261,6 +318,92 @@ def block_rows(bvh: LBVH) -> torch.Tensor:
     tri9 = torch.stack([bvh.tri_v0, bvh.tri_e1, bvh.tri_e2], dim=1)
     tri9 = tri9.reshape(bvh.num_blocks, k * 9)
     return torch.nn.functional.pad(tri9, (0, 128 - k * 9)).contiguous()
+
+
+def _wide_ids_and_src(wide: torch.Tensor, nw_pad: int):
+    """Dense wide ids i32[Ni] (the cumsum of the mask, -1 based) and each
+    wide row's binary node i64[nw_pad], the pad rows at Ni - 1 (``tpurt``'s
+    ``jnp.nonzero(size=nw_pad, fill_value=Ni - 1)``), by one scatter and
+    no host sync; wide nodes past the pad are dropped."""
+    ni = wide.shape[0]
+    dev = wide.device
+    ids = torch.cumsum(wide.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    slot = torch.where(wide & (ids < nw_pad), ids.long(), nw_pad)
+    src = torch.full((nw_pad + 1,), ni - 1, dtype=torch.long, device=dev)
+    src.scatter_(0, slot, torch.arange(ni, device=dev))
+    return ids, src[:nw_pad]
+
+
+def _assemble_wide_nodes_deferred(refs, src, ids, bvh: LBVH, leaf_min,
+                                  leaf_max):
+    """One-gather assembly without binary node boxes (a deferred-box
+    build): a wide node's box is the range query of its leaf span, so the
+    candidate table [Nw + Nl + 1, 6] is indexed by dense wide id. Dense
+    ids past the pad (an overflowed cut) are clamped into it; such an
+    accel is never rendered."""
+    ni = bvh.nodes_child.shape[0]
+    nl = leaf_min.shape[0]
+    nw = refs.shape[0]
+    dev = refs.device
+    wmin, wmax = range_boxes(leaf_min, leaf_max, bvh.nodes_first[src],
+                             bvh.nodes_last[src])
+    table = torch.cat([torch.cat([wmin, wmax], dim=1),
+                       torch.cat([leaf_min, leaf_max], dim=1),
+                       _inverted_box(dev)])
+    dense = torch.clamp(ids[refs.clamp(0, ni - 1).long()], max=nw - 1)
+    row = torch.where(refs >= 0, dense,
+                      torch.where(refs == EMPTY, nw + nl, nw + (-refs - 1)))
+    rec = table[row.reshape(-1).long()]                      # [Nw*8, 6]
+    kref = torch.where(refs >= 0, dense.to(torch.float32),
+                       torch.where(refs == EMPTY, -1.0,
+                                   _leaf_kernel_refs(bvh, refs, nl)
+                                   .to(torch.float32)))
+    rec = torch.cat([rec, kref.reshape(-1, 1),
+                     torch.zeros((nw * 8, 9), dtype=torch.float32,
+                                 device=dev)], dim=1)
+    return rec.reshape(nw, 128)
+
+
+def _leaf_kernel_refs(bvh: LBVH, refs, nl: int):
+    """The kernel ref of each leaf slot in ``refs``: -(leaf + 1), or on a
+    sub-leaf clustered tree -(triangle block + 1)."""
+    if bvh.leaf_block is None:
+        return refs
+    return -(bvh.leaf_block[(-refs - 1).clamp(0, nl - 1).long()] + 1)
+
+
+def widen_lbvh(bvh: LBVH, nw_pad: int, mode: str = None,
+               depths=None) -> WideBVH:
+    """Collapse to 8-wide (``tpurt``'s ``widen_lbvh``) with ``nw_pad`` >=
+    ``count_wide(bvh, mode)`` rows, on the tree's device and without a
+    host sync: the frontiers and wide mask of ``mode`` (``depths`` from
+    ``build_lbvh(want_depth=True)`` give the fixed cut's mask), dense wide
+    ids in binary-node order, one-gather row assembly (node boxes from the
+    build, or on a deferred-box build range queries of the leaf boxes);
+    the leaf slots take the triangle blocks' boxes. ``tpurt``'s size guard
+    against a TPU fault has no counterpart on the card."""
+    child = bvh.nodes_child
+    ni = child.shape[0]
+    dev = child.device
+    front, wide = _front_and_mask(child, bvh.nodes_box, mode=mode,
+                                  depths=depths)
+    ids, src = _wide_ids_and_src(wide, nw_pad)
+    is_pad = torch.arange(nw_pad, device=dev) >= wide.sum()
+    refs = torch.where(is_pad[:, None], EMPTY, front[src])      # [Nw, 8]
+    leaf_min, leaf_max = _leaf_boxes_from_tris(bvh)
+    if bvh.nodes_box is None:
+        nodes = _assemble_wide_nodes_deferred(refs, src, ids, bvh, leaf_min,
+                                              leaf_max)
+    else:
+        wref = torch.where(refs >= 0, ids[refs.clamp(0, ni - 1).long()],
+                           torch.where(refs == EMPTY, -1, _leaf_kernel_refs(
+                               bvh, refs, leaf_min.shape[0])))
+        nodes = _assemble_wide_nodes(refs, bvh.nodes_box, leaf_min, leaf_max,
+                                     wref.to(torch.float32))
+    return WideBVH(nodes=nodes.contiguous(), tris=block_rows(bvh),
+                   tri_id=bvh.tri_id, root_min=bvh.root_min,
+                   root_max=bvh.root_max, num_wide=nw_pad,
+                   leaf_size=bvh.leaf_size)
 
 
 def widen_area_kernel(bvh: LBVH, nw_pad: int):

@@ -142,7 +142,8 @@ def load_library() -> ctypes.CDLL:
     for name, args in (
             ("tpurt_morton_codes_launch", [p, i, p, p]),
             ("tpurt_morton_codes60_launch", [p, i, p, p, p]),
-            ("tpurt_topology_launch", [p, i, i, p, p, p, p, p, p, p]),
+            ("tpurt_topology_launch", [p, i, i, p, p, p, p, p, p, p, p, i,
+                                       p]),
             ("tpurt_collapse_area_launch", [p, p, i, i, p, p, p, p]),
             ("tpurt_raster_rows_launch", [p, i, p, p, p, i, p, i, i, i, i,
                                           f, f, f, f, p, p, p])):

@@ -7,6 +7,8 @@
   ``build_lbvh(morton_bits=60)``, two words (hi, lo) per centroid;
 - ``topology`` -> ``topology_pallas``: the Karras radix tree as the
   min-Cartesian tree over the adjacent deltas, root renumbered to node 0;
+  with ``want_depth`` also every node's depth (``topology_depth_*``,
+  whose plain version is ``node_depths``);
 - ``collapse_area`` -> ``collapse_area_pallas``: the breadth-first
   area-greedy 8-wide collapse.
 
@@ -185,10 +187,9 @@ def topology_reference(d: torch.Tensor):
     return child[:ni].to(i32), first_r.to(i32), last_r.to(i32)
 
 
-def topology_cuda(d: torch.Tensor):
-    """The kernel of ``topology_reference``: a sparse table of range
-    minima of D (one launch per level), a per-gap binary-lifting search
-    for L and R, and one thread per leaf and gap placing the children."""
+def _topology_launch(d: torch.Tensor, want_depth: bool):
+    """One call of the C topology entry: (child, first, last), and depth
+    i32[ni] with ``want_depth``."""
     from ._build import load_library
     _need_cuda(d)
     ni = d.shape[0]
@@ -204,20 +205,75 @@ def topology_cuda(d: torch.Tensor):
     child = torch.empty((ni, 2), dtype=torch.int32, device=dev)
     first = torch.empty((ni,), dtype=torch.int32, device=dev)
     last = torch.empty((ni,), dtype=torch.int32, device=dev)
+    parent = depth = None
+    if want_depth:
+        parent = torch.empty((ni,), dtype=torch.int32, device=dev)
+        depth = torch.empty((ni,), dtype=torch.int32, device=dev)
     lib = load_library()
     _raise_on(lib.tpurt_topology_launch(
         d.data_ptr(), ni, levels, table.data_ptr(), lr.data_ptr(),
         root.data_ptr(), child.data_ptr(), first.data_ptr(),
-        last.data_ptr(), _stream(dev)), "tpurt_topology_launch")
+        last.data_ptr(), None if parent is None else parent.data_ptr(),
+        None if depth is None else depth.data_ptr(), D_MAX - 1,
+        _stream(dev)), "tpurt_topology_launch")
+    return (child, first, last) + ((depth,) if want_depth else ())
+
+
+def topology_cuda(d: torch.Tensor):
+    """The kernel of ``topology_reference``: a sparse table of range
+    minima of D (one launch per level), a per-gap binary-lifting search
+    for L and R, and one thread per leaf and gap placing the children."""
+    res = _topology_launch(d, False)
     topology_cuda.launches += 1
-    return child, first, last
+    return res
 
 
-def topology(d: torch.Tensor):
+def node_depths(child: torch.Tensor) -> torch.Tensor:
+    """i32[Ni] depth of every internal node (root, row 0, = 0) of a binary
+    tree (``tpurt``'s ``bvh/wide.node_depths``): parent pointers by one
+    scatter-max of both child sides, then 7 rounds of pointer doubling
+    (2^7 = 128 > the Karras bound D_MAX - 1 = 95)."""
+    ni = child.shape[0]
+    dev = child.device
+    ref = child.reshape(-1).long()
+    is_int = ref >= 0
+    tgt = torch.where(is_int, ref, 0)
+    own = torch.arange(ni, device=dev).repeat_interleave(2)
+    parent = torch.zeros((ni,), dtype=torch.long, device=dev).scatter_reduce(
+        0, tgt, torch.where(is_int, own, 0), "amax", include_self=True)
+    depth = (torch.arange(ni, device=dev) != 0).to(torch.int32)
+    for _ in range(7):
+        depth = depth + depth[parent]
+        parent = parent[parent]
+    return depth
+
+
+def topology_depth_reference(d: torch.Tensor):
+    """Plain version of the topology with its depth output
+    (``topology_pallas(want_depth=True)``): ``topology_reference``, then
+    ``node_depths`` of its tree -> (child, first, last, depth i32[ni])."""
+    child, first, last = topology_reference(d)
+    return child, first, last, node_depths(child)
+
+
+def topology_depth_cuda(d: torch.Tensor):
+    """The kernel of ``topology_depth_reference``: ``topology_cuda``'s
+    launches, whose placement also writes every node's parent, and one
+    more, one thread per node counting its steps up to the root."""
+    res = _topology_launch(d, True)
+    topology_depth_cuda.launches += 1
+    return res
+
+
+def topology(d: torch.Tensor, want_depth: bool = False):
     """Karras topology from the adjacent deltas (``lbvh.adjacent_deltas``):
     (child i32[ni, 2], first, last) with the root as node 0, equal to
-    ``topology_pallas`` without its depth output."""
-    fn = _pick(d.device, topology_cuda, topology_reference)
+    ``topology_pallas``; ``want_depth`` adds depth i32[ni] (root 0), as
+    ``topology_pallas(want_depth=True)`` returns it."""
+    if want_depth:
+        fn = _pick(d.device, topology_depth_cuda, topology_depth_reference)
+    else:
+        fn = _pick(d.device, topology_cuda, topology_reference)
     return fn(d.to(torch.int32).contiguous())
 
 
@@ -323,6 +379,6 @@ def collapse_area(child: torch.Tensor, area: torch.Tensor, nw_pad: int):
 
 
 BUILD_KERNELS = (morton_codes_cuda, topology_cuda, collapse_area_cuda,
-                 morton_codes60_cuda)
+                 morton_codes60_cuda, topology_depth_cuda)
 for _fn in BUILD_KERNELS:
     _fn.launches = 0

@@ -3,8 +3,10 @@
 //   morton codes   <- morton_codes_pallas (:353) -> _codes_kernel (:325)
 //   60-bit codes   <- morton_codes60_pallas (:410) -> _codes60_kernel (:384)
 //   topology       <- topology_pallas (:265) -> _topology_call (:215)
-//                     -> _build_kernel (:60, with_boxes=False,
-//                     with_depth=False), root renumbered as _renumber (:249)
+//                     -> _build_kernel (:60, with_boxes=False), root
+//                     renumbered as _renumber (:249); with want_depth
+//                     (with_depth=True, the sweep :190-213) also every
+//                     node's depth
 //   area collapse  <- collapse_area_pallas (:742) -> _collapse_area_kernel
 //                     (:648)
 //
@@ -24,7 +26,13 @@
 //   last as lbvh.karras_topology_scan does. The min-Cartesian tree over
 //   (D[g], g) is unique, so the result equals the stack sweep's exactly,
 //   ties included. Bound by the latency of the dependent table reads
-//   (2 log2(ni) per gap); the bytes are a few MB.
+//   (2 log2(ni) per gap); the bytes are a few MB. The depth output: the
+//   TPU kernel replays its finalize order backwards on the scalar core.
+//   Here placement also writes each node's parent, and one thread per
+//   node counts the steps up the parent pointers to the root. A Karras
+//   tree is at most D_MAX - 1 = 95 levels deep (deltas grow strictly from
+//   a node to its children), so a thread makes at most 95 dependent
+//   loads of a 100 KB array that stays in L2.
 // - Area collapse: the TPU kernel is a serial BFS whose wide ids are queue
 //   positions. BFS order is level order with children numbered by
 //   (parent position, slot), so one block walks the levels: one thread per
@@ -163,13 +171,15 @@ __device__ __forceinline__ int renum(int x, int root) {
 }
 
 // One thread per leaf l in [0, ni]; thread g < ni also places gap g. Node
-// ids are gap ids with the root swapped to 0 (rows and values).
+// ids are gap ids with the root swapped to 0 (rows and values). parent
+// (null: not wanted) gets each node's parent, -1 for the root.
 __global__ void assemble_kernel(const int* __restrict__ d,
                                 const int* __restrict__ lr, int ni,
                                 const int* __restrict__ root_ptr,
                                 int* __restrict__ child,
                                 int* __restrict__ first,
-                                int* __restrict__ last) {
+                                int* __restrict__ last,
+                                int* __restrict__ parent) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i > ni) return;
   int root = *root_ptr;
@@ -185,6 +195,9 @@ __global__ void assemble_kernel(const int* __restrict__ d,
       int p = L < 0 ? R : (R >= ni ? L : (d[L] > d[R] ? L : R));
       int side = g < p ? 0 : 1;
       child[2 * renum(p, root) + side] = row;
+      if (parent) parent[row] = renum(p, root);
+    } else if (parent) {
+      parent[row] = -1;
     }
   }
   // Leaf l sits between gaps l-1 and l; its parent is the larger of them.
@@ -195,9 +208,28 @@ __global__ void assemble_kernel(const int* __restrict__ d,
   child[2 * renum(lp, root) + side] = -(l + 1);
 }
 
+// depth[n] = the steps from node n up to the root (row 0): at most
+// max_depth, the Karras bound, so a damaged parent array cannot loop.
+__global__ void depth_kernel(const int* __restrict__ parent, int ni,
+                             int max_depth, int* __restrict__ depth) {
+  int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= ni) return;
+  int x = n, steps = 0;
+  while (steps < max_depth) {
+    int p = parent[x];
+    if (p < 0) break;
+    x = p;
+    ++steps;
+  }
+  depth[n] = steps;
+}
+
+// parent and depth: both null (no depth), or both i32[ni] (the depth
+// output; parent is scratch).
 extern "C" int tpurt_topology_launch(const int* d, int ni, int levels,
                                      int* table, int* lr, int* root,
                                      int* child, int* first, int* last,
+                                     int* parent, int* depth, int max_depth,
                                      cudaStream_t stream) {
   const int threads = 256;
   int blocks = (ni + threads - 1) / threads;
@@ -210,7 +242,11 @@ extern "C" int tpurt_topology_launch(const int* d, int ni, int levels,
   nearest_smaller_kernel<<<blocks, threads, 0, stream>>>(d, table, ni, levels,
                                                          lr, root);
   assemble_kernel<<<(ni + 1 + threads - 1) / threads, threads, 0, stream>>>(
-      d, lr, ni, root, child, first, last);
+      d, lr, ni, root, child, first, last, parent);
+  if (depth) {
+    depth_kernel<<<blocks, threads, 0, stream>>>(parent, ni, max_depth,
+                                                 depth);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

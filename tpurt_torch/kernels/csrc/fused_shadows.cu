@@ -1,6 +1,6 @@
 // Closest hit, alone or fused with shadows, over an 8-wide BVH, for
 // Hopper: one kernel template, seven modes, each replacing one TPU kernel
-// of tpurt/kernels/traverse.py (textures are not handled):
+// of tpurt/kernels/traverse.py:
 //
 //   HARD        _closest_shadow_kernel_w8_b         light 0's hard shadow,
 //                                                   directional or point
@@ -23,16 +23,21 @@
 //                                                   G-buffer's unfused cast)
 //
 // The second template parameter is the JAX kernels' ``attrs``: the five
-// shadow modes come in both variants. attrs=1 (and CLOSEST) walks with the
-// leaf attribute rows and writes the 15 attribute channels; attrs=0 (and
-// NEAREST) reads no attribute row and writes t and the sorted index, which
-// key the shade table (the G-buffer's one row gather per pixel). attrs=0
+// shadow modes come in all three variants, CLOSEST in attrs=1 and 2,
+// NEAREST in attrs=0. attrs=1 walks with the leaf attribute rows and
+// writes the 15 attribute channels; attrs=2 (textured meshes,
+// _w8_closest_walk_attr(textured=True)) also reads each winner's layer
+// and corner uvs and writes its interpolated uv (channels 4-5) and layer
+// (channel 7), which attrs=1 writes as 0; attrs=0 (and NEAREST) reads no
+// attribute row and writes t and the sorted index, which key the shade
+// table (the G-buffer's one row gather per pixel). attrs=0
 // phase 1 still keeps the winner's geometric normal, which the shadow
 // phase offsets the hit point along (_w8_closest_walk_n); NEAREST keeps
 // nothing but t and the index.
 //
 // Their plain PyTorch versions are closest_{,multi_,soft_,point_soft_,
-// soft_multi_}shadow_reference (attrs=0: the *_st_reference twins),
+// soft_multi_}shadow_reference (attrs=0: the *_st_reference twins,
+// attrs=2: *_tex_reference),
 // closest_attrs_reference and closest_reference in
 // tpurt_torch/kernels/traverse.py. All follow one contract:
 //
@@ -40,9 +45,10 @@
 //   nodes   f32[Nw,128]       8 children x [bmin.xyz, bmax.xyz, ref, pad]
 //   tris    f32[L,128]        k x (v0, e1, e2) per leaf
 //   at0/at1 f32[L,128]        leaf attribute rows (at1 read only if k > 8;
-//                             attrs=1 only)
-//   out     f32[PB,15,8,128]  attrs=1: t, sidx, u, v, uv(2), kd, layer,
+//                             attrs=1 and 2 only)
+//   out     f32[PB,15,8,128]  attrs=1, 2: t, sidx, u, v, uv(2), kd, layer,
 //                             tri_id, packed oct n0..n2, geometric normal
+//                             (uv and layer 0 with attrs=1)
 //   out     f32[PB,8,128]     attrs=0: t (BIG on a miss)
 //   sidx_out i32[PB,8,128]    attrs=0: sorted index (-1 on a miss)
 //   counts  i32[2]            stack overflows, walks cut at the cap
@@ -196,8 +202,9 @@ __device__ __forceinline__ void shadow_phase(const Params& P, const Ray& r,
 
 template <int MODE, int ATTRS>
 __global__ void __launch_bounds__(128) fused_shadows_kernel(Params P) {
-  constexpr int TRACK = ATTRS ? TRACK_ATTRS
-                              : (MODE == NEAREST ? TRACK_T : TRACK_NORMAL);
+  constexpr int TRACK = ATTRS == 2 ? TRACK_TEX
+                        : ATTRS ? TRACK_ATTRS
+                                : (MODE == NEAREST ? TRACK_T : TRACK_NORMAL);
   int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= P.num_rays) return;
   int p = gid / LANES, lane = gid % LANES;
@@ -235,19 +242,22 @@ extern "C" int tpurt_params_size() { return (int)sizeof(Params); }
 template <int MODE>
 static void launch_mode(const Params* P, dim3 grid, dim3 block,
                         cudaStream_t st) {
-  if (P->attrs)
+  if (P->attrs == 2)
+    fused_shadows_kernel<MODE, 2><<<grid, block, 0, st>>>(*P);
+  else if (P->attrs)
     fused_shadows_kernel<MODE, 1><<<grid, block, 0, st>>>(*P);
   else
     fused_shadows_kernel<MODE, 0><<<grid, block, 0, st>>>(*P);
 }
 
-// Launches ``mode`` in the variant P->attrs (0 or 1) on ``stream`` with
-// the arguments in *P; allocates nothing and returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unknown mode or variant: CLOSEST exists
-// only with attrs=1, NEAREST only with attrs=0).
+// Launches ``mode`` in the variant P->attrs (0, 1 or 2) on ``stream``
+// with the arguments in *P; allocates nothing and returns
+// cudaGetLastError() (cudaErrorInvalidValue for an unknown mode or
+// variant: CLOSEST exists only with attrs=1 and 2, NEAREST only with
+// attrs=0).
 extern "C" int tpurt_fused_shadows_launch(int mode, const Params* P,
                                           void* stream) {
-  if (P->attrs != 0 && P->attrs != 1) return (int)cudaErrorInvalidValue;
+  if (P->attrs < 0 || P->attrs > 2) return (int)cudaErrorInvalidValue;
   if (P->num_rays <= 0) return (int)cudaGetLastError();
   dim3 block(128);
   dim3 grid((P->num_rays + 127) / 128);
@@ -270,7 +280,10 @@ extern "C" int tpurt_fused_shadows_launch(int mode, const Params* P,
       break;
     case CLOSEST:
       if (!P->attrs) return (int)cudaErrorInvalidValue;
-      fused_shadows_kernel<CLOSEST, 1><<<grid, block, 0, st>>>(*P);
+      if (P->attrs == 2)
+        fused_shadows_kernel<CLOSEST, 2><<<grid, block, 0, st>>>(*P);
+      else
+        fused_shadows_kernel<CLOSEST, 1><<<grid, block, 0, st>>>(*P);
       break;
     case NEAREST:
       if (P->attrs) return (int)cudaErrorInvalidValue;

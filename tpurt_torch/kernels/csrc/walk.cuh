@@ -103,24 +103,29 @@ __device__ __forceinline__ MT mt_terms(const float* __restrict__ tri,
 }
 
 struct Hit {
-  float t, u, v, kd, tid, o0, o1, o2, nx, ny, nz;
+  float t, u, v, kd, tid, o0, o1, o2, nx, ny, nz, uvu, uvv, lay;
   int idx;
 };
 
 // What a closest walk keeps of its winner besides t and the sorted index:
 // TRACK_ATTRS the attribute rows' channels and the geometric normal (the
-// attrs=1 kernels), TRACK_NORMAL the unnormalised geometric normal e1 x e2
-// alone (the attrs=0 fused kernels, whose shadow phase offsets the hit
-// point along it), TRACK_T nothing more (the plain closest hit). The
-// fields a walk does not keep stay 0 and are never stored.
-enum Track { TRACK_T = 0, TRACK_NORMAL = 1, TRACK_ATTRS = 2 };
+// attrs=1 kernels), TRACK_TEX those plus the interpolated uv and the
+// texture layer (attrs=2, textured meshes), TRACK_NORMAL the unnormalised
+// geometric normal e1 x e2 alone (the attrs=0 fused kernels, whose shadow
+// phase offsets the hit point along it), TRACK_T nothing more (the plain
+// closest hit). The fields a walk does not keep stay 0: write_attrs
+// stores uv and the layer as 0 below TRACK_TEX, as the JAX kernel's
+// zero-initialised carry does.
+enum Track { TRACK_T = 0, TRACK_NORMAL = 1, TRACK_ATTRS = 2, TRACK_TEX = 3 };
 
 // Closest-hit test of one leaf: division by det, eps 1e-9, inclusive
 // barycentric bounds, strictly smaller t wins (the first hit found wins a
-// tie). With TRACK_ATTRS the winner's attributes are read from the leaf
-// attribute rows, in the statement order of the attrs=1 kernels' first
-// version (so their registers stay as they were); the other modes never
-// read them.
+// tie). With TRACK_ATTRS and TRACK_TEX the winner's attributes are read
+// from the leaf attribute rows, in the statement order of the attrs=1
+// kernels' first version (so their registers stay as they were); the other
+// modes never read them. TRACK_TEX also reads the layer (lane 4) and uv0,
+// d1, d2 (lanes 5-10) and keeps uv = uv0 + u d1 + v d2 in tpurt's order
+// (traverse.py :1364-1369), without FMA.
 template <int TRACK>
 __device__ __forceinline__ void leaf_closest(
     const float* __restrict__ tris, const float* __restrict__ at0,
@@ -138,7 +143,7 @@ __device__ __forceinline__ void leaf_closest(
     ok = ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f;
     t = ok ? t : BIG;
     if (t > t_min && t < h.t && active0) {
-      if constexpr (TRACK == TRACK_ATTRS) {
+      if constexpr (TRACK >= TRACK_ATTRS) {
         const float* a = (j < 8) ? at0 + (size_t)leaf * 128 + 16 * j
                                  : at1 + (size_t)leaf * 128 + 16 * (j - 8);
         float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4),
@@ -157,6 +162,11 @@ __device__ __forceinline__ void leaf_closest(
         h.nx = e1y * e2z - e1z * e2y;
         h.ny = e1z * e2x - e1x * e2z;
         h.nz = e1x * e2y - e1y * e2x;
+        if constexpr (TRACK == TRACK_TEX) {
+          h.uvu = __ldg(a + 5) + u * __ldg(a + 7) + v * __ldg(a + 9);
+          h.uvv = __ldg(a + 6) + u * __ldg(a + 8) + v * __ldg(a + 10);
+          h.lay = __ldg(a + 4);
+        }
       } else {
         h.t = t;
         h.idx = leaf * k + j;
@@ -192,7 +202,7 @@ __device__ __forceinline__ bool leaf_occluded(const float* __restrict__ tris,
 }
 
 // Phase 1: closest hit in (t_min, tmax), keeping what TRACK asks for of
-// the winner (at0 and at1 are read only with TRACK_ATTRS).
+// the winner (at0 and at1 are read only with TRACK_ATTRS and TRACK_TEX).
 template <int TRACK>
 __device__ __forceinline__ Hit closest_walk(
     const float* __restrict__ nodes, const float* __restrict__ tris,
@@ -204,7 +214,7 @@ __device__ __forceinline__ Hit closest_walk(
   h.t = active0 ? tmax : -BIG;
   h.idx = -1;
   h.u = h.v = h.kd = h.tid = h.o0 = h.o1 = h.o2 = 0.0f;
-  h.nx = h.ny = h.nz = 0.0f;
+  h.nx = h.ny = h.nz = h.uvu = h.uvv = h.lay = 0.0f;
   int sp = 1, it = 0;
   stack[0] = 0;
   while (sp > 0 && it < max_iters) {
@@ -228,7 +238,8 @@ __device__ __forceinline__ Hit closest_walk(
   return h;
 }
 
-// Store phase 1's 15 attribute channels of ray (p, lane).
+// Store phase 1's 15 attribute channels of ray (p, lane): t, sidx, u, v,
+// uv(2), kd, layer, tri_id, packed oct n0..n2, geometric normal.
 __device__ __forceinline__ void write_attrs(float* __restrict__ out, int p,
                                             int lane, const Hit& h) {
   float* ob = out + (size_t)p * ATTR_CH * LANES + lane;
@@ -236,10 +247,10 @@ __device__ __forceinline__ void write_attrs(float* __restrict__ out, int p,
   ob[1 * LANES] = (float)h.idx;
   ob[2 * LANES] = h.u;
   ob[3 * LANES] = h.v;
-  ob[4 * LANES] = 0.0f;
-  ob[5 * LANES] = 0.0f;
+  ob[4 * LANES] = h.uvu;
+  ob[5 * LANES] = h.uvv;
   ob[6 * LANES] = h.kd;
-  ob[7 * LANES] = 0.0f;
+  ob[7 * LANES] = h.lay;
   ob[8 * LANES] = h.tid;
   ob[9 * LANES] = h.o0;
   ob[10 * LANES] = h.o1;
@@ -472,7 +483,8 @@ struct Params {
   int* mask_out;      // HARD, MULTI, SOFT_MULTI, ANY
   int* counts;
   int num_rays, k, max_iters, stack_size;
-  int attrs;  // closest modes: 1 with the attribute rows, 0 without
+  int attrs;  // closest modes: 1 with the attribute rows, 2 with them and
+              // the texture lanes (textured meshes), 0 without
   float t_min;
   int nlights, point_mask;  // HARD (bit 0: point light), MULTI
   int spp, zero_stream, disk, n_extra;  // sampling modes

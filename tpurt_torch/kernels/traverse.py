@@ -15,13 +15,15 @@
   -> counts, hard directional extras -> bitmask.
 
 Each of the five takes the leaf attribute rows (attrs=1: the winner's
-attribute channels) or none (attrs=0, ``attr_tables=None``: t and the
-sorted index, the keys of the shade table).
+attribute channels; with ``textured=True`` attrs=2, which adds the
+winner's interpolated uv and its texture layer) or none (attrs=0,
+``attr_tables=None``: t and the sorted index, the keys of the shade
+table).
 
 The unfused frame's kernels:
 
 - ``trace_closest_attrs`` -> ``_closest_attr_kernel_w8_b``: the closest
-  hit and its attribute channels alone;
+  hit and its attribute channels alone (``textured`` as above);
 - ``trace_closest`` -> ``_closest_hit_kernel_w8_b``: the closest hit
   alone, t and the sorted index (the shade-table G-buffer);
 - ``trace_any`` -> ``_any_hit_kernel_w8_b``: any hit of given rays;
@@ -46,7 +48,8 @@ contract on the packed ray block:
 - ``*_cuda``: the hand-written CUDA kernel in its mode, one thread per
   ray. It takes CUDA tensors only and launches or raises; ``.launches``
   counts its launches. The attrs=0 variants of the five fused modes are
-  ``*_st_cuda`` (no attribute tables in their arguments).
+  ``*_st_cuda`` (no attribute tables in their arguments), the attrs=2
+  variants of those and of CLOSEST ``*_tex_cuda``.
 - ``*_reference``: the same function in plain PyTorch, a vectorised
   per-ray stack walk. The wrapper takes it only for CPU tensors.
 - ``trace_*``: the wrapper the frame calls. It packs the rays, picks one
@@ -380,19 +383,41 @@ def _count_pops(stats, rec) -> None:
         _count(stats, "slab_tests", (rec[:, :, 0] <= rec[:, :, 3]).sum())
 
 
+def _winner_attrs(at0, at1, k, leaf, sel, u, v, normal, textured):
+    """Channels 2-14 of each winner (triangle ``sel`` of ``leaf``) from its
+    attribute row: u, v, uv, kd, layer, tid, oct0..2, the normal. With
+    ``textured`` uv is uv0 + u d1 + v d2 in tpurt's order (no FMA) and
+    the layer lane is read; else both stay 0."""
+    ar = at0[leaf] if k <= 8 else torch.cat([at0[leaf], at1[leaf]], dim=1)
+    a = ar[:, :16 * k].reshape(-1, k, 16).gather(
+        1, sel[:, :, None].expand(-1, 1, 16))[:, 0]
+    uj = u.gather(1, sel)[:, 0]
+    vj = v.gather(1, sel)[:, 0]
+    if textured:
+        uvu = a[:, 5] + uj * a[:, 7] + vj * a[:, 9]
+        uvv = a[:, 6] + uj * a[:, 8] + vj * a[:, 10]
+        lay = a[:, 4]
+    else:
+        uvu = uvv = lay = torch.zeros_like(uj)
+    return torch.stack([uj, vj, uvu, uvv, a[:, 3], lay, a[:, 11], a[:, 0],
+                        a[:, 1], a[:, 2], *normal], dim=1)
+
+
 def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
-                  max_iters, stack_size, stats=None):
-    """Closest hit of n rays -> (best_t, best_i, attr f32[n, 10],
-    overflow, capped). attr: u, v, kd, tid, oct0..2 read from the
-    attribute rows (zeros when ``at0`` is None, the attrs=0 walk, which
-    reads none), then the winner's unnormalised geometric normal."""
+                  max_iters, stack_size, stats=None, textured=False):
+    """Closest hit of n rays -> (best_t, best_i, attr f32[n, 13],
+    overflow, capped). attr holds the winner's channels 2-14 of the
+    attribute block: u, v, the interpolated uv and kd, layer, tid, oct0..2
+    read from the attribute rows, then the unnormalised geometric normal.
+    Without ``textured`` uv and layer stay 0 (the zero carry of the JAX
+    kernel); with ``at0`` None (the attrs=0 walk, which reads no
+    attribute row) only the normal is kept."""
     n = tmax.shape[0]
     dev = tmax.device
     active0 = tmax > t_min
     best_t = torch.where(active0, tmax, -_BIG)
     best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    # u, v, kd, tid, oct0..2, gn.xyz (uv/layer stay 0 untextured)
-    attr = torch.zeros((n, 10), dtype=torch.float32, device=dev)
+    attr = torch.zeros((n, ATTR_CH - 2), dtype=torch.float32, device=dev)
     w = _Walk(n, stack_size, dev)
     while True:
         rows = torch.nonzero((w.sp > 0) & (w.it < max_iters))[:, 0]
@@ -427,17 +452,11 @@ def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
                 normal = [e1y * e2z - e1z * e2y, e1z * e2x - e1x * e2z,
                           e1x * e2y - e1y * e2x]
                 if at0 is None:
-                    attr[r, 7:] = torch.stack(normal, dim=1)
+                    attr[r, 10:] = torch.stack(normal, dim=1)
                 else:
-                    ar = at0[leaf] if k <= 8 else torch.cat(
-                        [at0[leaf], at1[leaf]], dim=1)
-                    a = ar[:, :16 * k].reshape(-1, k, 16).gather(
-                        1, sel[:, :, None].expand(-1, 1, 16))[:, 0]
-                    attr[r] = torch.stack([
-                        u[better].gather(1, sel)[:, 0],
-                        v[better].gather(1, sel)[:, 0],
-                        a[:, 3], a[:, 11], a[:, 0], a[:, 1], a[:, 2],
-                        *normal], dim=1)
+                    attr[r] = _winner_attrs(at0, at1, k, leaf, sel,
+                                            u[better], v[better], normal,
+                                            textured)
             push_m = hit[:, c] & (refs[:, c] >= 0)
             if bool(push_m.any()):
                 w.push(rows[push_m], refs[push_m, c])
@@ -611,13 +630,14 @@ class _Walks:
 class _Phase1(_Walks):
     """The shared phase 1 of every closest-hit plain version: the closest
     walk over the packed rays and its outputs ``outs``: with the attribute
-    rows (attrs=1) the 15 channels f32[PB,15,8,128], without them (``at0``
-    None, attrs=0) t f32[PB,8,128] (BIG on a miss) and the sorted index
-    i32[PB,8,128] (-1). The shadow walks of phase 2 start at t = 0 and add
-    to its walk counters."""
+    rows (attrs=1, and attrs=2 with ``textured``, which also fills the uv
+    and layer channels) the 15 channels f32[PB,15,8,128], without them
+    (``at0`` None, attrs=0) t f32[PB,8,128] (BIG on a miss) and the sorted
+    index i32[PB,8,128] (-1). The shadow walks of phase 2 start at t = 0
+    and add to its walk counters."""
 
     def __init__(self, rays, nodes, tris, at0, at1, k, t_min, max_iters,
-                 stack_size, stats):
+                 stack_size, stats, textured=False):
         pb = rays.shape[0]
         comp = _components(rays)
         self.o = (comp[0], comp[1], comp[2])
@@ -628,21 +648,18 @@ class _Phase1(_Walks):
                          stats)
         best_t, best_i, attr, self.ovf, self.cap = _closest_walk(
             nodes, tris, at0, at1, k, self.o, self.d, inv, tmax, t_min,
-            max_iters, stack_size, stats)
+            max_iters, stack_size, stats, textured)
         t_out = torch.where(best_i >= 0, best_t, _BIG)
         if at0 is None:
             self.outs = (t_out.reshape(pb, 8, 128), self.image(best_i))
         else:
-            zero = torch.zeros(n, dtype=torch.float32, device=tmax.device)
-            chans = [t_out, best_i.to(torch.float32), attr[:, 0],
-                     attr[:, 1], zero, zero, attr[:, 2], zero, attr[:, 3],
-                     attr[:, 4], attr[:, 5], attr[:, 6], attr[:, 7],
-                     attr[:, 8], attr[:, 9]]
-            self.outs = (torch.stack(chans).reshape(ATTR_CH, pb, 8, 128)
+            chans = torch.cat([t_out[None], best_i.to(torch.float32)[None],
+                               attr.T])
+            self.outs = (chans.reshape(ATTR_CH, pb, 8, 128)
                          .permute(1, 0, 2, 3).contiguous(),)
         self.best_t = best_t
         self.hitm = best_i >= 0
-        self.gn = (attr[:, 7], attr[:, 8], attr[:, 9])
+        self.gn = (attr[:, 10], attr[:, 11], attr[:, 12])
 
     def origin(self, bias):
         return _biased_origin(bias, self.o, self.d, self.best_t, self.gn)
@@ -650,7 +667,8 @@ class _Phase1(_Walks):
 
 def closest_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
                              leaf_size: int, point: bool, t_min: float,
-                             max_iters: int, stack_size: int, stats=None):
+                             max_iters: int, stack_size: int, stats=None,
+                             textured: bool = False):
     """Plain PyTorch version of the fused kernel, on any device.
 
     rays f32[PB,10,8,128] -> (out f32[PB,15,8,128], occ i32[PB,8,128],
@@ -660,9 +678,13 @@ def closest_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
     runs until every stack is empty. Children of a popped node are tested
     against the cap at pop time and handled in slot order (leaf tests in
     place, internal children pushed), as the kernel does. ``stats``: an
-    optional dict that receives the node pops and triangle tests."""
+    optional dict that receives the node pops and triangle tests.
+    ``textured`` (attrs=2, every fused plain version and
+    ``closest_attrs_reference``): the walk also interpolates the winner's
+    uv and reads its layer into channels 4, 5 and 7, which otherwise stay
+    0."""
     ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
-                 stack_size, stats)
+                 stack_size, stats, textured)
     if point:
         so = ph.origin(scal[3])
         ray = _point_ray(scal[0:3], so, ph.hitm)
@@ -690,7 +712,8 @@ def _multi_scal_len(points) -> int:
 def closest_multi_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
                                    leaf_size: int, points, t_min: float,
                                    max_iters: int, stack_size: int,
-                                   stats=None):
+                                   stats=None,
+                                   textured: bool = False):
     """Plain version of ``_closest_multi_shadow_kernel_w8_b``: phase 1,
     then one hard any-hit walk per light from the shared biased hit point.
     scal: [bias, root min(3), root max(3)], then per light a position(3)
@@ -699,7 +722,7 @@ def closest_multi_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
     counts i32[2])."""
     _check_mask_lights(len(points))
     ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
-                 stack_size, stats)
+                 stack_size, stats, textured)
     so = ph.origin(scal[0])
     rmin, rmax = scal[1:4], scal[4:7]
     mask = torch.zeros(ph.n, dtype=torch.int32, device=rays.device)
@@ -748,13 +771,14 @@ def closest_soft_shadow_reference(rays, nodes, tris, at0, at1, scal, *,
                                   leaf_size: int, spp: int, seed: int,
                                   zero_stream: bool, t_min: float,
                                   max_iters: int, stack_size: int,
-                                  stats=None):
+                                  stats=None,
+                                  textured: bool = False):
     """Plain version of ``_closest_soft_shadow_kernel_w8_b``: phase 1, then
     spp cone samples around the sun axis. scal f32[17]: axis(3), basis
     t0(3), t1(3), cone_cos, root min(3), root max(3), bias. -> (out, counts
     i32[PB,8,128] in [0, spp], walk counts i32[2])."""
     ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
-                 stack_size, stats)
+                 stack_size, stats, textured)
     so = ph.origin(scal[16])
     sample = _cone_sampler(scal, 0, scal[10:13], scal[13:16], so, ph.hitm)
     cnt = _sampled_counts(ph, so, spp, seed, zero_stream, sample)
@@ -765,13 +789,14 @@ def closest_point_soft_shadow_reference(rays, nodes, tris, at0, at1, scal,
                                         *, leaf_size: int, spp: int,
                                         seed: int, zero_stream: bool,
                                         t_min: float, max_iters: int,
-                                        stack_size: int, stats=None):
+                                        stack_size: int, stats=None,
+                                        textured: bool = False):
     """Plain version of ``_closest_psoft_shadow_kernel_w8_b``: phase 1,
     then spp jittered-disk samples on a point light, in a per-ray Duff
     basis around the axis to the light's centre. scal f32[5]: position(3),
     radius, bias. -> (out, counts, walk counts)."""
     ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
-                 stack_size, stats)
+                 stack_size, stats, textured)
     so = ph.origin(scal[4])
     sample = _disk_sampler(scal, 0, so, ph.hitm)
     cnt = _sampled_counts(ph, so, spp, seed, zero_stream, sample)
@@ -787,7 +812,8 @@ def closest_soft_multi_shadow_reference(rays, nodes, tris, at0, at1, scal,
                                         seed: int, zero_stream: bool,
                                         disk: bool, n_extra: int,
                                         t_min: float, max_iters: int,
-                                        stack_size: int, stats=None):
+                                        stack_size: int, stats=None,
+                                        textured: bool = False):
     """Plain version of ``_closest_soft_multi_shadow_kernel_w8_b``: phase
     1; light 0 soft (``disk``: jittered disk, else cone) -> counts; one
     hard walk per extra directional light -> mask (bit i = extra light i).
@@ -798,7 +824,7 @@ def closest_soft_multi_shadow_reference(rays, nodes, tris, at0, at1, scal,
     if n_extra:
         _check_mask_lights(n_extra)
     ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
-                 stack_size, stats)
+                 stack_size, stats, textured)
     so = ph.origin(scal[0])
     rmin, rmax = scal[1:4], scal[4:7]
     if disk:
@@ -817,11 +843,12 @@ def closest_soft_multi_shadow_reference(rays, nodes, tris, at0, at1, scal,
 
 def closest_attrs_reference(rays, nodes, tris, at0, at1, *, leaf_size: int,
                             t_min: float, max_iters: int, stack_size: int,
-                            stats=None):
+                            stats=None,
+                            textured: bool = False):
     """Plain version of ``_closest_attr_kernel_w8_b``: phase 1 alone.
     rays f32[PB,10,8,128] -> (out f32[PB,15,8,128], counts i32[2])."""
     ph = _Phase1(rays, nodes, tris, at0, at1, leaf_size, t_min, max_iters,
-                 stack_size, stats)
+                 stack_size, stats, textured)
     return (*ph.outs, ph.counts())
 
 
@@ -868,6 +895,39 @@ def closest_soft_multi_shadow_st_reference(rays, nodes, tris, scal, **kw):
     """Plain version of SOFT_MULTI attrs=0."""
     return closest_soft_multi_shadow_reference(rays, nodes, tris, None,
                                                None, scal, **kw)
+
+
+# The attrs=2 (textured) plain versions, called as their kernels
+# ``*_tex_cuda`` are.
+
+def closest_shadow_tex_reference(*args, **kw):
+    """Plain version of HARD attrs=2."""
+    return closest_shadow_reference(*args, textured=True, **kw)
+
+
+def closest_multi_shadow_tex_reference(*args, **kw):
+    """Plain version of MULTI attrs=2."""
+    return closest_multi_shadow_reference(*args, textured=True, **kw)
+
+
+def closest_soft_shadow_tex_reference(*args, **kw):
+    """Plain version of SOFT attrs=2."""
+    return closest_soft_shadow_reference(*args, textured=True, **kw)
+
+
+def closest_point_soft_shadow_tex_reference(*args, **kw):
+    """Plain version of PSOFT attrs=2."""
+    return closest_point_soft_shadow_reference(*args, textured=True, **kw)
+
+
+def closest_soft_multi_shadow_tex_reference(*args, **kw):
+    """Plain version of SOFT_MULTI attrs=2."""
+    return closest_soft_multi_shadow_reference(*args, textured=True, **kw)
+
+
+def closest_attrs_tex_reference(*args, **kw):
+    """Plain version of CLOSEST attrs=2."""
+    return closest_attrs_reference(*args, textured=True, **kw)
 
 
 def any_reference(rays, nodes, tris, *, leaf_size: int, t_min: float,
@@ -1091,12 +1151,13 @@ _BINARY = "tpurt_binary_launch"
 def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
             ray_comps: int, attrs, leaf_size: int, t_min: float,
             max_iters: int, stack_size: int, scal_len: int,
-            closest: bool = False, **extra):
+            closest: bool = False, textured: bool = False, **extra):
     """Check a launch's inputs, allocate its outputs, launch ``mode`` of the
     C entry point ``entry`` on the current stream. rays: the
     f32[PB,ray_comps,8,128] block; ``closest``: the mode runs the closest
     walk, which returns out f32[PB,15,8,128] with the attribute tables
-    ``attrs`` = (at0, at1) (attrs=1), or t f32[PB,8,128] and sidx
+    ``attrs`` = (at0, at1) (attrs=1; attrs=2 with ``textured``, which
+    also fills the uv and layer channels), or t f32[PB,8,128] and sidx
     i32[PB,8,128] with ``attrs`` None (attrs=0); scal: f32[scal_len], or
     None when scal_len is 0; outputs: the i32[PB,8,128] blocks to return,
     a tuple of "cnt_out" / "mask_out"; extra: the mode's Params fields. ->
@@ -1123,8 +1184,10 @@ def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
         res.append(torch.empty((pb, ATTR_CH, 8, 128), dtype=torch.float32,
                                device=dev))
         ptrs.update(at0=at0.data_ptr(), at1=at1.data_ptr(),
-                    out=res[0].data_ptr(), attrs=1)
+                    out=res[0].data_ptr(), attrs=2 if textured else 1)
     elif closest:
+        if textured:
+            raise ValueError("a textured walk needs the attribute rows")
         res += [torch.empty((pb, 8, 128), dtype=torch.float32, device=dev),
                 torch.empty((pb, 8, 128), dtype=torch.int32, device=dev)]
         ptrs.update(out=res[0].data_ptr(), sidx_out=res[1].data_ptr(),
@@ -1152,7 +1215,8 @@ def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
 
 def _fused(mode: int, outputs, rays, nodes, tris, attrs, scal, **kw):
     """A launch of csrc/fused_shadows.cu, the closest walk's modes: attrs
-    (at0, at1) for the attrs=1 variant, None for attrs=0."""
+    (at0, at1) for the attrs=1 variant (attrs=2 with ``textured=True`` in
+    ``kw``), None for attrs=0."""
     return _launch(_FUSED, mode, outputs, rays, nodes, tris, scal,
                    ray_comps=10, attrs=attrs, closest=True, **kw)
 
@@ -1188,7 +1252,8 @@ def _soft_multi_fields(disk: bool, n_extra: int) -> dict:
 # csrc/shadow_rays.cu, with the contract of its *_reference; it takes CUDA
 # tensors only, builds the kernel library on first use, raises on anything
 # the kernel does not take and on a refused launch, and counts its launches
-# in ``.launches``. The fused modes' *_st_cuda are their attrs=0 variants.
+# in ``.launches``. The fused modes' *_st_cuda are their attrs=0 variants,
+# *_tex_cuda (CLOSEST's too) their attrs=2 (textured) ones.
 
 def closest_shadow_cuda(rays, nodes, tris, at0, at1, scal, *, point: bool,
                         **walk):
@@ -1300,6 +1365,68 @@ def closest_cuda(rays, nodes, tris, **walk):
     return res
 
 
+def closest_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
+                            point: bool, **walk):
+    """Mode HARD attrs=2: with the winner's interpolated uv and layer."""
+    res = _fused(HARD, ("mask_out",), rays, nodes, tris, (at0, at1), scal,
+                 **walk, **_hard_fields(point), textured=True)
+    closest_shadow_tex_cuda.launches += 1
+    return res
+
+
+def closest_multi_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
+                                  points, **walk):
+    """Mode MULTI attrs=2."""
+    res = _fused(MULTI, ("mask_out",), rays, nodes, tris, (at0, at1), scal,
+                 **walk, **_multi_fields(points), textured=True)
+    closest_multi_shadow_tex_cuda.launches += 1
+    return res
+
+
+def closest_soft_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
+                                 spp: int, seed: int, zero_stream: bool,
+                                 **walk):
+    """Mode SOFT attrs=2."""
+    res = _fused(SOFT, ("cnt_out",), rays, nodes, tris, (at0, at1), scal,
+                 **walk, scal_len=17, **_sampling(spp, seed, zero_stream),
+                 textured=True)
+    closest_soft_shadow_tex_cuda.launches += 1
+    return res
+
+
+def closest_point_soft_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
+                                       spp: int, seed: int,
+                                       zero_stream: bool, **walk):
+    """Mode PSOFT attrs=2."""
+    res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, (at0, at1), scal,
+                 **walk, scal_len=5, **_sampling(spp, seed, zero_stream),
+                 textured=True)
+    closest_point_soft_shadow_tex_cuda.launches += 1
+    return res
+
+
+def closest_soft_multi_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
+                                       spp: int, seed: int,
+                                       zero_stream: bool, disk: bool,
+                                       n_extra: int, **walk):
+    """Mode SOFT_MULTI attrs=2."""
+    res = _fused(SOFT_MULTI, ("cnt_out", "mask_out"), rays, nodes, tris,
+                 (at0, at1), scal, **walk,
+                 **_soft_multi_fields(disk, n_extra),
+                 **_sampling(spp, seed, zero_stream), textured=True)
+    closest_soft_multi_shadow_tex_cuda.launches += 1
+    return res
+
+
+def closest_attrs_tex_cuda(rays, nodes, tris, at0, at1, **walk):
+    """Mode CLOSEST attrs=2: the closest hit and its attributes, uv and
+    layer included."""
+    res = _fused(CLOSEST, (), rays, nodes, tris, (at0, at1), None, **walk,
+                 scal_len=0, textured=True)
+    closest_attrs_tex_cuda.launches += 1
+    return res
+
+
 def any_cuda(rays, nodes, tris, *, leaf_size: int, t_min: float,
              max_iters: int, stack_size: int):
     """Mode ANY of csrc/shadow_rays.cu: any hit of given rays."""
@@ -1368,7 +1495,10 @@ CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
                 closest_soft_shadow_st_cuda,
                 closest_point_soft_shadow_st_cuda,
                 closest_soft_multi_shadow_st_cuda, binary_closest_cuda,
-                binary_any_cuda)
+                binary_any_cuda, closest_shadow_tex_cuda,
+                closest_multi_shadow_tex_cuda, closest_soft_shadow_tex_cuda,
+                closest_point_soft_shadow_tex_cuda,
+                closest_soft_multi_shadow_tex_cuda, closest_attrs_tex_cuda)
 for _fn in CUDA_KERNELS:
     _fn.launches = 0
 
@@ -1601,14 +1731,20 @@ def any_point_soft_inputs(bvh: WideBVH, origins, valid, light_pos, radius,
         spp, seed, light, t_min, zero_stream, stack_size)
 
 
-def _fused_pair(attr_tables, cuda_fn, plain_fn, st_cuda_fn, st_plain_fn,
-                device):
-    """The kernel or plain version of a fused mode for ``device``: the
-    attrs=1 pair with attribute tables, the attrs=0 (``*_st``) pair
-    without."""
-    if attr_tables is None:
-        return _pick(device, st_cuda_fn, st_plain_fn)
-    return _pick(device, cuda_fn, plain_fn)
+# The variants of a fused mode by tpurt's ``attrs``: 0 without attribute
+# tables (the shade-table G-buffer), 1 with them, 2 with them on a
+# textured mesh (``attrs = 2 if textured else 1``).
+_VARIANT_SUFFIX = ("_st", "", "_tex")
+
+
+def _fused_pair(name: str, attr_tables, textured: bool, device):
+    """The kernel or plain version of fused mode ``name`` (the functions'
+    stem, e.g. "closest_shadow") for ``device``, in the variant the
+    tables and ``textured`` select."""
+    attrs = 0 if attr_tables is None else (2 if textured else 1)
+    stem = name + _VARIANT_SUFFIX[attrs]
+    g = globals()
+    return _pick(device, g[stem + "_cuda"], g[stem + "_reference"])
 
 
 def _hit_outputs(res, p, meta, attrs: bool):
@@ -1624,20 +1760,22 @@ def _hit_outputs(res, p, meta, attrs: bool):
 
 def trace_closest_shadow(bvh: WideBVH, origins, dirs, light_dir, bias,
                          t_max=_BIG, t_min: float = 0.0, light_pos=None,
-                         attr_tables=None, stack_size: int = STACK_CAPACITY):
+                         attr_tables=None, stack_size: int = STACK_CAPACITY,
+                         textured: bool = False):
     """Fused primary visibility + light-0 hard shadow (ONE kernel launch).
 
     origins/dirs f32[H, W, 3]; light_dir f32[3] toward the light (used when
     ``light_pos`` is None); light_pos f32[3] for a hard point light; bias:
     the normal-offset shadow bias; attr_tables (at0, at1): the leaf
-    attribute rows. Returns (channel dict, occluded bool[H, W], counts
-    i32[2]); without attribute tables (attrs=0) (t f32[H, W], sidx
-    i32[H, W], occluded, counts), misses (inf, -1). Every fused wrapper
-    returns its t and sidx so. CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
-    fn = _fused_pair(attr_tables, closest_shadow_cuda,
-                     closest_shadow_reference, closest_shadow_st_cuda,
-                     closest_shadow_st_reference, origins.device)
+    attribute rows; ``textured`` (with them): the attrs=2 variant, which
+    also returns the winner's interpolated uv and layer (every fused
+    wrapper and ``trace_closest_attrs`` take it). Returns (channel dict,
+    occluded bool[H, W], counts i32[2]); without attribute tables
+    (attrs=0) (t f32[H, W], sidx i32[H, W], occluded, counts), misses
+    (inf, -1). Every fused wrapper returns its t and sidx so. CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
+    fn = _fused_pair("closest_shadow", attr_tables, textured,
+                     origins.device)
     args, kwargs, p, meta = closest_shadow_inputs(
         bvh, origins, dirs, light_dir, bias, attr_tables, t_max, t_min,
         light_pos, stack_size)
@@ -1649,16 +1787,15 @@ def trace_closest_shadow(bvh: WideBVH, origins, dirs, light_dir, bias,
 def trace_closest_multi_shadow(bvh: WideBVH, origins, dirs, lights, bias,
                                t_max=_BIG, t_min: float = 0.0,
                                attr_tables=None,
-                               stack_size: int = STACK_CAPACITY):
+                               stack_size: int = STACK_CAPACITY,
+                               textured: bool = False):
     """Fused primary visibility + N hard shadows (ONE kernel launch).
     lights: (light_dir, light_pos) pairs as ``tpurt``'s
     ``trace_closest_multi_shadow_pallas`` takes them (at most 31). Returns
     (channel dict, occ_mask i32[H, W] with bit l = light l occluded,
     counts i32[2]), or (t, sidx, occ_mask, counts) without tables."""
-    fn = _fused_pair(attr_tables, closest_multi_shadow_cuda,
-                     closest_multi_shadow_reference,
-                     closest_multi_shadow_st_cuda,
-                     closest_multi_shadow_st_reference, origins.device)
+    fn = _fused_pair("closest_multi_shadow", attr_tables, textured,
+                     origins.device)
     args, kwargs, p, meta = closest_multi_shadow_inputs(
         bvh, origins, dirs, lights, bias, attr_tables, t_max, t_min,
         stack_size)
@@ -1671,15 +1808,14 @@ def trace_closest_soft_shadow(bvh: WideBVH, origins, dirs, axis_dir,
                               cone_cos, spp: int, seed: int, bias,
                               t_max=_BIG, t_min: float = 0.0,
                               attr_tables=None, zero_stream: bool = False,
-                              stack_size: int = STACK_CAPACITY):
+                              stack_size: int = STACK_CAPACITY,
+                              textured: bool = False):
     """Fused primary visibility + area-light (cone) soft shadows (ONE
     kernel launch). Returns (channel dict, occlusion counts i32[H, W] in
     [0, spp], walk counts i32[2]), or (t, sidx, counts, walk counts)
     without tables; visibility = 1 - counts / spp."""
-    fn = _fused_pair(attr_tables, closest_soft_shadow_cuda,
-                     closest_soft_shadow_reference,
-                     closest_soft_shadow_st_cuda,
-                     closest_soft_shadow_st_reference, origins.device)
+    fn = _fused_pair("closest_soft_shadow", attr_tables, textured,
+                     origins.device)
     args, kwargs, p, meta = closest_soft_shadow_inputs(
         bvh, origins, dirs, axis_dir, cone_cos, spp, seed, bias,
         attr_tables, t_max, t_min, zero_stream, stack_size)
@@ -1693,14 +1829,13 @@ def trace_closest_point_soft_shadow(bvh: WideBVH, origins, dirs, light_pos,
                                     t_max=_BIG, t_min: float = 0.0,
                                     attr_tables=None,
                                     zero_stream: bool = False,
-                                    stack_size: int = STACK_CAPACITY):
+                                    stack_size: int = STACK_CAPACITY,
+                                    textured: bool = False):
     """Fused primary visibility + point-light penumbra (ONE kernel
     launch). Returns (channel dict, counts i32[H, W] in [0, spp], walk
     counts i32[2]), or (t, sidx, counts, walk counts) without tables."""
-    fn = _fused_pair(attr_tables, closest_point_soft_shadow_cuda,
-                     closest_point_soft_shadow_reference,
-                     closest_point_soft_shadow_st_cuda,
-                     closest_point_soft_shadow_st_reference, origins.device)
+    fn = _fused_pair("closest_point_soft_shadow", attr_tables, textured,
+                     origins.device)
     args, kwargs, p, meta = closest_point_soft_shadow_inputs(
         bvh, origins, dirs, light_pos, radius, spp, seed, bias, attr_tables,
         t_max, t_min, zero_stream, stack_size)
@@ -1714,16 +1849,15 @@ def trace_closest_soft_multi_shadow(bvh: WideBVH, origins, dirs, light0,
                                     t_max=_BIG, t_min: float = 0.0,
                                     attr_tables=None,
                                     zero_stream: bool = False,
-                                    stack_size: int = STACK_CAPACITY):
+                                    stack_size: int = STACK_CAPACITY,
+                                    textured: bool = False):
     """Fused primary + soft light 0 + hard directional extras (ONE kernel
     launch). light0: ("cone", axis, cone_cos) or ("disk", position,
     radius). Returns (channel dict, counts0 i32[H, W], occ_mask i32[H, W]
     with bit i = extra light i, walk counts i32[2]), or (t, sidx, counts0,
     occ_mask, walk counts) without tables."""
-    fn = _fused_pair(attr_tables, closest_soft_multi_shadow_cuda,
-                     closest_soft_multi_shadow_reference,
-                     closest_soft_multi_shadow_st_cuda,
-                     closest_soft_multi_shadow_st_reference, origins.device)
+    fn = _fused_pair("closest_soft_multi_shadow", attr_tables, textured,
+                     origins.device)
     args, kwargs, p, meta = closest_soft_multi_shadow_inputs(
         bvh, origins, dirs, light0, extra_dirs, spp, seed, bias, attr_tables,
         t_max, t_min, zero_stream, stack_size)
@@ -1734,10 +1868,11 @@ def trace_closest_soft_multi_shadow(bvh: WideBVH, origins, dirs, light0,
 
 def trace_closest_attrs(bvh: WideBVH, origins, dirs, attr_tables,
                         t_max=_BIG, t_min: float = 0.0,
-                        stack_size: int = STACK_CAPACITY):
+                        stack_size: int = STACK_CAPACITY,
+                        textured: bool = False):
     """Attribute-tracked closest hit (ONE kernel launch): the G-buffer of
     the unfused frame. Returns (channel dict, walk counts i32[2])."""
-    fn = _pick(origins.device, closest_attrs_cuda, closest_attrs_reference)
+    fn = _fused_pair("closest_attrs", attr_tables, textured, origins.device)
     args, kwargs, p, meta = closest_attrs_inputs(
         bvh, origins, dirs, attr_tables, t_max, t_min, stack_size)
     out, counts = fn(*args, **kwargs)

@@ -1,5 +1,5 @@
 """ctypes binding of the shared C++ host library (counterpart of
-``tpurt/native.py``, SAH/SBVH build only).
+``tpurt/native.py``): the SAH/SBVH build and the OBJ parser.
 
 The library source lives in ``native/`` and is shared with the JAX
 package, not copied: ``native/Makefile`` builds ``native/libtpurt_native.so``
@@ -17,6 +17,7 @@ import dataclasses
 import fcntl
 import os
 import subprocess
+from typing import List, Tuple
 
 import numpy as np
 
@@ -93,6 +94,25 @@ class _Library:
                                  c_int_p, c_int_p, c_int_p, c_int_p]
         lib.bvh_free.restype = None
         lib.bvh_free.argtypes = [ctypes.c_void_p]
+        vp = ctypes.c_void_p
+        lib.obj_load.restype = vp
+        lib.obj_load.argtypes = [ctypes.c_char_p]
+        for name in ("obj_num_positions", "obj_num_normals",
+                     "obj_num_texcoords", "obj_num_tris",
+                     "obj_mtl_names_len", "obj_mtllibs_len"):
+            getattr(lib, name).restype = ctypes.c_int64
+            getattr(lib, name).argtypes = [vp]
+        for name, args in (("obj_copy_positions", [vp, c_float_p]),
+                           ("obj_copy_normals", [vp, c_float_p]),
+                           ("obj_copy_texcoords", [vp, c_float_p]),
+                           ("obj_copy_tris", [vp, c_int_p, c_int_p]),
+                           ("obj_copy_tri_tex", [vp, c_int_p]),
+                           ("obj_copy_tri_mtl", [vp, c_int_p]),
+                           ("obj_copy_mtl_names", [vp, ctypes.c_char_p]),
+                           ("obj_copy_mtllibs", [vp, ctypes.c_char_p]),
+                           ("obj_free", [vp])):
+            getattr(lib, name).restype = None
+            getattr(lib, name).argtypes = args
         cls.handle = lib
         return lib
 
@@ -151,3 +171,53 @@ def build_sah_bvh(vertices: np.ndarray, indices: np.ndarray,
                       prim_count=prim_count, skip=skip, tri_order=order)
     finally:
         lib.bvh_free(h)
+
+
+def load_obj_raw(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                     np.ndarray, np.ndarray, np.ndarray,
+                                     np.ndarray, List[str], List[str]]:
+    """Native OBJ parse (``tpurt.native.load_obj_raw``) -> (positions
+    f32[P, 3], normals f32[N, 3], texcoords f32[TC, 2], tri_pos i32[T, 3],
+    tri_nrm i32[T, 3] (-1: no normal), tri_tex i32[T, 3] (-1: none),
+    tri_mtl i32[T] material index (-1: none), material names, mtllib
+    names). Raises FileNotFoundError for a file the parser cannot open,
+    ValueError for one without faces, and as ``load_library`` does."""
+    lib = load_library()
+    h = lib.obj_load(path.encode())
+    if not h:
+        raise FileNotFoundError(path)
+    try:
+        npos, nn, ntc, nt = (lib.obj_num_positions(h), lib.obj_num_normals(h),
+                             lib.obj_num_texcoords(h), lib.obj_num_tris(h))
+        if nt == 0:
+            raise ValueError(f"no faces found in OBJ file: {path}")
+        pos = np.empty((npos, 3), np.float32)
+        nrm = np.empty((max(nn, 1), 3), np.float32)
+        tc = np.empty((max(ntc, 1), 2), np.float32)
+        tp = np.empty((nt, 3), np.int32)
+        tn = np.empty((nt, 3), np.int32)
+        tt = np.empty((nt, 3), np.int32)
+        tm = np.empty(nt, np.int32)
+        if npos:
+            lib.obj_copy_positions(h, _fp(pos))
+        if nn:
+            lib.obj_copy_normals(h, _fp(nrm))
+        if ntc:
+            lib.obj_copy_texcoords(h, _fp(tc))
+        lib.obj_copy_tris(h, _ip(tp), _ip(tn))
+        lib.obj_copy_tri_tex(h, _ip(tt))
+        lib.obj_copy_tri_mtl(h, _ip(tm))
+
+        def names(len_fn, copy_fn) -> List[str]:
+            n = len_fn(h)
+            if n == 0:
+                return []
+            buf = ctypes.create_string_buffer(int(n))
+            copy_fn(h, buf)
+            return buf.raw[:n].decode(errors="replace").split("\n")
+
+        return (pos, nrm[:nn], tc[:ntc], tp, tn, tt, tm,
+                names(lib.obj_mtl_names_len, lib.obj_copy_mtl_names),
+                names(lib.obj_mtllibs_len, lib.obj_copy_mtllibs))
+    finally:
+        lib.obj_free(h)

@@ -8,7 +8,10 @@ without a table (``gbuffer_pass`` with none, ``shade_attributes``: t and
 tri_id, then gathers of the mesh by tri_id); and the raster G-buffer
 (``gbuffer_raster_pass``), where the tile rasterizer's z-fight selects the
 attributes. Apart from the gathers, the decode is elementwise tensor
-code."""
+code. A textured mesh's albedo is sampled afterwards, on every G-buffer
+(``passes/texture.apply_textures``, applied by the app's productions):
+the attribute and shade-table G-buffers hand it their interpolated uv and
+layer, the others their (tri_id, position)."""
 
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from ..kernels.traverse import trace_closest_attrs
 from ..raster.setup import bin_rows, default_cap_rows
 from ..types import Camera, Mesh
 from .shading import (barycentrics_from_position, gather_table_rows,
-                      oct_decode, shade_from_table, table_tri_id, unpack_rgb)
+                      oct_decode, shade_from_table, table_tri_id, table_uv,
+                      unpack_rgb)
 
 
 def gbuffer_attr_pass(bvh, attr_tables, mesh: Mesh, cam: Camera,
@@ -34,7 +38,8 @@ def gbuffer_attr_pass(bvh, attr_tables, mesh: Mesh, cam: Camera,
     if rays is None:
         rays = generate_rays(cam, width, height, bvh.nodes.device)
     origins, dirs = rays
-    ch, counts = trace_closest_attrs(bvh, origins, dirs, attr_tables)
+    ch, counts = trace_closest_attrs(bvh, origins, dirs, attr_tables,
+                                     textured=mesh.textured)
     return gbuf_from_attr_channels(ch, origins, dirs, cam, mesh), counts
 
 
@@ -94,8 +99,6 @@ def gbuffer_pass(trace_closest: Callable, mesh: Mesh, cam: Camera,
         t, tri_id, sidx, counts = trace_closest(origins, dirs)
         return gbuf_from_table(t, tri_id, sidx, origins, dirs, cam, mesh,
                                shade_table), counts
-    if mesh.textured:
-        raise NotImplementedError("textured G-buffer decode is not ported")
     t, tri_id, counts = trace_closest(origins, dirs)
     valid = tri_id >= 0
     position = origins + dirs * torch.where(valid, t, 0.0)[..., None]
@@ -120,15 +123,19 @@ def gbuf_from_table(t, tri_id, sidx, origins, dirs, cam: Camera, mesh: Mesh,
     G-buffer: ONE row gather per pixel keyed by sidx gives the
     interpolated smooth normal, the geometric normal and the albedo, and
     tri_id from the row's id lane where the tracer left it out; both
-    normals are turned toward the viewer."""
-    if mesh.textured:
-        raise NotImplementedError("textured G-buffer decode is not ported")
+    normals are turned toward the viewer. A textured mesh's G-buffer also
+    carries ``uv`` (interpolated from the row's corner uvs) and
+    ``tex_layer`` (-1 off the valid mask)."""
     valid = sidx >= 0 if tri_id is None else tri_id >= 0
     position = origins + dirs * torch.where(valid, t, 0.0)[..., None]
     rows = gather_table_rows(shade_table, sidx)
     attrs = shade_from_table(rows, position, valid)
     if tri_id is None:
         tri_id = table_tri_id(rows, valid)
+    extra = {}
+    if mesh.textured:
+        uv, layer = table_uv(rows, attrs["u"], attrs["v"])
+        extra = {"uv": uv, "tex_layer": torch.where(valid, layer, -1)}
     flip = _viewer_facing(attrs["gnormal"], dirs)
     return {
         "position": position,
@@ -140,6 +147,7 @@ def gbuf_from_table(t, tri_id, sidx, origins, dirs, cam: Camera, mesh: Mesh,
         "tri_id": tri_id,
         "valid": valid,
         "view_dir": dirs,
+        **extra,
     }
 
 
@@ -148,9 +156,9 @@ def gbuf_from_attr_channels(ch: Dict[str, torch.Tensor], origins, dirs,
                             ) -> Dict[str, torch.Tensor]:
     """Attribute-channel dict (``kernels/traverse._attr_channels``) ->
     full G-buffer: position, smooth and geometric normals flipped toward
-    the viewer, albedo, depth, t, tri_id, valid, view_dir."""
-    if mesh.textured:
-        raise NotImplementedError("textured G-buffer decode is not ported")
+    the viewer, albedo, depth, t, tri_id, valid, view_dir; for a textured
+    mesh also the kernel's interpolated ``uv`` and ``tex_layer`` (i32, -1
+    off the valid mask)."""
     valid = ch["sidx"] >= 0
     t = ch["t"]
     position = origins + dirs * torch.where(valid, t, 0.0)[..., None]
@@ -168,6 +176,11 @@ def gbuf_from_attr_channels(ch: Dict[str, torch.Tensor], origins, dirs,
     gnormal = torch.where(vmask, gnormal, zeros)
     albedo = torch.where(vmask, albedo, zeros)
     flip = _viewer_facing(gnormal, dirs)
+    extra = {}
+    if mesh.textured:
+        extra = {"uv": ch["uv"],
+                 "tex_layer": torch.where(valid, ch["layer"], -1.0)
+                 .to(torch.int32)}
     return {
         "position": position,
         "normal": smooth * flip,
@@ -178,6 +191,7 @@ def gbuf_from_attr_channels(ch: Dict[str, torch.Tensor], origins, dirs,
         "tri_id": ch["tri_id"],
         "valid": valid,
         "view_dir": dirs,
+        **extra,
     }
 
 

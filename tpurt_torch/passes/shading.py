@@ -4,7 +4,8 @@ keyed by the sorted original ids (``make_leaf_attr_rows``, once per
 scene) or from columns that rode the rebuild's sort
 (``attr_payload_columns`` -> ``leaf_attr_rows_from_sorted``); the packed
 shade table (``make_shade_table``) and its per-pixel decode
-(``table_tri_id``, ``barycentrics_from_position``, ``shade_from_table``);
+(``table_tri_id``, ``table_uv``, ``barycentrics_from_position``,
+``shade_from_table``);
 and the animated mesh's vertex normals (``smooth_normals_device``).
 
 The fused kernel selects the winning triangle's shading attributes from
@@ -34,8 +35,8 @@ sorted hit index:
             and above 2^23 read as denormals or NaNs as floats), so the
             column is only ever concatenated, gathered and viewed, through
             int32 views, never computed on
-    [17:23] uv0, uv1, uv2 (zeros: textured tables are not ported)
-    [23]    texture layer (-1)
+    [17:23] uv0, uv1, uv2 (zeros untextured)
+    [23]    texture layer (-1 untextured)
 """
 
 from __future__ import annotations
@@ -116,15 +117,21 @@ def _pack_attr_rows(rows16: torch.Tensor, num_leaves: int, k: int):
     return at0.contiguous(), at1.contiguous()
 
 
+def _uv_columns(m: Mesh, tri: torch.Tensor):
+    """(uv0 f32[n, 2], d1 = uv1 - uv0, d2 = uv2 - uv0) of the triangles
+    ``tri`` (their vertex ids) of a textured mesh ``m`` on the device."""
+    uv0 = m.uv[tri[:, 0]]
+    return uv0, m.uv[tri[:, 1]] - uv0, m.uv[tri[:, 2]] - uv0
+
+
 def make_leaf_attr_rows(bvh: LBVH, mesh: Mesh):
     """Leaf-major shading attributes (at0, at1) f32[num_blocks, 128] on the
-    accel's device, for an untextured mesh (fields as numpy arrays or
-    tensors)."""
+    accel's device (mesh fields as numpy arrays or tensors). A textured
+    mesh fills lanes 4-10 (layer, uv0, d1, d2); an untextured one holds
+    layer -1 and zero uv there."""
     k = bvh.leaf_size
     if k > 14:
         raise ValueError("attr rows support leaf_size <= 14 (14*16 lanes)")
-    if mesh.textured:
-        raise NotImplementedError("textured attribute rows are not ported")
     dev = bvh.tri_id.device
     m = mesh.on(dev)
     tri_id = bvh.tri_id.long()
@@ -134,8 +141,12 @@ def make_leaf_attr_rows(bvh: LBVH, mesh: Mesh):
     n2 = pack_oct12(oct_encode(m.normals[tri[:, 2]]))[:, None]
     alb = pack_rgb(m.albedo[tri_id])[:, None]
     n = tri.shape[0]
-    uv = torch.zeros((n, 6), dtype=torch.float32, device=dev)
-    layer = torch.full((n, 1), -1.0, dtype=torch.float32, device=dev)
+    if mesh.textured:
+        uv = torch.cat(_uv_columns(m, tri), dim=1)
+        layer = m.tri_tex[tri_id].to(torch.float32)[:, None]
+    else:
+        uv = torch.zeros((n, 6), dtype=torch.float32, device=dev)
+        layer = torch.full((n, 1), -1.0, dtype=torch.float32, device=dev)
     tid = bvh.tri_id.to(torch.float32)[:, None]   # exact for < 2^24 tris
     pad = torch.zeros((n, 4), dtype=torch.float32, device=dev)
     rows16 = torch.cat([n0, n1, n2, alb, layer, uv, tid, pad], dim=1)
@@ -146,28 +157,39 @@ def attr_payload_columns(mesh: Mesh, device):
     """Per-triangle ORIGINAL-order attribute columns (f32[T] each) that
     ride the rebuild's Morton sort as payload (``build_lbvh``
     ``extra_payload``): the packed oct normals of the three corners and
-    the packed albedo. Untextured meshes only."""
-    if mesh.textured:
-        raise NotImplementedError("textured attribute rows are not ported")
+    the packed albedo, then for a textured mesh the layer, uv0, d1 and d2
+    (seven more columns)."""
     m = mesh.on(device)
     tri = m.indices.long()
-    return (pack_oct12(oct_encode(m.normals[tri[:, 0]])),
+    cols = (pack_oct12(oct_encode(m.normals[tri[:, 0]])),
             pack_oct12(oct_encode(m.normals[tri[:, 1]])),
             pack_oct12(oct_encode(m.normals[tri[:, 2]])),
             pack_rgb(m.albedo))
+    if mesh.textured:
+        uv0, d1, d2 = _uv_columns(m, tri)
+        cols += (m.tri_tex.to(torch.float32), uv0[:, 0], uv0[:, 1],
+                 d1[:, 0], d1[:, 1], d2[:, 0], d2[:, 1])
+    return cols
 
 
 def leaf_attr_rows_from_sorted(cols, tri_id: torch.Tensor, num_blocks: int,
-                               k: int):
+                               k: int, textured: bool = False):
     """(at0, at1) from the SORTED payload columns (``attr_payload_columns``
     order) and the sorted original ids: the rebuild's twin of
-    ``make_leaf_attr_rows``, with the same output."""
+    ``make_leaf_attr_rows``, with the same output. ``textured``: the
+    columns carry the layer and uv lanes."""
     n = tri_id.shape[0]
     z = torch.zeros((n,), dtype=torch.float32, device=tri_id.device)
-    lay = torch.full((n,), -1.0, dtype=torch.float32, device=tri_id.device)
+    if textured:
+        lay, u0u, u0v, d1u, d1v, d2u, d2v = cols[4:11]
+    else:
+        lay = torch.full((n,), -1.0, dtype=torch.float32,
+                         device=tri_id.device)
+        u0u = u0v = d1u = d1v = d2u = d2v = z
     rows16 = torch.stack([cols[0], cols[1], cols[2], cols[3], lay,
-                          z, z, z, z, z, z, tri_id.to(torch.float32),
-                          z, z, z, z], dim=1)                 # [Tpad, 16]
+                          u0u, u0v, d1u, d1v, d2u, d2v,
+                          tri_id.to(torch.float32), z, z, z, z],
+                         dim=1)                              # [Tpad, 16]
     return _pack_attr_rows(rows16, num_blocks, k)
 
 
@@ -194,13 +216,11 @@ TID_LANE = 16
 
 def make_shade_table(bvh: LBVH, mesh: Mesh) -> torch.Tensor:
     """f32[Tpad, 24] shading rows in the accel's sorted triangle order, on
-    the accel's device (``tpurt``'s ``make_shade_table``), for an
-    untextured mesh. Every padded slot (SBVH duplicates, the leaves' and
-    the Morton build's repeat padding) holds a real triangle's id, so the
-    mesh gathers stay in range. No host sync: the rebuild makes it every
-    frame."""
-    if mesh.textured:
-        raise NotImplementedError("textured shade tables are not ported")
+    the accel's device (``tpurt``'s ``make_shade_table``); a textured
+    mesh fills lanes 17-23 (uv0, uv1, uv2, layer). Every padded slot (SBVH
+    duplicates, the leaves' and the Morton build's repeat padding) holds
+    a real triangle's id, so the mesh gathers stay in range. No host sync:
+    the rebuild makes it every frame."""
     dev = bvh.tri_id.device
     m = mesh.on(dev)
     tri_id = bvh.tri_id.long()
@@ -211,9 +231,15 @@ def make_shade_table(bvh: LBVH, mesh: Mesh) -> torch.Tensor:
          oct_encode(m.normals[tri[:, 0]]), oct_encode(m.normals[tri[:, 1]]),
          oct_encode(m.normals[tri[:, 2]]),
          pack_rgb(m.albedo[tri_id])[:, None]], dim=1)       # [Tpad, 16]
-    tail = torch.cat([torch.zeros((n, 6), dtype=torch.float32, device=dev),
-                      torch.full((n, 1), -1.0, dtype=torch.float32,
-                                 device=dev)], dim=1)        # uv, layer
+    if mesh.textured:
+        tail = torch.cat([m.uv[tri[:, 0]], m.uv[tri[:, 1]], m.uv[tri[:, 2]],
+                          m.tri_tex[tri_id].to(torch.float32)[:, None]],
+                         dim=1)
+    else:
+        tail = torch.cat([torch.zeros((n, 6), dtype=torch.float32,
+                                      device=dev),
+                          torch.full((n, 1), -1.0, dtype=torch.float32,
+                                     device=dev)], dim=1)    # uv, layer
     # The id lane joins the float lanes as bits: an integer concatenation.
     return torch.cat([geometry.view(torch.int32),
                       bvh.tri_id.to(torch.int32)[:, None],
@@ -234,6 +260,16 @@ def table_tri_id(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Original triangle ids out of gathered rows (lane 16); -1 invalid."""
     tid = rows.view(torch.int32)[..., TID_LANE]
     return torch.where(valid, tid, -1)
+
+
+def table_uv(rows: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Interpolated texture coordinates f32[..., 2] and the layer i32[...]
+    out of gathered rows (lanes 17-23), at barycentrics (u, v)."""
+    uv0 = rows[..., 17:19]
+    uv1 = rows[..., 19:21]
+    uv2 = rows[..., 21:23]
+    uv = uv0 + u[..., None] * (uv1 - uv0) + v[..., None] * (uv2 - uv0)
+    return uv, rows[..., 23].to(torch.int32)
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

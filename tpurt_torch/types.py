@@ -24,7 +24,9 @@ class Mesh:
     normals  : f32[V, 3] per-vertex (smooth) normals
     indices  : i32[T, 3] triangle vertex indices
     albedo   : f32[T, 3] per-triangle albedo color
-    uv, tex_atlas, tri_tex : texturing (optional; not on the ported path)
+    uv       : f32[V, 2] per-vertex texture coordinates (optional)
+    tex_atlas: f32[NT, R, R, 3] the diffuse maps, one square layer each
+    tri_tex  : i32[T] each triangle's atlas layer (-1 = flat albedo)
     """
 
     vertices: Any
@@ -53,10 +55,13 @@ class Mesh:
         return v.min(axis=0), v.max(axis=0)
 
     def on(self, device) -> "Mesh":
-        """This mesh with its geometry as tensors on ``device`` (vertices,
-        normals and albedo float32, indices int32; the texturing fields as
-        they are). Fields already there are not copied."""
+        """This mesh with its fields as tensors on ``device`` (vertices,
+        normals, albedo, uv and the atlas float32, indices and tri_tex
+        int32; absent texturing fields stay None). Fields already there
+        are not copied."""
         def t(a, dtype):
+            if a is None:
+                return None
             if isinstance(a, torch.Tensor):
                 return a.to(device=device, dtype=dtype)
             return torch.as_tensor(np.asarray(a), device=device).to(dtype)
@@ -64,7 +69,10 @@ class Mesh:
             self, vertices=t(self.vertices, torch.float32),
             normals=t(self.normals, torch.float32),
             indices=t(self.indices, torch.int32),
-            albedo=t(self.albedo, torch.float32))
+            albedo=t(self.albedo, torch.float32),
+            uv=t(self.uv, torch.float32),
+            tex_atlas=t(self.tex_atlas, torch.float32),
+            tri_tex=t(self.tri_tex, torch.int32))
 
 
 @dataclasses.dataclass
