@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    CUDA versions. There is no CPU path.
 2. Build the CUDA kernel library (csrc/fused_shadows.cu,
    csrc/shadow_rays.cu and csrc/binary.cu, templates with a mode per walk
-   kernel, csrc/build.cu, the rebuild's kernels, and csrc/raster.cu; one
-   nvcc per source, in parallel), and print ptxas's register and spill
-   report.
+   kernel, csrc/build.cu, the rebuild's kernels and the sweep, and
+   csrc/raster.cu, the rasterizer in its 32- and 16-float instantiations;
+   one nvcc per source, in parallel), and print ptxas's register and
+   spill report.
 3. Every kernel against its plain PyTorch version on the card: teapot
    scene, 10k triangles, 512x512, leaf 14. closest_shadow with a
    directional and a point light; multi with directional + point +
@@ -164,7 +165,39 @@ Phases, in order; any failure raises and the exit code is not 0:
     most 1e-3 of valid pixels off by more than 1e-3), the wide depth
     against the fixed cut's bound (32), closest_shadow on the fixed cut's
     tree against its plain version.
-15. Timings on one JSON line, then the kernel table on one JSON line, the
+15. The seeded G-buffer (seeded_gbuffer=True, tpurt's
+    _first_hit_kernel_w8_b as mode FIRST_HIT): Renderer(seeded_gbuffer=
+    True, fused_shadow=False) at 1920x1080, six frames with one launch of
+    FIRST_HIT, NEAREST and any each, bit-identical, the frame against its
+    unseeded shade-table twin (equal wherever both name the same
+    triangle) and in turns with it; FIRST_HIT against its plain version
+    on every 8th row and on the whole frame (t1 and s1 equal); the seeded
+    closest hit against NEAREST on every ray (t equal, tri_id on >= 99.9%
+    of hits, the sorted index may name another SBVH reference of the same
+    triangle); every seed an upper bound (t1 >= t, s1 >= 0 exactly where
+    a hit exists); NEAREST timed with and without the seed's caps.
+16. top_sah (the sweep-SAH priorities kernel, tpurt's _sweep_sah_kernel)
+    on mode="rebuild", rebuild_splits=0, gbuffer="ray": the sweep against
+    its plain version on the plain rebuild's leaves (gaps, ranks and D'
+    equal), the topology on D' (d_max = 96 + 21) equal to its plain
+    version; for the area collapse and the fixed cut: no host sync in a
+    rebuild, the rebuilt accel equal to the plain versions', six frames
+    with one launch of the sweep each, bit-identical, the image against
+    the unsteered plain rebuild's (another tree: at most 1e-3 of valid
+    pixels off by more than 1e-3), closest_shadow on the steered tree
+    against its plain version beside the unsteered tree's.
+17. The deferred raster G-buffer (raster_deferred=True, tpurt's
+    _raster_kernel16 as the 16-float instantiation of csrc/raster.cu):
+    six static frames with one launch of rasterize_rows16 and any each,
+    bit-identical, the image against phase 4's ray frame within the
+    raster bounds, in turns with phase 10's 32-float raster frame;
+    bin_rows(fmt="z16") with no host sync; the z16 rasterizer against its
+    plain version (ids, u, v and 1/w equal), the stage split (binning,
+    kernel, row gather and decode); the plain rebuild's deferred frames
+    (the original-order table per frame, no host sync in a rebuild); the
+    textured hall's deferred frame against phase 13's textured ray frame
+    (the share of pixels that look up other texels, beside phase 13's).
+18. Timings on one JSON line, then the kernel table on one JSON line, the
     card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Tolerances of the walk kernels' checks against their plain versions:
@@ -195,7 +228,10 @@ place it, and for the depth output 2 per step up the parent pointers
 steps and the emission. The rasterizer: bytes of the pair rows its tiles
 read, the big rows every tile reads, the run offsets and the 13 output planes;
 operations counted by the plain version on the same bins, 30 per
-(record, pixel) test and 29 more where the record takes the pixel.
+(record, pixel) test and 29 more where the record takes the pixel (the
+z16 rasterizer: 4 output planes, 5 per take). The sweep: the block
+boxes and its two outputs; 18 operations per block of a split range and
+pass.
 """
 
 from __future__ import annotations
@@ -248,6 +284,7 @@ KERNELS = {
     "closest_point_soft_shadow_tex": ("fused_shadows.cu", 1117),
     "closest_soft_multi_shadow_tex": ("fused_shadows.cu", 1622),
     "closest_attrs_tex": ("fused_shadows.cu", 1429),
+    "first_hit": ("fused_shadows.cu", 1290),
 }
 # The attrs=0 variants of the fused modes (no attribute rows; t and the
 # sorted index out) and the plain closest hit: the shade-table G-buffer's.
@@ -467,7 +504,8 @@ def check(name, kres, pres, args, kw, what, tri_id=None) -> dict:
     """The comparison that fits kernel ``name``'s outputs; ``tri_id``: the
     accel's sorted->original ids, for the kernels that return a sorted
     index alone."""
-    if name in SHADE_TABLE_KERNELS or name == "binary_closest":
+    if name in SHADE_TABLE_KERNELS or name in ("binary_closest",
+                                               "first_hit"):
         return compare_st(kres, pres, what, outputs_of(name, kw), tri_id)
     if name in SHADOW_RAYS or name == "binary_any":
         rays = args[0]
@@ -524,7 +562,7 @@ def outputs_of(name, kw):
         return [("bits", len(kw["points"]))]
     if name == "closest_soft_multi_shadow":
         return [("count", 0), ("bits", kw["n_extra"])]
-    if name in ("closest_attrs", "closest", "binary_closest"):
+    if name in ("closest_attrs", "closest", "binary_closest", "first_hit"):
         return []
     return [("count", 0)]
 
@@ -570,7 +608,7 @@ def inputs(name, acc, attr_tables, o, d, **spec):
     attrs=0 variants and the plain closest hit take no tables; the attrs=2
     variants take the attrs=1 inputs)."""
     import tpurt_torch.kernels.traverse as tr
-    if name == "closest":
+    if name in ("closest", "first_hit"):
         return tr.closest_inputs(acc, o, d, **spec)[:2]
     if name.endswith("_st"):
         attr_tables = None
@@ -1206,7 +1244,8 @@ def phase_unfused(dev, mesh, fused_config1_image) -> dict:
 
 BUILD_TPU = "tpurt/kernels/build.py:"
 BUILD_KERNEL_LINES = {"morton_codes": 353, "topology": 265,
-                      "collapse_area": 742, "topology_depth": 265}
+                      "collapse_area": 742, "topology_depth": 265,
+                      "sweep_sah_priorities": 582}
 OPS_PER_CODE = 52
 OPS_PER_TOPOLOGY_PLACE = 10
 OPS_PER_WIDE_NODE = 190
@@ -1219,7 +1258,7 @@ class plain_build_kernels:
     CUDA tensors too (the twin of a rebuild made with the kernels)."""
 
     NAMES = ("morton_codes", "topology", "collapse_area", "morton_codes60",
-             "topology_depth")
+             "topology_depth", "sweep_sah_priorities")
 
     def __enter__(self):
         import tpurt_torch.kernels.build as b
@@ -1549,6 +1588,7 @@ def phase_config2(dev, mesh, static_image) -> dict:
 # ---------------------------------------------------------------------------
 
 RASTER_TPU = "tpurt/kernels/raster.py:217"
+RASTER16_TPU = "tpurt/kernels/raster.py:360"
 # Float32 operations of the rasterizer per (record, pixel) test: three
 # edge values (2 mul, 2 add each), the d-sum (2 add), the two-sided
 # coverage test (6 compares, 5 logic), 1/w (1 mul), the z-test and its
@@ -1759,6 +1799,7 @@ def phase_raster(dev, mesh, c1) -> dict:
     res["forced_cap"] = dict(cap=4096, new_cap=r.config.raster_cap_pairs,
                              frame_host_ms=host)
     log(f"phase 10 forced capacity: {json.dumps(res['forced_cap'])}")
+    res["renderer"] = r
     return res
 
 
@@ -2527,6 +2568,11 @@ def raster_texture_against(r, fused) -> dict:
                depth_rel_err_p50_p99_max=[
                    float(torch.quantile(depth_rel[:1_000_000], q))
                    for q in (0.5, 0.99)] + [float(depth_rel.max())])
+    pos_rel = ((ras["position"] - ray["position"]).norm(dim=-1)
+               / ray["t"])[same_tri].double()
+    res["position_rel_err_p50_p99_max"] = [
+        float(torch.quantile(pos_rel[:1_000_000], q))
+        for q in (0.5, 0.99)] + [float(pos_rel.max())]
     res["ok"] = (res["coverage_share"] < 0.002
                  and res["tri_id_equal"] >= 0.999
                  and res["image_share_same_texels"] < 0.01)
@@ -2714,6 +2760,7 @@ def phase_textured(dev, mesh, c1) -> dict:
                           nw_pad=r._nw_pad)
     log(f"phase 13 textured rebuild: {json.dumps(out['rebuild'])}")
     out["kernels"], out["launches"] = kernels, launched
+    out["textured"] = dict(mesh=tmesh, fused=fused)
     return out
 
 
@@ -2821,6 +2868,384 @@ def phase_fixed_cut(dev, mesh, area) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the seeded G-buffer
+# ---------------------------------------------------------------------------
+
+def same_hits(a, b, what: str) -> dict:
+    """Two closest hits (t, tri_id, sidx) of the same rays: the hit set
+    and t equal on every ray, tri_id on >= 99.9% of hits. A different
+    sidx naming the same triangle is another SBVH reference of it (a
+    clipped leaf box can lie beyond the hit, and the seeded walk's tighter
+    cap culls it); a different triangle at the same t is a tie the walks
+    broke in another order (decision 2)."""
+    hit = a[2] >= 0
+    if not (torch.equal(hit, b[2] >= 0) and torch.equal(a[0], b[0])):
+        raise RuntimeError(f"{what}: t or the hit set differ")
+    nhit = int(hit.sum())
+    other_tri = int((a[1] != b[1]).sum())
+    if other_tri > 1e-3 * nhit:
+        raise RuntimeError(f"{what}: tri_id differs on {other_tri} of "
+                           f"{nhit} hits")
+    return dict(hits=nhit, other_triangle=other_tri,
+                other_reference=int((a[2] != b[2]).sum()) - other_tri)
+
+
+def phase_seeded(dev, mesh) -> dict:
+    """seeded_gbuffer=True at 1080p: FIRST_HIT against its plain version,
+    the seeded closest hit against NEAREST on every ray, the seed's
+    invariants, and the unfused seeded frame in turns with its unseeded
+    shade-table twin."""
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.app import Renderer, _gb_accel
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    cam = sponza_interior_camera()
+    hard = Light.directional(SUN_DIR)
+    fields = dict(width=MAIN_W, height=MAIN_H, leaf_size=14,
+                  fused_shadow=False)
+    r = Renderer(mesh, cam, hard, RenderConfig(seeded_gbuffer=True, **fields),
+                 device=dev)
+    if (r.route != "unfused" or r.attr_tables is not None
+            or r.shade_table is None):
+        raise RuntimeError(f"seeded frame: route {r.route}, tables "
+                           f"{r.attr_tables is not None}")
+    (kept, frame_ms), n = drive({"first_hit": 6, "closest": 6, "any": 6},
+                                lambda: frames(r, 6))
+    check_image(kept[0], MAIN_W, MAIN_H, "seeded")
+    for f in kept[1:]:
+        if not torch.equal(f["image"], kept[0]["image"]):
+            raise RuntimeError("seeded frames are not bit-identical")
+    twin = Renderer(mesh, cam, hard, RenderConfig(inkernel_attrs=False,
+                                                  **fields), device=dev)
+    a, b = twin.render_frame(), r.render_frame()
+    same = a["tri_id"] == b["tri_id"]
+    if not (torch.equal(a["image"][same], b["image"][same])
+            and float(same.float().mean()) >= 0.999):
+        raise RuntimeError("the seeded frame differs from the unseeded "
+                           "shade-table frame")
+    frame_vs_twin = dict(other_triangle_pixels=int((~same).sum()),
+                         image_equal=torch.equal(a["image"], b["image"]))
+    turns = in_turns(twin, r)
+
+    # The kernels on the frame's rays.
+    acc = _gb_accel(r.accel, cam, r.config)
+    o, d = generate_rays(cam, MAIN_W, MAIN_H, r.device)
+    args, kw = inputs("first_hit", acc, None, o, d)
+    sub = inputs("first_hit", acc, None, o[::8].contiguous(),
+                 d[::8].contiguous())
+    kp = vs_plain("first_hit", (args, kw), sub, "phase 15 first_hit",
+                  tri_id=acc.tri_id)
+    t1, s1, c1 = tr.first_hit_cuda(*args, **kw)
+    pt1, ps1, _ = tr.first_hit_reference(*args, **kw)
+    tr.first_hit_cuda.launches -= 1
+    if not (torch.equal(t1, pt1) and torch.equal(s1, ps1)):
+        raise RuntimeError("first_hit: t1 or s1 differ from the plain "
+                           "version")
+    t, s, c = tr.closest_cuda(*args, **kw)
+    tr.closest_cuda.launches -= 1
+    tr.check_walk_counts(c1 + c)
+    hit = s >= 0
+    if not (torch.equal(s1 >= 0, hit) and bool((t1[hit] >= t[hit]).all())):
+        raise RuntimeError("the seed is not an upper bound on every ray")
+    seeded = tr.trace_closest(acc, o, d, return_sorted=True, seeded=True)
+    plain = tr.trace_closest(acc, o, d, return_sorted=True)
+    tr.first_hit_cuda.launches -= 1
+    tr.closest_cuda.launches -= 2
+    vs_nearest = same_hits(plain, seeded, "the seeded closest hit")
+    capped = args[0].clone()
+    capped[:, 9] = tr.seed_cap(args[0], t1, s1)
+    before = tr.closest_cuda.launches
+    nearest_ms = cuda_ms(lambda: tr.closest_cuda(*args, **kw), 10)
+    second_ms = cuda_ms(lambda: tr.closest_cuda(capped, *args[1:], **kw), 10)
+    tr.closest_cuda.launches = before
+    kp.update(nearest_ms=nearest_ms, nearest_seeded_ms=second_ms,
+              two_walks_ms=kp["ms"] + second_ms,
+              seed_tighter_share=float((t1[hit] > t[hit]).float().mean()))
+    res = dict(launches=n, frame_ms=frame_ms,
+               frame_ms_mean=float(np.mean(frame_ms)),
+               in_turns_ms={"unseeded": turns["a"], "seeded": turns["b"]},
+               vs_nearest=vs_nearest, frame_vs_twin=frame_vs_twin,
+               kernel=kp, setup=dict(r.stats))
+    log(f"phase 15 seeded: {json.dumps(res)}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: top_sah, the sweep-SAH priorities
+# ---------------------------------------------------------------------------
+
+# The sweep's operations per block of a split range and pass: the box
+# union (6) and the SA (3 sub, 3 max, 1 mul, 2 fma), and in the forward
+# pass the cost (1 mul, 1 fma) and its compare; 18 on average.
+OPS_PER_SWEEP_STEP = 18
+
+
+def plain_leaf_boxes(r):
+    """The plain (unclustered) rebuild's adjacent deltas and leaf boxes on
+    the Renderer's geometry, as build_lbvh computes them."""
+    from tpurt_torch.bvh import lbvh as L
+    from tpurt_torch.kernels.build import morton_codes
+    m, k = r.mesh, r.config.leaf_size
+    tpad = r.bvh.num_sorted_tris
+    _, v0, e1, e2, cen, smin, smax = L._triangle_data(m.vertices, m.indices,
+                                                      tpad)
+    chs, (sv0, se1, se2) = L._sort_payload(morton_codes(cen, smin, smax),
+                                           [v0, e1, e2])
+    lmin, lmax, _, _ = L._leaf_boxes(sv0, se1, se2, k)
+    return L.adjacent_deltas(chs[::k]).contiguous(), lmin, lmax
+
+
+def phase_top_sah(dev, mesh) -> dict:
+    """mode="rebuild", top_sah=True, rebuild_splits=0 at 1080p on the ray
+    G-buffer: the sweep kernel and the topology on its priorities against
+    their plain versions, no host sync in a rebuild, the area collapse's
+    and the fixed cut's frames against the unsteered plain rebuild's, and
+    HARD on the steered tree beside HARD on the unsteered one."""
+    import tpurt_torch.kernels.build as B
+    from tpurt_torch.app import FIXED_CUT_DEPTH_BOUND, Renderer, \
+        fixed_cut_depth_bound
+    from tpurt_torch.bvh.lbvh import delta_range
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    cam = sponza_interior_camera()
+    hard = Light.directional(SUN_DIR)
+    fields = dict(width=MAIN_W, height=MAIN_H, leaf_size=14, rebuild_splits=0,
+                  gbuffer="ray")
+
+    def renderer(**extra):
+        return Renderer(mesh, cam, hard, RenderConfig(**fields, **extra),
+                        mode="rebuild", device=dev)
+    r = renderer(top_sah=True)
+    d, lmin, lmax = plain_leaf_boxes(r)
+    ni = int(d.shape[0])
+    bx = B.block_boxes(lmin, lmax, B.SWEEP_BLOCK)
+    nb = bx.shape[0] // 6
+    sweep_args = (bx, ni, B.SWEEP_BLOCK, B.SWEEP_MAXD, B.SWEEP_MIN_BLOCKS)
+    checks = [build_pair("sweep_sah_priorities", sweep_args,
+                         "sweep, the plain rebuild's leaves")]
+    dprime = B.sweep_sah_priorities(d, lmin, lmax)
+    with plain_build_kernels():
+        pprime = B.sweep_sah_priorities(d, lmin, lmax)
+    if not torch.equal(dprime, pprime):
+        raise RuntimeError("sweep: D' differs from the plain version's")
+    d_max = delta_range(True)
+    checks.append(build_pair("topology", (dprime, d_max), "topology on D'"))
+    stats = {}
+    gaps, _ = B.sweep_sah_priorities_reference(*sweep_args, stats=stats)
+    maxn = int(gaps.shape[0])
+    kp = dict(blocks=nb, maxn=maxn, splits=int((gaps < ni).sum()),
+              max_priority=int(dprime.max()), **stats,
+              **build_bound(nb * 24 + maxn * 8,
+                            OPS_PER_SWEEP_STEP * stats["sweep_steps"]))
+    kp.update(time_build("sweep_sah_priorities", sweep_args))
+    kp.update(checks=checks, max_abs_err=0.0, mismatch_share=0.0)
+    log(f"phase 16 sweep: {json.dumps(kp)}")
+
+    out = {"kernel": {k: v for k, v in kp.items() if k != "checks"}}
+    plain = renderer()
+    (pk, _, _), _ = drive({"closest_shadow": 2, "morton_codes": 2,
+                           "topology": 2, "collapse_area": 2},
+                          lambda: rebuild_frames(plain, 2))
+    hard_plain = kernel_vs_plain("closest_shadow", plain, MAIN_W, MAIN_H,
+                                 "phase 16 closest_shadow, unsteered",
+                                 light_dir=hard.direction)
+    for label, extra, per_frame in (
+            ("area", {}, {"collapse_area": 1, "topology": 1}),
+            ("fixed", dict(rebuild_collapse="fixed"),
+             {"topology_depth": 1})):
+        if label == "fixed":
+            r = renderer(top_sah=True, **extra)
+        syncs = host_syncs(r._rebuild)
+        if syncs:
+            raise RuntimeError(f"steered {label} rebuild host syncs: "
+                               f"{syncs}")
+        _, kw, kat, kcnt = r._rebuild()
+        with plain_build_kernels():
+            _, pw, pat, pcnt = r._rebuild()
+        for what, a, b in (("nodes", kw.nodes, pw.nodes),
+                           ("at0", kat[0], pat[0]), ("count", kcnt, pcnt)):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"steered {label} rebuild: {what} "
+                                   f"differs between the kernels and the "
+                                   f"plain versions")
+        expect = {"closest_shadow": 6, "morton_codes": 6,
+                  "sweep_sah_priorities": 6}
+        expect.update({k: 6 * v for k, v in per_frame.items()})
+        (kept, frame_ms, build_ms), n = drive(
+            expect, lambda: rebuild_frames(r, 6))
+        check_image(kept[0], MAIN_W, MAIN_H, f"steered {label}")
+        for f in kept[1:]:
+            if not torch.equal(f["image"], kept[0]["image"]):
+                raise RuntimeError(f"steered {label} frames are not "
+                                   f"bit-identical")
+        valid = kept[0]["valid"]
+        diff = (kept[0]["image"] - pk[0]["image"]).abs().amax(-1)
+        share = float(((diff > 1e-3) & valid).sum()) / int(valid.sum())
+        if share > 1e-3:
+            raise RuntimeError(f"steered {label} image differs from the "
+                               f"unsteered rebuild's on {share:.2e}")
+        hk = kernel_vs_plain("closest_shadow", r, MAIN_W, MAIN_H,
+                             f"phase 16 closest_shadow, steered {label}",
+                             light_dir=hard.direction)
+        out[label] = dict(
+            launches=n, frame_ms=frame_ms,
+            frame_ms_mean=float(np.mean(frame_ms)), build_ms=build_ms,
+            build_ms_mean=float(np.mean(build_ms)), host_syncs=len(syncs),
+            vs_unsteered_share=share, nw_pad=r._nw_pad,
+            wide_count=int(kcnt), wide_depth=r.depth, setup=dict(r.stats),
+            closest_shadow={k: hk[k] for k in (
+                "ms", "plain_ms", "bound_ms", "pops", "closest_tris",
+                "anyhit_tris", "max_abs_err", "mismatch_share")})
+        log(f"phase 16 steered {label}: {json.dumps(out[label])}")
+    out["fixed"]["depth_bound"] = fixed_cut_depth_bound(d_max)
+    out["fixed"]["unsteered_depth_bound"] = FIXED_CUT_DEPTH_BOUND
+    out["unsteered"] = dict(wide_depth=plain.depth, nw_pad=plain._nw_pad,
+                            closest_shadow={k: hard_plain[k] for k in (
+                                "ms", "plain_ms", "bound_ms", "pops",
+                                "closest_tris", "anyhit_tris")})
+    log(f"phase 16 unsteered: {json.dumps(out['unsteered'])}")
+    out["launches"] = out["area"]["launches"]["sweep_sah_priorities"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the deferred raster G-buffer
+# ---------------------------------------------------------------------------
+
+# The z-only rasterizer's state writes where a record takes the pixel:
+# 1/w, d1, d2, d-sum, id.
+OPS_PER_TAKE16 = 5
+
+
+def phase_deferred(dev, mesh, c1, ras32, textured) -> dict:
+    """raster_deferred=True at 1080p; c1: phase 4's image and valid mask;
+    ras32: phase 10's 32-float raster Renderer; textured: phase 13's
+    textured hall and fused frame."""
+    import tpurt_torch.kernels.raster as R
+    from tpurt_torch.app import Renderer
+    from tpurt_torch.passes.gbuffer import gbuffer_raster_pass
+    from tpurt_torch.raster.setup import bin_rows, default_cap_rows
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    w, h = MAIN_W, MAIN_H
+    cam = sponza_interior_camera()
+    hard = Light.directional(SUN_DIR)
+    cfg = RenderConfig(width=w, height=h, leaf_size=14, gbuffer="raster",
+                       raster_deferred=True)
+    r = Renderer(mesh, cam, hard, cfg, device=dev)
+    if r.route != "unfused" or r.shade_table_orig is None:
+        raise RuntimeError(f"deferred frame: route {r.route}")
+    (kept, frame_ms), n = drive({"rasterize_rows16": 6, "any": 6},
+                                lambda: frames(r, 6))
+    valid_share = check_image(kept[0], w, h, "deferred")
+    for f in kept[1:]:
+        if not torch.equal(f["image"], kept[0]["image"]):
+            raise RuntimeError("deferred frames are not bit-identical")
+    against = image_against(kept[0]["image"], kept[0]["valid"], c1["image"],
+                            c1["valid"])
+    if not against["ok"]:
+        raise RuntimeError(f"deferred frame against the ray frame: "
+                           f"{against}")
+    turns = in_turns(ras32, r)
+    res = dict(launches=n, frame_ms=frame_ms,
+               frame_ms_mean=float(np.mean(frame_ms)),
+               valid_share=valid_share, vs_ray=against,
+               in_turns_ms={"raster32": turns["a"], "deferred": turns["b"]},
+               setup=dict(r.stats))
+    log(f"phase 17 deferred frames: {json.dumps(res)}")
+
+    cap = default_cap_rows(mesh.num_triangles)
+    bins = bin_rows(cam, r.mesh, w, h, cap, fmt="z16")
+    syncs = host_syncs(lambda: bin_rows(cam, r.mesh, w, h, cap, fmt="z16"))
+    if syncs:
+        raise RuntimeError(f"bin_rows(fmt='z16') waited for the card: "
+                           f"{syncs}")
+    res["bins"] = bins_stats(bins)
+    res["bin_rows_host_syncs"] = len(syncs)
+    before = R.rasterize_rows16_cuda.launches
+    kres = R.rasterize_rows16_cuda(bins, w, h)
+    torch.cuda.synchronize()
+    if R.rasterize_rows16_cuda.launches != before + 1:
+        raise RuntimeError("rasterize_rows16: launch counter did not grow")
+    ms = cuda_ms(lambda: R.rasterize_rows16_cuda(bins, w, h), 20)
+    stages = {"binning": cuda_ms(lambda: bin_rows(cam, r.mesh, w, h, cap,
+                                                  fmt="z16"), 5),
+              "raster_kernel": cuda_ms(
+                  lambda: R.rasterize_rows16_cuda(bins, w, h), 5),
+              "gbuffer_pass": cuda_ms(lambda: gbuffer_raster_pass(
+                  r.mesh, cam, w, h, r.shade_table_orig, deferred=True), 5)}
+    stages["gather_and_decode"] = stages["gbuffer_pass"] \
+        - stages["binning"] - stages["raster_kernel"]
+    R.rasterize_rows16_cuda.launches = before
+    stats = {}
+    pres, plain_ms = host_ms(lambda: R.rasterize_rows16_reference(
+        bins, w, h, stats=stats))
+    for name, k, p in zip(("tri_id", "u", "v", "1/w"), kres, pres):
+        if not torch.equal(k, p):
+            raise RuntimeError(f"rasterize_rows16: {name} differs from the "
+                               f"plain version on {int((k != p).sum())} "
+                               f"pixels")
+    ntiles = int(bins.row_starts.numel())
+    nbytes = ((res["bins"]["pair_rows"] + res["bins"]["big_nrows"] * ntiles)
+              * 512 + 2 * ntiles * 4 + 4 * w * h * 4)
+    ops = OPS_PER_TEST * stats["record_tests"] \
+        + OPS_PER_TAKE16 * stats["takes"]
+    res["kernel"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+                         mismatch_share=0.0, valid=int((kres[0] >= 0).sum()),
+                         **stats, **build_bound(nbytes, ops))
+    res["stages_ms"] = stages
+    log(f"phase 17 rasterize_rows16: {json.dumps(res['kernel'])}; bins "
+        f"{json.dumps(res['bins'])}; stages {json.dumps(stages)}")
+
+    # The plain rebuild's deferred frame (the original-order table per
+    # frame), against the static deferred one.
+    rb = Renderer(mesh, cam, hard, RenderConfig(
+        width=w, height=h, leaf_size=14, rebuild_splits=0,
+        raster_deferred=True), mode="rebuild", device=dev)
+    if rb.config.gbuffer != "raster" or rb.shade_table_orig is None:
+        raise RuntimeError("the plain rebuild did not take the deferred "
+                           "raster G-buffer")
+    rsyncs = host_syncs(rb._rebuild)
+    if rsyncs:
+        raise RuntimeError(f"deferred rebuild host syncs: {rsyncs}")
+    (k3, ms3, build3), n3 = drive(
+        {"rasterize_rows16": 6, "any": 6, "morton_codes": 6, "topology": 6,
+         "collapse_area": 6}, lambda: rebuild_frames(rb, 6))
+    for f in k3[1:]:
+        if not torch.equal(f["image"], k3[0]["image"]):
+            raise RuntimeError("deferred rebuild frames are not "
+                               "bit-identical")
+    diff = (k3[0]["image"] - kept[0]["image"]).abs().amax(-1)
+    v3 = k3[0]["valid"]
+    share3 = float(((diff > 1e-3) & v3).sum()) / int(v3.sum())
+    if share3 > 1e-3:
+        raise RuntimeError(f"deferred rebuild frame differs on {share3:.2e}")
+    res["rebuild"] = dict(launches=n3, frame_ms=ms3,
+                          frame_ms_mean=float(np.mean(ms3)), build_ms=build3,
+                          build_ms_mean=float(np.mean(build3)),
+                          host_syncs=len(rsyncs), vs_static_share=share3)
+    log(f"phase 17 deferred rebuild: {json.dumps(res['rebuild'])}")
+
+    # The textured hall: the deferred raster frame against the textured ray
+    # frame (phase 13's 32-float raster frame looked up other texels on
+    # 2.5% of pixels).
+    rt = Renderer(textured["mesh"], cam, hard, RenderConfig(
+        width=w, height=h, leaf_size=14, gbuffer="raster",
+        raster_deferred=True), device=dev)
+    (kt, _), nt = drive({"rasterize_rows16": 2, "any": 2},
+                        lambda: frames(rt, 2))
+    check_image(kt[0], w, h, "textured deferred")
+    tex = raster_texture_against(rt, textured["fused"])
+    if not tex["ok"]:
+        raise RuntimeError(f"textured deferred frame against the ray "
+                           f"frame: {tex}")
+    res["textured"] = dict(launches=nt, vs_ray=tex)
+    log(f"phase 17 textured deferred: {json.dumps(res['textured'])}")
+    return res
+
+
 def build_kernel_row(name, launches_, kp) -> dict:
     return {"name": name, "route": "cuda", "source": CSRC + "build.cu",
             "replaces": f"{BUILD_TPU}{BUILD_KERNEL_LINES[name]}",
@@ -2880,10 +3305,15 @@ def main() -> int:
     c2 = phase_config2(dev, mesh, static_image)
     area = {k: c2.pop(k) for k in ("image", "valid")}
     ras = phase_raster(dev, mesh, phase4)
+    ras32 = ras.pop("renderer")
     stab = phase_shade_table(dev, mesh, phase4)
     binary = phase_binary(dev, mesh, phase4)
     tex = phase_textured(dev, mesh, phase4)
+    textured = tex.pop("textured")
     fixed = phase_fixed_cut(dev, mesh, area)
+    seeded = phase_seeded(dev, mesh)
+    steered = phase_top_sah(dev, mesh)
+    deferred = phase_deferred(dev, mesh, phase4, ras32, textured)
     timings = {"card": card, "build_s": build_s,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
@@ -2896,7 +3326,8 @@ def main() -> int:
                                 if k != "kernels"},
                "textured_1080p": {k: v for k, v in tex.items()
                                   if k not in ("kernels", "launches")},
-               "fixed_cut_1080p": fixed}
+               "fixed_cut_1080p": fixed, "seeded_1080p": seeded,
+               "top_sah_1080p": steered, "deferred_1080p": deferred}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],
@@ -2931,14 +3362,21 @@ def main() -> int:
     rows.append(build_kernel_row("topology_depth",
                                  fixed["launches"]["topology_depth"],
                                  fixed["kernel"]))
-    kp = ras["kernel"]
-    rows.append({"name": "rasterize_rows", "route": "cuda",
-                 "source": CSRC + "raster.cu", "replaces": RASTER_TPU,
-                 "launches": ras["launches"]["rasterize_rows"],
-                 "max_abs_err": kp["max_abs_err"],
-                 "mismatch_share": kp["mismatch_share"], "ms": kp["ms"],
-                 "plain_ms": kp["plain_ms"], "bound_ms": kp["bound_ms"],
-                 "bound_by": kp["bound_by"], "library_ms": None})
+    for name, replaces, n, kp in (
+            ("rasterize_rows", RASTER_TPU, ras["launches"]["rasterize_rows"],
+             ras["kernel"]),
+            ("rasterize_rows16", RASTER16_TPU,
+             deferred["launches"]["rasterize_rows16"], deferred["kernel"])):
+        rows.append({"name": name, "route": "cuda",
+                     "source": CSRC + "raster.cu", "replaces": replaces,
+                     "launches": n, "max_abs_err": kp["max_abs_err"],
+                     "mismatch_share": kp["mismatch_share"], "ms": kp["ms"],
+                     "plain_ms": kp["plain_ms"], "bound_ms": kp["bound_ms"],
+                     "bound_by": kp["bound_by"], "library_ms": None})
+    rows.append(kernel_row("first_hit", seeded["launches"]["first_hit"],
+                           seeded["kernel"], small))
+    rows.append(build_kernel_row("sweep_sah_priorities", steered["launches"],
+                                 steered["kernel"]))
     log(json.dumps({"timings": timings}))
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -192,7 +192,11 @@ def test_check_slice_takes_fixed_and_refuses_others():
     with pytest.raises(NotImplementedError, match="rebuild_collapse"):
         check_slice(RenderConfig(rebuild_collapse="bfs", gbuffer="ray"),
                     "rebuild", lights, mesh, None)
+    # top_sah is taken on the plain tree and refused with sub-leaf
+    # clustering, where tpurt fails (tests/test_torch_sweep_sah.py).
+    check_slice(RenderConfig(rebuild_collapse="fixed", top_sah=True,
+                             gbuffer="ray"), "rebuild", lights, mesh, None)
     with pytest.raises(NotImplementedError, match="top_sah"):
         check_slice(RenderConfig(rebuild_collapse="fixed", top_sah=True,
                                  gbuffer="ray"), "rebuild", lights, mesh,
-                    None)
+                    None, 4)

@@ -123,17 +123,9 @@ def test_renderer_defaults_to_the_card():
      "rebuild_collapse"),
     (dict(mode="rebuild", config=dict(bvh_width=2)),
      "clustered binary rebuild"),
-    (dict(config=dict(gbuffer="raster", raster_deferred=True)),
-     "raster_deferred"),
-    (dict(mode="rebuild", config=dict(top_sah=True)), "top_sah"),
-    (dict(mode="rebuild", config=dict(rebuild_splits=0, gbuffer="raster",
-                                      raster_deferred=True)),
-     "raster_deferred"),
-    (dict(config=dict(sah=False, seeded_gbuffer=True)), "seeded_gbuffer"),
+    (dict(mode="rebuild", config=dict(top_sah=True)),
+     "top_sah with sub-leaf clustering"),
     (dict(config=dict(use_pallas=False)), "use_pallas"),
-    (dict(config=dict(inkernel_attrs=False, seeded_gbuffer=True)),
-     "seeded_gbuffer"),
-    (dict(config=dict(seeded_gbuffer=True)), "seeded_gbuffer"),
     (dict(mode="refit"), "refit"),
     (dict(lights="three", config=dict(sort_rays=True)), "sort_rays"),
     (dict(cache_dir="unused"), "cache_dir"),
@@ -141,8 +133,8 @@ def test_renderer_defaults_to_the_card():
 def test_outside_the_slice_raises(kwargs, what):
     from tpurt_torch.app import Renderer
     mesh = tscenes.teapot_scene(1500)
-    # On the CPU gbuffer="auto" resolves to the ray G-buffer, so
-    # sah=False with seeded_gbuffer=True refuses the shade-table path.
+    # top_sah with the default rebuild_splits=-1 clusters the teapot's
+    # rebuild (auto_split_blocks > 0), where tpurt fails.
     # sort_rays wraps the any-hit tracer of the unfused shadow pass: at spp
     # 4 fused0 takes light 0 and the unfused pass the sun and the hard
     # light 2.
@@ -160,10 +152,20 @@ def test_outside_the_slice_raises(kwargs, what):
 @pytest.mark.parametrize("kwargs", [
     dict(mode="rebuild", config=dict(rebuild_collapse="fixed")),
     dict(textured=True, config=dict(gbuffer="raster")),
-], ids=["fixed_cut", "textured_raster"])
+    dict(config=dict(gbuffer="raster", raster_deferred=True)),
+    dict(mode="rebuild", config=dict(rebuild_splits=0, gbuffer="raster",
+                                     raster_deferred=True)),
+    dict(config=dict(sah=False, seeded_gbuffer=True)),
+    dict(config=dict(inkernel_attrs=False, seeded_gbuffer=True)),
+    dict(config=dict(seeded_gbuffer=True)),
+    dict(mode="rebuild", config=dict(top_sah=True, rebuild_splits=0)),
+], ids=["fixed_cut", "textured_raster", "raster_deferred",
+        "raster_deferred_rebuild", "seeded_sah_false",
+        "seeded_inkernel_attrs_false", "seeded", "top_sah_plain_rebuild"])
 def test_formerly_refused_configs_render(kwargs):
-    """The fixed cut and textured meshes were refused until they were
-    ported: each now renders a finite frame on the CPU."""
+    """The fixed cut, textured meshes, the deferred raster G-buffer, the
+    seeded G-buffer and top_sah on the plain rebuild were refused until
+    they were ported: each now renders a finite frame on the CPU."""
     from tpurt_torch.app import Renderer
     mesh = tscenes.teapot_scene(1500)
     if kwargs.get("textured"):

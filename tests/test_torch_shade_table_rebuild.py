@@ -56,7 +56,7 @@ def test_rebuild_fused_frame_matches_jax_renderer():
 def test_rebuild_makes_the_table_of_the_rebuilt_tree():
     """_rebuild_fused(tables="st") returns the rebuilt tree's shade table
     and no attribute rows; tables=None (the raster G-buffer) returns no
-    table."""
+    table, tables="sto" the original-order one."""
     mesh = tscenes.teapot_scene(600).on("cpu")
     r = Renderer(mesh, tscenes.default_camera_for(mesh),
                  Light.directional(DIRECTION),
@@ -70,5 +70,8 @@ def test_rebuild_makes_the_table_of_the_rebuilt_tree():
     assert st.shape == (bvh.num_sorted_tris, 24)
     assert torch.equal(st.view(torch.int32)[:, 16], bvh.tri_id)
     assert tapp._rebuild_fused(*args, tables=None, **kw)[2] is None
+    # "sto", the deferred raster G-buffer's original-order table.
+    sto = tapp._rebuild_fused(*args, tables="sto", **kw)[2]
+    assert sto.shape == (mesh.num_triangles, 16)
     with pytest.raises(ValueError, match="tables"):
-        tapp._rebuild_fused(*args, tables="sto", **kw)
+        tapp._rebuild_fused(*args, tables="orig", **kw)

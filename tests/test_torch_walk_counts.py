@@ -130,7 +130,7 @@ def kernel_inputs(name, acc, at, o, d):
             acc, o, d, bias=1e-3, attr_tables=None, **fused[name[:-3]])[:2]
     if name == "closest_attrs":
         return tr.closest_attrs_inputs(acc, o, d, at)[:2]
-    if name == "closest":
+    if name in ("closest", "first_hit"):
         return tr.closest_inputs(acc, o, d)[:2]
     if name in ("binary_closest", "binary_any"):
         # The binary walks take the packed Morton tree of the same mesh.
@@ -226,7 +226,8 @@ def test_params_mirror_the_cuda_struct():
     assert _modes(_csrc("fused_shadows.cu")) == {
         "HARD": tr.HARD, "MULTI": tr.MULTI, "SOFT": tr.SOFT,
         "PSOFT": tr.PSOFT, "SOFT_MULTI": tr.SOFT_MULTI,
-        "CLOSEST": tr.CLOSEST, "NEAREST": tr.NEAREST}
+        "CLOSEST": tr.CLOSEST, "NEAREST": tr.NEAREST,
+        "FIRST_HIT": tr.FIRST_HIT}
     assert _modes(_csrc("shadow_rays.cu")) == {
         "ANY": tr.ANY, "ANY_SOFT": tr.ANY_SOFT, "ANY_PSOFT": tr.ANY_PSOFT}
 

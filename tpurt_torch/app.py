@@ -19,7 +19,8 @@ Which kernel runs follows ``tpurt``'s routing order (``render_frame_fn``):
    or disk samples;
 4. unfused (``fused_shadow=False``, or the raster G-buffer): the
    closest-hit kernel alone (attribute-tracked, or the plain one with the
-   shade table), or the tile rasterizer.
+   shade table, seeded by the first-hit walk with ``seeded_gbuffer``), or
+   the tile rasterizer.
 
 Every light that no fused kernel took (lights 1.. after fused0, every
 light after unfused) goes through the unfused shadow pass
@@ -37,12 +38,14 @@ does), 8-wide area collapse, leaf attribute rows or the shade table. In
 the topology kernel, the breadth-first area collapse kernel (or, with
 ``rebuild_collapse="fixed"``, the depth-3 cut masked by the topology
 kernel's depth output) and the attribute rows or the shade table, with
-no host sync unless the geometry changed. A textured mesh (``io/obj.py``)
-renders on every route: the attribute kernels' attrs=2 variants carry
-each winner's uv and layer, and the albedo is sampled from the atlas as a
-post-pass on every G-buffer (``passes/texture.py``). On the
-H100 the accel lives in device memory, so the TPU package's VMEM budgets
-and chunked split have no counterpart here.
+no host sync unless the geometry changed; ``top_sah`` (on the plain
+tree, ``rebuild_splits=0``) steers the top splits by the sweep-SAH
+kernel. A textured mesh (``io/obj.py``) renders on every route: the
+attribute kernels' attrs=2 variants carry each winner's uv and layer, and
+the albedo is sampled from the atlas as a post-pass on every G-buffer
+(``passes/texture.py``). On the H100 the accel lives in device memory, so
+the TPU package's VMEM budgets and chunked split have no counterpart
+here.
 
 The primary visibility follows ``tpurt``'s choice of strategy
 (``use_raster_gbuffer``): ``gbuffer="auto"`` takes the ray cast on an SBVH
@@ -51,8 +54,12 @@ card, the compiled backend, and the ray cast on the CPU, where ``tpurt``
 keeps the ray cast in interpret mode. The raster G-buffer
 (``passes/gbuffer.gbuffer_raster_pass``: on-device binning, one
 rasterizer launch, decode) builds no attribute rows, and every light goes
-through the unfused shadow pass on the accel as built. A frame whose
-binning overflowed the pair capacity is rendered again with a bigger one.
+through the unfused shadow pass on the accel as built. With
+``raster_deferred`` the z-only rasterizer returns each pixel's triangle
+and barycentrics, and one row of the original-order shade table
+(``make_shade_table_orig``, per rebuild in rebuild mode) per pixel gives
+the position and shading. A frame whose binning overflowed the pair
+capacity is rendered again with a bigger one.
 
 ``bvh_width=2`` walks the binary LBVH packed into the binary kernels'
 rows (``kernels/pack.py``): the on-device Morton build, packed once per
@@ -80,14 +87,13 @@ from typing import Dict, Optional, Sequence, Union
 
 import torch
 
-from .bvh.lbvh import auto_split_blocks, build_lbvh
+from .bvh.lbvh import auto_split_blocks, build_lbvh, delta_range
 from .bvh.sah import build_sah_lbvh
 from .bvh.wide import (WideBVH, count_wide, leaf_boxes_from_nodes,
                        make_wide_plan, order_children_for_point,
                        round_up_bucket, wide_count_device, wide_depth,
                        widen_area_kernel, widen_from_plan, widen_lbvh)
 from .camera import generate_rays
-from .kernels.build import D_MAX
 from .kernels.pack import binary_vmem_bytes, pack_bvh, tree_depth
 from .kernels.traverse import (MAX_MASK_LIGHTS, as_packed,
                                check_binary_stack_bound, check_stack_bound,
@@ -106,7 +112,7 @@ from .passes.gbuffer import (gbuf_from_attr_channels, gbuf_from_table,
 from .passes.shadow import cone_cos, shadow_pass
 from .passes.shading import (attr_payload_columns, leaf_attr_rows_from_sorted,
                              make_leaf_attr_rows, make_shade_table,
-                             smooth_normals_device)
+                             make_shade_table_orig, smooth_normals_device)
 from .passes.texture import apply_textures
 from .raster.setup import default_cap_rows
 from .types import (LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT, Camera,
@@ -207,9 +213,11 @@ BINARY_OVERHEAD_BYTES = 1_500_000
 
 
 def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
-                mesh: Mesh, cache_dir: Optional[str]) -> None:
+                mesh: Mesh, cache_dir: Optional[str],
+                split_blocks: int = 0) -> None:
     """Raise NotImplementedError for anything the port does not cover yet.
-    ``config.gbuffer`` is resolved ("ray" or "raster")."""
+    ``config.gbuffer`` is resolved ("ray" or "raster"); ``split_blocks``:
+    the rebuild's resolved sub-leaf clustering."""
     if mode not in ("static", "rebuild", "refit"):
         raise ValueError(f"mode={mode!r}")
     missing = []
@@ -219,8 +227,12 @@ def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
         if config.rebuild_collapse not in ("area", "fixed"):
             missing.append(f"rebuild_collapse={config.rebuild_collapse!r} "
                            "(tpurt collapses by 'area' or 'fixed')")
-        if config.top_sah:
-            missing.append("top_sah=True (the sweep-SAH priorities kernel)")
+        if config.top_sah and split_blocks:
+            missing.append(
+                "top_sah with sub-leaf clustering (rebuild_splits="
+                f"{config.rebuild_splits}, {split_blocks} blocks): tpurt's "
+                "build_lbvh asserts that split_blocks and top_sah are "
+                "exclusive; rebuild_splits=0 rebuilds the steered plain tree")
     binary = config.bvh_width == 2
     if config.bvh_width not in (2, 8):
         missing.append(f"bvh_width={config.bvh_width} (tpurt walks 2- or "
@@ -241,13 +253,6 @@ def check_slice(config: RenderConfig, mode: str, lights: Sequence[Light],
                 "traversal (use_pallas=False)")
     if not config.use_pallas:
         missing.append("use_pallas=False (portable traversal)")
-    if config.gbuffer == "raster":
-        # tpurt reads neither shade-table flag on the raster G-buffer.
-        if config.raster_deferred:
-            missing.append("raster_deferred=True (the z-only rasterizer)")
-    elif config.seeded_gbuffer and not binary:
-        # tpurt reads the flag on the 8-wide accel alone.
-        missing.append("seeded_gbuffer=True (the seeded first-hit kernel)")
     if not lights:
         missing.append("an empty light set")
     else:
@@ -425,17 +430,22 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
 
 
 def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
-                       attr_tables, shade_table=None):
+                       attr_tables, shade_table=None, shade_table_orig=None):
     """The unfused frame's G-buffer: the tile rasterizer
-    (``gbuffer="raster"``; ``mesh`` on the device, no walk, zero counts),
-    the attribute-tracked closest hit, the plain closest hit and the shade
-    table's row gather (``attr_tables`` None), or, with neither table, the
-    closest hit and ``shade_attributes``' gathers of the mesh (moved to
-    the device here); on the camera-ordered accel, or on the binary one
-    as it is; then the mesh's textures. Returns (gbuf, walk counts)."""
+    (``gbuffer="raster"``; ``mesh`` on the device, no walk, zero counts;
+    with ``raster_deferred`` the z-only one and ``shade_table_orig``),
+    the attribute-tracked closest hit, the plain closest hit (seeded by
+    the first-hit walk with ``seeded_gbuffer`` on the 8-wide accel) and
+    the shade table's row gather (``attr_tables`` None), or, with neither
+    table, the closest hit and ``shade_attributes``' gathers of the mesh
+    (moved to the device here); on the camera-ordered accel, or on the
+    binary one as it is; then the mesh's textures. Returns (gbuf, walk
+    counts)."""
     if cfg.gbuffer == "raster":
         gbuf = gbuffer_raster_pass(mesh, cam, cfg.width, cfg.height,
-                                   cap_pairs=cfg.raster_cap_pairs or None)
+                                   shade_table_orig,
+                                   cap_pairs=cfg.raster_cap_pairs or None,
+                                   deferred=cfg.raster_deferred)
         counts = torch.zeros(2, dtype=torch.int32, device=bvh.tri_id.device)
     else:
         gb_accel = _gb_accel(bvh, cam, cfg)
@@ -447,10 +457,13 @@ def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
                 lambda o, d: trace_closest(gb_accel, o, d),
                 mesh.on(bvh.tri_id.device), cam, cfg.width, cfg.height)
         else:
+            # tpurt's seeded G-buffer exists on the 8-wide accel alone.
+            seeded = cfg.seeded_gbuffer and not is_binary(gb_accel)
             gbuf, counts = gbuffer_pass(
                 lambda o, d: trace_closest(gb_accel, o, d,
                                            return_sorted=True,
-                                           gather_tri_id=False),
+                                           gather_tri_id=False,
+                                           seeded=seeded),
                 mesh, cam, cfg.width, cfg.height, shade_table)
     return _apply_mesh_textures(gbuf, mesh), counts
 
@@ -492,7 +505,8 @@ def composite_lights(gbuf, shadows, lights: Sequence[Light],
 def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
                     lights: Sequence[Light], cfg: RenderConfig,
                     attr_tables=None, seed: int = 0,
-                    shade_table=None) -> Dict[str, torch.Tensor]:
+                    shade_table=None,
+                    shade_table_orig=None) -> Dict[str, torch.Tensor]:
     """One frame: G-buffer + the fused route's shadows -> the unfused
     shadow pass for every other light -> composite (sum of per-light
     direct terms + one ambient term). ``bvh``: the 8-wide accel, or a
@@ -502,7 +516,9 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
     without them, the packed ``shade_table``; with neither (the raster
     G-buffer, or ``tpurt``'s compile-check entry on a plain LBVH) no fused
     kernel runs, as ``tpurt``'s ``tabs`` gate has it, and the ray cast
-    reads the mesh by triangle id. ``seed``: the frame's generator key
+    reads the mesh by triangle id. ``shade_table_orig``: the
+    original-order table the deferred raster G-buffer
+    (``raster_deferred``) reads. ``seed``: the frame's generator key
     (``frame_seed``); light i samples with the key (seed, i).
     ``walk_counts`` sums the walk counters of every launch of the
     frame."""
@@ -527,7 +543,7 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
         shadows = [vis0]
     else:
         gbuf, counts = gbuffer_production(bvh, mesh, cam, cfg, attr_tables,
-                                          shade_table)
+                                          shade_table, shade_table_orig)
         shadows = []
     for li in unfused_lights(route, len(lights)):
         vis, c = shadow_production(bvh, gbuf, lights[li], seed, li, cfg)
@@ -539,22 +555,27 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
 
 def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
                    leaf_size: int, nw_pad: int, split_blocks: int = 0,
-                   tables: Optional[str] = "attr", collapse: str = "area"):
+                   tables: Optional[str] = "attr", collapse: str = "area",
+                   top_sah=False):
     """Config 2's per-frame rebuild, no host sync (``tpurt``'s
     ``_rebuild_fused``): the deferred-box build, the 8-wide collapse into
     ``nw_pad`` rows and the shading table the frame reads. ``collapse``:
     "area", the breadth-first area collapse kernel, or "fixed", the
     depth-3 cut (``widen_lbvh(mode="fixed")``) masked by the topology
-    kernel's depth output, its count a device scalar. ``tables="attr"``:
-    the attribute columns riding the sort (a textured mesh's layer and uv
-    columns too) and the attribute rows from them; ``"st"``, the packed
+    kernel's depth output, its count a device scalar. ``top_sah``: the
+    sweep-SAH kernel steers the tree's top splits (``build_lbvh``); the
+    fixed cut's stack is then left to the walk counters (decision 18).
+    ``tables="attr"``: the attribute columns riding the sort (a textured
+    mesh's layer and uv columns too) and the attribute rows from them;
+    ``"st"``, the packed
     shade table of the rebuilt, payload-sorted tree (``tpurt``'s
     ``tables="st"``, whose original-order table only the deferred
-    rasterizer reads); None for the raster G-buffer, which reads no table
-    (``tpurt``'s ``"sto"``, for the same reason). Returns (bvh, wide
-    accel, (at0, at1) or the shade table or None, count i32[]): count >
-    nw_pad means the pad overflowed and the accel is truncated."""
-    if tables not in ("attr", "st", None):
+    rasterizer reads); ``"sto"``, that original-order table, which the
+    deferred raster G-buffer reads; None for the 32-float raster G-buffer,
+    which reads no table. Returns (bvh, wide accel, (at0, at1) or a shade
+    table or None, count i32[]): count > nw_pad means the pad overflowed
+    and the accel is truncated."""
+    if tables not in ("attr", "st", "sto", None):
         raise ValueError(f"tables={tables!r}")
     if collapse not in ("area", "fixed"):
         raise ValueError(f"collapse={collapse!r}")
@@ -563,14 +584,18 @@ def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
     payload = attr_payload_columns(mesh, vertices.device) if attrs else ()
     built = build_lbvh(vertices, indices, leaf_size=leaf_size,
                        boxes="defer", extra_payload=payload,
-                       want_depth=fixed, split_blocks=split_blocks)
+                       want_depth=fixed, split_blocks=split_blocks,
+                       top_sah=top_sah)
     if not isinstance(built, tuple):
         built = (built,)
     bvh = built[0]
     cols = built[1] if attrs else ()
     if fixed:
         depth = built[-1]
-        check_stack_bound(FIXED_CUT_DEPTH_BOUND)
+        if not top_sah:
+            # A steered tree's bound passes the stack: its frames rely on
+            # the walk counters (decision 18).
+            check_stack_bound(FIXED_CUT_DEPTH_BOUND)
         wide = widen_lbvh(bvh, nw_pad, mode="fixed", depths=depth)
         count = wide_count_device(bvh, mode="fixed", depths=depth)
     else:
@@ -581,32 +606,53 @@ def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
                                            leaf_size, mesh.textured)
     elif tables == "st":
         table = make_shade_table(bvh, mesh)
+    elif tables == "sto":
+        table = make_shade_table_orig(mesh.on(vertices.device))
     return bvh, wide, table, count
 
 
-# The deepest internal node of a Karras tree, from the deltas' range:
-# deltas grow strictly from a node to its children, so the binary stack
-# bound holds for every rebuilt tree without a read of its depth.
-KARRAS_DEPTH_BOUND = D_MAX - 1
-# The fixed cut's wide nodes are the binary ones at depth 0, 3, ..., so a
-# tree of depth <= 95 has at most 32 wide levels, and the per-ray stack
-# needs 7 * 32 + 1 = 225 <= STACK_CAPACITY entries: every fixed rebuild is
-# checked without a read-back.
-FIXED_CUT_DEPTH_BOUND = KARRAS_DEPTH_BOUND // 3 + 1
+def karras_depth_bound(d_max: int) -> int:
+    """The deepest internal node of a tree built over priorities in [0,
+    d_max) (``bvh.lbvh.delta_range``): they grow strictly from a node to
+    its children, so the binary stack bound holds for every rebuilt tree
+    without a read of its depth."""
+    return d_max - 1
+
+
+def fixed_cut_depth_bound(d_max: int) -> int:
+    """The fixed cut's wide levels over such a tree: its wide nodes are
+    the binary ones at depth 0, 3, ...."""
+    return karras_depth_bound(d_max) // 3 + 1
+
+
+# The Morton tree's bounds: 95 binary levels; 32 wide levels, whose
+# per-ray stack needs 7 * 32 + 1 = 225 <= STACK_CAPACITY entries, so every
+# unsteered fixed rebuild is checked without a read-back. A tree steered
+# by top_sah (maxd 21) can be 116 levels deep, 39 wide levels of the fixed
+# cut, which would need 274 entries: its frames rely on the walk
+# counters, as every area-collapse frame does (decision 18).
+KARRAS_DEPTH_BOUND = karras_depth_bound(delta_range())
+FIXED_CUT_DEPTH_BOUND = fixed_cut_depth_bound(delta_range())
 
 
 def _rebuild_binary(vertices: torch.Tensor, indices: torch.Tensor,
-                    mesh: Mesh, leaf_size: int, tables: Optional[str] = "st"):
+                    mesh: Mesh, leaf_size: int, tables: Optional[str] = "st",
+                    top_sah=False):
     """``bvh_width=2``'s per-frame rebuild, no host sync (``tpurt``'s
     ``_build_jit`` and ``_make_accel`` on a binary config): the full-box
-    Morton build, the packed rows and the shade table of the rebuilt tree
-    (``tables="st"``) or none (None, the raster G-buffer). Returns (bvh,
-    packed accel, table or None)."""
-    if tables not in ("st", None):
+    Morton build (steered by ``top_sah``), the packed rows and the shade
+    table of the rebuilt tree (``tables="st"``), the original-order table
+    (``"sto"``, the deferred raster G-buffer) or none (None, the raster
+    G-buffer). Returns (bvh, packed accel, table or None)."""
+    if tables not in ("st", "sto", None):
         raise ValueError(f"tables={tables!r}")
-    bvh = build_lbvh(vertices, indices, leaf_size=leaf_size)
-    check_binary_stack_bound(KARRAS_DEPTH_BOUND)
-    table = make_shade_table(bvh, mesh) if tables == "st" else None
+    bvh = build_lbvh(vertices, indices, leaf_size=leaf_size, top_sah=top_sah)
+    check_binary_stack_bound(karras_depth_bound(delta_range(top_sah)))
+    table = None
+    if tables == "st":
+        table = make_shade_table(bvh, mesh)
+    elif tables == "sto":
+        table = make_shade_table_orig(mesh.on(vertices.device))
     return bvh, pack_bvh(bvh), table
 
 
@@ -680,7 +726,8 @@ class Renderer:
             self.device, self._rebuild_splits)
         config = dataclasses.replace(config,
                                      gbuffer="raster" if raster else "ray")
-        check_slice(config, mode, lights, mesh, cache_dir)
+        check_slice(config, mode, lights, mesh, cache_dir,
+                    self._rebuild_splits)
         if self._rebuild_splits:
             config = dataclasses.replace(config, order_children=False)
         self.config = config
@@ -690,10 +737,19 @@ class Renderer:
         # leaf attribute rows or the shade table (tpurt's _use_attrs, whose
         # VMEM budget has no counterpart on the card). Attribute rows
         # exist for the 8-wide accel alone (tpurt's _make_accel), so a
-        # binary frame reads the shade table.
-        self._tables = None if self._raster else (
-            "attr" if config.inkernel_attrs and not self._binary else "st")
+        # binary frame reads the shade table, and so does the seeded
+        # G-buffer, which exists on the shade-table path alone. The
+        # deferred raster G-buffer reads the original-order table
+        # (tpurt's "sto").
+        if self._raster:
+            self._tables = "sto" if config.raster_deferred else None
+        else:
+            self._tables = "attr" if (
+                config.inkernel_attrs and not self._binary
+                and not config.seeded_gbuffer) else "st"
         self.mode = mode
+        # tpurt steers only the per-frame rebuild's trees (_build_jit).
+        self._top_sah = config.top_sah if mode == "rebuild" else False
         self.rebuild_threshold = rebuild_threshold
         self.mesh = mesh
         self.camera = camera
@@ -706,6 +762,7 @@ class Renderer:
         self._geom_dirty = False
         self.attr_tables = None
         self.shade_table = None
+        self.shade_table_orig = None
 
         if mode == "rebuild" and not self._binary:
             self._setup_rebuild()
@@ -716,7 +773,8 @@ class Renderer:
             else:
                 dm = mesh.on(self.device)
                 self.bvh = build_lbvh(dm.vertices, dm.indices,
-                                      leaf_size=config.leaf_size)
+                                      leaf_size=config.leaf_size,
+                                      top_sah=self._top_sah)
             _sync(self.device)
             t1 = time.perf_counter()
             self.accel = self._make_accel()
@@ -732,7 +790,7 @@ class Renderer:
                 # a binary rebuild builds from it, and the texture pass
                 # samples its atlas.
                 self.mesh = mesh.on(self.device)
-            if not self._raster:
+            if self._tables:
                 self._make_tables(mesh, t2)
         if self._binary:
             self.depth = tree_depth(self.bvh.nodes_child)
@@ -743,13 +801,17 @@ class Renderer:
 
     def _make_tables(self, mesh: Mesh, t0: float) -> None:
         """The static tree's shading table, timed from ``t0``: the leaf
-        attribute rows or the shade table."""
+        attribute rows, the shade table or the original-order one."""
         if self._tables == "attr":
             self.attr_tables = make_leaf_attr_rows(self.bvh, mesh)
-        else:
+        elif self._tables == "st":
             self.shade_table = make_shade_table(self.bvh, mesh)
+        else:
+            self.shade_table_orig = make_shade_table_orig(
+                mesh.on(self.device))
         _sync(self.device)
-        key = "attr_rows_ms" if self._tables == "attr" else "shade_table_ms"
+        key = {"attr": "attr_rows_ms", "st": "shade_table_ms",
+               "sto": "shade_table_orig_ms"}[self._tables]
         self.stats[key] = (time.perf_counter() - t0) * 1e3
 
     def _make_accel(self):
@@ -768,7 +830,8 @@ class Renderer:
         rebuild's ``nw_pad``."""
         self.bvh = build_lbvh(self.mesh.vertices, self.mesh.indices,
                               leaf_size=self.config.leaf_size,
-                              split_blocks=self._rebuild_splits)
+                              split_blocks=self._rebuild_splits,
+                              top_sah=self._top_sah)
         return round_up_bucket(max(count_wide(
             self.bvh, mode=self.config.rebuild_collapse), 1))
 
@@ -783,7 +846,8 @@ class Renderer:
         full-box build, and the set-up accel from that tree through the
         per-frame collapse's mode (the area kernel, or the fixed cut), so
         its wide depth is checked against the stack once (area frames rely
-        on the walk counters, fixed ones on ``FIXED_CUT_DEPTH_BOUND``)."""
+        on the walk counters, unsteered fixed ones on
+        ``FIXED_CUT_DEPTH_BOUND``)."""
         self.mesh = self.mesh.on(self.device)
         t0 = time.perf_counter()
         self._nw_pad = self._count_pad()
@@ -798,20 +862,21 @@ class Renderer:
         self.stats.update(build_and_count_ms=(t1 - t0) * 1e3,
                           collapse_ms=(t2 - t1) * 1e3,
                           overflow_recoveries=0)
-        if not self._raster:
+        if self._tables:
             self._make_tables(self.mesh, t2)
 
     def _rebuild(self):
         if self._binary:
             return _rebuild_binary(self.mesh.vertices, self.mesh.indices,
                                    self.mesh, self.config.leaf_size,
-                                   tables=self._tables)
+                                   tables=self._tables, top_sah=self._top_sah)
         return _rebuild_fused(self.mesh.vertices, self.mesh.indices,
                               self.mesh, self.config.leaf_size,
                               self._nw_pad,
                               split_blocks=self._rebuild_splits,
                               tables=self._tables,
-                              collapse=self.config.rebuild_collapse)
+                              collapse=self.config.rebuild_collapse,
+                              top_sah=self._top_sah)
 
     def _update_bvh(self) -> None:
         """Rebuild the accel for this frame. The wide-node count is read
@@ -823,7 +888,8 @@ class Renderer:
         rebuild has no pad to outgrow."""
         if self._binary:
             self._geom_dirty = False
-            self.bvh, self.accel, self.shade_table = self._rebuild()
+            self.bvh, self.accel, table = self._rebuild()
+            self._set_table(table)
             return
         bvh, accel, table, count = self._rebuild()
         if self._geom_dirty:
@@ -834,10 +900,16 @@ class Renderer:
                 bvh, accel, table, count = self._rebuild()
                 self._check_count(count)
         self.bvh, self.accel = bvh, accel
+        self._set_table(table)
+
+    def _set_table(self, table) -> None:
+        """Keep a rebuild's table as the one its frames read."""
         if self._tables == "attr":
             self.attr_tables = table
         elif self._tables == "st":
             self.shade_table = table
+        elif self._tables == "sto":
+            self.shade_table_orig = table
 
     def set_vertices(self, vertices) -> None:
         """Animate (rebuild mode): new vertex positions f32[V, 3], same
@@ -871,7 +943,8 @@ class Renderer:
         out = render_frame_fn(self.accel, self.mesh, self.camera,
                               self.lights, cfg, self.attr_tables,
                               seed=frame_seed(cfg.seed, self.frame_index),
-                              shade_table=self.shade_table)
+                              shade_table=self.shade_table,
+                              shade_table_orig=self.shade_table_orig)
         flags = out["walk_counts"]
         if self._raster:
             flags = torch.cat([flags, out["raster_overflow"].reshape(1)

@@ -13,8 +13,13 @@ the deltas (``topology_pallas``, equal to ``karras_topology_scan``). The
 JAX package builds with it on the TPU below its 30k-leaf SMEM gate and
 with the binary-search builder ``karras_topology`` elsewhere (its CPU
 runs, bigger scenes); the two trees are the same with other internal node
-ids. The card has no such gate. The search builder and ``top_sah`` are
-not ported.
+ids. The card has no such gate. The search builder is not ported.
+
+``top_sah`` steers the top of the tree: the sweep-SAH kernel re-chooses
+the top splits over blocks of leaf boxes and writes them as priorities
+D' (``kernels/build.sweep_sah_priorities``), whose min-Cartesian tree is
+built by the same topology kernel; below the sweep's cut the Morton
+structure is kept, and leaf ranges stay contiguous.
 
 ``morton_bits=60`` keys every triangle by two words (a kernel too) and
 sorts them lexicographically, as one stable sort of the int64 key
@@ -28,7 +33,8 @@ from typing import Optional
 
 import torch
 
-from ..kernels.build import morton_codes, morton_codes60, topology
+from ..kernels.build import (D_MAX, SWEEP_MAXD, morton_codes, morton_codes60,
+                             sweep_sah_priorities, topology)
 
 INT32_MIN = -(2 ** 31)
 _BIG = 3.4e38
@@ -303,10 +309,27 @@ def _sort_payload(codes, columns):
     return chs, [c[perm] for c in columns]
 
 
+def top_sah_args(top_sah) -> dict:
+    """``top_sah``'s sweep arguments: none for True (the defaults), the
+    (block, maxd, min_blocks) tuple's otherwise (``tpurt``'s form)."""
+    if isinstance(top_sah, tuple):
+        return dict(zip(("block", "maxd", "min_blocks"), top_sah))
+    return {}
+
+
+def delta_range(top_sah=False) -> int:
+    """d_max of the priorities a build hands the topology: the adjacent
+    deltas lie in [0, D_MAX), the steered D' in [0, D_MAX + maxd). A tree
+    over them is at most d_max - 1 levels deep."""
+    if not top_sah:
+        return D_MAX
+    return D_MAX + int(top_sah_args(top_sah).get("maxd", SWEEP_MAXD))
+
+
 def build_lbvh(vertices: torch.Tensor, indices: torch.Tensor,
                leaf_size: int = 4, morton_bits: int = 30,
                boxes: str = "full", extra_payload: tuple = (),
-               want_depth: bool = False, top_sah: bool = False,
+               want_depth: bool = False, top_sah=False,
                split_blocks: int = 0):
     """The on-device build: Morton codes, a stable key sort carrying every
     per-triangle column, sub-leaf clustering when ``split_blocks`` > 0,
@@ -319,16 +342,18 @@ def build_lbvh(vertices: torch.Tensor, indices: torch.Tensor,
     lexicographically; not with ``split_blocks``, which ``tpurt``
     asserts). ``extra_payload``: per-triangle [T] columns to co-sort.
     ``want_depth``: also every internal node's depth i32[Ni] (root 0),
-    the topology kernel's depth output, which the fixed cut reads. The
+    the topology kernel's depth output, which the fixed cut reads.
+    ``top_sah``: True, or a (block, maxd, min_blocks) tuple, steers the
+    top splits by the sweep-SAH kernel (not with ``split_blocks``, as in
+    ``tpurt``, which asserts it). The
     return is the LBVH alone, or a tuple in ``tpurt``'s order: (LBVH,
     sorted columns if ``extra_payload``, depth if ``want_depth``)."""
     if morton_bits not in (30, 60):
         raise ValueError(f"morton_bits={morton_bits}")
     if morton_bits == 60 and split_blocks:
         raise ValueError("sub-leaf clustering needs 30-bit codes")
-    if top_sah:
-        raise NotImplementedError("top_sah (the sweep-SAH priorities "
-                                  "kernel) is not ported")
+    if split_blocks and top_sah:
+        raise ValueError("split_blocks and top_sah are exclusive")
     if boxes not in ("full", "defer"):
         raise ValueError(f"boxes={boxes!r}")
     num_tris = int(indices.shape[0])
@@ -362,7 +387,10 @@ def build_lbvh(vertices: torch.Tensor, indices: torch.Tensor,
             leaf_codes = ((leaf_codes >> 30).to(torch.int32),
                           (leaf_codes & ((1 << 30) - 1)).to(torch.int32))
 
-    topo = topology(adjacent_deltas(leaf_codes), want_depth=want_depth)
+    d = adjacent_deltas(leaf_codes)
+    if top_sah:
+        d = sweep_sah_priorities(d, lmin, lmax, **top_sah_args(top_sah))
+    topo = topology(d, want_depth=want_depth, d_max=delta_range(top_sah))
     child, first, last = topo[:3]
 
     if boxes == "defer":

@@ -145,8 +145,12 @@ def load_library() -> ctypes.CDLL:
             ("tpurt_topology_launch", [p, i, i, p, p, p, p, p, p, p, p, i,
                                        p]),
             ("tpurt_collapse_area_launch", [p, p, i, i, p, p, p, p]),
+            ("tpurt_sweep_sah_launch", [p, i, i, i, i, i, i, p, p, p, p,
+                                        p]),
             ("tpurt_raster_rows_launch", [p, i, p, p, p, i, p, i, i, i, i,
-                                          f, f, f, f, p, p, p])):
+                                          f, f, f, f, p, p, p]),
+            ("tpurt_raster_rows16_launch", [p, i, p, p, p, i, p, i, i, i,
+                                            i, f, f, f, f, p, p, p])):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = args
     from .traverse import STACK_CAPACITY, Params

@@ -8,7 +8,10 @@
 - ``topology`` -> ``topology_pallas``: the Karras radix tree as the
   min-Cartesian tree over the adjacent deltas, root renumbered to node 0;
   with ``want_depth`` also every node's depth (``topology_depth_*``,
-  whose plain version is ``node_depths``);
+  whose plain version is ``node_depths``); ``d_max`` bounds the deltas,
+  so it also takes the sweep's steered priorities;
+- ``sweep_sah_priorities`` -> ``_sweep_sah_kernel``: ``top_sah``'s
+  re-chosen top splits, as priorities that steer the unchanged topology;
 - ``collapse_area`` -> ``collapse_area_pallas``: the breadth-first
   area-greedy 8-wide collapse.
 
@@ -22,9 +25,9 @@ Each has three pieces, as in ``kernels/traverse.py``:
 - the wrapper the build calls, which picks one of the two by the tensors'
   device.
 
-All three equal the JAX package's Pallas kernels exactly (the codes bit
-for bit, the trees array for array): they feed the sort keys and the tree
-topology, where any difference reshapes every tree.
+All of them equal the JAX package's Pallas kernels exactly (the codes
+bit for bit, the trees array for array): they feed the sort keys and the
+tree topology, where any difference reshapes every tree.
 """
 
 from __future__ import annotations
@@ -136,19 +139,19 @@ def _renum(x: torch.Tensor, root: torch.Tensor) -> torch.Tensor:
     return torch.where(x == root, 0, torch.where(x == 0, root, x))
 
 
-def topology_reference(d: torch.Tensor):
-    """Adjacent deltas i32[ni] (values in [0, D_MAX]) -> (child i32[ni, 2],
-    first i32[ni], last i32[ni]) with the root as node 0: the vectorized
-    formulation of ``lbvh.karras_topology_scan``. Gap g is internal node g
-    (but the root, swapped with 0); L[g] is the nearest j < g with D[j] <=
-    D[g], R[g] the nearest j > g with D[j] < D[g], found per threshold by a
-    running max and a reverse running min."""
+def topology_reference(d: torch.Tensor, d_max: int = D_MAX):
+    """Adjacent deltas i32[ni] (values in [0, d_max)) -> (child i32[ni,
+    2], first i32[ni], last i32[ni]) with the root as node 0: the
+    vectorized formulation of ``lbvh.karras_topology_scan``. Gap g is
+    internal node g (but the root, swapped with 0); L[g] is the nearest j
+    < g with D[j] <= D[g], R[g] the nearest j > g with D[j] < D[g], found
+    per threshold by a running max and a reverse running min."""
     ni = d.shape[0]
     n = ni + 1
     dev = d.device
     d = d.long()
     g = torch.arange(ni, device=dev)
-    v = torch.arange(D_MAX + 2, device=dev)[None, :]
+    v = torch.arange(d_max + 2, device=dev)[None, :]
     neg = torch.full((1, v.shape[1]), -1, dtype=torch.long, device=dev)
     none = torch.full((1, v.shape[1]), ni, dtype=torch.long, device=dev)
     pmax = torch.cummax(torch.where(d[:, None] <= v, g[:, None], -1),
@@ -187,9 +190,9 @@ def topology_reference(d: torch.Tensor):
     return child[:ni].to(i32), first_r.to(i32), last_r.to(i32)
 
 
-def _topology_launch(d: torch.Tensor, want_depth: bool):
+def _topology_launch(d: torch.Tensor, want_depth: bool, d_max: int):
     """One call of the C topology entry: (child, first, last), and depth
-    i32[ni] with ``want_depth``."""
+    i32[ni] with ``want_depth`` (at most d_max - 1 steps to the root)."""
     from ._build import load_library
     _need_cuda(d)
     ni = d.shape[0]
@@ -214,25 +217,28 @@ def _topology_launch(d: torch.Tensor, want_depth: bool):
         d.data_ptr(), ni, levels, table.data_ptr(), lr.data_ptr(),
         root.data_ptr(), child.data_ptr(), first.data_ptr(),
         last.data_ptr(), None if parent is None else parent.data_ptr(),
-        None if depth is None else depth.data_ptr(), D_MAX - 1,
+        None if depth is None else depth.data_ptr(), int(d_max) - 1,
         _stream(dev)), "tpurt_topology_launch")
     return (child, first, last) + ((depth,) if want_depth else ())
 
 
-def topology_cuda(d: torch.Tensor):
+def topology_cuda(d: torch.Tensor, d_max: int = D_MAX):
     """The kernel of ``topology_reference``: a sparse table of range
     minima of D (one launch per level), a per-gap binary-lifting search
-    for L and R, and one thread per leaf and gap placing the children."""
-    res = _topology_launch(d, False)
+    for L and R, and one thread per leaf and gap placing the children.
+    Any priorities take the same launches; ``d_max`` only bounds the
+    depth output's walk."""
+    res = _topology_launch(d, False, d_max)
     topology_cuda.launches += 1
     return res
 
 
-def node_depths(child: torch.Tensor) -> torch.Tensor:
+def node_depths(child: torch.Tensor, d_max: int = D_MAX) -> torch.Tensor:
     """i32[Ni] depth of every internal node (root, row 0, = 0) of a binary
     tree (``tpurt``'s ``bvh/wide.node_depths``): parent pointers by one
-    scatter-max of both child sides, then 7 rounds of pointer doubling
-    (2^7 = 128 > the Karras bound D_MAX - 1 = 95)."""
+    scatter-max of both child sides, then rounds of pointer doubling
+    until 2^rounds passes the Karras bound d_max - 1 (7 rounds for D_MAX:
+    128 > 95)."""
     ni = child.shape[0]
     dev = child.device
     ref = child.reshape(-1).long()
@@ -242,39 +248,198 @@ def node_depths(child: torch.Tensor) -> torch.Tensor:
     parent = torch.zeros((ni,), dtype=torch.long, device=dev).scatter_reduce(
         0, tgt, torch.where(is_int, own, 0), "amax", include_self=True)
     depth = (torch.arange(ni, device=dev) != 0).to(torch.int32)
-    for _ in range(7):
+    for _ in range((int(d_max) - 1).bit_length()):
         depth = depth + depth[parent]
         parent = parent[parent]
     return depth
 
 
-def topology_depth_reference(d: torch.Tensor):
+def topology_depth_reference(d: torch.Tensor, d_max: int = D_MAX):
     """Plain version of the topology with its depth output
     (``topology_pallas(want_depth=True)``): ``topology_reference``, then
     ``node_depths`` of its tree -> (child, first, last, depth i32[ni])."""
-    child, first, last = topology_reference(d)
-    return child, first, last, node_depths(child)
+    child, first, last = topology_reference(d, d_max)
+    return child, first, last, node_depths(child, d_max)
 
 
-def topology_depth_cuda(d: torch.Tensor):
+def topology_depth_cuda(d: torch.Tensor, d_max: int = D_MAX):
     """The kernel of ``topology_depth_reference``: ``topology_cuda``'s
     launches, whose placement also writes every node's parent, and one
     more, one thread per node counting its steps up to the root."""
-    res = _topology_launch(d, True)
+    res = _topology_launch(d, True, d_max)
     topology_depth_cuda.launches += 1
     return res
 
 
-def topology(d: torch.Tensor, want_depth: bool = False):
-    """Karras topology from the adjacent deltas (``lbvh.adjacent_deltas``):
-    (child i32[ni, 2], first, last) with the root as node 0, equal to
-    ``topology_pallas``; ``want_depth`` adds depth i32[ni] (root 0), as
-    ``topology_pallas(want_depth=True)`` returns it."""
+def topology(d: torch.Tensor, want_depth: bool = False,
+             d_max: int = D_MAX):
+    """Karras topology from the adjacent deltas (``lbvh.adjacent_deltas``)
+    or any priorities in [0, d_max) (``sweep_sah_priorities``' D', with
+    ``d_max`` = D_MAX + maxd): (child i32[ni, 2], first, last) with the
+    root as node 0, equal to ``topology_pallas``; ``want_depth`` adds
+    depth i32[ni] (root 0), as ``topology_pallas(want_depth=True)``
+    returns it."""
     if want_depth:
         fn = _pick(d.device, topology_depth_cuda, topology_depth_reference)
     else:
         fn = _pick(d.device, topology_cuda, topology_reference)
-    return fn(d.to(torch.int32).contiguous())
+    return fn(d.to(torch.int32).contiguous(), int(d_max))
+
+
+# ---------------------------------------------------------------------------
+# Sweep-SAH priorities (top_sah)
+# ---------------------------------------------------------------------------
+
+SWEEP_BLOCK = 8          # leaves per SAH block (the split granularity)
+SWEEP_MAXD = 21          # top-tree depth cap: priorities 0..maxd-1
+SWEEP_MIN_BLOCKS = 8     # ranges of at most this many blocks are not split
+_SWEEP_BIG = 3.4e38
+
+
+def sweep_maxn(nb: int, min_blocks: int) -> int:
+    """Output slots of the sweep over nb blocks (``tpurt``'s maxn): the
+    splits past it are not emitted."""
+    return 2 * (nb // max(min_blocks, 1) + 2)
+
+
+def block_boxes(leaf_min: torch.Tensor, leaf_max: torch.Tensor,
+                block: int) -> torch.Tensor:
+    """Leaf boxes f32[nl, 3] -> block boxes f32[nb * 6], per block [min
+    xyz, max xyz] of ``block`` leaves; the last leaf pads the tail."""
+    nl = leaf_min.shape[0]
+    nb = -(-nl // block)
+    pad = nb * block - nl
+    if pad:
+        leaf_min = torch.cat([leaf_min, leaf_min[-1:].expand(pad, 3)])
+        leaf_max = torch.cat([leaf_max, leaf_max[-1:].expand(pad, 3)])
+    bmin = leaf_min.reshape(nb, block, 3).amin(dim=1)
+    bmax = leaf_max.reshape(nb, block, 3).amax(dim=1)
+    return torch.cat([bmin, bmax], dim=1).reshape(-1).contiguous()
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+          ) -> torch.Tensor:
+    """fma(a, b, c) of float32 tensors, rounded once to float32, as the
+    card's ``__fmaf_rn`` and the FMAs XLA's CPU compiler contracts. a b is
+    exact in float64; the float64 sum s is then rounded again, which
+    differs from one rounding only where s lies exactly halfway between
+    two float32 values: there the sign of the sum's own rounding error
+    (TwoSum) picks the neighbour."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    r = s.float()
+    up = r.double() < s
+    lo = torch.where(up, r, torch.nextafter(r, torch.full_like(r, -torch.inf)))
+    hi = torch.where(up, torch.nextafter(r, torch.full_like(r, torch.inf)), r)
+    half = (lo.double() + hi.double()) * 0.5 == s
+    return torch.where(half & (err > 0), hi, torch.where(half & (err < 0),
+                                                         lo, r))
+
+
+def _surface(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The sweep's SA of boxes [..., 3], dx dy + dy dz + dz dx of the
+    clamped extents, as the JAX package's kernel rounds it (decision 19):
+    XLA contracts it into fma(dz, dx, fma(dx, dy, dy dz))."""
+    e = torch.clamp(hi - lo, min=0.0)
+    dx, dy, dz = e[..., 0], e[..., 1], e[..., 2]
+    return fma32(dz, dx, fma32(dx, dy, dy * dz))
+
+
+def sweep_sah_priorities_reference(bx: torch.Tensor, ni: int, block: int,
+                                   maxd: int, min_blocks: int, stats=None):
+    """Plain version of ``_sweep_sah_kernel``: block boxes f32[nb * 6] ->
+    (gaps i32[maxn], ranks i32[maxn]), unused slots (ni, 0). A LIFO
+    stack starts with all blocks at depth 0; a popped range of more than
+    ``min_blocks`` blocks, above depth ``maxd`` and while slots remain,
+    splits after the block j that minimises SA(a..j) (j - a + 1) + SA(j+1
+    ..b) (b - j) (the first minimum; a cost that is not below 3.4e38
+    never wins and leaves j = a), emits gap (j + 1) block - 1 at rank =
+    its depth, then pushes the left range and the right one. Each range's
+    prefix and suffix boxes are running minima and maxima (exact in any
+    order); the stack walk is serial, on the host. The SA and the cost
+    are rounded as the JAX package's kernel rounds them (``_surface``;
+    the cost fma(SA(j+1..b), b - j, SA(a..j) (j - a + 1))). ``stats``
+    counts "sweep_steps": the blocks the split ranges swept, twice
+    each."""
+    dev = bx.device
+    nb = bx.shape[0] // 6
+    boxes = bx.reshape(nb, 6)
+    maxn = sweep_maxn(nb, min_blocks)
+    gaps = torch.full((maxn,), ni, dtype=torch.int32, device=dev)
+    ranks = torch.zeros((maxn,), dtype=torch.int32, device=dev)
+    stack, nout = [(0, nb - 1, 0)], 0
+    while stack:
+        a, b, dep = stack.pop()
+        if not (b - a + 1 > min_blocks and dep < maxd and nout < maxn):
+            continue
+        lo, hi = boxes[a:b + 1, :3], boxes[a:b + 1, 3:]
+        pre = _surface(torch.cummin(lo, 0).values, torch.cummax(hi, 0).values)
+        suf = _surface(torch.cummin(lo.flip(0), 0).values.flip(0),
+                       torch.cummax(hi.flip(0), 0).values.flip(0))
+        j = torch.arange(b - a, device=dev)
+        cost = fma32(suf[1:], (b - a - j).to(torch.float32),
+                     pre[:-1] * (j + 1).to(torch.float32))
+        cost = torch.where(cost < _SWEEP_BIG, cost, torch.inf)
+        bj = a + int(torch.argmin(cost)) if bool((cost < torch.inf).any()) \
+            else a
+        if stats is not None:
+            stats["sweep_steps"] = stats.get("sweep_steps", 0) + 2 * (b - a)
+        gaps[nout] = (bj + 1) * block - 1
+        ranks[nout] = dep
+        nout += 1
+        stack += [(a, bj, dep + 1), (bj + 1, b, dep + 1)]
+    return gaps, ranks
+
+
+def sweep_sah_priorities_cuda(bx: torch.Tensor, ni: int, block: int,
+                              maxd: int, min_blocks: int):
+    """The kernel of ``sweep_sah_priorities_reference`` (``csrc/build.cu``):
+    one block keeps the stack walk serial; each split range's suffix and
+    prefix boxes are block-wide scans, its split a block-wide argmin."""
+    from ._build import load_library
+    _need_cuda(bx)
+    dev = bx.device
+    nb = bx.shape[0] // 6
+    if nb < 1 or bx.shape[0] != nb * 6:
+        raise ValueError(f"block boxes of {bx.shape[0]} floats")
+    _check(bx, "bx", torch.float32, (nb * 6,), dev)
+    maxn = sweep_maxn(nb, min_blocks)
+    gaps = torch.empty((maxn,), dtype=torch.int32, device=dev)
+    ranks = torch.empty((maxn,), dtype=torch.int32, device=dev)
+    suffix = torch.empty((nb,), dtype=torch.float32, device=dev)
+    stack = torch.empty((3 * (maxn + 2),), dtype=torch.int32, device=dev)
+    lib = load_library()
+    _raise_on(lib.tpurt_sweep_sah_launch(
+        bx.data_ptr(), nb, int(ni), int(block), int(maxd), int(min_blocks),
+        maxn, suffix.data_ptr(), stack.data_ptr(), gaps.data_ptr(),
+        ranks.data_ptr(), _stream(dev)), "tpurt_sweep_sah_launch")
+    sweep_sah_priorities_cuda.launches += 1
+    return gaps, ranks
+
+
+def sweep_sah_priorities(d: torch.Tensor, leaf_min: torch.Tensor,
+                         leaf_max: torch.Tensor, block: int = SWEEP_BLOCK,
+                         maxd: int = SWEEP_MAXD,
+                         min_blocks: int = SWEEP_MIN_BLOCKS) -> torch.Tensor:
+    """Adjacent deltas D i32[ni] -> the steered priorities D' i32[ni]
+    (``tpurt``'s ``sweep_sah_priorities``): every gap keeps D + maxd but
+    the sweep's splits, which take their depth in the top tree. The
+    topology of D' (``topology(..., d_max=D_MAX + maxd)``) is the hybrid
+    tree: sweep-SAH splits at the top, the Morton structure below, leaf
+    ranges contiguous. No host sync."""
+    ni = d.shape[0]
+    bx = block_boxes(leaf_min.to(torch.float32), leaf_max.to(torch.float32),
+                     int(block))
+    fn = _pick(d.device, sweep_sah_priorities_cuda,
+               sweep_sah_priorities_reference)
+    gaps, ranks = fn(bx, ni, int(block), int(maxd), int(min_blocks))
+    dprime = torch.cat([d.to(torch.int32) + int(maxd),
+                        torch.zeros((1,), dtype=torch.int32,
+                                    device=d.device)])
+    dprime[gaps.long()] = ranks      # slot ni takes the unused outputs
+    return dprime[:ni]
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +544,7 @@ def collapse_area(child: torch.Tensor, area: torch.Tensor, nw_pad: int):
 
 
 BUILD_KERNELS = (morton_codes_cuda, topology_cuda, collapse_area_cuda,
-                 morton_codes60_cuda, topology_depth_cuda)
+                 morton_codes60_cuda, topology_depth_cuda,
+                 sweep_sah_priorities_cuda)
 for _fn in BUILD_KERNELS:
     _fn.launches = 0

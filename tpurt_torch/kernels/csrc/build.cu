@@ -9,6 +9,8 @@
 //                     node's depth
 //   area collapse  <- collapse_area_pallas (:742) -> _collapse_area_kernel
 //                     (:648)
+//   sweep-SAH      <- sweep_sah_priorities (:582) -> _sweep_sah_kernel
+//                     (:469), top_sah's re-chosen top splits
 //
 // Plain C entry points, launched on the caller's stream; each returns the
 // CUDA error of its launches (0 on success). The wrappers in
@@ -31,8 +33,10 @@
 //   Here placement also writes each node's parent, and one thread per
 //   node counts the steps up the parent pointers to the root. A Karras
 //   tree is at most D_MAX - 1 = 95 levels deep (deltas grow strictly from
-//   a node to its children), so a thread makes at most 95 dependent
-//   loads of a 100 KB array that stays in L2.
+//   a node to its children; top_sah's steered priorities D' reach D_MAX -
+//   1 + maxd, and the wrapper passes that bound), so a thread makes at
+//   most 95 (116 steered) dependent loads of a 100 KB array that stays in
+//   L2.
 // - Area collapse: the TPU kernel is a serial BFS whose wide ids are queue
 //   positions. BFS order is level order with children numbered by
 //   (parent position, slot), so one block walks the levels: one thread per
@@ -390,5 +394,235 @@ extern "C" int tpurt_collapse_area_launch(const int* child, const float* area,
   (void)ni;
   collapse_area_kernel<<<1, COLLAPSE_THREADS, 0, stream>>>(child, area, nw_pad,
                                                            front, src, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Sweep-SAH priorities (top_sah): the stack walk in one block
+// ---------------------------------------------------------------------------
+//
+// The TPU kernel (_sweep_sah_kernel) is serial on the scalar core: pop a
+// block range, sweep it backwards for the suffix SA of every split, then
+// forwards for the prefix SA and the cost's argmin, emit the split and
+// push both halves. Which splits survive the maxn cap depends on the stack
+// order, so the walk stays serial here too, but each range's two passes
+// run across the block: a block-wide scan of box unions (min and max,
+// exact in any order) gives the suffix and the prefix boxes, and a
+// block-wide argmin that keeps the smallest j picks the split, as the
+// serial strict '<' does. SA and cost are rounded as the JAX package's
+// kernel is under XLA's CPU compiler: SA = fma(dz, dx, fma(dx, dy, dy dz)),
+// cost = fma(SA(j+1..b), b - j, SA(a..j) (j - a + 1)), with explicit fmas
+// (the file builds with --fmad=false). Bound by latency: about 2 maxn
+// dependent range steps, each a few block barriers; the bytes (the block
+// boxes, nb x 24) and the operations (about 40 per block per split range)
+// are small.
+
+constexpr int SWEEP_THREADS = 256;
+constexpr int SWEEP_WARPS = SWEEP_THREADS / 32;
+constexpr float SWEEP_BIG = 3.4e38f;
+
+struct Box6 {
+  float lx, ly, lz, hx, hy, hz;
+};
+
+__device__ __forceinline__ Box6 box_empty() {
+  return Box6{SWEEP_BIG, SWEEP_BIG, SWEEP_BIG,
+              -SWEEP_BIG, -SWEEP_BIG, -SWEEP_BIG};
+}
+
+__device__ __forceinline__ Box6 box_union(const Box6& a, const Box6& b) {
+  return Box6{fminf(a.lx, b.lx), fminf(a.ly, b.ly), fminf(a.lz, b.lz),
+              fmaxf(a.hx, b.hx), fmaxf(a.hy, b.hy), fmaxf(a.hz, b.hz)};
+}
+
+__device__ __forceinline__ Box6 box_shfl_up(const Box6& v, int o) {
+  return Box6{__shfl_up_sync(0xffffffffu, v.lx, o),
+              __shfl_up_sync(0xffffffffu, v.ly, o),
+              __shfl_up_sync(0xffffffffu, v.lz, o),
+              __shfl_up_sync(0xffffffffu, v.hx, o),
+              __shfl_up_sync(0xffffffffu, v.hy, o),
+              __shfl_up_sync(0xffffffffu, v.hz, o)};
+}
+
+__device__ __forceinline__ float sweep_sa(const Box6& v) {
+  float dx = fmaxf(v.hx - v.lx, 0.0f);
+  float dy = fmaxf(v.hy - v.ly, 0.0f);
+  float dz = fmaxf(v.hz - v.lz, 0.0f);
+  return __fmaf_rn(dz, dx, __fmaf_rn(dx, dy, dy * dz));
+}
+
+// Inclusive union scan of v over the block in thread order; *total gets
+// the union of the whole block. Every thread of the block must call it.
+__device__ Box6 block_scan_box(Box6 v, Box6* total) {
+  __shared__ Box6 warp_box[SWEEP_WARPS];
+  int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    Box6 y = box_shfl_up(v, o);
+    if (lane >= o) v = box_union(v, y);
+  }
+  if (lane == 31) warp_box[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    Box6 w = lane < SWEEP_WARPS ? warp_box[lane] : box_empty();
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      Box6 y = box_shfl_up(w, o);
+      if (lane >= o) w = box_union(w, y);
+    }
+    if (lane < SWEEP_WARPS) warp_box[lane] = w;
+  }
+  __syncthreads();
+  if (warp > 0) v = box_union(warp_box[warp - 1], v);
+  *total = warp_box[SWEEP_WARPS - 1];
+  __syncthreads();
+  return v;
+}
+
+// (c, j) of the block's smallest c, the smallest j among equal ones, on
+// every thread. Every thread of the block must call it.
+__device__ void block_argmin(float& c, int& j) {
+  __shared__ float warp_c[SWEEP_WARPS];
+  __shared__ int warp_j[SWEEP_WARPS];
+  int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    float oc = __shfl_down_sync(0xffffffffu, c, o);
+    int oj = __shfl_down_sync(0xffffffffu, j, o);
+    if (oc < c || (oc == c && oj < j)) {
+      c = oc;
+      j = oj;
+    }
+  }
+  if (lane == 0) {
+    warp_c[warp] = c;
+    warp_j[warp] = j;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    c = lane < SWEEP_WARPS ? warp_c[lane] : __int_as_float(0x7f800000);
+    j = lane < SWEEP_WARPS ? warp_j[lane] : 0x7fffffff;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      float oc = __shfl_down_sync(0xffffffffu, c, o);
+      int oj = __shfl_down_sync(0xffffffffu, j, o);
+      if (oc < c || (oc == c && oj < j)) {
+        c = oc;
+        j = oj;
+      }
+    }
+    if (lane == 0) {
+      warp_c[0] = c;
+      warp_j[0] = j;
+    }
+  }
+  __syncthreads();
+  c = warp_c[0];
+  j = warp_j[0];
+  __syncthreads();
+}
+
+__device__ __forceinline__ Box6 load_box(const float* __restrict__ bx,
+                                         int j) {
+  const float* p = bx + 6 * static_cast<long long>(j);
+  return Box6{p[0], p[1], p[2], p[3], p[4], p[5]};
+}
+
+// bx: f32[nb * 6] block boxes; suffix: f32[nb] scratch (SA of the box of
+// blocks j..b of the current range); stack: i32[3 (maxn + 2)] scratch
+// (a, b, depth per entry); gaps, ranks: i32[maxn], unused slots (ni, 0).
+__global__ void __launch_bounds__(SWEEP_THREADS)
+sweep_sah_kernel(const float* __restrict__ bx, int nb, int ni, int block,
+                 int maxd, int min_blocks, int maxn,
+                 float* __restrict__ suffix, int* __restrict__ stack,
+                 int* __restrict__ gaps, int* __restrict__ ranks) {
+  const float inf = __int_as_float(0x7f800000);
+  const int tid = threadIdx.x;
+  for (int i = tid; i < maxn; i += SWEEP_THREADS) {
+    gaps[i] = ni;
+    ranks[i] = 0;
+  }
+  if (tid == 0) {
+    stack[0] = 0;
+    stack[1] = nb - 1;
+    stack[2] = 0;
+  }
+  __syncthreads();
+  // Every thread keeps sp and nout: they change alike on every thread.
+  int sp = 1, nout = 0;
+  while (sp > 0) {
+    --sp;
+    int a = stack[3 * sp], b = stack[3 * sp + 1], dep = stack[3 * sp + 2];
+    __syncthreads();  // thread 0 overwrites these entries below
+    if (!(b - a + 1 > min_blocks && dep < maxd && nout < maxn)) continue;
+    // Backward: suffix[j] = SA(blocks j..b) for j in (a, b], in chunks from
+    // the end, thread t at j = hi - t.
+    Box6 carry = box_empty(), total;
+    for (int hi = b; hi > a; hi -= SWEEP_THREADS) {
+      int j = hi - tid;
+      bool in = j > a;
+      Box6 v = block_scan_box(in ? load_box(bx, j) : box_empty(), &total);
+      v = box_union(v, carry);
+      carry = box_union(carry, total);
+      if (in) suffix[j] = sweep_sa(v);
+    }
+    __syncthreads();
+    // Forward: prefix boxes of blocks a..j for j in [a, b), the cost of the
+    // split after j, and its first minimum.
+    carry = box_empty();
+    float best = inf;
+    int bj = 0x7fffffff;
+    for (int lo = a; lo < b; lo += SWEEP_THREADS) {
+      int j = lo + tid;
+      bool in = j < b;
+      Box6 v = block_scan_box(in ? load_box(bx, j) : box_empty(), &total);
+      v = box_union(v, carry);
+      carry = box_union(carry, total);
+      float c = inf;
+      int cj = 0x7fffffff;
+      if (in) {
+        float nl = static_cast<float>(j - a + 1);
+        float nr = static_cast<float>(b - j);
+        float cost = __fmaf_rn(suffix[j + 1], nr, sweep_sa(v) * nl);
+        if (cost < SWEEP_BIG) {
+          c = cost;
+          cj = j;
+        }
+      }
+      block_argmin(c, cj);
+      if (c < best) {  // an earlier chunk keeps a tie
+        best = c;
+        bj = cj;
+      }
+    }
+    if (!(best < inf)) bj = a;
+    if (tid == 0) {
+      gaps[nout] = (bj + 1) * block - 1;
+      ranks[nout] = dep;
+      stack[3 * sp] = a;
+      stack[3 * sp + 1] = bj;
+      stack[3 * sp + 2] = dep + 1;
+      stack[3 * sp + 3] = bj + 1;
+      stack[3 * sp + 4] = b;
+      stack[3 * sp + 5] = dep + 1;
+    }
+    sp += 2;
+    ++nout;
+    __syncthreads();
+  }
+}
+
+extern "C" int tpurt_sweep_sah_launch(const float* bx, int nb, int ni,
+                                      int block, int maxd, int min_blocks,
+                                      int maxn, float* suffix, int* stack,
+                                      int* gaps, int* ranks,
+                                      cudaStream_t stream) {
+  if (nb > 0) {
+    sweep_sah_kernel<<<1, SWEEP_THREADS, 0, stream>>>(
+        bx, nb, ni, block, maxd, min_blocks, maxn, suffix, stack, gaps,
+        ranks);
+  }
   return static_cast<int>(cudaGetLastError());
 }

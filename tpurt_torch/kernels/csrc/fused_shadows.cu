@@ -1,5 +1,5 @@
 // Closest hit, alone or fused with shadows, over an 8-wide BVH, for
-// Hopper: one kernel template, seven modes, each replacing one TPU kernel
+// Hopper: one kernel template, eight modes, each replacing one TPU kernel
 // of tpurt/kernels/traverse.py:
 //
 //   HARD        _closest_shadow_kernel_w8_b         light 0's hard shadow,
@@ -21,24 +21,29 @@
 //                                                   t and the sorted index
 //                                                   (the shade-table
 //                                                   G-buffer's unfused cast)
+//   FIRST_HIT   _first_hit_kernel_w8_b              the seed of the seeded
+//                                                   G-buffer: NEAREST's
+//                                                   walk, stopped once the
+//                                                   ray has some hit -> an
+//                                                   upper bound (t, index)
 //
 // The second template parameter is the JAX kernels' ``attrs``: the five
 // shadow modes come in all three variants, CLOSEST in attrs=1 and 2,
-// NEAREST in attrs=0. attrs=1 walks with the leaf attribute rows and
-// writes the 15 attribute channels; attrs=2 (textured meshes,
-// _w8_closest_walk_attr(textured=True)) also reads each winner's layer
-// and corner uvs and writes its interpolated uv (channels 4-5) and layer
-// (channel 7), which attrs=1 writes as 0; attrs=0 (and NEAREST) reads no
-// attribute row and writes t and the sorted index, which key the shade
-// table (the G-buffer's one row gather per pixel). attrs=0
-// phase 1 still keeps the winner's geometric normal, which the shadow
-// phase offsets the hit point along (_w8_closest_walk_n); NEAREST keeps
-// nothing but t and the index.
+// NEAREST and FIRST_HIT in attrs=0. attrs=1 walks with the leaf
+// attribute rows and writes the 15 attribute channels; attrs=2 (textured
+// meshes, _w8_closest_walk_attr(textured=True)) also reads each winner's
+// layer and corner uvs and writes its interpolated uv (channels 4-5) and
+// layer (channel 7), which attrs=1 writes as 0; attrs=0 (and NEAREST,
+// FIRST_HIT) reads no attribute row and writes t and the sorted index,
+// which key the shade table (the G-buffer's one row gather per pixel).
+// attrs=0 phase 1 still keeps the winner's geometric normal, which the
+// shadow phase offsets the hit point along (_w8_closest_walk_n); NEAREST
+// and FIRST_HIT keep nothing but t and the index.
 //
 // Their plain PyTorch versions are closest_{,multi_,soft_,point_soft_,
 // soft_multi_}shadow_reference (attrs=0: the *_st_reference twins,
 // attrs=2: *_tex_reference),
-// closest_attrs_reference and closest_reference in
+// closest_attrs_reference, closest_reference and first_hit_reference in
 // tpurt_torch/kernels/traverse.py. All follow one contract:
 //
 //   rays    f32[PB,10,8,128]  o.xyz, d.xyz, clamped 1/d.xyz, t_max (SoA)
@@ -65,17 +70,21 @@
 //   SOFT_MULTI  [bias, root min(3), root max(3)], light 0 (disk: position(3),
 //               radius; cone: axis(3), t0(3), t1(3), cone_cos), then per
 //               extra light dir(3) + clamped 1/dir(3)
-//   CLOSEST, NEAREST  none
+//   CLOSEST, NEAREST, FIRST_HIT  none
 //
 // and i32[PB,8,128] outputs: mask (bit l = light l occluded; SOFT_MULTI:
 // bit i = extra light i) and/or counts in [0, spp].
 //
 // Design: one thread per ray, blocks of 128 threads. The ray index is
 // (packet, lane), so neighbouring threads read neighbouring words of the
-// SoA ray block. Phase 1 is the closest walk (all that CLOSEST and
-// NEAREST run; NEAREST honours each ray's t_max, row 9); phase 2 runs every light or sample in the same thread,
-// from the same biased hit point, reusing the per-ray stack in local
-// memory; each shadow walk has its own iteration cap, and dropped pushes
+// SoA ray block. Phase 1 is the closest walk (all that CLOSEST, NEAREST
+// and FIRST_HIT run; NEAREST honours each ray's t_max, row 9, which the
+// seeded G-buffer's second pass sets to FIRST_HIT's loosened t). The
+// TPU's seed walk stops its 1024-ray packet once every lane has a hit;
+// here each ray stops for itself, checked every FIRST_HIT_PERIOD
+// iterations as there. Phase 2 runs every light or sample in the same
+// thread, from the same biased hit point, reusing the per-ray stack in
+// local memory; each shadow walk has its own iteration cap, and dropped pushes
 // and capped walks of all walks are summed into counts (the walks are in
 // walk.cuh). Nodes, leaves and attribute rows are read from global memory
 // through the read-only path.
@@ -112,7 +121,8 @@ enum Mode {
   PSOFT = 3,
   SOFT_MULTI = 4,
   CLOSEST = 5,
-  NEAREST = 6
+  NEAREST = 6,
+  FIRST_HIT = 7
 };
 
 // Hard directional light at scal d[0..5] (dir, inverse).
@@ -202,9 +212,10 @@ __device__ __forceinline__ void shadow_phase(const Params& P, const Ray& r,
 
 template <int MODE, int ATTRS>
 __global__ void __launch_bounds__(128) fused_shadows_kernel(Params P) {
+  constexpr bool WALK_ONLY = MODE == NEAREST || MODE == FIRST_HIT;
   constexpr int TRACK = ATTRS == 2 ? TRACK_TEX
                         : ATTRS ? TRACK_ATTRS
-                                : (MODE == NEAREST ? TRACK_T : TRACK_NORMAL);
+                                : (WALK_ONLY ? TRACK_T : TRACK_NORMAL);
   int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= P.num_rays) return;
   int p = gid / LANES, lane = gid % LANES;
@@ -223,13 +234,14 @@ __global__ void __launch_bounds__(128) fused_shadows_kernel(Params P) {
 
   int stack[STACK_CAPACITY];
   WalkCounts wc;
-  Hit h = closest_walk<TRACK>(P.nodes, P.tris, P.at0, P.at1, P.k, r, tmax,
-                              P.t_min, P.max_iters, P.stack_size, stack, wc);
+  Hit h = closest_walk<TRACK, MODE == FIRST_HIT>(
+      P.nodes, P.tris, P.at0, P.at1, P.k, r, tmax, P.t_min, P.max_iters,
+      P.stack_size, stack, wc);
   if constexpr (ATTRS)
     write_attrs(P.out, p, lane, h);
   else
     write_hit(P.out, P.sidx_out, gid, h);
-  if constexpr (MODE != CLOSEST && MODE != NEAREST)
+  if constexpr (MODE != CLOSEST && !WALK_ONLY)
     shadow_phase<MODE>(P, r, h, gid, stack, wc);
   if (wc.overflow) atomicAdd(P.counts, wc.overflow);
   if (wc.capped) atomicAdd(P.counts + 1, wc.capped);
@@ -253,8 +265,8 @@ static void launch_mode(const Params* P, dim3 grid, dim3 block,
 // Launches ``mode`` in the variant P->attrs (0, 1 or 2) on ``stream``
 // with the arguments in *P; allocates nothing and returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unknown mode or
-// variant: CLOSEST exists only with attrs=1 and 2, NEAREST only with
-// attrs=0).
+// variant: CLOSEST exists only with attrs=1 and 2, NEAREST and FIRST_HIT
+// only with attrs=0).
 extern "C" int tpurt_fused_shadows_launch(int mode, const Params* P,
                                           void* stream) {
   if (P->attrs < 0 || P->attrs > 2) return (int)cudaErrorInvalidValue;
@@ -288,6 +300,10 @@ extern "C" int tpurt_fused_shadows_launch(int mode, const Params* P,
     case NEAREST:
       if (P->attrs) return (int)cudaErrorInvalidValue;
       fused_shadows_kernel<NEAREST, 0><<<grid, block, 0, st>>>(*P);
+      break;
+    case FIRST_HIT:
+      if (P->attrs) return (int)cudaErrorInvalidValue;
+      fused_shadows_kernel<FIRST_HIT, 0><<<grid, block, 0, st>>>(*P);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,6 +1,9 @@
-// The tile rasterizer (counterpart of tpurt/kernels/raster.py
+// The tile rasterizers (counterparts of tpurt/kernels/raster.py
 // rasterize_rows (:504) -> _raster_kernel32 (:217), records read as
-// _eval_records32 (:165) reads them, epilogue :289-313).
+// _eval_records32 (:165) reads them, epilogue :289-313; and of
+// rasterize_rows16 (:436) -> _raster_kernel16 (:360), the deferred
+// G-buffer's z-only variant, records read as _eval_records16 (:320),
+// epilogue :424-433). One template, instantiated per record width.
 //
 // For each pixel of a 32x32 tile: stream the big list (every record culled
 // by its stored tile rect, lanes 27-30), then the tile's contiguous run of
@@ -9,18 +12,22 @@
 // the d-sum, the id, the d-weighted vertex normals, the geometric normal
 // and the albedo. The epilogue writes tri_id and 12 planar channels
 // [u, v, 1/w, n, gn, albedo]; pixels past the image are not written.
+// The z-only instantiation (REC = 16, eight records to a row, tile rect in
+// lanes 12-15) reads 11 lanes of a record, keeps (1/w, d1, d2, d-sum, id)
+// and writes tri_id and [u, v, 1/w].
 //
-// Plain C entry point, launched on the caller's stream; it returns the CUDA
-// error of the launch (0 on success). The wrapper in
+// Plain C entry points, launched on the caller's stream; each returns the
+// CUDA error of the launch (0 on success). The wrapper in
 // tpurt_torch/kernels/raster.py allocates the outputs.
 //
 // What bounds it on the H100: about 58 float32 operations per record per
 // pixel against 512 bytes per row of four records shared by the tile's
-// 1024 pixels, so operations, not bytes (the bytes floor is a fraction of
+// 1024 pixels (z-only: about 30 per test against 512 bytes per eight
+// records), so operations, not bytes (the bytes floor is a fraction of
 // the operations floor). The design:
 // - one block per tile, 256 threads, 4 pixels per thread (rows y, y + 8,
-//   y + 16, y + 24 of one column), so each record's 27 lanes are loaded
-//   from shared memory once per thread and used for 4 pixels;
+//   y + 16, y + 24 of one column), so each record's 27 (z-only: 11) lanes
+//   are loaded from shared memory once per thread and used for 4 pixels;
 // - the tile's rows are staged from device memory into shared memory in
 //   chunks of 16 rows (8 KB), double-buffered with cp.async, and every
 //   thread reads the same record: a shared-memory broadcast, the card's
@@ -42,10 +49,16 @@ constexpr int TILE = 32;
 constexpr int THREADS = 256;
 constexpr int PIX = TILE * TILE / THREADS;  // pixels per thread
 constexpr int ROW = 128;                    // floats per row
-constexpr int REC = 32;                     // floats per record
-constexpr int RECS_PER_ROW = ROW / REC;
 constexpr int CHUNK = 16;                   // rows per staged chunk
-constexpr int N_ATTR = 12;
+
+// Per record width REC (32 or 16): the records of a row, the lane of the
+// tile rect's x0 and the output channels.
+template <int REC>
+struct Layout {
+  static constexpr int RECS_PER_ROW = ROW / REC;
+  static constexpr int RECT = REC == 32 ? 27 : 12;
+  static constexpr int N_CH = REC == 32 ? 12 : 3;
+};
 
 struct Pixel {
   float best, d1, d2, dsum;
@@ -80,7 +93,9 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
   cp_async_commit();
 }
 
-// One record against this thread's pixels (rec in shared memory).
+// One record against this thread's pixels (rec in shared memory); the
+// z-only records carry no shading attributes.
+template <int REC>
 __device__ __forceinline__ void eval_record(const float* rec,
                                             const float (&sx)[PIX],
                                             const float (&sy)[PIX],
@@ -105,22 +120,24 @@ __device__ __forceinline__ void eval_record(const float* rec,
       px[k].d2 = d2;
       px[k].dsum = dsum;
       px[k].tri = static_cast<int>(tid);
-      px[k].nx = d0 * rec[12] + d1 * rec[15] + d2 * rec[18];
-      px[k].ny = d0 * rec[13] + d1 * rec[16] + d2 * rec[19];
-      px[k].nz = d0 * rec[14] + d1 * rec[17] + d2 * rec[20];
-      px[k].gx = rec[21];
-      px[k].gy = rec[22];
-      px[k].gz = rec[23];
-      px[k].ar = rec[24];
-      px[k].ag = rec[25];
-      px[k].ab = rec[26];
+      if constexpr (REC == 32) {
+        px[k].nx = d0 * rec[12] + d1 * rec[15] + d2 * rec[18];
+        px[k].ny = d0 * rec[13] + d1 * rec[16] + d2 * rec[19];
+        px[k].nz = d0 * rec[14] + d1 * rec[17] + d2 * rec[20];
+        px[k].gx = rec[21];
+        px[k].gy = rec[22];
+        px[k].gz = rec[23];
+        px[k].ar = rec[24];
+        px[k].ag = rec[25];
+        px[k].ab = rec[26];
+      }
     }
   }
 }
 
 // Rows [row_lo, row_lo + n) of src through the two shared buffers. CULL:
 // test each record's tile rect against (txf, tyf) first (the big list).
-template <bool CULL>
+template <int REC, bool CULL>
 __device__ __forceinline__ void stream(const float* __restrict__ src,
                                        long long row_lo, int n, float* buf,
                                        float txf, float tyf,
@@ -144,19 +161,21 @@ __device__ __forceinline__ void stream(const float* __restrict__ src,
     int rows = min(CHUNK, n - ci * CHUNK);
     for (int r = 0; r < rows; ++r) {
 #pragma unroll
-      for (int q = 0; q < RECS_PER_ROW; ++q) {
+      for (int q = 0; q < Layout<REC>::RECS_PER_ROW; ++q) {
         const float* rec = cur + r * ROW + q * REC;
-        if (CULL && !(rec[27] <= txf && txf <= rec[29] && rec[28] <= tyf &&
-                      tyf <= rec[30])) {
+        constexpr int X0 = Layout<REC>::RECT;
+        if (CULL && !(rec[X0] <= txf && txf <= rec[X0 + 2] &&
+                      rec[X0 + 1] <= tyf && tyf <= rec[X0 + 3])) {
           continue;
         }
-        eval_record(rec, sx, sy, px);
+        eval_record<REC>(rec, sx, sy, px);
       }
     }
     __syncthreads();  // the buffer is free for the chunk after next
   }
 }
 
+template <int REC>
 __global__ void __launch_bounds__(THREADS)
     raster_rows_kernel(const float* __restrict__ pair_rows, int cap_rows,
                        const int* __restrict__ row_starts,
@@ -184,11 +203,12 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   int nbig = min(max(*big_nrows, 0), big_cap_rows);
-  stream<true>(big_rows, 0, nbig, buf, static_cast<float>(tx),
-               static_cast<float>(ty), sx, sy, px);
+  stream<REC, true>(big_rows, 0, nbig, buf, static_cast<float>(tx),
+                    static_cast<float>(ty), sx, sy, px);
   int start = min(max(row_starts[tile], 0), cap_rows);
   int count = min(max(row_counts[tile], 0), cap_rows - start);
-  stream<false>(pair_rows, start, count, buf, 0.0f, 0.0f, sx, sy, px);
+  stream<REC, false>(pair_rows, start, count, buf, 0.0f, 0.0f, sx, sy,
+                     px);
 
   const long long plane = static_cast<long long>(width) * height;
 #pragma unroll
@@ -199,35 +219,61 @@ __global__ void __launch_bounds__(THREADS)
     const Pixel& p = px[k];
     bool hit = p.tri >= 0;
     float safe = fabsf(p.dsum) > 1e-30f ? p.dsum : 1.0f;
-    float rn = 1.0f / sqrtf(fmaxf(p.nx * p.nx + p.ny * p.ny + p.nz * p.nz,
-                                  1e-30f));
-    rn = rn * (p.dsum < 0.0f ? -1.0f : 1.0f);
-    float ch[N_ATTR] = {p.d1 / safe, p.d2 / safe, p.best,
-                        p.nx * rn,   p.ny * rn,   p.nz * rn,
-                        p.gx,        p.gy,        p.gz,
-                        p.ar,        p.ag,        p.ab};
     long long idx = static_cast<long long>(y) * width + x;
     tri[idx] = p.tri;
+    attrs[idx] = hit ? p.d1 / safe : 0.0f;
+    attrs[plane + idx] = hit ? p.d2 / safe : 0.0f;
+    attrs[2 * plane + idx] = hit ? p.best : 0.0f;
+    if constexpr (REC == 32) {
+      float rn = 1.0f / sqrtf(fmaxf(p.nx * p.nx + p.ny * p.ny +
+                                    p.nz * p.nz, 1e-30f));
+      rn = rn * (p.dsum < 0.0f ? -1.0f : 1.0f);
+      float ch[9] = {p.nx * rn, p.ny * rn, p.nz * rn, p.gx, p.gy,
+                     p.gz,      p.ar,      p.ag,      p.ab};
 #pragma unroll
-    for (int c = 0; c < N_ATTR; ++c) {
-      attrs[c * plane + idx] = hit ? ch[c] : 0.0f;
+      for (int c = 0; c < 9; ++c) {
+        attrs[(3 + c) * plane + idx] = hit ? ch[c] : 0.0f;
+      }
     }
   }
 }
 
+template <int REC>
+int launch(const float* pair_rows, int cap_rows, const int* row_starts,
+           const int* row_counts, const float* big_rows, int big_cap_rows,
+           const int* big_nrows, int wt, int ntiles, int width, int height,
+           float half_w, float inv_w, float half_h, float inv_h, int* tri,
+           float* attrs, cudaStream_t stream) {
+  if (ntiles > 0) {
+    raster_rows_kernel<REC><<<ntiles, THREADS, 0, stream>>>(
+        pair_rows, cap_rows, row_starts, row_counts, big_rows, big_cap_rows,
+        big_nrows, wt, width, height, half_w, inv_w, half_h, inv_h, tri,
+        attrs);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// attrs: f32[12, H, W] (32-float records) or f32[3, H, W] (z-only).
 extern "C" int tpurt_raster_rows_launch(
     const float* pair_rows, int cap_rows, const int* row_starts,
     const int* row_counts, const float* big_rows, int big_cap_rows,
     const int* big_nrows, int wt, int ntiles, int width, int height,
     float half_w, float inv_w, float half_h, float inv_h, int* tri,
     float* attrs, cudaStream_t stream) {
-  if (ntiles > 0) {
-    raster_rows_kernel<<<ntiles, THREADS, 0, stream>>>(
-        pair_rows, cap_rows, row_starts, row_counts, big_rows, big_cap_rows,
-        big_nrows, wt, width, height, half_w, inv_w, half_h, inv_h, tri,
-        attrs);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<32>(pair_rows, cap_rows, row_starts, row_counts, big_rows,
+                    big_cap_rows, big_nrows, wt, ntiles, width, height,
+                    half_w, inv_w, half_h, inv_h, tri, attrs, stream);
+}
+
+extern "C" int tpurt_raster_rows16_launch(
+    const float* pair_rows, int cap_rows, const int* row_starts,
+    const int* row_counts, const float* big_rows, int big_cap_rows,
+    const int* big_nrows, int wt, int ntiles, int width, int height,
+    float half_w, float inv_w, float half_h, float inv_h, int* tri,
+    float* attrs, cudaStream_t stream) {
+  return launch<16>(pair_rows, cap_rows, row_starts, row_counts, big_rows,
+                    big_cap_rows, big_nrows, wt, ntiles, width, height,
+                    half_w, inv_w, half_h, inv_h, tri, attrs, stream);
 }

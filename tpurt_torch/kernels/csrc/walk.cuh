@@ -22,6 +22,9 @@
 #include <stdint.h>
 
 #define STACK_CAPACITY 256
+// A first-hit walk (mode FIRST_HIT) checks every FIRST_HIT_PERIOD
+// iterations whether its ray has a hit (tpurt's 2**W8_EXIT_LOG).
+#define FIRST_HIT_PERIOD 4
 #define ATTR_CH 15
 #define LANES 1024
 #define BIG 3.4e38f
@@ -203,7 +206,12 @@ __device__ __forceinline__ bool leaf_occluded(const float* __restrict__ tris,
 
 // Phase 1: closest hit in (t_min, tmax), keeping what TRACK asks for of
 // the winner (at0 and at1 are read only with TRACK_ATTRS and TRACK_TEX).
-template <int TRACK>
+// FIRST: the seed walk of the seeded G-buffer (_closest_w8_b_impl with
+// first_hit=True): the same walk, which stops after every
+// FIRST_HIT_PERIOD-th iteration once the ray has some hit; its (t, idx) is
+// then an upper bound on the closest hit, and a walk stopped so is not a
+// capped one.
+template <int TRACK, bool FIRST = false>
 __device__ __forceinline__ Hit closest_walk(
     const float* __restrict__ nodes, const float* __restrict__ tris,
     const float* __restrict__ at0, const float* __restrict__ at1, int k,
@@ -233,6 +241,7 @@ __device__ __forceinline__ Hit closest_walk(
       }
     }
     ++it;
+    if (FIRST && it % FIRST_HIT_PERIOD == 0 && h.idx >= 0) return h;
   }
   wc.capped += sp > 0;
   return h;

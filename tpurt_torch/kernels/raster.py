@@ -1,5 +1,6 @@
-"""The tile rasterizer (counterpart of ``tpurt/kernels/raster.py``
-``rasterize_rows`` -> ``_raster_kernel32``).
+"""The tile rasterizers (counterparts of ``tpurt/kernels/raster.py``
+``rasterize_rows`` -> ``_raster_kernel32``, and ``rasterize_rows16`` ->
+``_raster_kernel16``, the deferred G-buffer's z-only variant).
 
 For each pixel of each 32x32 tile, stream the binned 32-float records
 (``raster/setup.py``) in this order: the big list, each record culled by
@@ -9,20 +10,25 @@ covered record with a live id and 1/w > the best so far takes the pixel
 d-weighted vertex normals, geometric normal and albedo. The epilogue
 writes u, v = d/dsum, 1/w, the normalised normal with sign(dsum) folded
 in, the geometric normal and the albedo; pixels without a hit get id -1
-and zeros.
+and zeros. The z-only variant reads 16-float records (``bin_rows(...,
+fmt="z16")``: eight to a row, 11 lanes tested, the cull on lanes 12-15),
+keeps (1/w, d1, d2, d-sum, id) and writes id, u, v and 1/w.
 
-Three pieces, as in ``kernels/traverse.py``:
+Three pieces each, as in ``kernels/traverse.py``:
 
-- ``rasterize_rows_cuda``: the hand-written CUDA kernel
-  (``csrc/raster.cu``). It takes CUDA tensors only and launches or raises;
+- ``rasterize_rows_cuda``, ``rasterize_rows16_cuda``: the hand-written
+  CUDA kernel (``csrc/raster.cu``, one template, an instantiation per
+  record width). It takes CUDA tensors only and launches or raises;
   ``.launches`` counts its launches.
-- ``rasterize_rows_reference``: the same function in plain PyTorch,
-  vectorised over tiles, in the kernel's order and arithmetic. The
-  wrapper takes it only for CPU tensors.
-- ``rasterize_rows``: the wrapper the G-buffer calls.
+- ``rasterize_rows_reference``, ``rasterize_rows16_reference``: the same
+  function in plain PyTorch, vectorised over tiles, in the kernel's order
+  and arithmetic. The wrapper takes it only for CPU tensors.
+- ``rasterize_rows``, ``rasterize_rows16``: the wrappers the G-buffers
+  call.
 
 Outputs, ``tpurt``'s contract: tri_id i32[H, W] and attrs f32[12, H, W],
-channels [u, v, 1/w, nx, ny, nz, gnx, gny, gnz, ar, ag, ab]. The TPU
+channels [u, v, 1/w, nx, ny, nz, gnx, gny, gnz, ar, ag, ab]; the z-only
+variant's (tri_id i32[H, W], u, v, 1/w f32[H, W]). The TPU
 kernel's padding of the row arrays with a chunk of dead rows only keeps
 its fixed-size DMA in bounds; the CUDA kernel stages only rows inside a
 run, so neither version copies the rows to pad them.
@@ -34,12 +40,14 @@ import ctypes
 
 import torch
 
-from ..raster.setup import (REC32, RECS32_PER_ROW, TILE, RasterRows,
-                            pixel_constants)
+from ..raster.setup import REC16, REC32, TILE, RasterRows, pixel_constants
 from ._build import _check, _pick
 
 N_ATTR = 12
+N_ATTR16 = 3
 PIXELS = TILE * TILE
+# Per record width: the lane of the tile rect's x0 (the big list's cull).
+_RECT_LANE = {REC32: 27, REC16: 12}
 
 
 def _tiles(width: int, height: int):
@@ -65,13 +73,15 @@ def _check_bins(bins: RasterRows, width: int, height: int, device) -> None:
 
 class _State:
     """Per-pixel z-fight state of the tiles, [ntiles, 1024] each: best 1/w,
-    d1, d2, d-sum, id, the d-weighted normal, the geometric normal, the
-    albedo. ``stats`` (a dict, or None) counts the work the kernel's bound
-    is computed from: "record_tests", the (record, pixel) pairs tested, and
-    "takes", those where the record took the pixel."""
+    d1, d2, d-sum, id and, for 32-float records (``full``), the d-weighted
+    normal, the geometric normal, the albedo. ``stats`` (a dict, or None)
+    counts the work the kernel's bound is computed from: "record_tests",
+    the (record, pixel) pairs tested, and "takes", those where the record
+    took the pixel."""
 
-    def __init__(self, ntiles: int, device, stats=None):
+    def __init__(self, ntiles: int, device, stats=None, full: bool = True):
         self.stats = stats
+        self.full = full
 
         def f(v):
             return torch.full((ntiles, PIXELS), v, dtype=torch.float32,
@@ -106,9 +116,6 @@ class _State:
             self.stats["record_tests"] = self.stats.get("record_tests",
                                                         0) + tests
             self.stats["takes"] = self.stats.get("takes", 0) + ok.sum()
-        nw = [d0 * lane(12 + c) + d1 * lane(15 + c) + d2 * lane(18 + c)
-              for c in range(3)]
-
         def take(dst, new):
             dst[:n] = torch.where(ok, new, dst[:n])
         take(self.best, invw)
@@ -116,15 +123,22 @@ class _State:
         take(self.d2, d2)
         take(self.dsum, dsum)
         take(self.tri, lane(10).to(torch.int32))
+        if not self.full:
+            return
+        nw = [d0 * lane(12 + c) + d1 * lane(15 + c) + d2 * lane(18 + c)
+              for c in range(3)]
         for c in range(3):
             take(self.nw[c], nw[c])
             take(self.gn[c], lane(21 + c))
             take(self.alb[c], lane(24 + c))
 
     def epilogue(self) -> torch.Tensor:
-        """-> f32[12, ntiles, 1024] channels (id apart)."""
+        """-> f32[12 (z-only: 3), ntiles, 1024] channels (id apart)."""
         hit = self.tri >= 0
         safe = torch.where(self.dsum.abs() > 1e-30, self.dsum, 1.0)
+        if not self.full:
+            ch = [self.d1 / safe, self.d2 / safe, self.best]
+            return torch.stack([torch.where(hit, c, 0.0) for c in ch])
         nx, ny, nz = self.nw
         rn = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
                                           min=1e-30))
@@ -142,16 +156,18 @@ def _to_image(x: torch.Tensor, width: int, height: int) -> torch.Tensor:
     return t.reshape(*lead, ht * TILE, wt * TILE)[..., :height, :width]
 
 
-def rasterize_rows_reference(bins: RasterRows, width: int, height: int,
-                             stats=None):
-    """Plain version of the kernel, vectorised over tiles. The state holds
-    the tiles ordered by their run length (longest first), so the tiles
-    that still have a j-th pair row are a prefix and every step works on
-    views. Each pixel sees its records in the kernel's order: the big list
-    row by row, then its run; the arithmetic is the kernel's, operation for
-    operation. Reads ``big_nrows`` and the run lengths on the host.
-    Returns (tri_id i32[H, W], attrs f32[12, H, W]); ``stats``: see
-    ``_State``."""
+def _rasterize_reference(bins: RasterRows, width: int, height: int,
+                         rec_w: int, stats=None):
+    """Plain version of the kernel for ``rec_w``-float records, vectorised
+    over tiles. The state holds the tiles ordered by their run length
+    (longest first), so the tiles that still have a j-th pair row are a
+    prefix and every step works on views. Each pixel sees its records in
+    the kernel's order: the big list row by row, then its run; the
+    arithmetic is the kernel's, operation for operation. Reads
+    ``big_nrows`` and the run lengths on the host. Returns (tri_id i32[H,
+    W], channels f32[12 or 3, H, W]); ``stats``: see ``_State``."""
+    rpr = 128 // rec_w
+    x0 = _RECT_LANE[rec_w]
     dev = bins.pair_rows.device
     wt, _, ntiles = _tiles(width, height)
     half_w, inv_w, half_h, inv_h = pixel_constants(width, height)
@@ -164,25 +180,25 @@ def rasterize_rows_reference(bins: RasterRows, width: int, height: int,
         * inv_h
     txf = (order % wt).to(torch.float32)
     tyf = (order // wt).to(torch.float32)
-    st = _State(ntiles, dev, stats)
+    st = _State(ntiles, dev, stats, full=rec_w == REC32)
 
-    big = bins.big_rows.reshape(-1, RECS32_PER_ROW, REC32)
+    big = bins.big_rows.reshape(-1, rpr, rec_w)
     for b in range(int(bins.big_nrows)):
-        for r in range(RECS32_PER_ROW):
+        for r in range(rpr):
             rec = big[b, r]
-            hit = (rec[27] <= txf) & (txf <= rec[29]) & \
-                (rec[28] <= tyf) & (tyf <= rec[30])
+            hit = (rec[x0] <= txf) & (txf <= rec[x0 + 2]) & \
+                (rec[x0 + 1] <= tyf) & (tyf <= rec[x0 + 3])
             st.eval_record(ntiles, rec[None, :], sx, sy, hit)
 
     runs = counts[order].tolist()
     starts = bins.row_starts.long()[order]
-    pairs = bins.pair_rows.reshape(-1, RECS32_PER_ROW, REC32)
+    pairs = bins.pair_rows.reshape(-1, rpr, rec_w)
     n = ntiles
     for j in range(runs[0] if runs else 0):
         while runs[n - 1] <= j:
             n -= 1
-        rows = pairs[starts[:n] + j]                   # [n, 4, 32]
-        for r in range(RECS32_PER_ROW):
+        rows = pairs[starts[:n] + j]                   # [n, rpr, rec_w]
+        for r in range(rpr):
             st.eval_record(n, rows[:, r], sx, sy, None)
 
     inv = torch.empty_like(order)
@@ -195,13 +211,30 @@ def rasterize_rows_reference(bins: RasterRows, width: int, height: int,
     return tri.contiguous(), attrs.contiguous()
 
 
+def rasterize_rows_reference(bins: RasterRows, width: int, height: int,
+                             stats=None):
+    """Plain version of ``_raster_kernel32``: 32-float records -> (tri_id
+    i32[H, W], attrs f32[12, H, W])."""
+    return _rasterize_reference(bins, width, height, REC32, stats)
+
+
+def rasterize_rows16_reference(bins: RasterRows, width: int, height: int,
+                               stats=None):
+    """Plain version of ``_raster_kernel16``: 16-float z-only records ->
+    (tri_id i32[H, W], u, v, 1/w f32[H, W])."""
+    tri, ch = _rasterize_reference(bins, width, height, REC16, stats)
+    return tri, ch[0], ch[1], ch[2]
+
+
 # ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
 
-def rasterize_rows_cuda(bins: RasterRows, width: int, height: int):
-    """The kernel of ``rasterize_rows_reference`` (``csrc/raster.cu``): one
-    block per tile, the tile's rows staged through shared memory."""
+def _launch(entry: str, nch: int, bins: RasterRows, width: int,
+            height: int):
+    """Check the bins, allocate tri_id i32[H, W] and ``nch`` channels
+    f32[nch, H, W], launch ``entry`` of ``csrc/raster.cu`` on the current
+    stream; raises on a refused launch."""
     from ._build import load_library
     dev = bins.pair_rows.device
     if dev.type != "cuda":
@@ -213,10 +246,10 @@ def rasterize_rows_cuda(bins: RasterRows, width: int, height: int):
     wt, _, ntiles = _tiles(width, height)
     half_w, inv_w, half_h, inv_h = pixel_constants(width, height)
     tri = torch.empty((height, width), dtype=torch.int32, device=dev)
-    attrs = torch.empty((N_ATTR, height, width), dtype=torch.float32,
+    attrs = torch.empty((nch, height, width), dtype=torch.float32,
                         device=dev)
     lib = load_library()
-    err = lib.tpurt_raster_rows_launch(
+    err = getattr(lib, entry)(
         bins.pair_rows.data_ptr(), bins.pair_rows.shape[0],
         bins.row_starts.data_ptr(), bins.row_counts.data_ptr(),
         bins.big_rows.data_ptr(), bins.big_rows.shape[0],
@@ -226,10 +259,25 @@ def rasterize_rows_cuda(bins: RasterRows, width: int, height: int):
         tri.data_ptr(), attrs.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"tpurt_raster_rows_launch failed: CUDA error "
-                           f"{err}")
-    rasterize_rows_cuda.launches += 1
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
     return tri, attrs
+
+
+def rasterize_rows_cuda(bins: RasterRows, width: int, height: int):
+    """The kernel of ``rasterize_rows_reference`` (``csrc/raster.cu``): one
+    block per tile, the tile's rows staged through shared memory."""
+    res = _launch("tpurt_raster_rows_launch", N_ATTR, bins, width, height)
+    rasterize_rows_cuda.launches += 1
+    return res
+
+
+def rasterize_rows16_cuda(bins: RasterRows, width: int, height: int):
+    """The kernel of ``rasterize_rows16_reference``: the 16-float
+    instantiation of ``csrc/raster.cu``'s template."""
+    tri, ch = _launch("tpurt_raster_rows16_launch", N_ATTR16, bins, width,
+                      height)
+    rasterize_rows16_cuda.launches += 1
+    return tri, ch[0], ch[1], ch[2]
 
 
 def rasterize_rows(bins: RasterRows, width: int, height: int):
@@ -241,6 +289,15 @@ def rasterize_rows(bins: RasterRows, width: int, height: int):
     return fn(bins, width, height)
 
 
-RASTER_KERNELS = (rasterize_rows_cuda,)
+def rasterize_rows16(bins: RasterRows, width: int, height: int):
+    """Rasterize z-only rows (``bin_rows(..., fmt="z16")``) -> (tri_id
+    i32[H, W], u, v, 1/w f32[H, W]); the kernel for CUDA tensors, its
+    plain version for CPU tensors."""
+    fn = _pick(bins.pair_rows.device, rasterize_rows16_cuda,
+               rasterize_rows16_reference)
+    return fn(bins, width, height)
+
+
+RASTER_KERNELS = (rasterize_rows_cuda, rasterize_rows16_cuda)
 for _fn in RASTER_KERNELS:
     _fn.launches = 0

@@ -25,7 +25,9 @@ The unfused frame's kernels:
 - ``trace_closest_attrs`` -> ``_closest_attr_kernel_w8_b``: the closest
   hit and its attribute channels alone (``textured`` as above);
 - ``trace_closest`` -> ``_closest_hit_kernel_w8_b``: the closest hit
-  alone, t and the sorted index (the shade-table G-buffer);
+  alone, t and the sorted index (the shade-table G-buffer); with
+  ``seeded=True`` first ``_first_hit_kernel_w8_b``, whose first hit caps
+  each ray's t_max for the closest hit (the seeded G-buffer);
 - ``trace_any`` -> ``_any_hit_kernel_w8_b``: any hit of given rays;
 - ``trace_any_soft`` -> ``_any_hit_kernel_w8_soft`` and
   ``trace_any_point_soft`` -> ``_any_hit_kernel_w8_psoft``: spp cone or
@@ -39,7 +41,7 @@ binary walks instead:
 - ``trace_any`` -> ``_any_hit_kernel``: any hit of given rays.
 
 The first five (both variants), ``trace_closest_attrs`` and
-``trace_closest`` are modes of one CUDA kernel template
+``trace_closest``'s two walks are modes of one CUDA kernel template
 (``csrc/fused_shadows.cu``), the three shadow-ray kernels modes of another
 (``csrc/shadow_rays.cu``), the two binary walks modes of a third
 (``csrc/binary.cu``). Each function has three pieces that share one
@@ -94,6 +96,13 @@ LANES = 8 * 128
 # Per-ray stack entries compiled into the CUDA kernel (csrc STACK_CAPACITY).
 # An 8-wide tree of D internal levels needs at most 7*D + 1.
 STACK_CAPACITY = 256
+# The first-hit walk checks every FIRST_HIT_PERIOD iterations whether its
+# ray has a hit (csrc FIRST_HIT_PERIOD; tpurt's 2**W8_EXIT_LOG).
+FIRST_HIT_PERIOD = 4
+# The seed's loosening (tpurt's trace_closest_pallas): cap = t1 * (1 +
+# 4e-6) + 1e-6, about 33 ulps, so the closest walk's strict '<' always
+# accepts the seed's own triangle again.
+SEED_SCALE, SEED_PAD = 1.0 + 4e-6, 1e-6
 
 
 def iter_cap(num_nodes: int) -> int:
@@ -404,14 +413,17 @@ def _winner_attrs(at0, at1, k, leaf, sel, u, v, normal, textured):
 
 
 def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
-                  max_iters, stack_size, stats=None, textured=False):
+                  max_iters, stack_size, stats=None, textured=False,
+                  first_hit=False):
     """Closest hit of n rays -> (best_t, best_i, attr f32[n, 13],
     overflow, capped). attr holds the winner's channels 2-14 of the
     attribute block: u, v, the interpolated uv and kd, layer, tid, oct0..2
     read from the attribute rows, then the unnormalised geometric normal.
     Without ``textured`` uv and layer stay 0 (the zero carry of the JAX
     kernel); with ``at0`` None (the attrs=0 walk, which reads no
-    attribute row) only the normal is kept."""
+    attribute row) only the normal is kept. ``first_hit``: the seed walk,
+    which stops a ray after every FIRST_HIT_PERIOD-th iteration once it
+    has some hit (a stopped walk is not a capped one)."""
     n = tmax.shape[0]
     dev = tmax.device
     active0 = tmax > t_min
@@ -419,8 +431,10 @@ def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
     best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
     attr = torch.zeros((n, ATTR_CH - 2), dtype=torch.float32, device=dev)
     w = _Walk(n, stack_size, dev)
+    stopped = torch.zeros((n,), dtype=torch.bool, device=dev)
     while True:
-        rows = torch.nonzero((w.sp > 0) & (w.it < max_iters))[:, 0]
+        rows = torch.nonzero((w.sp > 0) & (w.it < max_iters)
+                             & ~stopped)[:, 0]
         if rows.numel() == 0:
             break
         rec = nodes[w.pop(rows)].reshape(-1, 8, 16)
@@ -461,7 +475,10 @@ def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
             if bool(push_m.any()):
                 w.push(rows[push_m], refs[push_m, c])
         w.it[rows] += 1
-    capped = ((w.sp > 0).sum()).to(torch.int32)
+        if first_hit:
+            stopped[rows] = ((w.it[rows] % FIRST_HIT_PERIOD == 0)
+                             & (best_i[rows] >= 0))
+    capped = ((w.sp > 0) & ~stopped).sum().to(torch.int32)
     return best_t, best_i, attr, w.overflow, capped
 
 
@@ -637,7 +654,7 @@ class _Phase1(_Walks):
     and add to its walk counters."""
 
     def __init__(self, rays, nodes, tris, at0, at1, k, t_min, max_iters,
-                 stack_size, stats, textured=False):
+                 stack_size, stats, textured=False, first_hit=False):
         pb = rays.shape[0]
         comp = _components(rays)
         self.o = (comp[0], comp[1], comp[2])
@@ -648,7 +665,7 @@ class _Phase1(_Walks):
                          stats)
         best_t, best_i, attr, self.ovf, self.cap = _closest_walk(
             nodes, tris, at0, at1, k, self.o, self.d, inv, tmax, t_min,
-            max_iters, stack_size, stats, textured)
+            max_iters, stack_size, stats, textured, first_hit)
         t_out = torch.where(best_i >= 0, best_t, _BIG)
         if at0 is None:
             self.outs = (t_out.reshape(pb, 8, 128), self.image(best_i))
@@ -861,6 +878,24 @@ def closest_reference(rays, nodes, tris, *, leaf_size: int, t_min: float,
     ph = _Phase1(rays, nodes, tris, None, None, leaf_size, t_min,
                  max_iters, stack_size, stats)
     return (*ph.outs, ph.counts())
+
+
+def first_hit_reference(rays, nodes, tris, *, leaf_size: int, t_min: float,
+                        max_iters: int, stack_size: int, stats=None):
+    """Plain version of ``_first_hit_kernel_w8_b``: ``closest_reference``'s
+    walk, which stops a ray after every FIRST_HIT_PERIOD-th iteration once
+    it has some hit. Same contract; (t, sidx) is an upper bound on each
+    ray's closest hit (a miss where the closest walk misses)."""
+    ph = _Phase1(rays, nodes, tris, None, None, leaf_size, t_min,
+                 max_iters, stack_size, stats, first_hit=True)
+    return (*ph.outs, ph.counts())
+
+
+def seed_cap(rays, t1, s1) -> torch.Tensor:
+    """The seeded closest hit's per-ray t_max: the seed's t loosened
+    (SEED_SCALE, SEED_PAD) where it hit, the ray's own t_max (row 9)
+    elsewhere -> f32[PB, 8, 128]."""
+    return torch.where(s1 >= 0, t1 * SEED_SCALE + SEED_PAD, rays[:, 9])
 
 
 # The attrs=0 plain versions of the fused modes, called as their kernels
@@ -1139,7 +1174,7 @@ class Params(ctypes.Structure):
 
 # The kernel templates' modes: csrc/fused_shadows.cu ``Mode`` (closest hit,
 # alone or with shadows) and csrc/shadow_rays.cu ``Mode`` (shadow rays).
-HARD, MULTI, SOFT, PSOFT, SOFT_MULTI, CLOSEST, NEAREST = range(7)
+HARD, MULTI, SOFT, PSOFT, SOFT_MULTI, CLOSEST, NEAREST, FIRST_HIT = range(8)
 ANY, ANY_SOFT, ANY_PSOFT = range(3)
 # csrc/binary.cu ``Mode``: the walks over the packed binary tree.
 BIN_CLOSEST, BIN_ANY = range(2)
@@ -1365,6 +1400,16 @@ def closest_cuda(rays, nodes, tris, **walk):
     return res
 
 
+def first_hit_cuda(rays, nodes, tris, **walk):
+    """Mode FIRST_HIT: the seed of the seeded G-buffer, t and the sorted
+    index of a hit, found by NEAREST's walk stopped once the ray has
+    one."""
+    res = _fused(FIRST_HIT, (), rays, nodes, tris, None, None, **walk,
+                 scal_len=0)
+    first_hit_cuda.launches += 1
+    return res
+
+
 def closest_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
                             point: bool, **walk):
     """Mode HARD attrs=2: with the winner's interpolated uv and layer."""
@@ -1498,7 +1543,8 @@ CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
                 binary_any_cuda, closest_shadow_tex_cuda,
                 closest_multi_shadow_tex_cuda, closest_soft_shadow_tex_cuda,
                 closest_point_soft_shadow_tex_cuda,
-                closest_soft_multi_shadow_tex_cuda, closest_attrs_tex_cuda)
+                closest_soft_multi_shadow_tex_cuda, closest_attrs_tex_cuda,
+                first_hit_cuda)
 for _fn in CUDA_KERNELS:
     _fn.launches = 0
 
@@ -1882,7 +1928,7 @@ def trace_closest_attrs(bvh: WideBVH, origins, dirs, attr_tables,
 def trace_closest(bvh, origins, dirs, t_max=_BIG,
                   t_min: float = 0.0, return_sorted: bool = False,
                   gather_tri_id: bool = True,
-                  stack_size: int = STACK_CAPACITY):
+                  stack_size: int = STACK_CAPACITY, seeded: bool = False):
     """Closest hit (ONE kernel launch), ``tpurt``'s
     ``trace_closest_pallas``: over a WideBVH the plain closest hit (mode
     NEAREST), over an LBVH (packed per call) or a PackedBVH the binary
@@ -1891,9 +1937,20 @@ def trace_closest(bvh, origins, dirs, t_max=_BIG,
     -1); ``return_sorted`` adds the sorted hit index, the key of the shade
     table: (t, tri_id, sidx, walk counts); ``gather_tri_id=False`` (with
     ``return_sorted``) leaves tri_id to the table's id lane: (t, None,
-    sidx, walk counts)."""
+    sidx, walk counts).
+
+    ``seeded=True`` (a WideBVH only; two launches) is ``tpurt``'s seeded
+    G-buffer: the first-hit walk (FIRST_HIT) gives each ray an upper bound
+    on its closest hit, loosened into its t_max (``seed_cap``), and the
+    closest hit (NEAREST) starts from those caps. t and the triangle are
+    the unseeded walk's; the sorted index may name another SBVH reference
+    of the same triangle (ROADMAP decision 20). The walk counts sum both
+    launches'."""
     if not (gather_tri_id or return_sorted):
         raise ValueError("gather_tri_id=False requires return_sorted")
+    if seeded and is_binary(bvh):
+        raise ValueError("the seeded closest hit walks the 8-wide accel "
+                         "alone")
     if is_binary(bvh):
         bvh = as_packed(bvh)
         fn = _pick(origins.device, binary_closest_cuda,
@@ -1904,7 +1961,15 @@ def trace_closest(bvh, origins, dirs, t_max=_BIG,
         inputs_fn = closest_inputs
     args, kwargs, p, meta = inputs_fn(bvh, origins, dirs, t_max, t_min,
                                       stack_size)
+    seed_counts = 0
+    if seeded:
+        first = _pick(origins.device, first_hit_cuda, first_hit_reference)
+        t1, s1, seed_counts = first(*args, **kwargs)
+        rays = args[0].clone()
+        rays[:, 9] = seed_cap(args[0], t1, s1)
+        args = (rays, *args[1:])
     (t, sidx), (counts,) = _hit_outputs(fn(*args, **kwargs), p, meta, False)
+    counts = counts + seed_counts
     if not gather_tri_id:
         return t, None, sidx, counts
     n = bvh.tri_id.shape[0]

@@ -7,7 +7,9 @@ and ONE row gather per pixel reads the packed shade table; the ray cast
 without a table (``gbuffer_pass`` with none, ``shade_attributes``: t and
 tri_id, then gathers of the mesh by tri_id); and the raster G-buffer
 (``gbuffer_raster_pass``), where the tile rasterizer's z-fight selects the
-attributes. Apart from the gathers, the decode is elementwise tensor
+attributes, or, deferred, the z-only rasterizer returns the triangle and
+its barycentrics and ONE row gather per pixel reads the original-order
+shade table. Apart from the gathers, the decode is elementwise tensor
 code. A textured mesh's albedo is sampled afterwards, on every G-buffer
 (``passes/texture.apply_textures``, applied by the app's productions):
 the attribute and shade-table G-buffers hand it their interpolated uv and
@@ -21,13 +23,13 @@ import torch
 
 from ..camera import (_cross, as_f32, camera_basis, generate_rays,
                       normalize, view_depth)
-from ..kernels.raster import rasterize_rows
+from ..kernels.raster import rasterize_rows, rasterize_rows16
 from ..kernels.traverse import trace_closest_attrs
 from ..raster.setup import bin_rows, default_cap_rows
 from ..types import Camera, Mesh
 from .shading import (barycentrics_from_position, gather_table_rows,
-                      oct_decode, shade_from_table, table_tri_id, table_uv,
-                      unpack_rgb)
+                      oct_decode, shade_from_table, shade_from_table_uv,
+                      table_tri_id, table_uv, unpack_rgb)
 
 
 def gbuffer_attr_pass(bvh, attr_tables, mesh: Mesh, cam: Camera,
@@ -197,16 +199,23 @@ def gbuf_from_attr_channels(ch: Dict[str, torch.Tensor], origins, dirs,
 
 def gbuffer_raster_pass(mesh: Mesh, cam: Camera, width: int, height: int,
                         shade_table_orig=None,
-                        cap_pairs: Optional[int] = None
-                        ) -> Dict[str, torch.Tensor]:
+                        cap_pairs: Optional[int] = None,
+                        deferred: bool = False) -> Dict[str, torch.Tensor]:
     """Primary visibility by tile rasterization, the reference program's
     own strategy: bin the mesh (``raster.setup.bin_rows``), ONE rasterizer
     launch, then decode. Position comes back from 1/w along the view ray.
     ``mesh`` holds tensors on the device (``Mesh.on``).
-    ``shade_table_orig`` is accepted and ignored, as in ``tpurt``; its
-    deferred z-only variant (``raster_deferred``) is not ported. The dict
-    gains ``raster_overflow`` (bool[]): the pair capacity dropped coverage
-    and the frame must be rendered again with a bigger one."""
+    ``shade_table_orig`` is read only with ``deferred=True``
+    (``raster_deferred``), which takes ``_gbuffer_raster_deferred``, and
+    then it is required. The dict gains ``raster_overflow`` (bool[]): the
+    pair capacity dropped coverage and the frame must be rendered again
+    with a bigger one."""
+    if deferred:
+        if shade_table_orig is None:
+            raise ValueError("the deferred raster G-buffer needs the "
+                             "original-order shade table")
+        return _gbuffer_raster_deferred(mesh, cam, width, height,
+                                        shade_table_orig, cap_pairs)
     dev = mesh.vertices.device
     if cap_pairs is None:
         cap_pairs = default_cap_rows(mesh.num_triangles)
@@ -234,5 +243,49 @@ def gbuffer_raster_pass(mesh: Mesh, cam: Camera, width: int, height: int,
         "tri_id": tri_id,
         "valid": valid,
         "view_dir": dirs,
+        "raster_overflow": bins.overflow,
+    }
+
+
+def _gbuffer_raster_deferred(mesh: Mesh, cam: Camera, width: int,
+                             height: int, shade_table_orig,
+                             cap_pairs: Optional[int]
+                             ) -> Dict[str, torch.Tensor]:
+    """The deferred raster G-buffer (``tpurt``'s
+    ``_gbuffer_raster_deferred``): z-only records (``bin_rows(...,
+    fmt="z16")``), ONE launch of the z-only rasterizer for (tri_id, u, v,
+    1/w), then ONE row gather per pixel of the original-order shade table.
+    The position is the winner's v0 + u e1 + v e2 (no round trip through
+    1/w and the view ray), the view vector and t come from it, and no
+    camera ray is generated."""
+    if cap_pairs is None:
+        cap_pairs = default_cap_rows(mesh.num_triangles)
+    bins = bin_rows(cam, mesh, width, height, cap_pairs, fmt="z16")
+    tri_id, u, v, invw = rasterize_rows16(bins, width, height)
+    valid = tri_id >= 0
+    n = shade_table_orig.shape[0]
+    rows = shade_table_orig[torch.clamp(tri_id, 0, n - 1).long()]
+    attrs = shade_from_table_uv(rows, u, v, valid)
+    position = rows[..., 0:3] + u[..., None] * rows[..., 3:6] \
+        + v[..., None] * rows[..., 6:9]
+    position = torch.where(valid[..., None], position, 0.0)
+    dev = position.device
+    depth = torch.where(valid, 1.0 / torch.clamp(invw, min=1e-30),
+                        as_f32(cam.zfar, dev))
+    vview = position - as_f32(cam.position, dev)
+    norm = torch.sqrt((vview * vview).sum(-1))
+    t = torch.where(valid, norm, torch.inf)
+    view_dir = vview / torch.clamp(t, min=1e-20)[..., None]
+    flip = _viewer_facing(attrs["gnormal"], vview)
+    return {
+        "position": position,
+        "normal": attrs["normal"] * flip,
+        "gnormal": attrs["gnormal"] * flip,
+        "albedo": attrs["albedo"],
+        "depth": depth,
+        "t": t,
+        "tri_id": tri_id,
+        "valid": valid,
+        "view_dir": view_dir,
         "raster_overflow": bins.overflow,
     }

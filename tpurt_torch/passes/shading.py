@@ -5,7 +5,9 @@ scene) or from columns that rode the rebuild's sort
 (``attr_payload_columns`` -> ``leaf_attr_rows_from_sorted``); the packed
 shade table (``make_shade_table``) and its per-pixel decode
 (``table_tri_id``, ``table_uv``, ``barycentrics_from_position``,
-``shade_from_table``);
+``shade_from_table``); the original-order table of the deferred raster
+G-buffer (``make_shade_table_orig``, decoded at the rasterizer's
+barycentrics by ``shade_from_table_uv``);
 and the animated mesh's vertex normals (``smooth_normals_device``).
 
 The fused kernel selects the winning triangle's shading attributes from
@@ -37,6 +39,10 @@ sorted hit index:
             int32 views, never computed on
     [17:23] uv0, uv1, uv2 (zeros untextured)
     [23]    texture layer (-1 untextured)
+
+The original-order table (``make_shade_table_orig``) holds lanes 0-15 of
+the same layout per triangle of the mesh, keyed by the original id, with
+no id lane and no texture lanes: f32[T, 16].
 """
 
 from __future__ import annotations
@@ -246,6 +252,22 @@ def make_shade_table(bvh: LBVH, mesh: Mesh) -> torch.Tensor:
                       tail.view(torch.int32)], dim=1).view(torch.float32)
 
 
+def make_shade_table_orig(mesh: Mesh) -> torch.Tensor:
+    """f32[T, 16] shading rows in the mesh's own triangle order (no accel;
+    ``mesh`` on the device): v0, e1, e2, the three oct normals and the
+    packed albedo (``tpurt``'s ``make_shade_table_orig``). The deferred
+    raster G-buffer keys it by the rasterizer's triangle id."""
+    tri = mesh.indices.long()
+    v0 = mesh.vertices[tri[:, 0]]
+    v1 = mesh.vertices[tri[:, 1]]
+    v2 = mesh.vertices[tri[:, 2]]
+    return torch.cat([v0, v1 - v0, v2 - v0,
+                      oct_encode(mesh.normals[tri[:, 0]]),
+                      oct_encode(mesh.normals[tri[:, 1]]),
+                      oct_encode(mesh.normals[tri[:, 2]]),
+                      pack_rgb(mesh.albedo)[:, None]], dim=1)
+
+
 def gather_table_rows(table: torch.Tensor, sidx: torch.Tensor
                       ) -> torch.Tensor:
     """One row per pixel: table[sidx] (misses read row 0) -> f32[..., 24],
@@ -316,4 +338,25 @@ def shade_from_table(rows: torch.Tensor, position: torch.Tensor,
         "albedo": torch.where(vmask, albedo, zeros),
         "u": u,
         "v": v,
+    }
+
+
+def shade_from_table_uv(rows: torch.Tensor, u: torch.Tensor,
+                        v: torch.Tensor, valid: torch.Tensor):
+    """``shade_from_table`` at known barycentrics (the rasterizer's
+    perspective-correct u, v), from original-order rows [..., 16] ->
+    {normal, gnormal, albedo}, zero off the valid mask."""
+    n0 = oct_decode(rows[..., 9:11])
+    n1 = oct_decode(rows[..., 11:13])
+    n2 = oct_decode(rows[..., 13:15])
+    smooth = normalize(n0 + u[..., None] * (n1 - n0)
+                       + v[..., None] * (n2 - n0))
+    gnormal = normalize(_cross(rows[..., 3:6], rows[..., 6:9]))
+    albedo = unpack_rgb(rows[..., 15])
+    zeros = torch.zeros_like(smooth)
+    vmask = valid[..., None]
+    return {
+        "normal": torch.where(vmask, smooth, zeros),
+        "gnormal": torch.where(vmask, gnormal, zeros),
+        "albedo": torch.where(vmask, albedo, zeros),
     }

@@ -1,5 +1,6 @@
 """Rasterizer front end: vertex transform, triangle setup, tile binning
-(counterpart of ``tpurt/raster/setup.py``, its v2 "full" format).
+(counterpart of ``tpurt/raster/setup.py``: its v2 "full" and v3 "z16"
+formats).
 
 The reference program rasterizes its G-buffer and ray-traces only the
 shadows. ``tpurt`` rasterizes in 2D-homogeneous clip coordinates
@@ -9,6 +10,8 @@ clipping pass. This module makes the rasterizer's input on the device:
 
 - a 32-float record per triangle (edges, 1/det, id, vertex normals,
   geometric normal, albedo, tile rect), four to a 128-float table row;
+  or, for the deferred G-buffer (``fmt="z16"``), a 16-float z-only record
+  (edges, 1/det, id, tile rect), eight to a row;
 - (table row, 32x32 tile) pairs, expanded under a static capacity,
   stably sorted by tile, and the rows gathered into that order, so each
   tile's work is one contiguous run of rows;
@@ -19,8 +22,8 @@ per-pixel z-fight is the kernel's (``kernels/raster.py``). The sorts are
 stable, as ``jnp.argsort``: the order of a tile's records decides ties of
 the z-fight, where the first record keeps the pixel. The float constants
 are computed on the host and rounded once to float32, as JAX's weakly
-typed Python scalars are. The v1 binner (``bin_triangles``), the "z16"
-records and the ``tile_rows`` band of the sharded raster are not ported.
+typed Python scalars are. The v1 binner (``bin_triangles``) and the
+``tile_rows`` band of the sharded raster are not ported.
 """
 
 from __future__ import annotations
@@ -37,16 +40,20 @@ TILE = 32           # pixels per tile side
 W_EPS = 1e-6        # clip-w threshold for "crosses the eye plane"
 REC32 = 32          # floats per record
 RECS32_PER_ROW = 4  # records per 128-float row
+REC16 = 16          # floats per z-only record (fmt="z16")
+RECS16_PER_ROW = 8
 _FAR_TILE = 10 ** 6  # row-rect fill of a row without a live member
 
 
 class RasterRows(NamedTuple):
     """Kernel-ready binning (static shapes, tensors on one device).
 
-    pair_rows  : f32[CAP, 128] 4-record rows in sorted (tile-major) order
+    pair_rows  : f32[CAP, 128] 4-record (z16: 8-record) rows in sorted
+                 (tile-major) order
     row_starts : i32[ntiles] first pair row of each tile
     row_counts : i32[ntiles] pair rows per tile
-    big_rows   : f32[BIGCAP/4, 128] big-list rows (streamed by every tile)
+    big_rows   : f32[BIGCAP/4 (z16: /8), 128] big-list rows (streamed by
+                 every tile)
     big_nrows  : i32[] valid big rows
     overflow   : bool[] pair or big capacity exceeded
     """
@@ -158,8 +165,29 @@ def _setup_records32(clip: torch.Tensor, mesh: Mesh, width: int,
         *(r.to(torch.float32)[:, None] for r in rect), zero], dim=1)
 
 
+def _setup_records16(clip: torch.Tensor, mesh: Mesh, width: int,
+                     height: int, tri_ids: torch.Tensor, rect
+                     ) -> torch.Tensor:
+    """Z-only setup record f32[T, 16] of the deferred G-buffer, whose
+    shading comes from one shade-table row per pixel afterwards:
+
+    [0:9]   E0, E1, E2
+    [9]     Dinv
+    [10]    tri_id (-1 = dead slot)
+    [11]    pad
+    [12:16] tile rect x0, y0, x1, y1
+    """
+    e0, e1, e2, dinv = _edges_centered(clip, mesh.indices.long(), width,
+                                       height)
+    zero = torch.zeros_like(dinv)[:, None]
+    return torch.cat([
+        e0, e1, e2, dinv[:, None], tri_ids.to(torch.float32)[:, None], zero,
+        *(r.to(torch.float32)[:, None] for r in rect)], dim=1)
+
+
 def _pack_rows32(rec: torch.Tensor) -> torch.Tensor:
-    """f32[N, 32] -> f32[ceil(N/4), 128]; padding slots are dead."""
+    """f32[N, 32] -> f32[ceil(N/4), 128] (f32[N, 16] -> f32[ceil(N/8),
+    128]); padding slots are dead (lane 10 = -1)."""
     n, w = rec.shape
     rpr = 128 // w
     npad = -(-n // rpr) * rpr
@@ -171,14 +199,14 @@ def _pack_rows32(rec: torch.Tensor) -> torch.Tensor:
 
 
 def _row_reduce(a: torch.Tensor, small: torch.Tensor, fill: int,
-                op) -> torch.Tensor:
-    """Per table row of RECS32_PER_ROW triangles: op over its live
-    (small) members, ``fill`` where it has none."""
+                op, rpr: int) -> torch.Tensor:
+    """Per table row of ``rpr`` triangles: op over its live (small)
+    members, ``fill`` where it has none."""
     n = a.shape[0]
-    npad = -(-n // RECS32_PER_ROW) * RECS32_PER_ROW
+    npad = -(-n // rpr) * rpr
     aa = torch.full((npad,), fill, dtype=a.dtype, device=a.device)
     aa[:n] = torch.where(small, a, fill)
-    return op(aa.reshape(-1, RECS32_PER_ROW), dim=1).values
+    return op(aa.reshape(-1, rpr), dim=1).values
 
 
 def _compact(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -195,13 +223,20 @@ def _compact(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
 
 
 def bin_rows(cam: Camera, mesh: Mesh, width: int, height: int,
-             cap_pairs: int, cap_big: int = 2048) -> RasterRows:
+             cap_pairs: int, cap_big: int = 2048,
+             fmt: str = "full") -> RasterRows:
     """(table row, tile) pairs, tile-sorted, rows gathered whole.
 
     ``mesh`` holds tensors on the device the binning runs on
     (``Mesh.on``). cap_pairs: static pair capacity (``default_cap_rows``);
     pairs past it are dropped and ``overflow`` is set, as it is when more
-    than ``cap_big`` triangles cross the eye plane."""
+    than ``cap_big`` triangles cross the eye plane. ``fmt``: "full", the
+    32-float records of ``rasterize_rows``, or "z16", the 16-float z-only
+    records of ``rasterize_rows16`` (eight to a row, so rows and pairs
+    are about half as many)."""
+    setup_fn = {"full": _setup_records32, "z16": _setup_records16}[fmt]
+    rec_w = {"full": REC32, "z16": REC16}[fmt]
+    rpr = 128 // rec_w
     dev = mesh.vertices.device
     i32, i64 = torch.int32, torch.int64
     wt = -(-width // TILE)
@@ -226,7 +261,7 @@ def bin_rows(cam: Camera, mesh: Mesh, width: int, height: int,
     onscreen = (mx[:, 0] >= 0) & (mx[:, 1] >= 0) & \
         (mn[:, 0] <= width - 1) & (mn[:, 1] <= height - 1)
     ids = torch.arange(t_count, device=dev)
-    rec = _setup_records32(clip, mesh, width, height, ids, (
+    rec = setup_fn(clip, mesh, width, height, ids, (
         torch.where(w_ok, tx0, 0), torch.where(w_ok, ty0, 0),
         torch.where(w_ok, tx1, wt - 1), torch.where(w_ok, ty1, ht - 1)))
     degenerate = rec[:, 9].abs() == 0.0
@@ -243,10 +278,10 @@ def bin_rows(cam: Camera, mesh: Mesh, width: int, height: int,
     nrows = table.shape[0]
 
     # Per-row tile rects: the union over live members.
-    rx0 = _row_reduce(tx0, small, _FAR_TILE, torch.min)
-    ry0 = _row_reduce(ty0, small, _FAR_TILE, torch.min)
-    rx1 = _row_reduce(tx1, small, -1, torch.max)
-    ry1 = _row_reduce(ty1, small, -1, torch.max)
+    rx0 = _row_reduce(tx0, small, _FAR_TILE, torch.min, rpr)
+    ry0 = _row_reduce(ty0, small, _FAR_TILE, torch.min, rpr)
+    rx1 = _row_reduce(tx1, small, -1, torch.max, rpr)
+    ry1 = _row_reduce(ty1, small, -1, torch.max, rpr)
     live = rx1 >= rx0
     span_x = torch.where(live, rx1 - rx0 + 1, 0)
     counts = span_x * torch.where(live, ry1 - ry0 + 1, 0)
@@ -280,15 +315,15 @@ def bin_rows(cam: Camera, mesh: Mesh, width: int, height: int,
     # Big list: whole rows again, dead slots killed.
     big_rec = rec.clone()
     big_rec[:, 10] = torch.where(big, ids.to(torch.float32), -1.0)
-    dead = torch.zeros((1, REC32), dtype=torch.float32, device=dev)
+    dead = torch.zeros((1, rec_w), dtype=torch.float32, device=dev)
     dead[:, 10].fill_(-1.0)
     big_all = torch.cat([big_rec, dead])
     big_rows = _pack_rows32(big_all[_compact(big, cap_big, t_count)])
     n_big = big.to(i64).sum()
 
     overflow = (total > cap_pairs) | (n_big > cap_big)
-    big_nrows = torch.div(torch.clamp(n_big, max=cap_big) + RECS32_PER_ROW
-                          - 1, RECS32_PER_ROW, rounding_mode="floor")
+    big_nrows = torch.div(torch.clamp(n_big, max=cap_big) + rpr - 1, rpr,
+                          rounding_mode="floor")
     return RasterRows(pair_rows=pair_rows, row_starts=t_starts.to(i32),
                       row_counts=(t_ends - t_starts).to(i32),
                       big_rows=big_rows, big_nrows=big_nrows.to(i32),
