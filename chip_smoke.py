@@ -197,7 +197,28 @@ Phases, in order; any failure raises and the exit code is not 0:
     (the original-order table per frame, no host sync in a rebuild); the
     textured hall's deferred frame against phase 13's textured ray frame
     (the share of pixels that look up other texels, beside phase 13's).
-18. Timings on one JSON line, then the kernel table on one JSON line, the
+18. The w8t accel (WideBVHT: the 8-wide nodes with transposed leaf
+    triangles; tpurt's _any_hit_kernel_w8t, _closest_hit_kernel_w8t and
+    _closest_attr_kernel_w8t_b as csrc/transposed.cu): the hall's Morton
+    tree built on the card at leaf 16 and leaf 8 (build_lbvh, build_wide,
+    build_wide_t, the transposed attribute rows, the shade table, the
+    stack check), and the textured hall's at leaf 8. render_frame_fn with
+    the shade table and the sun on the WideBVHT at each leaf size: six
+    frames with one launch of the w8t closest and any hit each,
+    bit-identical, walk counters zero, coverage and image against phase
+    4's frame within the shade-table and binary frames' bounds; the
+    leaf-8 frame in turns with its row-layout twin (the same tree's
+    WideBVH, fused_shadow=False, order_children=False), which it equals
+    bit for bit. gbuffer_attr_pass at each leaf size and on the textured
+    hall (one launch of the attribute walk each; its hits those of the
+    shade-table frame). Each of the four entry points against its plain
+    version on every 8th row and on the whole frame, at leaf 8 and (all
+    but the textured one) leaf 16; at leaf 8 each against its row-layout
+    twin on every ray (the closest hit against NEAREST: t and the sorted
+    index equal; the attribute walk against CLOSEST: every channel equal
+    but the layer, -1 against 0; the any hit against ANY: equal), both
+    timed.
+19. Timings on one JSON line, then the kernel table on one JSON line, the
     card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Tolerances of the walk kernels' checks against their plain versions:
@@ -285,6 +306,10 @@ KERNELS = {
     "closest_soft_multi_shadow_tex": ("fused_shadows.cu", 1622),
     "closest_attrs_tex": ("fused_shadows.cu", 1429),
     "first_hit": ("fused_shadows.cu", 1290),
+    "w8t_any": ("transposed.cu", 1910),
+    "w8t_closest": ("transposed.cu", 1973),
+    "w8t_closest_attrs": ("transposed.cu", 2238),
+    "w8t_closest_attrs_tex": ("transposed.cu", 2238),
 }
 # The attrs=0 variants of the fused modes (no attribute rows; t and the
 # sorted index out) and the plain closest hit: the shade-table G-buffer's.
@@ -505,11 +530,12 @@ def check(name, kres, pres, args, kw, what, tri_id=None) -> dict:
     accel's sorted->original ids, for the kernels that return a sorted
     index alone."""
     if name in SHADE_TABLE_KERNELS or name in ("binary_closest",
-                                               "first_hit"):
+                                               "first_hit", "w8t_closest"):
         return compare_st(kres, pres, what, outputs_of(name, kw), tri_id)
-    if name in SHADOW_RAYS or name == "binary_any":
+    if name in SHADOW_RAYS or name in ("binary_any", "w8t_any"):
         rays = args[0]
-        active = rays[:, 9] > kw["t_min"] if name in ("any", "binary_any") \
+        active = rays[:, 9] > kw["t_min"] \
+            if name in ("any", "binary_any", "w8t_any") \
             else rays[:, 3] > 0.0
         return compare_rays(kres, pres, active, what)
     return compare(kres, pres, what, outputs_of(name, kw))
@@ -562,7 +588,8 @@ def outputs_of(name, kw):
         return [("bits", len(kw["points"]))]
     if name == "closest_soft_multi_shadow":
         return [("count", 0), ("bits", kw["n_extra"])]
-    if name in ("closest_attrs", "closest", "binary_closest", "first_hit"):
+    if name in ("closest_attrs", "closest", "binary_closest", "first_hit",
+                "w8t_closest", "w8t_closest_attrs"):
         return []
     return [("count", 0)]
 
@@ -3246,6 +3273,252 @@ def phase_deferred(dev, mesh, c1, ras32, textured) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the w8t accel (WideBVHT, transposed leaves)
+# ---------------------------------------------------------------------------
+
+W8T_KERNELS = ("w8t_any", "w8t_closest", "w8t_closest_attrs",
+               "w8t_closest_attrs_tex")
+
+
+def w8t_accel(mesh, leaf: int, dev) -> dict:
+    """The mesh's Morton tree built on the card at ``leaf``, its 8-wide
+    accel, the WideBVHT, the transposed attribute rows and the shade
+    table; the per-ray stack checked against the wide depth."""
+    from tpurt_torch.bvh.lbvh import build_lbvh
+    from tpurt_torch.bvh.wide import build_wide, build_wide_t, wide_depth
+    from tpurt_torch.kernels.traverse import check_stack_bound
+    from tpurt_torch.passes.shading import (make_leaf_attr_rows_t,
+                                            make_shade_table)
+    md = mesh.on(dev)
+    out, ms = {}, {}
+    for key, fn in (
+            ("bvh", lambda: build_lbvh(md.vertices, md.indices,
+                                       leaf_size=leaf)),
+            ("wide", lambda: build_wide(out["bvh"])),
+            ("acc", lambda: build_wide_t(out["wide"], out["bvh"])),
+            ("at_t", lambda: make_leaf_attr_rows_t(out["bvh"], md)),
+            ("st", lambda: make_shade_table(out["bvh"], md))):
+        out[key], ms[key + "_ms"] = host_ms(fn)
+    depth = wide_depth(out["wide"])
+    check_stack_bound(depth)
+    out["setup"] = dict(leaf=leaf, wide_rows=out["wide"].num_wide,
+                        leaves=out["acc"].num_leaves,
+                        blocks=int(out["acc"].tris_t.shape[0]),
+                        wide_depth=depth, **ms)
+    out["mesh"] = md
+    return out
+
+
+def w8t_frame_fn(acc, a, cam, cfg, light=None):
+    """One render_frame_fn call as a Renderer-like object for ``frames``
+    and ``in_turns``: the shade-table frame of ``light`` (the hard sun by
+    default) on accel ``acc`` (a's mesh and table); its walk counters must
+    be zero."""
+    import types
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.app import render_frame_fn
+    from tpurt_torch.types import Light
+    light = light or Light.directional(SUN_DIR)
+
+    def render_frame():
+        out = render_frame_fn(acc, a["mesh"], cam, [light], cfg,
+                              shade_table=a["st"])
+        tr.check_walk_counts(out["walk_counts"])
+        return out
+    return types.SimpleNamespace(render_frame=render_frame)
+
+
+def w8t_inputs(name, acc, tables, o, d, shadow, step: int = 1):
+    """Kernel ``name``'s inputs on every ``step``-th row: the camera rays,
+    or for the any hit the sun's shadow rays ``shadow`` of the frame's
+    G-buffer; ``tables`` the attribute rows of ``acc``'s layout."""
+    import tpurt_torch.kernels.traverse as tr
+
+    def rows(x):
+        return x[::step].contiguous()
+    if name in ("any", "w8t_any"):
+        return tr.any_inputs(acc, *(rows(x) for x in shadow))[:2]
+    if "attrs" in name:
+        return tr.closest_attrs_inputs(acc, rows(o), rows(d), tables)[:2]
+    return tr.closest_inputs(acc, rows(o), rows(d))[:2]
+
+
+def w8t_vs_plain(name, acc, tables, o, d, shadow, what) -> dict:
+    return vs_plain(name, w8t_inputs(name, acc, tables, o, d, shadow),
+                    w8t_inputs(name, acc, tables, o, d, shadow, step=8),
+                    what, tri_id=acc.tri_id)
+
+
+def w8t_vs_row_twin(name, twin, a, tables, twin_tables, o, d,
+                    shadow) -> dict:
+    """The w8t kernel ``name`` and its row-layout twin on the leaf-8 tree's
+    accels, the same rays: equal on every ray (the attribute walks but for
+    the layer channel, -1 against 0); both timed."""
+    import tpurt_torch.kernels.traverse as tr
+    args, kw = w8t_inputs(name, a["acc"], tables, o, d, shadow)
+    targs, tkw = w8t_inputs(twin, a["wide"], twin_tables, o, d, shadow)
+    kfn, tfn = getattr(tr, f"{name}_cuda"), getattr(tr, f"{twin}_cuda")
+    before = (kfn.launches, tfn.launches)
+    kres, tres = kfn(*args, **kw), tfn(*targs, **tkw)
+    torch.cuda.synchronize()
+    if "attrs" in name:
+        if not bool((kres[0][:, 7] == -1.0).all()):
+            raise RuntimeError(f"{name}: the layer is not -1 on every ray")
+        keep = [c for c in range(kres[0].shape[1]) if c != 7]
+        kres = (kres[0][:, keep], *kres[1:])
+        tres = (tres[0][:, keep], *tres[1:])
+    for k, t in zip(kres, tres):
+        if not torch.equal(k, t):
+            raise RuntimeError(f"{name} differs from {twin} on "
+                               f"{int((k != t).sum())} values")
+    ms = cuda_ms(lambda: kfn(*args, **kw), 10)
+    twin_ms = cuda_ms(lambda: tfn(*targs, **tkw), 10)
+    kfn.launches, tfn.launches = before
+    return dict(equal=True, ms=ms, twin=twin, twin_ms=twin_ms)
+
+
+def w8t_soft_frames(a, cam, cfg, launches_) -> dict:
+    """A 2 deg sun at spp 4 on the WideBVHT: no in-kernel sampler takes
+    that accel, so each frame is one w8t closest hit and spp w8t any-hit
+    calls (the shadow pass's loop over samples); two frames of one seed,
+    finite, with a penumbra and bit-identical."""
+    from tpurt_torch.types import Light
+    r = w8t_frame_fn(a["acc"], a, cam, dataclasses.replace(cfg, spp=4),
+                     Light.sun(SUN_DIR, angular_radius_deg=2.0))
+    (kept, frame_ms), n = drive({"w8t_closest": 2, "w8t_any": 8},
+                                lambda: frames(r, 2))
+    for k, v in n.items():
+        launches_[k] += v
+    check_image(kept[0], MAIN_W, MAIN_H, "w8t soft sun")
+    if not torch.equal(kept[0]["image"], kept[1]["image"]):
+        raise RuntimeError("w8t soft-sun frames of one seed are not "
+                           "bit-identical")
+    vis = kept[0]["shadow"][0][kept[0]["valid"]]
+    penumbra = float(((vis > 0) & (vis < 1)).float().mean())
+    if not penumbra > 0:
+        raise RuntimeError("w8t soft sun: no penumbra")
+    return dict(frame_ms=frame_ms[0], launches=n, penumbra_share=penumbra)
+
+
+def phase_w8t(dev, mesh, c1, tmesh) -> dict:
+    """The w8t accel at 1080p in the hall, leaf 16 and leaf 8; c1: phase
+    4's image and valid mask; tmesh: phase 13's textured hall."""
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.passes.gbuffer import gbuffer_attr_pass
+    from tpurt_torch.passes.shading import make_leaf_attr_rows
+    from tpurt_torch.passes.shadow import shadow_ray_batch
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    t_start = time.perf_counter()
+    cam = sponza_interior_camera()
+    sun = Light.directional(SUN_DIR)
+    accels = {k: w8t_accel(mesh, k, dev) for k in (16, 8)}
+    tex = w8t_accel(tmesh, 8, dev)
+    res = {"setup": {k: a["setup"] for k, a in accels.items()},
+           "textured_setup": tex["setup"]}
+    log(f"phase 18 setup: {json.dumps(res)}")
+    o, d = generate_rays(cam, MAIN_W, MAIN_H, dev)
+    launches_ = {k: 0 for k in W8T_KERNELS}
+    res["kernels"] = {}
+    for leaf in (16, 8):
+        a = accels[leaf]
+        cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=leaf,
+                           gbuffer="ray")
+        r = w8t_frame_fn(a["acc"], a, cam, cfg)
+        (kept, frame_ms), n = drive({"w8t_closest": 6, "w8t_any": 6},
+                                    lambda: frames(r, 6))
+        for k, v in n.items():
+            launches_[k] += v
+        check_image(kept[0], MAIN_W, MAIN_H, f"w8t leaf {leaf}")
+        for f in kept[1:]:
+            if not torch.equal(f["image"], kept[0]["image"]):
+                raise RuntimeError(f"w8t leaf {leaf} frames are not "
+                                   "bit-identical")
+        vs4 = image_against(kept[0]["image"], kept[0]["valid"], c1["image"],
+                            c1["valid"])
+        if not vs4["ok"]:
+            raise RuntimeError(f"w8t leaf {leaf} frame against phase 4's: "
+                               f"{vs4}")
+        gbuf = r.render_frame()
+        # The attribute G-buffer (gbuffer_attr_pass): the same walk.
+        (ab, counts), na = drive(
+            {"w8t_closest_attrs": 1},
+            lambda: gbuffer_attr_pass(a["acc"], a["at_t"], a["mesh"], cam,
+                                      MAIN_W, MAIN_H))
+        launches_["w8t_closest_attrs"] += na["w8t_closest_attrs"]
+        tr.check_walk_counts(counts)
+        if not (torch.equal(ab["tri_id"], gbuf["tri_id"])
+                and torch.equal(ab["t"], gbuf["t"])):
+            raise RuntimeError(f"w8t leaf {leaf}: the attribute G-buffer's "
+                               "hits differ from the shade-table frame's")
+        shadow = shadow_ray_batch(gbuf, sun, cfg.shadow_bias, None,
+                                  (a["acc"].root_min, a["acc"].root_max))
+        entry = dict(frame_ms=frame_ms, frame_ms_mean=float(np.mean(
+            frame_ms)), vs_phase4=vs4, launches=n)
+        for name in ("w8t_closest", "w8t_any", "w8t_closest_attrs"):
+            kp = w8t_vs_plain(name, a["acc"], a["at_t"], o, d, shadow,
+                              f"phase 18 leaf {leaf} {name}")
+            res["kernels"].setdefault(name, {})[leaf] = kp
+        if leaf == 8:
+            twin = w8t_frame_fn(a["wide"], a, cam, dataclasses.replace(
+                cfg, fused_shadow=False, order_children=False))
+            tw = twin.render_frame()
+            if not torch.equal(tw["image"], gbuf["image"]):
+                raise RuntimeError("the leaf-8 w8t frame differs from its "
+                                   "row-layout twin")
+            turns = in_turns(twin, r)
+            entry["in_turns_ms"] = {"row_twin": turns["a"],
+                                    "w8t": turns["b"]}
+            at_rows = make_leaf_attr_rows(a["bvh"], a["mesh"])
+            entry["vs_row_twin"] = {
+                name: w8t_vs_row_twin(name, twin_name, a, a["at_t"], at_rows,
+                                      o, d, shadow)
+                for name, twin_name in (("w8t_closest", "closest"),
+                                        ("w8t_closest_attrs",
+                                         "closest_attrs"),
+                                        ("w8t_any", "any"))}
+        if leaf == 16:
+            entry["soft_sun_spp4"] = w8t_soft_frames(a, cam, cfg, launches_)
+        res[f"leaf{leaf}"] = entry
+        log(f"phase 18 leaf {leaf}: {json.dumps(entry)}")
+    # The textured hall: gbuffer_attr_pass takes the attrs=2 walk.
+    (tb, counts), nt = drive(
+        {"w8t_closest_attrs_tex": 1},
+        lambda: gbuffer_attr_pass(tex["acc"], tex["at_t"], tex["mesh"], cam,
+                                  MAIN_W, MAIN_H))
+    launches_["w8t_closest_attrs_tex"] += nt["w8t_closest_attrs_tex"]
+    tr.check_walk_counts(counts)
+    layers = int(torch.unique(tb["tex_layer"][tb["valid"]]).numel())
+    if layers < 2:
+        raise RuntimeError(f"textured w8t G-buffer: {layers} layers hit")
+    res["textured"] = dict(launches=nt, layers_hit=layers,
+                           valid_share=float(tb["valid"].float().mean()))
+    res["kernels"]["w8t_closest_attrs_tex"] = {8: w8t_vs_plain(
+        "w8t_closest_attrs_tex", tex["acc"], tex["at_t"], o, d, None,
+        "phase 18 textured w8t_closest_attrs_tex")}
+    res["launches"] = launches_
+    res["phase_s"] = time.perf_counter() - t_start
+    log(f"phase 18 textured: {json.dumps(res['textured'])}; launches "
+        f"{json.dumps(launches_)}; {res['phase_s']:.1f} s")
+    return res
+
+
+def w8t_kernel_row(name, launches_, per_leaf) -> dict:
+    """The kernel table's row of a w8t kernel: the leaf-8 numbers, and the
+    leaf-16 ones beside them where the kernel ran there."""
+    kp = per_leaf[8]
+    row = kernel_row(name, launches_, kp, {})
+    if 16 in per_leaf:
+        k16 = per_leaf[16]
+        row["leaf16"] = {k: k16[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "closest_tris", "anyhit_tris")}
+        row["max_abs_err"] = max(row["max_abs_err"], k16["max_abs_err"])
+    return row
+
+
 def build_kernel_row(name, launches_, kp) -> dict:
     return {"name": name, "route": "cuda", "source": CSRC + "build.cu",
             "replaces": f"{BUILD_TPU}{BUILD_KERNEL_LINES[name]}",
@@ -3314,6 +3587,7 @@ def main() -> int:
     seeded = phase_seeded(dev, mesh)
     steered = phase_top_sah(dev, mesh)
     deferred = phase_deferred(dev, mesh, phase4, ras32, textured)
+    w8t = phase_w8t(dev, mesh, phase4, textured["mesh"])
     timings = {"card": card, "build_s": build_s,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
@@ -3327,7 +3601,9 @@ def main() -> int:
                "textured_1080p": {k: v for k, v in tex.items()
                                   if k not in ("kernels", "launches")},
                "fixed_cut_1080p": fixed, "seeded_1080p": seeded,
-               "top_sah_1080p": steered, "deferred_1080p": deferred}
+               "top_sah_1080p": steered, "deferred_1080p": deferred,
+               "w8t_1080p": {k: v for k, v in w8t.items()
+                             if k != "kernels"}}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],
@@ -3377,6 +3653,8 @@ def main() -> int:
                            seeded["kernel"], small))
     rows.append(build_kernel_row("sweep_sah_priorities", steered["launches"],
                                  steered["kernel"]))
+    rows += [w8t_kernel_row(name, w8t["launches"][name], w8t["kernels"][name])
+             for name in W8T_KERNELS]
     log(json.dumps({"timings": timings}))
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -8,6 +8,7 @@ leaf it visits, and an any-hit walk stops at the first occluding triangle
 (csrc/walk.cuh ``child_hits``, ``leaf_closest``, ``leaf_occluded``).
 """
 
+import functools
 import os
 import re
 
@@ -103,8 +104,33 @@ def _gbuf(acc, at, o, d):
     return gbuf_from_attr_channels(ch, o, d, default_camera_for(mesh), mesh)
 
 
+@functools.lru_cache(maxsize=None)
+def _w8t_accel():
+    """The WideBVHT of the port's own leaf-8 Morton tree of the teapot and
+    its transposed attribute rows."""
+    from tpurt_torch.bvh.lbvh import build_lbvh
+    from tpurt_torch.bvh.wide import build_wide, build_wide_t
+    from tpurt_torch.passes.shading import make_leaf_attr_rows_t
+    m = teapot_scene(1500)
+    dm = m.on("cpu")
+    bvh = build_lbvh(dm.vertices, dm.indices, leaf_size=8)
+    return build_wide_t(build_wide(bvh), bvh), make_leaf_attr_rows_t(bvh, m)
+
+
 def kernel_inputs(name, acc, at, o, d):
-    """(args, kwargs) of each *_cuda / *_reference pair on the teapot."""
+    """(args, kwargs) of each *_cuda / *_reference pair on the teapot (the
+    w8t walks on ``_w8t_accel``)."""
+    if name.startswith("w8t_closest"):
+        acc_t, at_t = _w8t_accel()
+        if name.startswith("w8t_closest_attrs"):
+            return tr.closest_attrs_inputs(acc_t, o, d, at_t)[:2]
+        return tr.closest_inputs(acc_t, o, d)[:2]
+    if name == "w8t_any":
+        # The row accel's shadow rays, walked over the WideBVHT.
+        (rays, _, _), kw = kernel_inputs("any", acc, at, o, d)
+        acc_t = _w8t_accel()[0]
+        return ((rays, acc_t.nodes, acc_t.tris_t),
+                dict(kw, max_iters=tr.iter_cap(acc_t.num_wide)))
     if name.endswith("_tex"):
         # The attrs=2 variant: the attrs=1 inputs (the tables hold the
         # texture lanes; the variant decides whether the walk reads them).
@@ -156,7 +182,7 @@ def kernel_inputs(name, acc, at, o, d):
 @pytest.mark.parametrize("name", ["closest_shadow", "closest_multi_shadow",
                                   "closest_soft_shadow", "any", "any_soft",
                                   "closest_shadow_st",
-                                  "closest_soft_multi_shadow_st"])
+                                  "closest_soft_multi_shadow_st", "w8t_any"])
 def test_counting_leaves_the_result_alone(teapot, name):
     """The same outputs with and without stats; the early exits are taken
     (fewer any-hit tests than whole leaves, fewer slab tests than slots)."""

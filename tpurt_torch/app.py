@@ -74,6 +74,15 @@ binary any hit for every light; a soft light loops over its samples
 (``tpurt``'s ``__graft_entry__.entry()`` route): the G-buffer then reads
 the mesh by triangle id (``passes/gbuffer.shade_attributes``).
 
+``render_frame_fn`` and ``gbuffer_attr_pass`` also take a WideBVHT
+(``bvh/wide.build_wide_t``: the same nodes, the leaf triangles
+transposed, leaf 8 or 16), as ``tpurt`` does: the frame is unfused, the
+G-buffer walks the accel as it is (no child ordering, no seed) with the
+w8t closest hit and the shade table or ``shade_attributes``
+(``attr_tables`` are ignored), every light takes the w8t any hit, a soft
+light the pass's loop over samples. The Renderer never builds one, as
+``tpurt``'s does not.
+
 Everything outside this slice raises ``NotImplementedError`` naming the
 missing piece; nothing falls back to another path or device.
 """
@@ -89,7 +98,8 @@ import torch
 
 from .bvh.lbvh import auto_split_blocks, build_lbvh, delta_range
 from .bvh.sah import build_sah_lbvh
-from .bvh.wide import (WideBVH, count_wide, leaf_boxes_from_nodes,
+from .bvh.wide import (WideBVH, WideBVHT, count_wide,
+                       leaf_boxes_from_nodes,
                        make_wide_plan, order_children_for_point,
                        round_up_bucket, wide_count_device, wide_depth,
                        widen_area_kernel, widen_from_plan, widen_lbvh)
@@ -158,11 +168,11 @@ def frame_route(cfg: RenderConfig, lights, accel=None) -> str:
     """The path a frame takes, in ``tpurt``'s order: "fusedN", "fusedSM",
     "fused0" (light 0 whatever the number of lights) or "unfused" (no
     fused kernel). ``accel``: the accel the frame walks, where it is known;
-    every fused kernel needs the 8-wide one (``tpurt``'s gates ask for a
-    WideBVH), so a binary accel, or ``bvh_width=2`` where ``accel`` is not
-    given, routes "unfused"."""
+    every fused kernel needs the 8-wide row-layout one (``tpurt``'s gates
+    ask for a WideBVH), so a binary accel, a WideBVHT, or ``bvh_width=2``
+    where ``accel`` is not given, routes "unfused"."""
     binary = cfg.bvh_width == 2 if accel is None else is_binary(accel)
-    if binary:
+    if binary or isinstance(accel, WideBVHT):
         return "unfused"
     if fused_multi_applicable(cfg, lights):
         return "fusedN"
@@ -296,9 +306,9 @@ def frame_seed(seed: int, frame_index: int) -> int:
 
 def _gb_accel(bvh, cam: Camera, cfg: RenderConfig):
     """The accel the G-buffer walks: the 8-wide one ordered near-first for
-    the camera (``order_children``); a binary accel as it is, since
-    ``tpurt`` orders only WideBVH children."""
-    if is_binary(bvh) or not cfg.order_children:
+    the camera (``order_children``); a binary accel or a WideBVHT as it
+    is, since ``tpurt`` orders only WideBVH children."""
+    if not isinstance(bvh, WideBVH) or not cfg.order_children:
         return bvh
     return order_children_for_point(bvh, cam.position)
 
@@ -439,8 +449,9 @@ def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
     the shade table's row gather (``attr_tables`` None), or, with neither
     table, the closest hit and ``shade_attributes``' gathers of the mesh
     (moved to the device here); on the camera-ordered accel, or on the
-    binary one as it is; then the mesh's textures. Returns (gbuf, walk
-    counts)."""
+    binary one or a WideBVHT as it is, where ``attr_tables`` are ignored
+    and no seed is asked for, as ``tpurt`` gates both on a WideBVH; then
+    the mesh's textures. Returns (gbuf, walk counts)."""
     if cfg.gbuffer == "raster":
         gbuf = gbuffer_raster_pass(mesh, cam, cfg.width, cfg.height,
                                    shade_table_orig,
@@ -449,7 +460,7 @@ def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
         counts = torch.zeros(2, dtype=torch.int32, device=bvh.tri_id.device)
     else:
         gb_accel = _gb_accel(bvh, cam, cfg)
-        if attr_tables is not None:
+        if attr_tables is not None and isinstance(bvh, WideBVH):
             gbuf, counts = gbuffer_attr_pass(gb_accel, attr_tables, mesh, cam,
                                              cfg.width, cfg.height)
         elif shade_table is None:
@@ -458,7 +469,7 @@ def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
                 mesh.on(bvh.tri_id.device), cam, cfg.width, cfg.height)
         else:
             # tpurt's seeded G-buffer exists on the 8-wide accel alone.
-            seeded = cfg.seeded_gbuffer and not is_binary(gb_accel)
+            seeded = cfg.seeded_gbuffer and isinstance(gb_accel, WideBVH)
             gbuf, counts = gbuffer_pass(
                 lambda o, d: trace_closest(gb_accel, o, d,
                                            return_sorted=True,
@@ -477,9 +488,10 @@ def shadow_production(bvh, gbuf, light: Light, seed: int,
     backend gates: ``check_slice`` refuses the configs they would gate off
     (no portable traversal, no ray sorting), and the port's generator is
     real on every device. As there, the samplers exist for the 8-wide
-    accel alone: on a binary accel a soft light takes the pass's loop over
-    samples. Returns (visibility, walk counts)."""
-    wide = not is_binary(bvh)
+    row-layout accel alone: on a binary accel or a WideBVHT a soft light
+    takes the pass's loop over samples. Returns (visibility, walk
+    counts)."""
+    wide = isinstance(bvh, WideBVH)
     return shadow_pass(
         functools.partial(trace_any, bvh), gbuf, light, cfg.spp, seed,
         light_index, cfg.shadow_bias,
@@ -511,8 +523,10 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
     shadow pass for every other light -> composite (sum of per-light
     direct terms + one ambient term). ``bvh``: the 8-wide accel, or a
     binary one (a PackedBVH, or an LBVH, packed here once for the frame,
-    which ``tpurt`` does per call), which no fused kernel takes. The hit
-    set reads the leaf attribute rows ``attr_tables`` (8-wide only) or,
+    which ``tpurt`` does per call) or a WideBVHT (the w8t walks), which
+    no fused kernel takes. The hit set reads the leaf attribute rows
+    ``attr_tables`` (the row-layout 8-wide accel only; a WideBVHT ignores
+    them, as ``tpurt`` does) or,
     without them, the packed ``shade_table``; with neither (the raster
     G-buffer, or ``tpurt``'s compile-check entry on a plain LBVH) no fused
     kernel runs, as ``tpurt``'s ``tabs`` gate has it, and the ray cast

@@ -20,8 +20,11 @@ deferred-box build, with the topology kernel's depths or
 and no host sync (``wide_count_device`` gives the count as a device
 scalar).
 
-Then the per-frame near-first child ordering. Every step reproduces the
-JAX package's arrays exactly.
+Then the per-frame near-first child ordering, ``build_wide`` (count,
+then widen into a bucketed pad) and the w8t accel: ``build_wide_t``
+keeps the nodes and transposes the LBVH's leaf triangles into blocks of
+14 (leaf 8) or 7 (leaf 16) leaves (``WideBVHT``, ``transpose_leaf_rows``).
+Every step reproduces the JAX package's arrays exactly.
 """
 
 from __future__ import annotations
@@ -61,6 +64,81 @@ class WideBVH:
     root_max: torch.Tensor
     num_wide: int
     leaf_size: int
+
+
+@dataclasses.dataclass
+class WideBVHT:
+    """8-wide BVH with the row-layout nodes and TRANSPOSED leaf triangles
+    (``tpurt``'s w8t accel, the only layout that holds 16-triangle
+    leaves).
+
+    nodes  : f32[Nw, 128] — the row layout, identical to WideBVH.nodes.
+    tris_t : f32[ceil(L / lpb), 8, 128] — lpb = 14 leaves per block at
+             leaf_size 8, 7 at leaf_size 16; field f (v0.xyz, e1.xyz,
+             e2.xyz) of triangle 8h + t of leaf lpb*b + j lies at
+             [b, t, unit*j + 9h + f] with unit = 9 * (leaf_size / 8);
+             lanes 126 and 127 are zero. A triangle's nine fields are
+             consecutive words.
+    tri_id, root_min, root_max, num_wide, leaf_size : as in WideBVH.
+    num_leaves : the leaves (triangle blocks) the blocks hold.
+    """
+
+    nodes: torch.Tensor
+    tris_t: torch.Tensor
+    tri_id: torch.Tensor
+    root_min: torch.Tensor
+    root_max: torch.Tensor
+    num_wide: int
+    num_leaves: int
+    leaf_size: int
+
+
+LEAVES_PER_BLOCK = 14    # leaf_size 8:  14 leaves x 9 fields = 126 lanes
+LEAVES_PER_BLOCK16 = 7   # leaf_size 16: 7 leaves x 2 groups x 9 = 126
+
+
+def leaves_per_block(leaf_size: int) -> int:
+    if leaf_size not in (8, 16):
+        raise ValueError(f"the transposed layout needs leaf_size 8 or 16, "
+                         f"got {leaf_size}")
+    return LEAVES_PER_BLOCK if leaf_size == 8 else LEAVES_PER_BLOCK16
+
+
+def transpose_leaf_rows(rows9: torch.Tensor, k: int) -> torch.Tensor:
+    """[Tpad, 9] per-triangle field rows -> the transposed
+    f32[ceil(nl / lpb), 8, 128] blocks (``WideBVHT.tris_t``'s lane map):
+    field f of triangle 8h + t of leaf j at [blk, t, unit*j + 9h + f].
+    The geometry (``build_wide_t``) and the transposed attribute rows
+    (``passes/shading.make_leaf_attr_rows_t``) share it, so a triangle's
+    attributes lie at its geometry's address."""
+    lpb = leaves_per_block(k)
+    nl = rows9.shape[0] // k
+    rows9 = rows9.reshape(nl, k, 9)
+    nlb = -(-nl // lpb)
+    if nlb * lpb > nl:
+        rows9 = torch.cat([rows9, rows9.new_zeros((nlb * lpb - nl, k, 9))])
+    if k == 8:
+        out = (rows9.reshape(nlb, lpb, k, 9)
+               .permute(0, 2, 1, 3).reshape(nlb, 8, 126))
+    else:
+        # leaf j at lanes 18j, sublane group h in {0, 1}: triangle 8h + t.
+        out = (rows9.reshape(nlb, lpb, 2, 8, 9)
+               .permute(0, 3, 1, 2, 4).reshape(nlb, 8, 126))
+    return torch.nn.functional.pad(out, (0, 2)).contiguous()
+
+
+def build_wide_t(wide: WideBVH, bvh: LBVH) -> WideBVHT:
+    """The 8-wide accel ``wide`` and the LBVH it was widened from -> the
+    WideBVHT (``tpurt``'s ``build_wide_t``): the same nodes, the leaf
+    triangles of the LBVH transposed (a leaf-16 accel's ``wide.tris`` is
+    a placeholder)."""
+    k = wide.leaf_size
+    tri9 = torch.stack([bvh.tri_v0, bvh.tri_e1, bvh.tri_e2],
+                       dim=1).reshape(-1, 9)
+    return WideBVHT(nodes=wide.nodes, tris_t=transpose_leaf_rows(tri9, k),
+                    tri_id=wide.tri_id, root_min=wide.root_min,
+                    root_max=wide.root_max, num_wide=wide.num_wide,
+                    num_leaves=tri9.shape[0] // k, leaf_size=k)
 
 
 def area_key(ext: torch.Tensor) -> torch.Tensor:
@@ -311,10 +389,15 @@ def assemble_area_rows(bvh: LBVH, leaf_boxes, tab: torch.Tensor, front,
 
 def block_rows(bvh: LBVH) -> torch.Tensor:
     """f32[num_blocks, 128]: one triangle block per row, k x (v0, e1,
-    e2), zero-padded."""
+    e2), zero-padded. A leaf of more than 14 triangles fits no 128-lane
+    row: as in ``tpurt``, the rows are then a f32[1, 128] zero
+    placeholder, and such an accel is walked through its transposed
+    leaves alone (``build_wide_t``); the row kernels refuse its
+    leaf_size."""
     k = bvh.leaf_size
     if k * 9 > 128:
-        raise ValueError(f"leaf_size {k} does not fit one 128-lane leaf row")
+        return torch.zeros((1, 128), dtype=torch.float32,
+                           device=bvh.tri_v0.device)
     tri9 = torch.stack([bvh.tri_v0, bvh.tri_e1, bvh.tri_e2], dim=1)
     tri9 = tri9.reshape(bvh.num_blocks, k * 9)
     return torch.nn.functional.pad(tri9, (0, 128 - k * 9)).contiguous()
@@ -470,3 +553,10 @@ def _apply_child_order(wide: WideBVH, rows, key) -> WideBVH:
 
 def round_up_bucket(n: int, bucket: int = 1024) -> int:
     return -(-n // bucket) * bucket
+
+
+def build_wide(bvh: LBVH) -> WideBVH:
+    """Count the area frontier's wide nodes (one host sync), then widen
+    into the count rounded up to 1024 rows (``tpurt``'s ``build_wide``)."""
+    nw = count_wide(bvh)
+    return widen_lbvh(bvh, round_up_bucket(max(nw, 1)))

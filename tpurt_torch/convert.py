@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .bvh.lbvh import LBVH
-from .bvh.wide import WideBVH
+from .bvh.wide import WideBVH, WideBVHT
 from .kernels.pack import PackedBVH
 from .raster.setup import RasterRows
 from .types import Camera, Light, Mesh
@@ -71,6 +71,20 @@ def wide_bvh(fields: Dict[str, Any], device) -> WideBVH:
                    root_max=_t(fields["root_max"], f32, device),
                    num_wide=int(fields["num_wide"]),
                    leaf_size=int(fields["leaf_size"]))
+
+
+def wide_bvh_t(fields: Dict[str, Any], device) -> WideBVHT:
+    """A ``tpurt`` ``WideBVHT``: the row-layout nodes and the transposed
+    leaf blocks."""
+    f32 = torch.float32
+    return WideBVHT(nodes=_t(fields["nodes"], f32, device),
+                    tris_t=_t(fields["tris_t"], f32, device),
+                    tri_id=_t(fields["tri_id"], torch.int32, device),
+                    root_min=_t(fields["root_min"], f32, device),
+                    root_max=_t(fields["root_max"], f32, device),
+                    num_wide=int(fields["num_wide"]),
+                    num_leaves=int(fields["num_leaves"]),
+                    leaf_size=int(fields["leaf_size"]))
 
 
 def packed_bvh(fields: Dict[str, Any], device) -> PackedBVH:

@@ -2,7 +2,8 @@
 kernel wrapper makes at the launch boundary.
 
 Every ``csrc/*.cu`` (the walk kernels of ``fused_shadows.cu``,
-``shadow_rays.cu`` and ``binary.cu`` include ``csrc/walk.cuh``; the
+``shadow_rays.cu``, ``binary.cu`` and ``transposed.cu`` include
+``csrc/walk.cuh``; the
 build kernels of ``csrc/build.cu`` and the rasterizer of ``csrc/raster.cu``
 stand alone) is compiled by its own
 ``nvcc``, all started together, and one more ``nvcc`` links the objects
@@ -132,7 +133,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     i = ctypes.c_int
     for name in ("tpurt_fused_shadows_launch", "tpurt_shadow_rays_launch",
-                 "tpurt_binary_launch"):
+                 "tpurt_binary_launch", "tpurt_transposed_launch"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = [i, ctypes.c_void_p, ctypes.c_void_p]
     for name in ("tpurt_stack_capacity", "tpurt_params_size"):

@@ -1,6 +1,8 @@
 // Device walks over an 8-wide BVH, shared by the kernels of
-// fused_shadows.cu and shadow_rays.cu: the slab and Moller-Trumbore tests,
-// the closest walk (tpurt/kernels/traverse.py _w8_closest_walk_attr with
+// fused_shadows.cu, shadow_rays.cu and (over a WideBVHT's transposed
+// leaves, template parameter TK) transposed.cu: the slab and
+// Moller-Trumbore tests, the closest walk
+// (tpurt/kernels/traverse.py _w8_closest_walk_attr with
 // the attribute rows, _w8_closest_walk_n without them, and the plain walk
 // of _closest_w8_b_impl), the any-hit walk (_w8_anyhit_walk), the biased
 // shadow origin (_biased_hit_origin), the scene-exit cap
@@ -204,14 +206,107 @@ __device__ __forceinline__ bool leaf_occluded(const float* __restrict__ tris,
   return false;
 }
 
+// ---------------------------------------------------------------------------
+// The transposed leaves of a WideBVHT (transposed.cu's w8t walks), TK = the
+// leaf size, 8 or 16: blocks f32[nblk, 8, 128] of 14 (TK 8) or 7 (TK 16)
+// leaves; field f of triangle s = 8h + t of leaf j of block blk lies at
+// blk * 1024 + t * 128 + unit * j + 9h + f, unit = 9 * TK / 8. A
+// triangle's nine fields are consecutive words, so the TPU kernels' lane
+// rolls and one-hot sublane sums become one address; the transposed
+// attribute rows put a triangle's attributes at the same address.
+// ---------------------------------------------------------------------------
+
+template <int TK>
+__device__ __forceinline__ size_t t_offset(int leaf, int s) {
+  constexpr int LPB = TK == 8 ? 14 : 7;
+  constexpr int UNIT = 9 * (TK / 8);
+  int blk = leaf / LPB;
+  int j = leaf - blk * LPB;
+  return (size_t)blk * LANES + (s & 7) * 128 + UNIT * j + 9 * (s >> 3);
+}
+
+// leaf_closest over a transposed leaf (_leaf_closest_t, :1860, and the
+// attribute walk's leaf test, :2046): the same test in the same
+// sequential strict-'<' order over s = 0..TK-1, which is the TPU kernel's
+// rule (the lowest slot of a group of 8 takes a tie, a later group wins
+// only with a strictly smaller t). The winner's attributes come from the
+// transposed rows at its address: kd, the original id and oct n0..n2 from
+// at0 fields 3, 4, 0-2; TRACK_TEX also the layer (field 5) and uv = uv0 +
+// u d1 + v d2 with uv0 from at0 fields 6-7 and d1, d2 from at1 fields 0-3,
+// in tpurt's order, without FMA.
+template <int TRACK, int TK>
+__device__ __forceinline__ void leaf_closest_t(
+    const float* __restrict__ tris, const float* __restrict__ at0,
+    const float* __restrict__ at1, int leaf, const Ray& r, float t_min,
+    bool active0, Hit& h) {
+  for (int s = 0; s < TK; ++s) {
+    size_t off = t_offset<TK>(leaf, s);
+    const float* tri = tris + off;
+    MT m = mt_terms(tri, r);
+    bool ok = fabsf(m.det) >= 1e-9f;
+    float inv_det = 1.0f / (ok ? m.det : 1.0f);
+    float u = m.nu * inv_det;
+    float v = m.nv * inv_det;
+    float t = m.nt * inv_det;
+    ok = ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f;
+    t = ok ? t : BIG;
+    if (t > t_min && t < h.t && active0) {
+      h.t = t;
+      h.idx = leaf * TK + s;
+      if constexpr (TRACK >= TRACK_ATTRS) {
+        const float* a = at0 + off;
+        float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4),
+              e1z = __ldg(tri + 5);
+        float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7),
+              e2z = __ldg(tri + 8);
+        h.u = u;
+        h.v = v;
+        h.kd = __ldg(a + 3);
+        h.tid = __ldg(a + 4);
+        h.o0 = __ldg(a + 0);
+        h.o1 = __ldg(a + 1);
+        h.o2 = __ldg(a + 2);
+        h.nx = e1y * e2z - e1z * e2y;
+        h.ny = e1z * e2x - e1x * e2z;
+        h.nz = e1x * e2y - e1y * e2x;
+        if constexpr (TRACK == TRACK_TEX) {
+          const float* b = at1 + off;
+          h.lay = __ldg(a + 5);
+          h.uvu = __ldg(a + 6) + u * __ldg(b + 0) + v * __ldg(b + 2);
+          h.uvv = __ldg(a + 7) + u * __ldg(b + 1) + v * __ldg(b + 3);
+        }
+      }
+    }
+  }
+}
+
+// leaf_occluded over a transposed leaf (_leaf_occluded_t, :1815).
+template <int TK>
+__device__ __forceinline__ bool leaf_occluded_t(
+    const float* __restrict__ tris, int leaf, const Ray& r, float t_min,
+    float tmax) {
+  for (int s = 0; s < TK; ++s) {
+    MT m = mt_terms(tris + t_offset<TK>(leaf, s), r);
+    float sgn = m.det < 0.0f ? -1.0f : 1.0f;
+    float adet = m.det * sgn;
+    float nu = m.nu * sgn, nv = m.nv * sgn, nt = m.nt * sgn;
+    if (adet >= 1e-9f && nu >= 0.0f && nv >= 0.0f && nu + nv <= adet &&
+        nt > t_min * adet && nt < tmax * adet)
+      return true;
+  }
+  return false;
+}
+
 // Phase 1: closest hit in (t_min, tmax), keeping what TRACK asks for of
 // the winner (at0 and at1 are read only with TRACK_ATTRS and TRACK_TEX).
 // FIRST: the seed walk of the seeded G-buffer (_closest_w8_b_impl with
 // first_hit=True): the same walk, which stops after every
 // FIRST_HIT_PERIOD-th iteration once the ray has some hit; its (t, idx) is
 // then an upper bound on the closest hit, and a walk stopped so is not a
-// capped one.
-template <int TRACK, bool FIRST = false>
+// capped one. TK > 0: the leaves (and attribute rows) are a WideBVHT's
+// transposed blocks of leaf size TK (leaf_closest_t); its attrs=1 walk
+// starts every ray's layer at -1 (the w8t kernel's lay0), not 0.
+template <int TRACK, bool FIRST = false, int TK = 0>
 __device__ __forceinline__ Hit closest_walk(
     const float* __restrict__ nodes, const float* __restrict__ tris,
     const float* __restrict__ at0, const float* __restrict__ at1, int k,
@@ -223,6 +318,7 @@ __device__ __forceinline__ Hit closest_walk(
   h.idx = -1;
   h.u = h.v = h.kd = h.tid = h.o0 = h.o1 = h.o2 = 0.0f;
   h.nx = h.ny = h.nz = h.uvu = h.uvv = h.lay = 0.0f;
+  if constexpr (TK > 0 && TRACK == TRACK_ATTRS) h.lay = -1.0f;
   int sp = 1, it = 0;
   stack[0] = 0;
   while (sp > 0 && it < max_iters) {
@@ -232,8 +328,12 @@ __device__ __forceinline__ Hit closest_walk(
       if (!(mask >> c & 1u)) continue;
       int ref = (int)__ldg(row + 16 * c + 6);
       if (ref < 0) {
-        leaf_closest<TRACK>(tris, at0, at1, max(-ref - 1, 0), k, r, t_min,
-                            active0, h);
+        if constexpr (TK > 0)
+          leaf_closest_t<TRACK, TK>(tris, at0, at1, max(-ref - 1, 0), r,
+                                    t_min, active0, h);
+        else
+          leaf_closest<TRACK>(tris, at0, at1, max(-ref - 1, 0), k, r,
+                              t_min, active0, h);
       } else if (sp < stack_size) {
         stack[sp++] = ref;
       } else {
@@ -278,7 +378,9 @@ __device__ __forceinline__ void write_hit(float* __restrict__ t_out,
   sidx_out[gid] = h.idx;
 }
 
-// Any hit in (t_min, tmax); a ray with tmax <= t_min tests no box.
+// Any hit in (t_min, tmax); a ray with tmax <= t_min tests no box. TK > 0:
+// transposed leaves of leaf size TK (leaf_occluded_t).
+template <int TK = 0>
 __device__ __forceinline__ bool anyhit_walk(const float* __restrict__ nodes,
                                             const float* __restrict__ tris,
                                             int k, const Ray& s, float tmax,
@@ -296,7 +398,12 @@ __device__ __forceinline__ bool anyhit_walk(const float* __restrict__ nodes,
       if (!(mask >> c & 1u)) continue;
       int ref = (int)__ldg(row + 16 * c + 6);
       if (ref < 0) {
-        if (leaf_occluded(tris, max(-ref - 1, 0), k, s, t_min, tmax)) {
+        bool hit;
+        if constexpr (TK > 0)
+          hit = leaf_occluded_t<TK>(tris, max(-ref - 1, 0), s, t_min, tmax);
+        else
+          hit = leaf_occluded(tris, max(-ref - 1, 0), k, s, t_min, tmax);
+        if (hit) {
           occ = true;
           break;
         }

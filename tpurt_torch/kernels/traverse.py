@@ -40,11 +40,22 @@ binary walks instead:
 - ``trace_closest`` -> ``_closest_hit_kernel``: t and the sorted index;
 - ``trace_any`` -> ``_any_hit_kernel``: any hit of given rays.
 
+Over a WideBVHT (``bvh/wide.py``: the same nodes, the leaf triangles
+transposed, leaf_size 8 or 16) the w8t walks:
+
+- ``trace_closest`` -> ``_closest_hit_kernel_w8t``: t and the sorted
+  index (``seeded`` is ignored, as in ``tpurt``);
+- ``trace_any`` -> ``_any_hit_kernel_w8t``: any hit of given rays;
+- ``trace_closest_attrs_t`` -> ``_closest_attr_kernel_w8t_b``: the
+  closest hit and its attribute channels from the transposed attribute
+  rows (``textured`` as above; untextured, the layer channel is -1).
+
 The first five (both variants), ``trace_closest_attrs`` and
 ``trace_closest``'s two walks are modes of one CUDA kernel template
 (``csrc/fused_shadows.cu``), the three shadow-ray kernels modes of another
 (``csrc/shadow_rays.cu``), the two binary walks modes of a third
-(``csrc/binary.cu``). Each function has three pieces that share one
+(``csrc/binary.cu``), the w8t walks modes of a fourth
+(``csrc/transposed.cu``). Each function has three pieces that share one
 contract on the packed ray block:
 
 - ``*_cuda``: the hand-written CUDA kernel in its mode, one thread per
@@ -83,7 +94,7 @@ import torch
 import torch.nn.functional as F
 
 from ..bvh.lbvh import LBVH
-from ..bvh.wide import WideBVH
+from ..bvh.wide import WideBVH, WideBVHT, leaves_per_block
 from ._build import _check, _pick
 from .pack import NODE_STRIDE, PackedBVH, pack_bvh
 from .sampling import (lane_axis_onb, onb3, rsqrt, sample_uniforms,
@@ -293,8 +304,29 @@ def _slab(rec, o, inv, t_min, cap):
     return enter <= exit_
 
 
+def _t_offsets(leaf, k):
+    """i64[n, k]: the word of a WideBVHT's transposed blocks where
+    triangle s = 8h + t of each leaf starts, blk*1024 + t*128 + unit*j +
+    9h for leaf lpb*blk + j (unit = 9 * k/8); its nine fields, and its
+    attributes in the transposed attribute rows, follow there."""
+    lpb = leaves_per_block(k)
+    blk = torch.div(leaf, lpb, rounding_mode="floor")
+    j = leaf - blk * lpb
+    s = torch.arange(k, device=leaf.device)
+    return ((blk * LANES + j * (9 * (k // 8)))[:, None]
+            + (s % 8) * 128 + 9 * (s // 8))
+
+
 def _leaf_tris(tris, leaf, k):
-    row = tris[leaf][:, :9 * k].reshape(-1, k, 9)
+    """The nine fields (v0.xyz, e1.xyz, e2.xyz) of each leaf's k triangles,
+    each f32[n, k], from the leaf rows f32[L, 128] or, for a WideBVHT,
+    from its transposed blocks f32[nblk, 8, 128]."""
+    if tris.dim() == 3:
+        off = _t_offsets(leaf, k)[:, :, None] + torch.arange(
+            9, device=leaf.device)
+        row = tris.reshape(-1)[off]
+    else:
+        row = tris[leaf][:, :9 * k].reshape(-1, k, 9)
     return [row[:, :, f] for f in range(9)]
 
 
@@ -412,6 +444,29 @@ def _winner_attrs(at0, at1, k, leaf, sel, u, v, normal, textured):
                         a[:, 1], a[:, 2], *normal], dim=1)
 
 
+def _winner_attrs_t(at0, at1, k, leaf, sel, u, v, normal, textured):
+    """``_winner_attrs`` from the transposed attribute rows of a WideBVHT
+    (``make_leaf_attr_rows_t``), read at the winner's geometry address:
+    kd, the triangle id and oct0..2 from at0_t; with ``textured`` the
+    layer and uv0 from at0_t, d1 and d2 from at1_t, uv = uv0 + u d1 + v
+    d2 in tpurt's order (no FMA); else uv 0 and the layer -1, the w8t
+    kernel's initial layer."""
+    off = _t_offsets(leaf, k).gather(1, sel)[:, :1]
+    a = at0.reshape(-1)[off + torch.arange(9, device=off.device)]
+    uj = u.gather(1, sel)[:, 0]
+    vj = v.gather(1, sel)[:, 0]
+    if textured:
+        b = at1.reshape(-1)[off + torch.arange(4, device=off.device)]
+        uvu = a[:, 6] + uj * b[:, 0] + vj * b[:, 2]
+        uvv = a[:, 7] + uj * b[:, 1] + vj * b[:, 3]
+        lay = a[:, 5]
+    else:
+        uvu = uvv = torch.zeros_like(uj)
+        lay = torch.full_like(uj, -1.0)
+    return torch.stack([uj, vj, uvu, uvv, a[:, 3], lay, a[:, 4], a[:, 0],
+                        a[:, 1], a[:, 2], *normal], dim=1)
+
+
 def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
                   max_iters, stack_size, stats=None, textured=False,
                   first_hit=False):
@@ -421,15 +476,22 @@ def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
     read from the attribute rows, then the unnormalised geometric normal.
     Without ``textured`` uv and layer stay 0 (the zero carry of the JAX
     kernel); with ``at0`` None (the attrs=0 walk, which reads no
-    attribute row) only the normal is kept. ``first_hit``: the seed walk,
-    which stops a ray after every FIRST_HIT_PERIOD-th iteration once it
-    has some hit (a stopped walk is not a capped one)."""
+    attribute row) only the normal is kept. ``tris`` of a WideBVHT (the
+    transposed blocks, 3-D) are read by ``_t_offsets``, and so are its
+    transposed attribute rows; its untextured layer is -1 on every ray,
+    as the w8t kernel's. ``first_hit``: the seed walk, which stops a ray
+    after every FIRST_HIT_PERIOD-th iteration once it has some hit (a
+    stopped walk is not a capped one)."""
     n = tmax.shape[0]
     dev = tmax.device
     active0 = tmax > t_min
     best_t = torch.where(active0, tmax, -_BIG)
     best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
     attr = torch.zeros((n, ATTR_CH - 2), dtype=torch.float32, device=dev)
+    transposed = tris.dim() == 3
+    if transposed and at0 is not None and not textured:
+        attr[:, 5] = -1.0
+    winner_attrs = _winner_attrs_t if transposed else _winner_attrs
     w = _Walk(n, stack_size, dev)
     stopped = torch.zeros((n,), dtype=torch.bool, device=dev)
     while True:
@@ -468,9 +530,9 @@ def _closest_walk(nodes, tris, at0, at1, k, o, d, inv, tmax, t_min,
                 if at0 is None:
                     attr[r, 10:] = torch.stack(normal, dim=1)
                 else:
-                    attr[r] = _winner_attrs(at0, at1, k, leaf, sel,
-                                            u[better], v[better], normal,
-                                            textured)
+                    attr[r] = winner_attrs(at0, at1, k, leaf, sel,
+                                           u[better], v[better], normal,
+                                           textured)
             push_m = hit[:, c] & (refs[:, c] >= 0)
             if bool(push_m.any()):
                 w.push(rows[push_m], refs[push_m, c])
@@ -1154,6 +1216,50 @@ def binary_any_reference(rays, nodes, tris, *, leaf_size: int, t_min: float,
             torch.stack([ovf, cap]).to(torch.int32))
 
 
+# The w8t walks over a WideBVHT (``tpurt``'s transposed-leaf kernels): the
+# 8-wide walks above, which read a 3-D ``tris`` (the transposed blocks
+# f32[nblk, 8, 128]) and its transposed attribute rows by ``_t_offsets``.
+
+def _check_t(tris_t, leaf_size: int) -> None:
+    leaves_per_block(leaf_size)
+    if tris_t.dim() != 3 or tuple(tris_t.shape[1:]) != (8, 128):
+        raise ValueError(f"tris_t has shape {tuple(tris_t.shape)}, "
+                         "expected (nblk, 8, 128)")
+
+
+def w8t_any_reference(rays, nodes, tris_t, **walk):
+    """Plain version of ``_any_hit_kernel_w8t``: ``any_reference``'s walk
+    over the transposed leaves, the same contract."""
+    _check_t(tris_t, walk["leaf_size"])
+    return any_reference(rays, nodes, tris_t, **walk)
+
+
+def w8t_closest_reference(rays, nodes, tris_t, **walk):
+    """Plain version of ``_closest_hit_kernel_w8t``: ``closest_reference``'s
+    walk over the transposed leaves -> (t f32[PB,8,128], sorted index
+    i32[PB,8,128], counts i32[2])."""
+    _check_t(tris_t, walk["leaf_size"])
+    return closest_reference(rays, nodes, tris_t, **walk)
+
+
+def w8t_closest_attrs_reference(rays, nodes, tris_t, at0_t, at1_t, *,
+                                textured: bool = False, **walk):
+    """Plain version of ``_closest_attr_kernel_w8t_b``: the closest hit and
+    its 15 attribute channels from the transposed attribute rows
+    (``make_leaf_attr_rows_t``); without ``textured`` channel 7 (the
+    layer) is -1 on every ray and uv 0. -> (out f32[PB,15,8,128], counts
+    i32[2])."""
+    for t in (tris_t, at0_t):
+        _check_t(t, walk["leaf_size"])
+    return closest_attrs_reference(rays, nodes, tris_t, at0_t, at1_t,
+                                   textured=textured, **walk)
+
+
+def w8t_closest_attrs_tex_reference(*args, **kw):
+    """Plain version of ``_closest_attr_kernel_w8t_b`` with textured=True."""
+    return w8t_closest_attrs_reference(*args, textured=True, **kw)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
@@ -1178,15 +1284,19 @@ HARD, MULTI, SOFT, PSOFT, SOFT_MULTI, CLOSEST, NEAREST, FIRST_HIT = range(8)
 ANY, ANY_SOFT, ANY_PSOFT = range(3)
 # csrc/binary.cu ``Mode``: the walks over the packed binary tree.
 BIN_CLOSEST, BIN_ANY = range(2)
+# csrc/transposed.cu ``Mode``: the w8t walks over a WideBVHT.
+W8T_ANY, W8T_CLOSEST = range(2)
 _FUSED = "tpurt_fused_shadows_launch"
 _SHADOW_RAYS = "tpurt_shadow_rays_launch"
 _BINARY = "tpurt_binary_launch"
+_TRANSPOSED = "tpurt_transposed_launch"
 
 
 def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
             ray_comps: int, attrs, leaf_size: int, t_min: float,
             max_iters: int, stack_size: int, scal_len: int,
-            closest: bool = False, textured: bool = False, **extra):
+            closest: bool = False, textured: bool = False,
+            transposed: bool = False, **extra):
     """Check a launch's inputs, allocate its outputs, launch ``mode`` of the
     C entry point ``entry`` on the current stream. rays: the
     f32[PB,ray_comps,8,128] block; ``closest``: the mode runs the closest
@@ -1195,27 +1305,37 @@ def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
     also fills the uv and layer channels), or t f32[PB,8,128] and sidx
     i32[PB,8,128] with ``attrs`` None (attrs=0); scal: f32[scal_len], or
     None when scal_len is 0; outputs: the i32[PB,8,128] blocks to return,
-    a tuple of "cnt_out" / "mask_out"; extra: the mode's Params fields. ->
-    (closest outputs, *outputs, counts); raises on a refused launch."""
+    a tuple of "cnt_out" / "mask_out"; ``transposed``: the w8t kernels,
+    whose leaves (and attribute rows) are a WideBVHT's transposed blocks
+    f32[nblk, 8, 128], at leaf_size 8 or 16; extra: the mode's Params
+    fields. -> (closest outputs, *outputs, counts); raises on a refused
+    launch."""
     from ._build import load_library
+    k = int(leaf_size)
+    if transposed:
+        leaves_per_block(k)
+        leaf_shape = (8, 128)
+    elif not 1 <= k <= 14:
+        raise ValueError(f"leaf_size {k} outside 1..14")
+    else:
+        leaf_shape = (128,)
+    if not 1 <= stack_size <= STACK_CAPACITY:
+        raise ValueError(f"stack_size {stack_size} outside 1..{STACK_CAPACITY}")
     dev = rays.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {dev}")
-    k = int(leaf_size)
-    if not 1 <= k <= 14:
-        raise ValueError(f"leaf_size {k} outside 1..14")
-    if not 1 <= stack_size <= STACK_CAPACITY:
-        raise ValueError(f"stack_size {stack_size} outside 1..{STACK_CAPACITY}")
     pb = rays.shape[0]
     nl = tris.shape[0]
     _check(rays, "rays", torch.float32, (pb, ray_comps, 8, 128), dev)
     _check(nodes, "nodes", torch.float32, (nodes.shape[0], 128), dev)
-    _check(tris, "tris", torch.float32, (nl, 128), dev)
+    _check(tris, "tris_t" if transposed else "tris", torch.float32,
+           (nl, *leaf_shape), dev)
     ptrs, res = {}, []
     if closest and attrs is not None:
         at0, at1 = attrs
-        _check(at0, "at0", torch.float32, (nl, 128), dev)
-        _check(at1, "at1", torch.float32, ((nl if k > 8 else 1), 128), dev)
+        n1 = (nl if textured else 1) if transposed else (nl if k > 8 else 1)
+        _check(at0, "at0", torch.float32, (nl, *leaf_shape), dev)
+        _check(at1, "at1", torch.float32, (n1, *leaf_shape), dev)
         res.append(torch.empty((pb, ATTR_CH, 8, 128), dtype=torch.float32,
                                device=dev))
         ptrs.update(at0=at0.data_ptr(), at1=at1.data_ptr(),
@@ -1532,6 +1652,47 @@ def binary_any_cuda(rays, nodes, tris, **walk):
     return res
 
 
+def _w8t(mode: int, outputs, rays, nodes, tris_t, attrs, **walk):
+    """A launch of csrc/transposed.cu over a WideBVHT's transposed leaves:
+    mode W8T_ANY, or W8T_CLOSEST with the transposed attribute rows
+    ``attrs`` (attrs=1, attrs=2 with ``textured=True`` in ``walk``) or
+    without (None: t and the sorted index)."""
+    return _launch(_TRANSPOSED, mode, outputs, rays, nodes, tris_t, None,
+                   ray_comps=10, attrs=attrs, closest=mode == W8T_CLOSEST,
+                   scal_len=0, transposed=True, **walk)
+
+
+def w8t_any_cuda(rays, nodes, tris_t, **walk):
+    """Mode W8T_ANY of csrc/transposed.cu: any hit of given rays."""
+    res = _w8t(W8T_ANY, ("mask_out",), rays, nodes, tris_t, None, **walk)
+    w8t_any_cuda.launches += 1
+    return res
+
+
+def w8t_closest_cuda(rays, nodes, tris_t, **walk):
+    """Mode W8T_CLOSEST without attribute rows: t and the sorted index."""
+    res = _w8t(W8T_CLOSEST, (), rays, nodes, tris_t, None, **walk)
+    w8t_closest_cuda.launches += 1
+    return res
+
+
+def w8t_closest_attrs_cuda(rays, nodes, tris_t, at0_t, at1_t, **walk):
+    """Mode W8T_CLOSEST attrs=1: the 15 attribute channels, the layer -1
+    on every ray."""
+    res = _w8t(W8T_CLOSEST, (), rays, nodes, tris_t, (at0_t, at1_t), **walk)
+    w8t_closest_attrs_cuda.launches += 1
+    return res
+
+
+def w8t_closest_attrs_tex_cuda(rays, nodes, tris_t, at0_t, at1_t, **walk):
+    """Mode W8T_CLOSEST attrs=2: with the winner's interpolated uv and
+    layer."""
+    res = _w8t(W8T_CLOSEST, (), rays, nodes, tris_t, (at0_t, at1_t),
+               textured=True, **walk)
+    w8t_closest_attrs_tex_cuda.launches += 1
+    return res
+
+
 CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
                 closest_soft_shadow_cuda, closest_point_soft_shadow_cuda,
                 closest_soft_multi_shadow_cuda, closest_attrs_cuda, any_cuda,
@@ -1544,7 +1705,8 @@ CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
                 closest_multi_shadow_tex_cuda, closest_soft_shadow_tex_cuda,
                 closest_point_soft_shadow_tex_cuda,
                 closest_soft_multi_shadow_tex_cuda, closest_attrs_tex_cuda,
-                first_hit_cuda)
+                first_hit_cuda, w8t_any_cuda, w8t_closest_cuda,
+                w8t_closest_attrs_cuda, w8t_closest_attrs_tex_cuda)
 for _fn in CUDA_KERNELS:
     _fn.launches = 0
 
@@ -1685,38 +1847,41 @@ def closest_soft_multi_shadow_inputs(bvh: WideBVH, origins, dirs, light0,
                          n_extra=len(extra_dirs))
 
 
-def closest_attrs_inputs(bvh: WideBVH, origins, dirs, attr_tables,
+def _leaves(bvh):
+    """The leaf triangles a walk reads: a WideBVH's rows, a WideBVHT's
+    transposed blocks."""
+    return bvh.tris_t if isinstance(bvh, WideBVHT) else bvh.tris
+
+
+def closest_attrs_inputs(bvh, origins, dirs, attr_tables,
                          t_max=_BIG, t_min: float = 0.0,
                          stack_size: int = STACK_CAPACITY):
-    """Inputs of ``closest_attrs_cuda`` / ``closest_attrs_reference`` ->
-    (args, kwargs, p, meta)."""
+    """Inputs of ``closest_attrs_cuda`` / ``closest_attrs_reference`` (on a
+    WideBVHT with its transposed rows, of the ``w8t_closest_attrs`` pair)
+    -> (args, kwargs, p, meta)."""
     rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
-    args = (rays, bvh.nodes, bvh.tris, attr_tables[0], attr_tables[1])
+    args = (rays, bvh.nodes, _leaves(bvh), attr_tables[0], attr_tables[1])
     return args, _walk_kwargs(bvh, t_min, stack_size), p, meta
 
 
-def closest_inputs(bvh: WideBVH, origins, dirs, t_max=_BIG,
+def closest_inputs(bvh, origins, dirs, t_max=_BIG,
                    t_min: float = 0.0, stack_size: int = STACK_CAPACITY):
-    """Inputs of ``closest_cuda`` / ``closest_reference``: rays (H, W, 3) or
-    (N, 3), t_max a scalar or per ray -> (args, kwargs, p, meta)."""
+    """Inputs of ``closest_cuda`` / ``closest_reference`` (on a WideBVHT,
+    of ``w8t_closest_cuda`` / ``w8t_closest_reference``): rays (H, W, 3)
+    or (N, 3), t_max a scalar or per ray -> (args, kwargs, p, meta)."""
     rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
-    args = (rays, bvh.nodes, bvh.tris)
+    args = (rays, bvh.nodes, _leaves(bvh))
     return args, _walk_kwargs(bvh, t_min, stack_size), p, meta
 
 
-def any_inputs(bvh: WideBVH, origins, dirs, t_max, t_min: float = 0.0,
-               stack_size: int = STACK_CAPACITY):
-    """Inputs of ``any_cuda`` / ``any_reference``: rays (H, W, 3) or (N,
-    3), t_max a scalar or per ray."""
-    rays, p, meta = _ray_packets_packed(origins, dirs, t_max, batch=1)
-    args = (rays, bvh.nodes, bvh.tris)
-    return args, _walk_kwargs(bvh, t_min, stack_size), p, meta
+# The any-hit walks take the same block and accel.
+any_inputs = closest_inputs
 
 
 def as_packed(bvh):
     """The accel a tracer walks: an LBVH is packed (``tpurt``'s
-    ``_as_packed``, per call); a PackedBVH or a WideBVH is taken as it
-    is."""
+    ``_as_packed``, per call); a PackedBVH, a WideBVH or a WideBVHT is
+    taken as it is."""
     return pack_bvh(bvh) if isinstance(bvh, LBVH) else bvh
 
 
@@ -1917,8 +2082,35 @@ def trace_closest_attrs(bvh: WideBVH, origins, dirs, attr_tables,
                         stack_size: int = STACK_CAPACITY,
                         textured: bool = False):
     """Attribute-tracked closest hit (ONE kernel launch): the G-buffer of
-    the unfused frame. Returns (channel dict, walk counts i32[2])."""
+    the unfused frame, on the row-layout accel (a WideBVHT takes
+    ``trace_closest_attrs_t``). Returns (channel dict, walk counts
+    i32[2])."""
+    if isinstance(bvh, WideBVHT):
+        raise ValueError("a WideBVHT walks through trace_closest_attrs_t")
     fn = _fused_pair("closest_attrs", attr_tables, textured, origins.device)
+    args, kwargs, p, meta = closest_attrs_inputs(
+        bvh, origins, dirs, attr_tables, t_max, t_min, stack_size)
+    out, counts = fn(*args, **kwargs)
+    return _attr_channels(out, p, meta), counts
+
+
+def trace_closest_attrs_t(bvh: WideBVHT, origins, dirs, attr_tables,
+                          t_max=_BIG, t_min: float = 0.0,
+                          stack_size: int = STACK_CAPACITY,
+                          textured: bool = False):
+    """The w8t attribute-tracked closest hit (ONE kernel launch;
+    ``tpurt``'s ``trace_closest_attrs_pallas_t``): a WideBVHT and its
+    transposed attribute rows (``make_leaf_attr_rows_t`` of the same
+    LBVH). Returns (channel dict, walk counts i32[2]), as
+    ``trace_closest_attrs``; without ``textured`` the raw layer channel
+    is -1 on every ray."""
+    if not isinstance(bvh, WideBVHT):
+        raise ValueError("trace_closest_attrs_t walks a WideBVHT")
+    fn = _pick(origins.device,
+               w8t_closest_attrs_tex_cuda if textured
+               else w8t_closest_attrs_cuda,
+               w8t_closest_attrs_tex_reference if textured
+               else w8t_closest_attrs_reference)
     args, kwargs, p, meta = closest_attrs_inputs(
         bvh, origins, dirs, attr_tables, t_max, t_min, stack_size)
     out, counts = fn(*args, **kwargs)
@@ -1931,8 +2123,9 @@ def trace_closest(bvh, origins, dirs, t_max=_BIG,
                   stack_size: int = STACK_CAPACITY, seeded: bool = False):
     """Closest hit (ONE kernel launch), ``tpurt``'s
     ``trace_closest_pallas``: over a WideBVH the plain closest hit (mode
-    NEAREST), over an LBVH (packed per call) or a PackedBVH the binary
-    walk (BIN_CLOSEST). origins/dirs (H, W, 3) or (N, 3), t_max a scalar
+    NEAREST), over a WideBVHT the w8t closest hit (W8T_CLOSEST), over an
+    LBVH (packed per call) or a PackedBVH the binary walk (BIN_CLOSEST).
+    origins/dirs (H, W, 3) or (N, 3), t_max a scalar
     or per ray. Returns (t, tri_id, walk counts) with misses (inf,
     -1); ``return_sorted`` adds the sorted hit index, the key of the shade
     table: (t, tri_id, sidx, walk counts); ``gather_tri_id=False`` (with
@@ -1945,7 +2138,8 @@ def trace_closest(bvh, origins, dirs, t_max=_BIG,
     closest hit (NEAREST) starts from those caps. t and the triangle are
     the unseeded walk's; the sorted index may name another SBVH reference
     of the same triangle (ROADMAP decision 20). The walk counts sum both
-    launches'."""
+    launches'. A WideBVHT ignores ``seeded``, as ``tpurt`` takes its
+    branch first."""
     if not (gather_tri_id or return_sorted):
         raise ValueError("gather_tri_id=False requires return_sorted")
     if seeded and is_binary(bvh):
@@ -1956,6 +2150,10 @@ def trace_closest(bvh, origins, dirs, t_max=_BIG,
         fn = _pick(origins.device, binary_closest_cuda,
                    binary_closest_reference)
         inputs_fn = binary_closest_inputs
+    elif isinstance(bvh, WideBVHT):
+        fn = _pick(origins.device, w8t_closest_cuda, w8t_closest_reference)
+        inputs_fn = closest_inputs
+        seeded = False
     else:
         fn = _pick(origins.device, closest_cuda, closest_reference)
         inputs_fn = closest_inputs
@@ -1982,13 +2180,16 @@ def trace_closest(bvh, origins, dirs, t_max=_BIG,
 def trace_any(bvh, origins, dirs, t_max, t_min: float = 0.0,
               stack_size: int = STACK_CAPACITY):
     """Occlusion query (ONE kernel launch; mode ANY over a WideBVH,
-    BIN_ANY over an LBVH or a PackedBVH): True where something lies in
-    (t_min, t_max); rays with t_max <= t_min are inactive and return
-    False. origins/dirs (H, W, 3) or (N, 3). Returns (occluded bool[H, W]
-    or [N], walk counts i32[2])."""
+    W8T_ANY over a WideBVHT, BIN_ANY over an LBVH or a PackedBVH): True
+    where something lies in (t_min, t_max); rays with t_max <= t_min are
+    inactive and return False. origins/dirs (H, W, 3) or (N, 3). Returns
+    (occluded bool[H, W] or [N], walk counts i32[2])."""
     if is_binary(bvh):
         fn = _pick(origins.device, binary_any_cuda, binary_any_reference)
         inputs_fn = binary_any_inputs
+    elif isinstance(bvh, WideBVHT):
+        fn = _pick(origins.device, w8t_any_cuda, w8t_any_reference)
+        inputs_fn = any_inputs
     else:
         fn = _pick(origins.device, any_cuda, any_reference)
         inputs_fn = any_inputs

@@ -24,7 +24,8 @@ import torch
 from ..camera import (_cross, as_f32, camera_basis, generate_rays,
                       normalize, view_depth)
 from ..kernels.raster import rasterize_rows, rasterize_rows16
-from ..kernels.traverse import trace_closest_attrs
+from ..bvh.wide import WideBVHT
+from ..kernels.traverse import trace_closest_attrs, trace_closest_attrs_t
 from ..raster.setup import bin_rows, default_cap_rows
 from ..types import Camera, Mesh
 from .shading import (barycentrics_from_position, gather_table_rows,
@@ -35,13 +36,17 @@ from .shading import (barycentrics_from_position, gather_table_rows,
 def gbuffer_attr_pass(bvh, attr_tables, mesh: Mesh, cam: Camera,
                       width: int, height: int, rays=None):
     """G-buffer of the unfused frame: camera rays (or the given (origins,
-    dirs)) -> ONE closest-hit kernel launch -> decode. Returns (G-buffer,
-    walk counts i32[2])."""
+    dirs)) -> ONE closest-hit kernel launch -> decode. On a WideBVHT
+    ``attr_tables`` are its transposed rows (``make_leaf_attr_rows_t``)
+    and the w8t attribute walk runs. Returns (G-buffer, walk counts
+    i32[2])."""
     if rays is None:
         rays = generate_rays(cam, width, height, bvh.nodes.device)
     origins, dirs = rays
-    ch, counts = trace_closest_attrs(bvh, origins, dirs, attr_tables,
-                                     textured=mesh.textured)
+    trace = trace_closest_attrs_t if isinstance(bvh, WideBVHT) \
+        else trace_closest_attrs
+    ch, counts = trace(bvh, origins, dirs, attr_tables,
+                       textured=mesh.textured)
     return gbuf_from_attr_channels(ch, origins, dirs, cam, mesh), counts
 
 

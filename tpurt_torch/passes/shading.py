@@ -2,7 +2,8 @@
 ``tpurt/passes/shading.py``): the leaf attribute rows, built by a gather
 keyed by the sorted original ids (``make_leaf_attr_rows``, once per
 scene) or from columns that rode the rebuild's sort
-(``attr_payload_columns`` -> ``leaf_attr_rows_from_sorted``); the packed
+(``attr_payload_columns`` -> ``leaf_attr_rows_from_sorted``), and their
+transposed twin for the w8t accel (``make_leaf_attr_rows_t``); the packed
 shade table (``make_shade_table``) and its per-pixel decode
 (``table_tri_id``, ``table_uv``, ``barycentrics_from_position``,
 ``shade_from_table``); the original-order table of the deferred raster
@@ -157,6 +158,39 @@ def make_leaf_attr_rows(bvh: LBVH, mesh: Mesh):
     pad = torch.zeros((n, 4), dtype=torch.float32, device=dev)
     rows16 = torch.cat([n0, n1, n2, alb, layer, uv, tid, pad], dim=1)
     return _pack_attr_rows(rows16, bvh.num_blocks, k)
+
+
+def make_leaf_attr_rows_t(bvh: LBVH, mesh: Mesh):
+    """The transposed leaf attribute rows (at0_t, at1_t) of the w8t
+    attribute walk (``tpurt``'s ``make_leaf_attr_rows_t``), on the accel's
+    device, in ``WideBVHT.tris_t``'s layout (``transpose_leaf_rows``), so
+    a triangle's attributes lie at its geometry's address. at0_t's nine
+    fields: the packed oct normals n0, n1, n2, the packed albedo, the
+    original triangle id (an exact float), the layer, uv0.u, uv0.v, 0.
+    at1_t, for a textured mesh: d1.u, d1.v, d2.u, d2.v (d1 = uv1 - uv0,
+    d2 = uv2 - uv0), then zeros; otherwise a f32[1, 8, 128] dummy, and
+    at0_t holds layer -1 and zero uv0."""
+    from ..bvh.wide import transpose_leaf_rows
+    k = bvh.leaf_size
+    dev = bvh.tri_id.device
+    m = mesh.on(dev)
+    tri_id = bvh.tri_id.long()
+    tri = m.indices.long()[tri_id]                           # [Tpad, 3]
+    n = tri.shape[0]
+    cols = [pack_oct12(oct_encode(m.normals[tri[:, c]])) for c in range(3)]
+    cols += [pack_rgb(m.albedo[tri_id]), bvh.tri_id.to(torch.float32)]
+    z = torch.zeros((n,), dtype=torch.float32, device=dev)
+    if not mesh.textured:
+        lay = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+        rows_a = torch.stack(cols + [lay, z, z, z], dim=1)
+        return (transpose_leaf_rows(rows_a, k),
+                torch.zeros((1, 8, 128), dtype=torch.float32, device=dev))
+    uv0, d1, d2 = _uv_columns(m, tri)
+    rows_a = torch.stack(cols + [m.tri_tex[tri_id].to(torch.float32),
+                                 uv0[:, 0], uv0[:, 1], z], dim=1)
+    rows_b = torch.stack([d1[:, 0], d1[:, 1], d2[:, 0], d2[:, 1], z, z, z,
+                          z, z], dim=1)
+    return transpose_leaf_rows(rows_a, k), transpose_leaf_rows(rows_b, k)
 
 
 def attr_payload_columns(mesh: Mesh, device):
