@@ -7,11 +7,12 @@ Phases, in order; any failure raises and the exit code is not 0:
 1. Device check: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. There is no CPU path.
 2. Build the CUDA kernel library (csrc/fused_shadows.cu,
-   csrc/shadow_rays.cu and csrc/binary.cu, templates with a mode per walk
-   kernel, csrc/build.cu, the rebuild's kernels and the sweep, and
-   csrc/raster.cu, the rasterizer in its 32- and 16-float instantiations;
-   one nvcc per source, in parallel), and print ptxas's register and
-   spill report.
+   csrc/shadow_rays.cu, csrc/binary.cu and csrc/transposed.cu, templates
+   with a mode per walk kernel, csrc/variants.cu, the stats walk,
+   csrc/build.cu, the rebuild's kernels, the node boxes and the sweep,
+   and csrc/raster.cu, the rasterizer in its 32- and 16-float
+   instantiations and the v1 kernel; one nvcc per source, in parallel),
+   and print ptxas's register and spill report.
 3. Every kernel against its plain PyTorch version on the card: teapot
    scene, 10k triangles, 512x512, leaf 14. closest_shadow with a
    directional and a point light; multi with directional + point +
@@ -218,7 +219,27 @@ Phases, in order; any failure raises and the exit code is not 0:
     index equal; the attribute walk against CLOSEST: every channel equal
     but the layer, -1 against 0; the any hit against ANY: equal), both
     timed.
-19. Timings on one JSON line, then the kernel table on one JSON line, the
+19. The last six TPU kernels, each through its own entry point, in one
+    driven run on the hall at 1920x1080 (phase 4's Renderer, phase 12's
+    binary tree rebuilt, config 2's clustered gaps): trace_any_stats on
+    the sun's shadow rays (tpurt's _any_hit_kernel_w8_stats as
+    csrc/variants.cu, one launch), trace_any(variant="x2") on the SBVH
+    accel (one ANY launch), trace_any and trace_closest with
+    variant="frustum" on the binary tree (one BIN_ANY, one BIN_CLOSEST),
+    topology_and_boxes (csrc/build.cu's topology and bottom-up box
+    kernel) and bin_triangles + rasterize_tiles (csrc/raster.cu's v1
+    kernel). The stats kernel against its plain version (occlusion and
+    iterations equal on every packet) and its occlusion against ANY's;
+    the three routed variants equal to their modes' default calls and
+    those kernels against their plain versions; topology_and_boxes
+    against its plain version (exact) and timed beside topology_cuda +
+    the range-table node boxes; the binning's host syncs (none) and
+    overflow (false), the v1 rasterizer against its plain version (ids,
+    u, v, 1/w equal) and against phase 10's rasterize_rows G-buffer (ids
+    on >= 99.4% of covered pixels, coverage off on < 0.2%: the v1 records'
+    pixel-scale cross products lose the depth order on some pixels, as
+    tpurt's own v1 does).
+20. Timings on one JSON line, then the kernel table on one JSON line, the
     card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Tolerances of the walk kernels' checks against their plain versions:
@@ -355,10 +376,11 @@ def kernel(name):
 
 
 def all_kernels():
+    from tpurt_torch.kernels._variants import VARIANT_KERNELS
     from tpurt_torch.kernels.build import BUILD_KERNELS
     from tpurt_torch.kernels.raster import RASTER_KERNELS
     from tpurt_torch.kernels.traverse import CUDA_KERNELS
-    return CUDA_KERNELS + BUILD_KERNELS + RASTER_KERNELS
+    return CUDA_KERNELS + BUILD_KERNELS + RASTER_KERNELS + VARIANT_KERNELS
 
 
 def reset_launches():
@@ -2798,17 +2820,7 @@ def phase_textured(dev, mesh, c1) -> dict:
 def clustered_deltas(r):
     """The adjacent deltas of the rebuild's clustered leaf codes, as
     _rebuild_fused computes them on the Renderer's geometry."""
-    from tpurt_torch.bvh import lbvh as L
-    from tpurt_torch.kernels.build import morton_codes
-    m, k, splits = r.mesh, r.config.leaf_size, r._rebuild_splits
-    tpad = r.bvh.num_sorted_tris
-    _, v0, e1, e2, cen, smin, smax = L._triangle_data(m.vertices, m.indices,
-                                                      tpad)
-    chs, (sv0, se1, se2) = L._sort_payload(morton_codes(cen, smin, smax),
-                                           [v0, e1, e2])
-    split = L._subleaf_split(chs, *L._leaf_boxes(sv0, se1, se2, k)[2:], k,
-                             splits)
-    return L.adjacent_deltas(split[1]).contiguous()
+    return clustered_split(r)[0]
 
 
 def phase_fixed_cut(dev, mesh, area) -> dict:
@@ -3542,6 +3554,264 @@ def kernel_row(name, launches_, kp, small) -> dict:
             "anyhit_tris": kp["anyhit_tris"]}
 
 
+VARIANTS_TPU = "tpurt/kernels/_variants.py:"
+# The v1 rasterizer's TPU kernel, and its operations per take: the state
+# writes of 1/w, d1, d2, the d-sum and the id.
+RASTER_V1_TPU = "tpurt/kernels/raster.py:77"
+OPS_PER_TAKE_V1 = 5
+# A node box: three mins and three maxes of the union.
+OPS_PER_BOX_UNION = 6
+
+
+def clustered_split(r):
+    """The rebuild's clustered leaves as _rebuild_fused computes them on
+    the Renderer's geometry -> (adjacent deltas, leaf min, leaf max)."""
+    from tpurt_torch.bvh import lbvh as L
+    from tpurt_torch.kernels.build import morton_codes
+    m, k, splits = r.mesh, r.config.leaf_size, r._rebuild_splits
+    tpad = r.bvh.num_sorted_tris
+    _, v0, e1, e2, cen, smin, smax = L._triangle_data(m.vertices, m.indices,
+                                                      tpad)
+    chs, (sv0, se1, se2) = L._sort_payload(morton_codes(cen, smin, smax),
+                                           [v0, e1, e2])
+    split = L._subleaf_split(chs, *L._leaf_boxes(sv0, se1, se2, k)[2:], k,
+                             splits)
+    return (L.adjacent_deltas(split[1]).contiguous(),
+            split[2].contiguous(), split[3].contiguous())
+
+
+def variant_row(name, kernel_name, replaces, source, launches_, kp) -> dict:
+    """A kernel table row of phase 19: ``kernel_name`` is the kernel the
+    entry point launches (a routed variant names its mode's kernel)."""
+    row = {"name": name, "kernel": kernel_name, "route": "cuda",
+           "source": CSRC + source, "replaces": replaces,
+           "launches": launches_}
+    row.update({k: kp[k] for k in (
+        "max_abs_err", "mismatch_share", "ms", "plain_ms", "bound_ms",
+        "bound_by")})
+    row["library_ms"] = None
+    return row
+
+
+def phase_variants(dev, mesh, r4) -> dict:
+    """Phase 19 on the hall at 1080p; r4: phase 4's config-1 Renderer
+    (its SBVH accel, attribute rows and camera)."""
+    import tpurt_torch.kernels._variants as V
+    import tpurt_torch.kernels.build as B
+    import tpurt_torch.kernels.raster as R
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.app import Renderer, gbuffer_production
+    from tpurt_torch.bvh.lbvh import _assemble_node_boxes
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.passes.shadow import shadow_ray_batch
+    from tpurt_torch.raster.setup import (bin_rows, bin_triangles,
+                                          default_cap_pairs,
+                                          default_cap_rows)
+    from tpurt_torch.types import RenderConfig
+    t_start = time.perf_counter()
+    w, h = MAIN_W, MAIN_H
+    cam, sun, acc = r4.camera, r4.lights[0], r4.accel
+    gbuf, _ = gbuffer_production(acc, r4.mesh, cam, r4.config,
+                                 r4.attr_tables)
+    so, sd, stm = shadow_ray_batch(gbuf, sun, BIAS, None,
+                                   (acc.root_min, acc.root_max))
+    o, d = generate_rays(cam, w, h, dev)
+    rb = Renderer(mesh, cam, sun, RenderConfig(
+        width=w, height=h, bvh_width=2, leaf_size=14, gbuffer="ray"),
+        device=dev)
+    packed = rb.accel
+    rr = Renderer(mesh, cam, sun, RenderConfig(width=w, height=h,
+                                               leaf_size=14),
+                  mode="rebuild", device=dev)
+    gaps, lmin, lmax = clustered_split(rr)
+    md = mesh.on(dev)
+    cap = default_cap_pairs(mesh.num_triangles)
+    torch.cuda.synchronize()
+    log(f"phase 19 setup: binary internal={packed.num_internal} "
+        f"gaps={int(gaps.shape[0])} cap_pairs={cap}")
+
+    def run():
+        out = {"stats": V.trace_any_stats(acc, so, sd, stm),
+               "x2": tr.trace_any(acc, so, sd, stm, variant="x2"),
+               "frustum_any": tr.trace_any(packed, so, sd, stm,
+                                           variant="frustum"),
+               "frustum_closest": tr.trace_closest(
+                   packed, o, d, return_sorted=True, variant="frustum"),
+               "topology_and_boxes": B.topology_and_boxes(gaps, lmin,
+                                                          lmax)}
+        bins = bin_triangles(cam, md, w, h, cap)
+        out["bins"] = bins
+        out["raster"] = R.rasterize_tiles(bins, w, h)
+        return out
+    res, n = drive({"any_stats": 1, "any": 1, "binary_any": 1,
+                    "binary_closest": 1, "topology_and_boxes": 1,
+                    "rasterize_tiles": 1}, run)
+    out = {"launches": n, "kernels": {}}
+
+    # (a) The stats walk: kernel against plain, and against ANY.
+    occ, iters, counts = res["stats"]
+    tr.check_walk_counts(counts)
+    args, kw, p, meta = V.any_stats_inputs(acc, so, sd, stm)
+    before = V.any_stats_cuda.launches
+    kres = V.any_stats_cuda(*args, **kw)
+    ms = cuda_ms(lambda: V.any_stats_cuda(*args, **kw), 10)
+    V.any_stats_cuda.launches = before
+    stats = {}
+    pres, plain_ms = host_ms(lambda: V.any_stats_reference(
+        *args, stats=stats, **kw))
+    for what, a, b in (("occlusion", kres[0], pres[0]),
+                       ("iterations", kres[1], pres[1]),
+                       ("walk counts", kres[2], pres[2])):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"any_stats: {what} differs from the plain "
+                               f"version on {int((a != b).sum())} entries")
+    if not torch.equal(kres[1][:p, 0, 0], iters):
+        raise RuntimeError("any_stats: the entry point's iterations differ")
+    any_occ, any_counts = tr.trace_any(acc, so, sd, stm)
+    active = stm > 0.0
+    nact = int(active.sum())
+    vs_any = int((any_occ != occ).sum())
+    if vs_any > 1e-3 * nact:
+        raise RuntimeError(f"any_stats: occlusion differs from ANY's on "
+                           f"{vs_any} of {nact} active rays")
+    it = iters.double()
+    live = it > 0
+    kp = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+              mismatch_share=vs_any / nact, vs_any_rays=vs_any,
+              packets=int(p), mean_iters=float(it.mean()),
+              mean_iters_live=float(it[live].mean()),
+              max_iters=int(it.max()), live_packets=int(live.sum()),
+              **bound(stats, args, kres))
+    # The same tests over every lane of each packet (tpurt's SIMD work),
+    # beside the bound of the tests the kernel does.
+    simd_ops = (int(stats["simd_pops"]) * OPS_PER_POP
+                + int(stats["simd_slab_tests"]) * OPS_PER_SLAB
+                + int(stats["simd_tris"]) * OPS_PER_TRI)
+    kp.update(simd_ops=simd_ops, simd_bound_ms=max(
+        kp["bytes_ms"], simd_ops / FP32_PEAK * 1e3))
+    out["kernels"]["any_stats"] = kp
+    log(f"phase 19 any_stats: {json.dumps(kp)}")
+
+    # (b)-(d) The routed variants: the mode's kernel, equal to the default
+    # call, and that kernel against its plain version on the same rays.
+    for key, name, default, inputs in (
+            ("x2", "any", lambda: tr.trace_any(acc, so, sd, stm),
+             lambda: tr.any_inputs(acc, so, sd, stm)[:2]),
+            ("frustum_any", "binary_any",
+             lambda: tr.trace_any(packed, so, sd, stm),
+             lambda: tr.binary_any_inputs(packed, so, sd, stm)[:2]),
+            ("frustum_closest", "binary_closest",
+             lambda: tr.trace_closest(packed, o, d, return_sorted=True),
+             lambda: tr.binary_closest_inputs(packed, o, d)[:2])):
+        want = default()
+        for a, b in zip(res[key], want):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"variant {key} differs from {name}'s "
+                                   "default call")
+        args, kw = inputs()
+        kp = time_pair(name, args, kw, tri_id=packed.tri_id)
+        kp.update({k: kp["compare"][k] for k in ("max_abs_err",
+                                                 "mismatch_share")})
+        out["kernels"][key] = kp
+        log(f"phase 19 {key} (mode {name}): {json.dumps(kp)}")
+
+    # (e) topology_and_boxes, exact, beside topology + the range boxes.
+    kt = res["topology_and_boxes"]
+    cmp = build_pair("topology_and_boxes", (gaps, lmin, lmax),
+                     "topology_and_boxes, config 2")
+    pt = B.topology_and_boxes_reference(gaps, lmin, lmax)
+    for i, (a, b) in enumerate(zip(kt, pt)):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"topology_and_boxes output {i} differs")
+    ni = int(gaps.shape[0])
+    levels = max(1, ni.bit_length())
+    kp = dict(**cmp, **time_build("topology_and_boxes", (gaps, lmin, lmax)),
+              **build_bound(
+                  ni * 4 + (ni + 1) * 24 + ni * 8 + ni * 8 + ni * 48 + 24,
+                  (levels - 1) * ni + 2 * levels * ni
+                  + OPS_PER_TOPOLOGY_PLACE * (ni + 1)
+                  + OPS_PER_BOX_UNION * ni))
+    kp["topology_and_range_boxes_ms"] = cuda_ms(
+        lambda: _assemble_node_boxes(lmin, lmax, *B.topology_cuda(gaps)), 20)
+    B.topology_cuda.launches = 0
+    out["kernels"]["topology_and_boxes"] = kp
+    log(f"phase 19 topology_and_boxes: {json.dumps(kp)}")
+
+    # (f) The v1 binning and rasterizer.
+    bins = res["bins"]
+    syncs = host_syncs(lambda: bin_triangles(cam, md, w, h, cap))
+    if syncs or bool(bins.overflow):
+        raise RuntimeError(f"bin_triangles: host syncs {syncs}, overflow "
+                           f"{bool(bins.overflow)}")
+    kr = res["raster"]
+    before = R.rasterize_tiles_cuda.launches
+    ms = cuda_ms(lambda: R.rasterize_tiles_cuda(bins, w, h), 10)
+    R.rasterize_tiles_cuda.launches = before
+    stats = {}
+    pr, plain_ms = host_ms(lambda: R.rasterize_tiles_reference(
+        bins, w, h, stats=stats))
+    for what, a, b in zip(("tri_id", "u", "v", "1/w"), kr, pr):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"rasterize_tiles: {what} differs from the "
+                               f"plain version on {int((a != b).sum())} "
+                               "pixels")
+    before = R.rasterize_rows_cuda.launches
+    rows_tri, _ = R.rasterize_rows(
+        bin_rows(cam, md, w, h, default_cap_rows(mesh.num_triangles)), w, h)
+    R.rasterize_rows_cuda.launches = before
+    # Against the production rasterizer: the same coverage, and the same
+    # ids but where the v1 records' pixel-scale cross products lose the
+    # depth order (ROADMAP decision 24: tpurt's own v1 differs from its
+    # own rasterize_rows on 0.45% of covered pixels of this mesh at
+    # 160x96, tests/test_torch_raster_tiles.py, and this run measured
+    # 0.48%; the limit is just below that).
+    cov, rcov = kr[0] >= 0, rows_tri >= 0
+    cov_off = float((cov != rcov).float().mean())
+    both = cov & rcov
+    id_share = float((kr[0] == rows_tri)[both].float().mean())
+    if cov_off >= 2e-3 or id_share < 0.994:
+        raise RuntimeError(f"rasterize_tiles against rasterize_rows: "
+                           f"coverage off on {cov_off}, ids equal on "
+                           f"{id_share}")
+    ntiles = int(bins.starts.numel())
+    pairs = int(bins.counts.sum())
+    nbig = int(bins.big_count)
+    nbytes = (pairs + nbig * ntiles) * 64 + 2 * ntiles * 4 + 4 * w * h * 4
+    ops = OPS_PER_TEST * stats["record_tests"] \
+        + OPS_PER_TAKE_V1 * stats["takes"]
+    kp = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, mismatch_share=0.0,
+              pairs=pairs, big_count=nbig, cap_pairs=cap,
+              binning_ms=cuda_ms(lambda: bin_triangles(cam, md, w, h, cap),
+                                 5),
+              vs_rows=dict(coverage_off=cov_off, ids_equal=id_share),
+              **stats, **build_bound(nbytes, ops))
+    out["kernels"]["rasterize_tiles"] = kp
+    log(f"phase 19 rasterize_tiles: {json.dumps(kp)}")
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"phase 19 launches {json.dumps(n)}; {out['phase_s']:.1f} s")
+    return out
+
+
+def variants_rows(var) -> list:
+    """The kernel table's rows of phase 19's six TPU kernels."""
+    n, k = var["launches"], var["kernels"]
+    return [
+        variant_row("any_stats", "any_stats", f"{VARIANTS_TPU}37",
+                    "variants.cu", n["any_stats"], k["any_stats"]),
+        variant_row("any_x2", "any", f"{VARIANTS_TPU}100", "shadow_rays.cu",
+                    n["any"], k["x2"]),
+        variant_row("any_frustum", "binary_any", f"{VARIANTS_TPU}229",
+                    "binary.cu", n["binary_any"], k["frustum_any"]),
+        variant_row("closest_frustum", "binary_closest", f"{VARIANTS_TPU}284",
+                    "binary.cu", n["binary_closest"], k["frustum_closest"]),
+        variant_row("topology_and_boxes", "topology_and_boxes",
+                    f"{BUILD_TPU}288", "build.cu", n["topology_and_boxes"],
+                    k["topology_and_boxes"]),
+        variant_row("rasterize_tiles", "rasterize_tiles", RASTER_V1_TPU,
+                    "raster.cu", n["rasterize_tiles"],
+                    k["rasterize_tiles"])]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; the port's "
@@ -3588,6 +3858,7 @@ def main() -> int:
     steered = phase_top_sah(dev, mesh)
     deferred = phase_deferred(dev, mesh, phase4, ras32, textured)
     w8t = phase_w8t(dev, mesh, phase4, textured["mesh"])
+    var = phase_variants(dev, mesh, phase4["renderer"])
     timings = {"card": card, "build_s": build_s,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
@@ -3603,7 +3874,9 @@ def main() -> int:
                "fixed_cut_1080p": fixed, "seeded_1080p": seeded,
                "top_sah_1080p": steered, "deferred_1080p": deferred,
                "w8t_1080p": {k: v for k, v in w8t.items()
-                             if k != "kernels"}}
+                             if k != "kernels"},
+               "variants_1080p": {"launches": var["launches"],
+                                  "phase_s": var["phase_s"]}}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],
@@ -3655,6 +3928,7 @@ def main() -> int:
                                  steered["kernel"]))
     rows += [w8t_kernel_row(name, w8t["launches"][name], w8t["kernels"][name])
              for name in W8T_KERNELS]
+    rows += variants_rows(var)
     log(json.dumps({"timings": timings}))
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -166,7 +166,8 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         R.rasterize_rows_cuda(bins, 32, 32)
     assert R.rasterize_rows_cuda.launches == before
     assert R.RASTER_KERNELS == (R.rasterize_rows_cuda,
-                                R.rasterize_rows16_cuda)
+                                R.rasterize_rows16_cuda,
+                                R.rasterize_tiles_cuda)
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():

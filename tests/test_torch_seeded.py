@@ -131,12 +131,19 @@ def test_seeded_matches_pallas(scene):
 
 
 def test_seeded_refuses_a_binary_accel(scene):
+    """A binary accel ignores ``seeded``, as ``tpurt``'s
+    ``trace_closest_pallas`` does (only its WideBVH "lanes" branch reads
+    it): the seeded call equals the unseeded one and no longer raises."""
     from tpurt_torch.bvh.lbvh import build_lbvh
     mesh = tscenes.teapot_scene(200)
     bvh = build_lbvh(torch.from_numpy(mesh.vertices),
                      torch.from_numpy(mesh.indices), leaf_size=4)
-    with pytest.raises(ValueError, match="8-wide"):
-        tr.trace_closest(bvh, scene.to, scene.td, seeded=True)
+    seeded = tr.trace_closest(bvh, scene.to, scene.td, seeded=True,
+                              return_sorted=True)
+    plain = tr.trace_closest(bvh, scene.to, scene.td, return_sorted=True)
+    for a, b in zip(seeded, plain):
+        assert torch.equal(a, b)
+    assert bool((seeded[2] >= 0).any())
 
 
 def test_seeded_frame_matches_jax_renderer():

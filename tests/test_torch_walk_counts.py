@@ -17,6 +17,9 @@ import torch
 
 import tpurt_torch.kernels.traverse as tr
 from tpurt_torch.app import Renderer
+from tpurt_torch.kernels._variants import VARIANT_KERNELS
+from tpurt_torch.kernels.build import topology_and_boxes_cuda
+from tpurt_torch.kernels.raster import rasterize_tiles_cuda
 from tpurt_torch.bvh.wide import order_children_for_point
 from tpurt_torch.camera import generate_rays
 from tpurt_torch.scenes import default_camera_for, teapot_scene
@@ -158,6 +161,18 @@ def kernel_inputs(name, acc, at, o, d):
         return tr.closest_attrs_inputs(acc, o, d, at)[:2]
     if name in ("closest", "first_hit"):
         return tr.closest_inputs(acc, o, d)[:2]
+    if name == "any_stats":
+        # The stats walk takes the any hit's shadow rays, per packet.
+        (rays, _, _), kw = kernel_inputs("any", acc, at, o, d)
+        return (rays, acc.nodes, acc.tris), kw
+    if name == "topology_and_boxes":
+        return (torch.zeros(4, dtype=torch.int32), torch.zeros((5, 3)),
+                torch.zeros((5, 3))), {}
+    if name == "rasterize_tiles":
+        from tpurt_torch.raster.setup import bin_triangles
+        m = teapot_scene(1500).on("cpu")
+        return (bin_triangles(default_camera_for(m), m, 64, 32, 1 << 17),
+                64, 32), {}
     if name in ("binary_closest", "binary_any"):
         # The binary walks take the packed Morton tree of the same mesh.
         from tpurt_torch.bvh.lbvh import build_lbvh
@@ -270,7 +285,8 @@ def test_only_one_source_defines_the_queries():
         "__device__")
 
 
-@pytest.mark.parametrize("fn", tr.CUDA_KERNELS, ids=lambda f: f.__name__)
+@pytest.mark.parametrize("fn", tr.CUDA_KERNELS + VARIANT_KERNELS + (
+    topology_and_boxes_cuda, rasterize_tiles_cuda), ids=lambda f: f.__name__)
 def test_cuda_launchers_refuse_cpu_tensors(teapot, fn):
     """No fallback: a *_cuda launcher given CPU tensors raises and counts
     no launch."""

@@ -17,7 +17,7 @@ import torch
 from .bvh.lbvh import LBVH
 from .bvh.wide import WideBVH, WideBVHT
 from .kernels.pack import PackedBVH
-from .raster.setup import RasterRows
+from .raster.setup import RasterBins, RasterRows
 from .types import Camera, Light, Mesh
 
 
@@ -123,6 +123,19 @@ def raster_rows(fields: Dict[str, Any], device) -> RasterRows:
         row_counts=_t(fields["row_counts"], i32, device),
         big_rows=_t(fields["big_rows"], f32, device),
         big_nrows=_t(fields["big_nrows"], i32, device),
+        overflow=_t(fields["overflow"], torch.bool, device))
+
+
+def raster_bins(fields: Dict[str, Any], device) -> RasterBins:
+    """A ``tpurt`` v1 ``RasterBins`` (pass ``bins._asdict()``), so
+    ``rasterize_tiles`` can run on the JAX package's own bins."""
+    f32, i32 = torch.float32, torch.int32
+    return RasterBins(
+        pair_rows=_t(fields["pair_rows"], f32, device),
+        starts=_t(fields["starts"], i32, device),
+        counts=_t(fields["counts"], i32, device),
+        big_rows=_t(fields["big_rows"], f32, device),
+        big_count=_t(fields["big_count"], i32, device),
         overflow=_t(fields["overflow"], torch.bool, device))
 
 

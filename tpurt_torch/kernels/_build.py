@@ -2,8 +2,8 @@
 kernel wrapper makes at the launch boundary.
 
 Every ``csrc/*.cu`` (the walk kernels of ``fused_shadows.cu``,
-``shadow_rays.cu``, ``binary.cu`` and ``transposed.cu`` include
-``csrc/walk.cuh``; the
+``shadow_rays.cu``, ``binary.cu``, ``transposed.cu`` and ``variants.cu``
+include ``csrc/walk.cuh``; the
 build kernels of ``csrc/build.cu`` and the rasterizer of ``csrc/raster.cu``
 stand alone) is compiled by its own
 ``nvcc``, all started together, and one more ``nvcc`` links the objects
@@ -133,7 +133,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     i = ctypes.c_int
     for name in ("tpurt_fused_shadows_launch", "tpurt_shadow_rays_launch",
-                 "tpurt_binary_launch", "tpurt_transposed_launch"):
+                 "tpurt_binary_launch", "tpurt_transposed_launch",
+                 "tpurt_variants_launch"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = [i, ctypes.c_void_p, ctypes.c_void_p]
     for name in ("tpurt_stack_capacity", "tpurt_params_size"):
@@ -145,13 +146,17 @@ def load_library() -> ctypes.CDLL:
             ("tpurt_morton_codes60_launch", [p, i, p, p, p]),
             ("tpurt_topology_launch", [p, i, i, p, p, p, p, p, p, p, p, i,
                                        p]),
+            ("tpurt_node_boxes_launch", [p, i, p, p, p, p, p, p, p, p,
+                                         p]),
             ("tpurt_collapse_area_launch", [p, p, i, i, p, p, p, p]),
             ("tpurt_sweep_sah_launch", [p, i, i, i, i, i, i, p, p, p, p,
                                         p]),
             ("tpurt_raster_rows_launch", [p, i, p, p, p, i, p, i, i, i, i,
                                           f, f, f, f, p, p, p]),
             ("tpurt_raster_rows16_launch", [p, i, p, p, p, i, p, i, i, i,
-                                            i, f, f, f, f, p, p, p])):
+                                            i, f, f, f, f, p, p, p]),
+            ("tpurt_raster_tiles_launch", [p, i, p, p, p, i, p, i, i, i,
+                                           i, p, p, p])):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = args
     from .traverse import STACK_CAPACITY, Params

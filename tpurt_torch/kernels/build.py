@@ -10,6 +10,9 @@
   with ``want_depth`` also every node's depth (``topology_depth_*``,
   whose plain version is ``node_depths``); ``d_max`` bounds the deltas,
   so it also takes the sweep's steered priorities;
+- ``topology_and_boxes`` -> ``topology_and_boxes_pallas``: the topology
+  and every node's child boxes in one call (``_build_kernel`` with
+  boxes);
 - ``sweep_sah_priorities`` -> ``_sweep_sah_kernel``: ``top_sah``'s
   re-chosen top splits, as priorities that steer the unchanged topology;
 - ``collapse_area`` -> ``collapse_area_pallas``: the breadth-first
@@ -190,9 +193,12 @@ def topology_reference(d: torch.Tensor, d_max: int = D_MAX):
     return child[:ni].to(i32), first_r.to(i32), last_r.to(i32)
 
 
-def _topology_launch(d: torch.Tensor, want_depth: bool, d_max: int):
+def _topology_launch(d: torch.Tensor, want_depth: bool, d_max: int,
+                     want_parent: bool = False):
     """One call of the C topology entry: (child, first, last), and depth
-    i32[ni] with ``want_depth`` (at most d_max - 1 steps to the root)."""
+    i32[ni] with ``want_depth`` (at most d_max - 1 steps to the root);
+    ``want_parent`` appends the root's gap id i32[1] and each node's
+    parent i32[ni] (-1 for the root)."""
     from ._build import load_library
     _need_cuda(d)
     ni = d.shape[0]
@@ -209,8 +215,9 @@ def _topology_launch(d: torch.Tensor, want_depth: bool, d_max: int):
     first = torch.empty((ni,), dtype=torch.int32, device=dev)
     last = torch.empty((ni,), dtype=torch.int32, device=dev)
     parent = depth = None
-    if want_depth:
+    if want_depth or want_parent:
         parent = torch.empty((ni,), dtype=torch.int32, device=dev)
+    if want_depth:
         depth = torch.empty((ni,), dtype=torch.int32, device=dev)
     lib = load_library()
     _raise_on(lib.tpurt_topology_launch(
@@ -219,7 +226,8 @@ def _topology_launch(d: torch.Tensor, want_depth: bool, d_max: int):
         last.data_ptr(), None if parent is None else parent.data_ptr(),
         None if depth is None else depth.data_ptr(), int(d_max) - 1,
         _stream(dev)), "tpurt_topology_launch")
-    return (child, first, last) + ((depth,) if want_depth else ())
+    return ((child, first, last) + ((depth,) if want_depth else ())
+            + ((root, parent) if want_parent else ()))
 
 
 def topology_cuda(d: torch.Tensor, d_max: int = D_MAX):
@@ -284,6 +292,67 @@ def topology(d: torch.Tensor, want_depth: bool = False,
     else:
         fn = _pick(d.device, topology_cuda, topology_reference)
     return fn(d.to(torch.int32).contiguous(), int(d_max))
+
+
+# ---------------------------------------------------------------------------
+# Topology and node boxes in one call
+# ---------------------------------------------------------------------------
+
+def topology_and_boxes_reference(d: torch.Tensor, leaf_min: torch.Tensor,
+                                 leaf_max: torch.Tensor):
+    """Plain version of ``topology_and_boxes``: ``topology_reference``,
+    then every node's child boxes from the range table of the leaf boxes
+    (``lbvh._assemble_node_boxes``)."""
+    from ..bvh.lbvh import _assemble_node_boxes
+    child, first, last = topology_reference(d)
+    nodes_box, root_min, root_max = _assemble_node_boxes(
+        leaf_min, leaf_max, child, first, last)
+    return child, first, last, nodes_box, root_min, root_max
+
+
+def topology_and_boxes_cuda(d: torch.Tensor, leaf_min: torch.Tensor,
+                            leaf_max: torch.Tensor):
+    """The kernel of ``topology_and_boxes_reference``: ``topology_cuda``'s
+    launches, whose placement also writes every node's parent, then one
+    bottom-up box launch (``csrc/build.cu`` ``node_boxes_kernel``): a
+    thread per leaf climbs the parent pointers, and at each node the
+    second child to arrive (an arrival counter per node) writes the
+    node's union into its parent's record."""
+    from ._build import load_library
+    _need_cuda(d)
+    ni = d.shape[0]
+    dev = d.device
+    _check(leaf_min, "leaf_min", torch.float32, (ni + 1, 3), dev)
+    _check(leaf_max, "leaf_max", torch.float32, (ni + 1, 3), dev)
+    child, first, last, root, parent = _topology_launch(d, False, D_MAX,
+                                                        want_parent=True)
+    arrive = torch.zeros((ni,), dtype=torch.int32, device=dev)
+    nodes_box = torch.empty((ni, 12), dtype=torch.float32, device=dev)
+    root_box = torch.empty((6,), dtype=torch.float32, device=dev)
+    lib = load_library()
+    _raise_on(lib.tpurt_node_boxes_launch(
+        d.data_ptr(), ni, root.data_ptr(), child.data_ptr(),
+        parent.data_ptr(), leaf_min.data_ptr(), leaf_max.data_ptr(),
+        arrive.data_ptr(), nodes_box.data_ptr(), root_box.data_ptr(),
+        _stream(dev)), "tpurt_node_boxes_launch")
+    topology_and_boxes_cuda.launches += 1
+    return child, first, last, nodes_box, root_box[:3], root_box[3:]
+
+
+def topology_and_boxes(d: torch.Tensor, leaf_min: torch.Tensor,
+                       leaf_max: torch.Tensor):
+    """Karras topology and node boxes in one call (``tpurt``'s
+    ``topology_and_boxes_pallas``): adjacent deltas i32[ni] and leaf boxes
+    f32[ni + 1, 3] -> (child i32[ni, 2], first, last, nodes_box f32[ni,
+    12] as [Lmin, Lmax, Rmin, Rmax], root_min, root_max) with the root as
+    node 0. A union is a min and a max, so the boxes equal ``tpurt``'s bit
+    for bit. ``build_lbvh`` keeps ``topology`` and the range table, as
+    ``tpurt``'s build does."""
+    fn = _pick(d.device, topology_and_boxes_cuda,
+               topology_and_boxes_reference)
+    return fn(d.to(torch.int32).contiguous(),
+              leaf_min.to(torch.float32).contiguous(),
+              leaf_max.to(torch.float32).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +614,6 @@ def collapse_area(child: torch.Tensor, area: torch.Tensor, nw_pad: int):
 
 BUILD_KERNELS = (morton_codes_cuda, topology_cuda, collapse_area_cuda,
                  morton_codes60_cuda, topology_depth_cuda,
-                 sweep_sah_priorities_cuda)
+                 sweep_sah_priorities_cuda, topology_and_boxes_cuda)
 for _fn in BUILD_KERNELS:
     _fn.launches = 0

@@ -7,6 +7,9 @@
 //                     renumbered as _renumber (:249); with want_depth
 //                     (with_depth=True, the sweep :190-213) also every
 //                     node's depth
+//   topology and   <- topology_and_boxes_pallas (:288) -> _topology_call
+//   node boxes        (:215) -> _build_kernel (:60, with_boxes=True): the
+//                     topology's launches, then node_boxes_kernel
 //   area collapse  <- collapse_area_pallas (:742) -> _collapse_area_kernel
 //                     (:648)
 //   sweep-SAH      <- sweep_sah_priorities (:582) -> _sweep_sah_kernel
@@ -36,7 +39,12 @@
 //   a node to its children; top_sah's steered priorities D' reach D_MAX -
 //   1 + maxd, and the wrapper passes that bound), so a thread makes at
 //   most 95 (116 steered) dependent loads of a 100 KB array that stays in
-//   L2.
+//   L2. The node boxes: the TPU kernel unions a node's child boxes when it
+//   pops in the serial sweep. Here a thread per leaf climbs the parent
+//   pointers and the second child to arrive at a node (an atomic counter
+//   per node) carries the union up: bound by the latency of the climb
+//   (at most 95 levels) and one atomic per node; the bytes are about
+//   1.6 MB for 25,640 gaps.
 // - Area collapse: the TPU kernel is a serial BFS whose wide ids are queue
 //   positions. BFS order is level order with children numbered by
 //   (parent position, slot), so one block walks the levels: one thread per
@@ -251,6 +259,82 @@ extern "C" int tpurt_topology_launch(const int* d, int ni, int levels,
     depth_kernel<<<blocks, threads, 0, stream>>>(parent, ni, max_depth,
                                                  depth);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Node boxes, bottom up (topology_and_boxes)
+// ---------------------------------------------------------------------------
+
+// One thread per leaf l in [0, ni]: write the leaf's box into its parent's
+// record (side 0: lanes 0-5 [Lmin, Lmax], side 1: lanes 6-11 [Rmin,
+// Rmax]), fence, and count the arrival at the parent; the first of the
+// parent's two children to arrive stops, the second reads the other
+// half (through L2: the other thread's write is not in this SM's L1),
+// forms the union min(L, R), max(L, R) and climbs one level. Each node's
+// union is written once, by the thread of its last child to arrive; the
+// root's union is the root box. A union is a min and a max, so the
+// result equals the TPU kernel's serial finalize order bit for bit.
+__global__ void node_boxes_kernel(const int* __restrict__ d, int ni,
+                                  const int* __restrict__ root_ptr,
+                                  const int* __restrict__ child,
+                                  const int* __restrict__ parent,
+                                  const float* __restrict__ leaf_min,
+                                  const float* __restrict__ leaf_max,
+                                  int* arrive, float* nbox,
+                                  float* root_box) {
+  int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l > ni) return;
+  int root = *root_ptr;
+  int n = ni + 1;
+  int lp = l == 0 ? 0 : (l == n - 1 ? ni - 1 : (d[l - 1] > d[l] ? l - 1 : l));
+  int side = l <= lp ? 0 : 1;
+  int x = renum(lp, root);
+  float lo[3], hi[3];
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = leaf_min[3 * l + a];
+    hi[a] = leaf_max[3 * l + a];
+  }
+  while (true) {
+    float* rec = nbox + 12 * static_cast<long long>(x);
+    for (int a = 0; a < 3; ++a) {
+      rec[6 * side + a] = lo[a];
+      rec[6 * side + 3 + a] = hi[a];
+    }
+    __threadfence();
+    if (atomicAdd(arrive + x, 1) == 0) return;
+    __threadfence();
+    const float* other = rec + 6 * (1 - side);
+    for (int a = 0; a < 3; ++a) {
+      float olo = __ldcg(other + a), ohi = __ldcg(other + 3 + a);
+      lo[a] = side == 0 ? fminf(lo[a], olo) : fminf(olo, lo[a]);
+      hi[a] = side == 0 ? fmaxf(hi[a], ohi) : fmaxf(ohi, hi[a]);
+    }
+    int p = parent[x];
+    if (p < 0) {
+      for (int a = 0; a < 3; ++a) {
+        root_box[a] = lo[a];
+        root_box[3 + a] = hi[a];
+      }
+      return;
+    }
+    side = child[2 * p] == x ? 0 : 1;
+    x = p;
+  }
+}
+
+// After tpurt_topology_launch with a parent array: arrive i32[ni] zeroed,
+// nbox f32[ni, 12], root_box f32[6] (min, max).
+extern "C" int tpurt_node_boxes_launch(const int* d, int ni, const int* root,
+                                       const int* child, const int* parent,
+                                       const float* leaf_min,
+                                       const float* leaf_max, int* arrive,
+                                       float* nbox, float* root_box,
+                                       cudaStream_t stream) {
+  const int threads = 256;
+  node_boxes_kernel<<<(ni + 1 + threads - 1) / threads, threads, 0,
+                      stream>>>(d, ni, root, child, parent, leaf_min,
+                                leaf_max, arrive, nbox, root_box);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,6 @@
 // The tile rasterizers (counterparts of tpurt/kernels/raster.py
+// rasterize_tiles (:576) -> _raster_kernel (:77), the v1 rasterizer over
+// (triangle, tile) pairs of 16-float records, raster_tiles_kernel below;
 // rasterize_rows (:504) -> _raster_kernel32 (:217), records read as
 // _eval_records32 (:165) reads them, epilogue :289-313; and of
 // rasterize_rows16 (:436) -> _raster_kernel16 (:360), the deferred
@@ -238,6 +240,102 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// x clamped to [0, hi].
+__device__ __forceinline__ long long clamp_ll(int x, long long hi) {
+  long long v = x < 0 ? 0LL : static_cast<long long>(x);
+  return v < hi ? v : hi;
+}
+
+// Records [rec_lo, rec_hi) of src, 16 floats each, eight to a row (the v1
+// binning), through the two shared buffers: the rows that hold them are
+// staged whole, and a record outside the range (a run may start or end
+// inside a row) is skipped.
+__device__ __forceinline__ void stream_records(
+    const float* __restrict__ src, long long rec_lo, long long rec_hi,
+    float* buf, const float (&sx)[PIX], const float (&sy)[PIX],
+    Pixel (&px)[PIX]) {
+  constexpr int RPR = Layout<16>::RECS_PER_ROW;
+  if (rec_hi <= rec_lo) return;
+  const long long row_lo = rec_lo / RPR;
+  const int n = static_cast<int>((rec_hi + RPR - 1) / RPR - row_lo);
+  int nchunks = (n + CHUNK - 1) / CHUNK;
+  stage(buf, src, row_lo, min(CHUNK, n));
+  for (int ci = 0; ci < nchunks; ++ci) {
+    const float* cur = buf + (ci & 1) * CHUNK * ROW;
+    if (ci + 1 < nchunks) {
+      int next = (ci + 1) * CHUNK;
+      stage(buf + ((ci + 1) & 1) * CHUNK * ROW, src, row_lo + next,
+            min(CHUNK, n - next));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int rows = min(CHUNK, n - ci * CHUNK);
+    for (int r = 0; r < rows; ++r) {
+      const long long base = (row_lo + ci * CHUNK + r) * RPR;
+#pragma unroll
+      for (int q = 0; q < RPR; ++q) {
+        if (base + q < rec_lo || base + q >= rec_hi) continue;
+        eval_record<16>(cur + r * ROW + q * 16, sx, sy, px);
+      }
+    }
+    __syncthreads();  // the buffer is free for the chunk after next
+  }
+}
+
+// The v1 rasterizer (tpurt/kernels/raster.py rasterize_tiles :576 ->
+// _raster_kernel :77, records read as _eval_records :46): one block per
+// tile, pixel coordinates the integers tx*32 + x, ty*32 + y; the big
+// list's records [0, big_count) with no cull, then the tile's records
+// [start, start + count); writes tri_id and [u, v, 1/w].
+__global__ void __launch_bounds__(THREADS)
+    raster_tiles_kernel(const float* __restrict__ pair_rows,
+                        long long cap_recs, const int* __restrict__ starts,
+                        const int* __restrict__ counts,
+                        const float* __restrict__ big_rows,
+                        long long big_cap_recs,
+                        const int* __restrict__ big_count, int wt, int width,
+                        int height, int* __restrict__ tri,
+                        float* __restrict__ attrs) {
+  __shared__ __align__(16) float buf[2 * CHUNK * ROW];
+  const int tile = blockIdx.x;
+  const int tx = tile % wt;
+  const int ty = tile / wt;
+  const int col = threadIdx.x % TILE;
+  const int row0 = threadIdx.x / TILE;  // rows row0 + 8k
+  float sx[PIX], sy[PIX];
+  Pixel px[PIX];
+#pragma unroll
+  for (int k = 0; k < PIX; ++k) {
+    sx[k] = static_cast<float>(tx * TILE + col);
+    sy[k] = static_cast<float>(ty * TILE + row0 + 8 * k);
+    px[k] = Pixel{0.0f, 0.0f, 0.0f, 1.0f, -1, 0.0f, 0.0f, 0.0f,
+                  0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  }
+  long long nbig = clamp_ll(*big_count, big_cap_recs);
+  stream_records(big_rows, 0, nbig, buf, sx, sy, px);
+  long long start = clamp_ll(starts[tile], cap_recs);
+  long long count = clamp_ll(counts[tile], cap_recs - start);
+  stream_records(pair_rows, start, start + count, buf, sx, sy, px);
+
+  const long long plane = static_cast<long long>(width) * height;
+#pragma unroll
+  for (int k = 0; k < PIX; ++k) {
+    int x = tx * TILE + col;
+    int y = ty * TILE + row0 + 8 * k;
+    if (x >= width || y >= height) continue;
+    const Pixel& p = px[k];
+    bool hit = p.tri >= 0;
+    float safe = fabsf(p.dsum) > 1e-30f ? p.dsum : 1.0f;
+    long long idx = static_cast<long long>(y) * width + x;
+    tri[idx] = p.tri;
+    attrs[idx] = hit ? p.d1 / safe : 0.0f;
+    attrs[plane + idx] = hit ? p.d2 / safe : 0.0f;
+    attrs[2 * plane + idx] = hit ? p.best : 0.0f;
+  }
+}
+
 template <int REC>
 int launch(const float* pair_rows, int cap_rows, const int* row_starts,
            const int* row_counts, const float* big_rows, int big_cap_rows,
@@ -276,4 +374,19 @@ extern "C" int tpurt_raster_rows16_launch(
   return launch<16>(pair_rows, cap_rows, row_starts, row_counts, big_rows,
                     big_cap_rows, big_nrows, wt, ntiles, width, height,
                     half_w, inv_w, half_h, inv_h, tri, attrs, stream);
+}
+
+// The v1 rasterizer: pair_rows f32[cap_rows, 128] and big_rows
+// f32[big_cap_rows, 128] of 16-float records; attrs f32[3, H, W].
+extern "C" int tpurt_raster_tiles_launch(
+    const float* pair_rows, int cap_rows, const int* starts,
+    const int* counts, const float* big_rows, int big_cap_rows,
+    const int* big_count, int wt, int ntiles, int width, int height,
+    int* tri, float* attrs, cudaStream_t stream) {
+  if (ntiles > 0) {
+    raster_tiles_kernel<<<ntiles, THREADS, 0, stream>>>(
+        pair_rows, 8LL * cap_rows, starts, counts, big_rows,
+        8LL * big_cap_rows, big_count, wt, width, height, tri, attrs);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
 """The tile rasterizers (counterparts of ``tpurt/kernels/raster.py``
-``rasterize_rows`` -> ``_raster_kernel32``, and ``rasterize_rows16`` ->
-``_raster_kernel16``, the deferred G-buffer's z-only variant).
+``rasterize_rows`` -> ``_raster_kernel32``, ``rasterize_rows16`` ->
+``_raster_kernel16``, the deferred G-buffer's z-only variant, and
+``rasterize_tiles`` -> ``_raster_kernel``, the v1 rasterizer over
+``bin_triangles``' (triangle, tile) pairs).
 
 For each pixel of each 32x32 tile, stream the binned 32-float records
 (``raster/setup.py``) in this order: the big list, each record culled by
@@ -14,6 +16,14 @@ and zeros. The z-only variant reads 16-float records (``bin_rows(...,
 fmt="z16")``: eight to a row, 11 lanes tested, the cull on lanes 12-15),
 keeps (1/w, d1, d2, d-sum, id) and writes id, u, v and 1/w.
 
+The v1 rasterizer reads ``bin_triangles``' 16-float records, eight to a
+row, at the integer pixel coordinates ``tx*32 + x``, ``ty*32 + y``: the
+big list's records [0, big_count) with no cull, then the tile's records
+[start, start + count), a run that may start inside a row. It keeps and
+writes what the z-only variant does. The record test it shares with the
+other two also asks for a live id, which ``tpurt``'s v1 kernel does not;
+every record in those two ranges has one, so the results are the same.
+
 Three pieces each, as in ``kernels/traverse.py``:
 
 - ``rasterize_rows_cuda``, ``rasterize_rows16_cuda``: the hand-written
@@ -24,7 +34,8 @@ Three pieces each, as in ``kernels/traverse.py``:
   function in plain PyTorch, vectorised over tiles, in the kernel's order
   and arithmetic. The wrapper takes it only for CPU tensors.
 - ``rasterize_rows``, ``rasterize_rows16``: the wrappers the G-buffers
-  call.
+  call; ``rasterize_tiles`` (with ``rasterize_tiles_cuda`` and
+  ``rasterize_tiles_reference``), the v1 rasterizer's own entry point.
 
 Outputs, ``tpurt``'s contract: tri_id i32[H, W] and attrs f32[12, H, W],
 channels [u, v, 1/w, nx, ny, nz, gnx, gny, gnz, ar, ag, ab]; the z-only
@@ -40,7 +51,8 @@ import ctypes
 
 import torch
 
-from ..raster.setup import REC16, REC32, TILE, RasterRows, pixel_constants
+from ..raster.setup import (REC, REC16, REC32, TILE, RasterBins,
+                             RasterRows, pixel_constants)
 from ._build import _check, _pick
 
 N_ATTR = 12
@@ -226,6 +238,55 @@ def rasterize_rows16_reference(bins: RasterRows, width: int, height: int,
     return tri, ch[0], ch[1], ch[2]
 
 
+def _check_tile_bins(bins: RasterBins, width: int, height: int,
+                     device) -> None:
+    _, _, ntiles = _tiles(width, height)
+    _check(bins.pair_rows, "pair_rows", torch.float32,
+           (bins.pair_rows.shape[0], 128), device)
+    _check(bins.starts, "starts", torch.int32, (ntiles,), device)
+    _check(bins.counts, "counts", torch.int32, (ntiles,), device)
+    _check(bins.big_rows, "big_rows", torch.float32,
+           (bins.big_rows.shape[0], 128), device)
+    _check(bins.big_count, "big_count", torch.int32, (), device)
+
+
+def rasterize_tiles_reference(bins: RasterBins, width: int, height: int,
+                              stats=None):
+    """Plain version of ``_raster_kernel`` (v1): each pixel sees the big
+    list's records in order, then its tile's run, in the kernel's
+    arithmetic, vectorised over tiles as ``_rasterize_reference`` is.
+    Reads ``big_count`` and the run lengths on the host. Returns (tri_id
+    i32[H, W], u, v, 1/w f32[H, W]); ``stats``: see ``_State``."""
+    dev = bins.pair_rows.device
+    wt, _, ntiles = _tiles(width, height)
+    counts = bins.counts.long()
+    order = torch.sort(counts, descending=True, stable=True).indices
+    tile = order[:, None]
+    pix = torch.arange(PIXELS, device=dev)[None, :]
+    sx = (tile % wt * TILE + pix % TILE).to(torch.float32)
+    sy = (tile // wt * TILE + pix // TILE).to(torch.float32)
+    st = _State(ntiles, dev, stats, full=False)
+    big = bins.big_rows.reshape(-1, REC)
+    for b in range(min(int(bins.big_count), big.shape[0])):
+        st.eval_record(ntiles, big[b][None, :], sx, sy, None)
+    runs = counts[order].tolist()
+    starts = bins.starts.long()[order]
+    recs = bins.pair_rows.reshape(-1, REC)
+    n = ntiles
+    for j in range(runs[0] if runs else 0):
+        while runs[n - 1] <= j:
+            n -= 1
+        st.eval_record(n, recs[starts[:n] + j], sx, sy, None)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(ntiles, device=dev)
+    tri = _to_image(st.tri[inv], width, height).contiguous()
+    ch = _to_image(st.epilogue()[:, inv], width, height).contiguous()
+    if stats is not None:
+        for key in ("record_tests", "takes"):
+            stats[key] = int(stats.get(key, 0))
+    return tri, ch[0], ch[1], ch[2]
+
+
 # ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
@@ -280,6 +341,48 @@ def rasterize_rows16_cuda(bins: RasterRows, width: int, height: int):
     return tri, ch[0], ch[1], ch[2]
 
 
+def rasterize_tiles_cuda(bins: RasterBins, width: int, height: int):
+    """The kernel of ``rasterize_tiles_reference`` (``csrc/raster.cu``
+    ``raster_tiles_kernel``): one block per tile, the records of the big
+    list and of the tile's run staged through shared memory and masked by
+    record index."""
+    from ._build import load_library
+    dev = bins.pair_rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels need CUDA tensors, got {dev}")
+    _check_tile_bins(bins, width, height, dev)
+    for name in ("pair_rows", "big_rows"):
+        if getattr(bins, name).data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    wt, _, ntiles = _tiles(width, height)
+    tri = torch.empty((height, width), dtype=torch.int32, device=dev)
+    ch = torch.empty((N_ATTR16, height, width), dtype=torch.float32,
+                     device=dev)
+    lib = load_library()
+    err = lib.tpurt_raster_tiles_launch(
+        bins.pair_rows.data_ptr(), bins.pair_rows.shape[0],
+        bins.starts.data_ptr(), bins.counts.data_ptr(),
+        bins.big_rows.data_ptr(), bins.big_rows.shape[0],
+        bins.big_count.data_ptr(), wt, ntiles, width, height,
+        tri.data_ptr(), ch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tpurt_raster_tiles_launch failed: CUDA error "
+                           f"{err}")
+    rasterize_tiles_cuda.launches += 1
+    return tri, ch[0], ch[1], ch[2]
+
+
+def rasterize_tiles(bins: RasterBins, width: int, height: int):
+    """Rasterize ``bin_triangles``' pairs at width x height (``tpurt``'s
+    v1 ``rasterize_tiles``) -> (tri_id i32[H, W] (-1 background), u, v,
+    1/w f32[H, W] (0 on background pixels)); the kernel for CUDA tensors,
+    its plain version for CPU tensors."""
+    fn = _pick(bins.pair_rows.device, rasterize_tiles_cuda,
+               rasterize_tiles_reference)
+    return fn(bins, width, height)
+
+
 def rasterize_rows(bins: RasterRows, width: int, height: int):
     """Rasterize binned rows (``raster.setup.bin_rows``) at width x height
     -> (tri_id i32[H, W], attrs f32[12, H, W]); the kernel for CUDA
@@ -298,6 +401,7 @@ def rasterize_rows16(bins: RasterRows, width: int, height: int):
     return fn(bins, width, height)
 
 
-RASTER_KERNELS = (rasterize_rows_cuda, rasterize_rows16_cuda)
+RASTER_KERNELS = (rasterize_rows_cuda, rasterize_rows16_cuda,
+                  rasterize_tiles_cuda)
 for _fn in RASTER_KERNELS:
     _fn.launches = 0

@@ -50,6 +50,12 @@ transposed, leaf_size 8 or 16) the w8t walks:
   closest hit and its attribute channels from the transposed attribute
   rows (``textured`` as above; untextured, the layer channel is -1).
 
+``trace_any`` and ``trace_closest`` take ``tpurt``'s ``variant=``: the
+retired variants it selects (the unbatched and dual-pop 8-wide walks, the
+packet-frustum binary walks) compute the functions of the modes above and
+launch them (ROADMAP decision 23). The per-packet stats walk
+(``trace_any_pallas_stats``) is ``_variants.trace_any_stats``.
+
 The first five (both variants), ``trace_closest_attrs`` and
 ``trace_closest``'s two walks are modes of one CUDA kernel template
 (``csrc/fused_shadows.cu``), the three shadow-ray kernels modes of another
@@ -2120,7 +2126,8 @@ def trace_closest_attrs_t(bvh: WideBVHT, origins, dirs, attr_tables,
 def trace_closest(bvh, origins, dirs, t_max=_BIG,
                   t_min: float = 0.0, return_sorted: bool = False,
                   gather_tri_id: bool = True,
-                  stack_size: int = STACK_CAPACITY, seeded: bool = False):
+                  stack_size: int = STACK_CAPACITY, seeded: bool = False,
+                  variant: str = "lanes"):
     """Closest hit (ONE kernel launch), ``tpurt``'s
     ``trace_closest_pallas``: over a WideBVH the plain closest hit (mode
     NEAREST), over a WideBVHT the w8t closest hit (W8T_CLOSEST), over an
@@ -2132,19 +2139,28 @@ def trace_closest(bvh, origins, dirs, t_max=_BIG,
     ``return_sorted``) leaves tri_id to the table's id lane: (t, None,
     sidx, walk counts).
 
-    ``seeded=True`` (a WideBVH only; two launches) is ``tpurt``'s seeded
-    G-buffer: the first-hit walk (FIRST_HIT) gives each ray an upper bound
-    on its closest hit, loosened into its t_max (``seed_cap``), and the
-    closest hit (NEAREST) starts from those caps. t and the triangle are
-    the unseeded walk's; the sorted index may name another SBVH reference
-    of the same triangle (ROADMAP decision 20). The walk counts sum both
-    launches'. A WideBVHT ignores ``seeded``, as ``tpurt`` takes its
-    branch first."""
+    ``seeded=True`` (a WideBVH with ``variant="lanes"``; two launches)
+    is ``tpurt``'s seeded G-buffer: the first-hit walk (FIRST_HIT) gives
+    each ray an upper bound on its closest hit, loosened into its t_max
+    (``seed_cap``), and the closest hit (NEAREST) starts from those caps.
+    t and the triangle are the unseeded walk's; the sorted index may name
+    another SBVH reference of the same triangle (ROADMAP decision 20). The
+    walk counts sum both launches'.
+
+    ``variant`` follows ``tpurt``'s dispatch, and like ``tpurt`` the
+    string is not validated. A WideBVHT ignores it (and ``seeded``), as
+    ``tpurt`` takes that branch first. On a WideBVH "lanes" is the
+    batched walk, the only branch that reads ``seeded``; any other value
+    is ``tpurt``'s unbatched walk (``_closest_hit_kernel_w8``), which
+    computes NEAREST's function, so it launches NEAREST and ignores
+    ``seeded``. On a binary tree ``seeded`` is ignored; "frustum" is
+    ``tpurt``'s packet-frustum walk (``_closest_hit_kernel_v2``), whose
+    culling only schedules the TPU's packet, so it launches BIN_CLOSEST
+    as every other value does (ROADMAP decision 23)."""
     if not (gather_tri_id or return_sorted):
         raise ValueError("gather_tri_id=False requires return_sorted")
-    if seeded and is_binary(bvh):
-        raise ValueError("the seeded closest hit walks the 8-wide accel "
-                         "alone")
+    if is_binary(bvh) or variant != "lanes":
+        seeded = False
     if is_binary(bvh):
         bvh = as_packed(bvh)
         fn = _pick(origins.device, binary_closest_cuda,
@@ -2178,12 +2194,23 @@ def trace_closest(bvh, origins, dirs, t_max=_BIG,
 
 
 def trace_any(bvh, origins, dirs, t_max, t_min: float = 0.0,
-              stack_size: int = STACK_CAPACITY):
+              stack_size: int = STACK_CAPACITY, variant: str = "lanes"):
     """Occlusion query (ONE kernel launch; mode ANY over a WideBVH,
     W8T_ANY over a WideBVHT, BIN_ANY over an LBVH or a PackedBVH): True
     where something lies in (t_min, t_max); rays with t_max <= t_min are
     inactive and return False. origins/dirs (H, W, 3) or (N, 3). Returns
-    (occluded bool[H, W] or [N], walk counts i32[2])."""
+    (occluded bool[H, W] or [N], walk counts i32[2]).
+
+    ``variant`` follows ``tpurt``'s ``trace_any_pallas`` dispatch, and
+    like ``tpurt`` the string is not validated: a WideBVHT ignores it; on
+    a WideBVH "lanes" is the batched walk, any other value the unbatched
+    one (``_any_hit_kernel_w8``, or with "x2" the dual-pop
+    ``_any_hit_kernel_w8_x2``); on a binary tree "frustum" is the
+    packet-frustum walk (``_any_hit_kernel_v2``), any other value the
+    plain one. The unbatched, dual-pop and frustum walks compute the
+    occlusion of the per-ray walk (the second pop and the frustum only
+    schedule the TPU's packet), so each launches ANY or BIN_ANY (ROADMAP
+    decision 23)."""
     if is_binary(bvh):
         fn = _pick(origins.device, binary_any_cuda, binary_any_reference)
         inputs_fn = binary_any_inputs

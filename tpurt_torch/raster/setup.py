@@ -1,6 +1,7 @@
 """Rasterizer front end: vertex transform, triangle setup, tile binning
-(counterpart of ``tpurt/raster/setup.py``: its v2 "full" and v3 "z16"
-formats).
+(counterpart of ``tpurt/raster/setup.py``: its v1 (triangle, tile) pairs,
+``bin_triangles``, and its v2 "full" and v3 "z16" row formats,
+``bin_rows``).
 
 The reference program rasterizes its G-buffer and ray-traces only the
 shadows. ``tpurt`` rasterizes in 2D-homogeneous clip coordinates
@@ -22,8 +23,14 @@ per-pixel z-fight is the kernel's (``kernels/raster.py``). The sorts are
 stable, as ``jnp.argsort``: the order of a tile's records decides ties of
 the z-fight, where the first record keeps the pixel. The float constants
 are computed on the host and rounded once to float32, as JAX's weakly
-typed Python scalars are. The v1 binner (``bin_triangles``) and the
-``tile_rows`` band of the sharded raster are not ported.
+typed Python scalars are. The ``tile_rows`` band of the sharded raster is
+not ported.
+
+The v1 binner (``bin_triangles``, the input of ``rasterize_tiles``) emits
+one (triangle, tile) pair per tile a triangle's screen rect spans, with
+16-float records over uncentred pixel coordinates, and sends triangles
+that span more than ``BIG_SPAN`` tiles or cross the eye plane to a big
+list that every tile tests.
 """
 
 from __future__ import annotations
@@ -38,6 +45,9 @@ from ..types import Camera, Mesh
 
 TILE = 32           # pixels per tile side
 W_EPS = 1e-6        # clip-w threshold for "crosses the eye plane"
+REC = 16            # floats per v1 record (bin_triangles)
+RECS_PER_ROW = 8    # v1 records per 128-float row
+BIG_SPAN = 64       # tiles; v1 triangles spanning more go to the big list
 REC32 = 32          # floats per record
 RECS32_PER_ROW = 4  # records per 128-float row
 REC16 = 16          # floats per z-only record (fmt="z16")
@@ -63,6 +73,26 @@ class RasterRows(NamedTuple):
     row_counts: torch.Tensor
     big_rows: torch.Tensor
     big_nrows: torch.Tensor
+    overflow: torch.Tensor
+
+
+class RasterBins(NamedTuple):
+    """The v1 binning (``bin_triangles``; static shapes, tensors on one
+    device).
+
+    pair_rows  : f32[CAP/8, 128] 16-float records in sorted pair order
+    starts     : i32[ntiles] first pair (record) index of each tile
+    counts     : i32[ntiles] pairs per tile
+    big_rows   : f32[BIGCAP/8, 128] big-list records
+    big_count  : i32[] valid big records
+    overflow   : bool[] pair or big capacity exceeded
+    """
+
+    pair_rows: torch.Tensor
+    starts: torch.Tensor
+    counts: torch.Tensor
+    big_rows: torch.Tensor
+    big_count: torch.Tensor
     overflow: torch.Tensor
 
 
@@ -93,18 +123,27 @@ def _projection(cam: Camera, width: int, height: int):
 
 
 def clip_transform(cam: Camera, width: int, height: int,
-                   vertices: torch.Tensor) -> torch.Tensor:
+                   vertices: torch.Tensor,
+                   contract: bool = False) -> torch.Tensor:
     """World vertices f32[V, 3] -> 2DH clip coords (x, y, w): (x/w, y/w)
     are screen coordinates in pixels with integers at pixel centres (the
     grid ``camera.generate_rays`` shoots through), w the camera-space depth
     along the forward axis. The camera basis is computed on the host (the
     same float32 operations) and enters as scalars: no copy to the
-    device, no host sync."""
+    device, no host sync. ``contract`` rounds each dot product as XLA's
+    CPU compiler contracts it, fma(q2, b2, fma(q1, b1, q0 b0)) (the v1
+    binner's pixel-scale records, ROADMAP decision 24)."""
     right, up, forward = (b.tolist() for b in camera_basis(cam, "cpu"))
     pos = as_f32(cam.position, "cpu").tolist()
     q = [vertices[:, i] - pos[i] for i in range(3)]
 
     def dot(b):
+        if contract:
+            from ..kernels.build import fma32
+            acc = q[0] * b[0]
+            for i in (1, 2):
+                acc = fma32(q[i], torch.full_like(acc, b[i]), acc)
+            return acc
         return q[0] * b[0] + q[1] * b[1] + q[2] * b[2]
     sx, ox, sy, oy = _projection(cam, width, height)
     z = dot(forward)
@@ -328,6 +367,133 @@ def bin_rows(cam: Camera, mesh: Mesh, width: int, height: int,
                       row_counts=(t_ends - t_starts).to(i32),
                       big_rows=big_rows, big_nrows=big_nrows.to(i32),
                       overflow=overflow)
+
+
+def _setup_records(clip: torch.Tensor, tri: torch.Tensor,
+                   tri_ids: torch.Tensor) -> torch.Tensor:
+    """v1 setup record f32[T, 16]: [E0(3), E1(3), E2(3), Dinv, tri_id,
+    0...], the edges cross products of the clip-space (x, y, w) corners
+    (d_i(p) = E_i . (sx, sy, 1) over pixel coordinates), Dinv = 1/det(c0,
+    c1, c2) (0 where |det| <= 1e-30), so 1/w(p) = (d0 + d1 + d2) Dinv.
+
+    Over pixel-scale coordinates the cross products cancel, so each
+    component is rounded as XLA's CPU compiler contracts ``jnp.cross``:
+    fma(a_i, b_j, -(a_j b_i)) (ROADMAP decision 24); the determinant is
+    summed without FMA, as there."""
+    from ..kernels.build import fma32
+    tl = tri.long()
+    c0, c1, c2 = clip[tl[:, 0]], clip[tl[:, 1]], clip[tl[:, 2]]
+
+    def cross(a, b):
+        return torch.stack([fma32(a[:, i], b[:, j], -(a[:, j] * b[:, i]))
+                            for i, j in ((1, 2), (2, 0), (0, 1))], dim=1)
+    e0 = cross(c1, c2)
+    e1 = cross(c2, c0)
+    e2 = cross(c0, c1)
+    p = e0 * c0
+    d = p[:, 0] + p[:, 1] + p[:, 2]
+    dinv = torch.where(d.abs() > 1e-30, 1.0 / d, 0.0)
+    zero = torch.zeros((tri.shape[0], 5), dtype=torch.float32,
+                       device=clip.device)
+    return torch.cat([e0, e1, e2, dinv[:, None],
+                      tri_ids.to(torch.float32)[:, None], zero], dim=1)
+
+
+def _pack_rows(rec: torch.Tensor) -> torch.Tensor:
+    """f32[N, 16] -> f32[ceil(N/8), 128] (8 records a row, zero-padded as
+    ``tpurt`` pads)."""
+    n = rec.shape[0]
+    npad = -(-n // RECS_PER_ROW) * RECS_PER_ROW
+    if npad != n:
+        rec = torch.cat([rec, rec.new_zeros((npad - n, REC))])
+    return rec.reshape(npad // RECS_PER_ROW, 128)
+
+
+def bin_triangles(cam: Camera, mesh: Mesh, width: int, height: int,
+                  cap_pairs: int, cap_big: int = 4096) -> RasterBins:
+    """Bin every triangle into 32x32-pixel tiles (``tpurt``'s v1
+    ``bin_triangles``; static shapes, no host sync). ``mesh`` holds
+    tensors on the device the binning runs on. A triangle whose every
+    corner lies in front of the eye (w > W_EPS), on screen, spanning at
+    most ``BIG_SPAN`` tiles and not degenerate makes one pair per tile of
+    its rect; one that crosses the eye plane or spans more goes to the big
+    list (not when degenerate or wholly behind). Pairs past ``cap_pairs``
+    are dropped and set ``overflow``, as more than ``cap_big`` big
+    triangles do. The pairs are sorted by tile with a stable sort, so a
+    tile's records keep triangle order; dead big slots carry id -1."""
+    dev = mesh.vertices.device
+    i32, i64 = torch.int32, torch.int64
+    wt = -(-width // TILE)
+    ht = -(-height // TILE)
+    ntiles = wt * ht
+    tri = mesh.indices.long()
+    t_count = tri.shape[0]
+    clip = clip_transform(cam, width, height, mesh.vertices, contract=True)
+    ids = torch.arange(t_count, device=dev)
+    rec = _setup_records(clip, tri, ids)
+
+    # Screen rect per triangle (valid only when every w > eps).
+    c = clip[tri]                                      # [T, 3, 3]
+    w_ok = torch.all(c[:, :, 2] > W_EPS, dim=1)
+    sxy = c[:, :, 0:2] / torch.clamp(c[:, :, 2:3], min=W_EPS)
+    mn = sxy.amin(dim=1) - 0.5
+    mx = sxy.amax(dim=1) + 0.5
+
+    def tile_of(x, n):
+        return torch.clamp(torch.floor(x / TILE), 0, n - 1).to(i64)
+    tx0, ty0 = tile_of(mn[:, 0], wt), tile_of(mn[:, 1], ht)
+    tx1, ty1 = tile_of(mx[:, 0], wt), tile_of(mx[:, 1], ht)
+    onscreen = (mx[:, 0] >= 0) & (mx[:, 1] >= 0) & \
+        (mn[:, 0] <= width - 1) & (mn[:, 1] <= height - 1)
+    degenerate = rec[:, 9].abs() == 0.0
+    all_behind = torch.all(c[:, :, 2] < W_EPS, dim=1)
+    span_x = tx1 - tx0 + 1
+    span = span_x * (ty1 - ty0 + 1)
+    small = w_ok & onscreen & (span <= BIG_SPAN) & ~degenerate
+    big = (~w_ok | (w_ok & onscreen & (span > BIG_SPAN))) & ~degenerate \
+        & ~all_behind
+
+    # Pair expansion under the static capacity: pair p belongs to the
+    # triangle whose [start, start + count) holds it.
+    counts = torch.where(small, span, 0)
+    ends = torch.cumsum(counts, 0)
+    starts = ends - counts
+    total = ends[-1]
+    p = torch.arange(cap_pairs, device=dev)
+    pair_tri = torch.clamp(torch.searchsorted(ends, p, right=True), 0,
+                           t_count - 1)
+    k = p - starts[pair_tri]
+    alive = (p < total) & (k >= 0) & (k < counts[pair_tri])
+    sx = torch.clamp(span_x[pair_tri], min=1)
+    tx = tx0[pair_tri] + k % sx
+    ty = ty0[pair_tri] + torch.div(k, sx, rounding_mode="floor")
+    tile_id = torch.where(alive, ty * wt + tx, ntiles)
+
+    tile_sorted, order = torch.sort(tile_id, stable=True)
+    pair_rows = _pack_rows(rec[pair_tri[order]])
+    tile_range = torch.arange(ntiles, device=dev)
+    t_starts = torch.searchsorted(tile_sorted, tile_range, side="left")
+    t_ends = torch.searchsorted(tile_sorted, tile_range, side="right")
+
+    # Big list: the first cap_big big triangles in order, dead slots -1.
+    big_idx = _compact(big, cap_big, 0)
+    n_big = big.to(i64).sum()
+    big_rec = rec[big_idx]
+    dead = torch.arange(cap_big, device=dev) >= n_big
+    big_rec[:, 10] = torch.where(dead, -1.0, big_rec[:, 10])
+
+    overflow = (total > cap_pairs) | (n_big > cap_big)
+    return RasterBins(pair_rows=pair_rows, starts=t_starts.to(i32),
+                      counts=(t_ends - t_starts).to(i32),
+                      big_rows=_pack_rows(big_rec),
+                      big_count=torch.clamp(n_big, max=cap_big).to(i32),
+                      overflow=overflow)
+
+
+def default_cap_pairs(num_tris: int) -> int:
+    """Static (triangle, tile)-pair capacity of ``bin_triangles``: six
+    tiles per triangle, bucketed to 2^16 pairs (``tpurt``'s formula)."""
+    return max(1 << 17, -(-6 * num_tris // (1 << 16)) * (1 << 16))
 
 
 def default_cap_rows(num_tris: int) -> int:
