@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    csrc/build.cu, the rebuild's kernels, the node boxes and the sweep,
    and csrc/raster.cu, the rasterizer in its 32- and 16-float
    instantiations and the v1 kernel; one nvcc per source, in parallel),
-   and print ptxas's register and spill report.
+   and print ptxas's register and spill report, then the penumbra
+   kernels' (psoft_kernel<0, 1, 2>, any_psoft_kernel) on one line.
 3. Every kernel against its plain PyTorch version on the card: teapot
    scene, 10k triangles, 512x512, leaf 14. closest_shadow with a
    directional and a point light; multi with directional + point +
@@ -26,6 +27,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    bit), any with directional and point rays from the G-buffer, and
    any_soft and any_point_soft from its biased origins with the real and
    the zero stream; zero-stream counts must be spp x any's occlusion.
+   Then the point-light penumbra kernels, one thread per (ray, sample):
+   PSOFT attrs 0, 1, 2 and ANY_PSOFT on the teapot at 128x128 (128 blocks
+   of 128 rays) at spp 3, 8, 33 and 130 with the real and the zero
+   stream, and at spp 8 with stack_size 4 and an iteration cap of 2
+   (dropped pushes and capped walks both non-zero), each equal to its
+   plain version in every output: counts, walk counters and phase-1
+   channels.
 4. Config 1's path at the bench headline's size (Sponza-class hall, 260k
    triangles, 1920x1080, leaf 14, one directional light) through
    Renderer(device="cuda"): one warm-up frame and five timed frames,
@@ -826,6 +834,128 @@ def small_unfused(r, mesh, cam, o, d, acc, sun, lpos, cone_cos,
                 res.update(time_pair(name, args, kw, 20))
             out[f"{name}/zero={zero}"] = res
             log(f"phase 3 {what}: {json.dumps(res)}")
+    return out
+
+
+# The penumbra kernels' (ray, sample) grouping: spp values that divide a
+# warp, that do not, and one above a block's 128 rays.
+PSOFT_SPPS = (3, 8, 33, 130)
+PSOFT_RES = 128
+PSOFT_KERNELS = ("closest_point_soft_shadow", "closest_point_soft_shadow_st",
+                 "closest_point_soft_shadow_tex", "any_point_soft")
+
+
+def exact_pair(name, args, kw, what) -> list:
+    """The kernel and its plain version on the same inputs, every output
+    (phase-1 channels, counts, walk counters) equal bit for bit -> the
+    kernel's outputs."""
+    kfn, pfn = kernel(name)
+    before = kfn.launches
+    kres = kfn(*args, **kw)
+    torch.cuda.synchronize()
+    if kfn.launches != before + 1:
+        raise RuntimeError(f"{name}: launch counter did not grow")
+    kfn.launches = before
+    pres = pfn(*args, **kw)
+    for i, (a, b) in enumerate(zip(kres, pres)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise RuntimeError(f"{what}: output {i} differs from the plain "
+                               f"version on {int((a != b).sum())} elements")
+    return kres
+
+
+def small_psoft_spp(dev) -> dict:
+    """PSOFT (attrs 0, 1, 2) and ANY_PSOFT, one thread per (ray, sample),
+    against their plain versions on phase 3's teapot at 128x128 (16
+    packets, 128 blocks): spp 3, 8, 33 and 130 with the real and the zero
+    stream, then stack_size 4 with an iteration cap of 2, where pushes are
+    dropped and walks capped. Every output equal."""
+    import tpurt_torch.kernels.traverse as tr
+    from tpurt_torch.app import Renderer
+    from tpurt_torch.bvh.wide import order_children_for_point
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.passes.gbuffer import gbuf_from_attr_channels
+    from tpurt_torch.scenes import default_camera_for, teapot_scene
+    from tpurt_torch.types import Light, RenderConfig
+    t0 = time.perf_counter()
+    mesh = teapot_scene(SMALL_TRIS)
+    cam = default_camera_for(mesh)
+    bmin, bmax = mesh.bounds()
+    lpos = 0.5 * (bmin + bmax) + np.float32([2.0, 6.0, 1.0])
+    r = Renderer(mesh, cam, Light.point(lpos),
+                 RenderConfig(width=PSOFT_RES, height=PSOFT_RES,
+                              leaf_size=14), device=dev)
+    acc = order_children_for_point(r.accel, cam.position)
+    o, d = generate_rays(cam, PSOFT_RES, PSOFT_RES, dev)
+    args, kw, p, meta = tr.closest_attrs_inputs(acc, o, d, r.attr_tables)
+    gbuf = gbuf_from_attr_channels(
+        tr._attr_channels(tr.closest_attrs_reference(*args, **kw)[0], p,
+                          meta), o, d, cam, mesh)
+    origins = gbuf["position"] + gbuf["gnormal"] * BIAS
+
+    def args_of(name, spp, zero, stack_size=tr.STACK_CAPACITY):
+        if name == "any_point_soft":
+            return tr.any_point_soft_inputs(
+                r.accel, origins, gbuf["valid"], lpos, 0.4, spp, 11, 1,
+                zero_stream=zero, stack_size=stack_size)[:2]
+        return inputs(name, acc, r.attr_tables, o, d, light_pos=lpos,
+                      radius=0.4, spp=spp, seed=11, zero_stream=zero,
+                      stack_size=stack_size)
+
+    out = {}
+    for spp in PSOFT_SPPS:
+        for zero in (False, True):
+            for name in PSOFT_KERNELS:
+                what = f"{PSOFT_RES}^2 {name} spp {spp} zero_stream={zero}"
+                kres = exact_pair(name, *args_of(name, spp, zero), what)
+                cnt = kres[-2]
+                if kres[-1].tolist() != [0, 0]:
+                    raise RuntimeError(f"{what}: walk counters "
+                                       f"{kres[-1].tolist()}")
+                if zero and not bool(((cnt == 0) | (cnt == spp)).all()):
+                    raise RuntimeError(f"{what}: a zero-stream count is "
+                                       f"neither 0 nor spp")
+                if not zero and not bool(((cnt > 0) & (cnt < spp)).any()):
+                    raise RuntimeError(f"{what}: no penumbra")
+                out[f"{name}/spp={spp}/zero={zero}"] = dict(
+                    occluded_samples=int(cnt.sum()),
+                    penumbra_rays=int(((cnt > 0) & (cnt < spp)).sum()))
+    for name in PSOFT_KERNELS:
+        what = f"{PSOFT_RES}^2 {name} stack_size 4, max_iters 2"
+        args, kw = args_of(name, SPP, False, stack_size=4)
+        kres = exact_pair(name, args, dict(kw, max_iters=2), what)
+        overflow, capped = kres[-1].tolist()
+        if not (overflow > 0 and capped > 0):
+            raise RuntimeError(f"{what}: counters {[overflow, capped]} are "
+                               f"not both non-zero")
+        out[f"{name}/stack_size=4"] = dict(overflow=overflow, capped=capped)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 3 penumbra grouping: {json.dumps(out)}")
+    return out
+
+
+def ptxas_report(log_text: str) -> dict:
+    """ptxas's lines per kernel entry -> {mangled name: registers, spill
+    stores and loads, stack frame bytes}."""
+    import re
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack_frame=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
     return out
 
 
@@ -3832,9 +3962,16 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "stack frame" in line
                 or "Compiling entry" in line):
             log(f"  ptxas: {line.strip()}")
+    ptxas_psoft = {k: v for k, v in ptxas_report(BuildInfo.log).items()
+                   if "psoft_kernel" in k}
+    if len(ptxas_psoft) != 4:
+        raise RuntimeError(f"ptxas reported {sorted(ptxas_psoft)}, want "
+                           f"psoft_kernel<0, 1, 2> and any_psoft_kernel")
+    log(f"phase 2 penumbra kernels (ptxas): {json.dumps(ptxas_psoft)}")
 
     t_start = time.perf_counter()
     small = phase_small(dev)
+    small["psoft_spp"] = small_psoft_spp(dev)
     small.update(small_shade_table(dev))
     small.update(small_binary(dev))
     mesh = sponza_scene(MAIN_TRIS)
@@ -3860,6 +3997,7 @@ def main() -> int:
     w8t = phase_w8t(dev, mesh, phase4, textured["mesh"])
     var = phase_variants(dev, mesh, phase4["renderer"])
     timings = {"card": card, "build_s": build_s,
+               "ptxas_psoft": ptxas_psoft,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
                "config3_1080p": c3, "config5_2160p": c5,

@@ -54,6 +54,12 @@ def _pick(device, cuda_fn, plain_fn):
     raise ValueError(f"unsupported device {device}")
 
 
+def _stream(dev) -> int:
+    """The handle of ``dev``'s current CUDA stream, for a kernel launch."""
+    import torch
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _inputs():
     """Every source and header under csrc/, in a fixed order."""
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))

@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from ..bvh.morton import morton_encode, quantize_unit, unit_coords
-from ._build import _check, _pick
+from ._build import _check, _pick, _stream
 
 EMPTY = -(2 ** 31)        # an empty wide slot (wide.EMPTY)
 WIDE_FACTOR = 8
@@ -48,10 +48,6 @@ WIDE_FACTOR = 8
 # possible value. Deltas grow strictly from a node to its children, so a
 # Karras tree's internal nodes lie at most D_MAX - 1 levels below the root.
 D_MAX = 96
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _raise_on(err: int, entry: str) -> None:

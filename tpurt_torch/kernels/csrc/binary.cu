@@ -52,25 +52,6 @@
 
 enum Mode { BIN_CLOSEST = 0, BIN_ANY = 1 };
 
-// Slab test of one box against [t_min, cap], in slab()'s order.
-__device__ __forceinline__ bool slab_box(float bx0, float by0, float bz0,
-                                         float bx1, float by1, float bz1,
-                                         const Ray& r, float t_min,
-                                         float cap) {
-  float t0 = (bx0 - r.ox) * r.ix;
-  float t1 = (bx1 - r.ox) * r.ix;
-  float lx = fminf(t0, t1), hx = fmaxf(t0, t1);
-  t0 = (by0 - r.oy) * r.iy;
-  t1 = (by1 - r.oy) * r.iy;
-  float ly = fminf(t0, t1), hy = fmaxf(t0, t1);
-  t0 = (bz0 - r.oz) * r.iz;
-  t1 = (bz1 - r.oz) * r.iz;
-  float lz = fminf(t0, t1), hz = fmaxf(t0, t1);
-  float enter = fmaxf(fmaxf(lx, ly), fmaxf(lz, t_min));
-  float exit_ = fminf(fminf(hx, hy), fminf(hz, cap));
-  return enter <= exit_;
-}
-
 // Pop-side work of one node: both boxes against ``cap``; bit 0 left hit,
 // bit 1 right hit; the child refs in ``refs``.
 __device__ __forceinline__ unsigned node_hits(const float4* __restrict__ rec,

@@ -82,16 +82,22 @@
 // seeded G-buffer's second pass sets to FIRST_HIT's loosened t). The
 // TPU's seed walk stops its 1024-ray packet once every lane has a hit;
 // here each ray stops for itself, checked every FIRST_HIT_PERIOD
-// iterations as there. Phase 2 runs every light or sample in the same
-// thread, from the same biased hit point, reusing the per-ray stack in
-// local memory; each shadow walk has its own iteration cap, and dropped pushes
-// and capped walks of all walks are summed into counts (the walks are in
-// walk.cuh). Nodes, leaves and attribute rows are read from global memory
-// through the read-only path.
-// The soft modes draw u1, u2 from Philox4x32-10 keyed by (seed, light 0)
-// and counted by (ray index in the packed block, sample), so a sample
-// never depends on the thread layout; zero_stream gives u1 = u2 = 0, the
-// stream of the JAX kernels' interpret mode.
+// iterations as there. Phase 2 of HARD, MULTI, SOFT and SOFT_MULTI runs
+// every light or sample in the same thread, from the same biased hit
+// point, reusing the per-ray stack in local memory. PSOFT (psoft_kernel)
+// runs phase 2 with one thread per (ray, sample): each thread stages its
+// ray's biased origin and hit flag in shared memory, and after a barrier
+// the block's 128 threads take the flat (ray, sample) index of its 128
+// rays (walk.cuh's disk_samples), so a ray's samples walk side by side
+// in neighbouring lanes, with child records read as 16-byte loads; the
+// counts are summed in shared memory and written once. Each shadow walk
+// has its own iteration cap, and dropped pushes and capped walks of all
+// walks are summed into counts (the walks are in walk.cuh). Nodes, leaves
+// and attribute rows are read from global memory through the read-only
+// path. The soft modes draw u1, u2 from Philox4x32-10 keyed by (seed,
+// light 0) and counted by (ray index in the packed block, sample), so a
+// sample never depends on the thread layout; zero_stream gives u1 = u2 =
+// 0, the stream of the JAX kernels' interpret mode.
 //
 // What bounds it on this card: each walk is a chain of dependent global
 // loads (pop -> node row -> slab tests -> push) with divergent trip counts
@@ -101,12 +107,15 @@
 // bytes (rays in, channels out) do not. The walk's data for a 287k-
 // triangle scene (5.8 MB of node rows, 15.3 MB of leaf rows) fits the
 // 50 MB L2; the attribute rows (another 30.7 MB) are read only when a
-// candidate wins. This first version hides latency only by occupancy and
-// does nothing about the divergence between a ray's samples. The TPU
-// kernels' 1024-ray packets with one shared stack and their "any lane hit"
-// reductions are not carried over: each ray tests only the boxes it hits
-// itself. A node cache in shared memory, warp-cooperative walks and
-// sample-major scheduling are later work.
+// candidate wins. The thread-per-ray modes hide latency only by occupancy,
+// and their sample loops (SOFT, SOFT_MULTI) make a warp of 32 rays wait,
+// every round, for its longest walk. PSOFT's samples of one ray start
+// from one origin toward one small disk, visit nearly the same nodes and
+// stop (or not) together, so in one warp they diverge little (PERF.md:
+// 1.6x faster than the thread-per-ray loop on the 1080p lamp).
+// The TPU kernels' 1024-ray packets with one shared stack and their "any
+// lane hit" reductions are not carried over: each ray tests only the
+// boxes it hits itself.
 //
 // Built with --fmad=false: every product is evaluated in the plain
 // version's order without contraction, so the two agree bit for bit on
@@ -143,18 +152,19 @@ __device__ __forceinline__ float point_ray(const float* p, bool hitm,
   return toward(hitm, p[0] - s.ox, p[1] - s.oy, p[2] - s.oz, s);
 }
 
-// Phase 2 of the fused modes: light 0's shadow, every hard light, or light
-// 0's samples (and the hard extras), from the biased hit point of ray gid.
+// Phase 2 of the fused modes but PSOFT: light 0's shadow, every hard
+// light, or light 0's samples (and the hard extras), from the biased hit
+// point of ray gid.
 template <int MODE>
 __device__ __forceinline__ void shadow_phase(const Params& P, const Ray& r,
                                              const Hit& h, int gid,
                                              int* stack, WalkCounts& wc) {
+  static_assert(MODE != PSOFT, "PSOFT runs psoft_kernel");
   const float* sc = P.scal;
   bool hitm = h.idx >= 0;
   bool hard_point = MODE == HARD && (P.point_mask & 1);
   float bias = MODE == HARD ? sc[hard_point ? 3 : 6]
-             : MODE == SOFT ? sc[16]
-             : MODE == PSOFT ? sc[4] : sc[0];
+             : MODE == SOFT ? sc[16] : sc[0];
   Ray s = biased_origin(r, h, bias);
   const float* root = MODE == HARD ? sc + 7 : MODE == SOFT ? sc + 10 : sc + 1;
 
@@ -181,7 +191,7 @@ __device__ __forceinline__ void shadow_phase(const Params& P, const Ray& r,
     P.mask_out[gid] = mask;
   } else {
     // Light 0's samples.
-    bool disk = MODE == PSOFT || (MODE == SOFT_MULTI && P.disk);
+    bool disk = MODE == SOFT_MULTI && P.disk;
     const float* l0 = MODE == SOFT_MULTI ? sc + 7 : sc;
     Disk db = {};
     if (disk) db = disk_basis(l0, l0[3], s);
@@ -247,6 +257,62 @@ __global__ void __launch_bounds__(128) fused_shadows_kernel(Params P) {
   if (wc.capped) atomicAdd(P.counts + 1, wc.capped);
 }
 
+// Mode PSOFT: phase 1 as fused_shadows_kernel (one closest walk per
+// thread, the same outputs), then the biased origin and hit flag of the
+// block's PSOFT_PIXELS rays staged in shared memory and, after a barrier,
+// their spp disk samples of light 0 with one thread per (ray, sample)
+// (walk.cuh's disk_samples). Nine blocks an SM cap it at 56 registers
+// (ptxas: 72 at attrs=0 and 64 otherwise without the cap, 32 B of spills
+// with it), which ran 1.1-1.4% faster at attrs=0 and 1 on the 1080p lamp
+// (PERF.md); ANY_PSOFT ran 0.5% slower so and keeps its 64.
+template <int ATTRS>
+__global__ void __launch_bounds__(PSOFT_PIXELS, 9) psoft_kernel(Params P) {
+  constexpr int TRACK = ATTRS == 2 ? TRACK_TEX
+                        : ATTRS ? TRACK_ATTRS : TRACK_NORMAL;
+  __shared__ float org[4 * PSOFT_PIXELS];
+  __shared__ int cnt[PSOFT_PIXELS];
+  int t = threadIdx.x;
+  int base = blockIdx.x * PSOFT_PIXELS;
+  int gid = base + t;
+  int npx = min(PSOFT_PIXELS, P.num_rays - base);
+  int stack[STACK_CAPACITY];
+  WalkCounts wc;
+  cnt[t] = 0;
+  if (t < npx) {
+    int p = gid / LANES, lane = gid % LANES;
+    const float* rb = P.rays + (size_t)p * 10 * LANES + lane;
+    Ray r;
+    r.ox = rb[0];
+    r.oy = rb[LANES];
+    r.oz = rb[2 * LANES];
+    r.dx = rb[3 * LANES];
+    r.dy = rb[4 * LANES];
+    r.dz = rb[5 * LANES];
+    r.ix = rb[6 * LANES];
+    r.iy = rb[7 * LANES];
+    r.iz = rb[8 * LANES];
+    Hit h = closest_walk<TRACK>(P.nodes, P.tris, P.at0, P.at1, P.k, r,
+                                rb[9 * LANES], P.t_min, P.max_iters,
+                                P.stack_size, stack, wc);
+    if constexpr (ATTRS)
+      write_attrs(P.out, p, lane, h);
+    else
+      write_hit(P.out, P.sidx_out, gid, h);
+    Ray s = biased_origin(r, h, P.scal[4]);
+    org[t] = s.ox;
+    org[PSOFT_PIXELS + t] = s.oy;
+    org[2 * PSOFT_PIXELS + t] = s.oz;
+    org[3 * PSOFT_PIXELS + t] = h.idx >= 0 ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  disk_samples(P, org, PSOFT_PIXELS, P.scal, 0u, 0.0f, base, npx, cnt, stack,
+               wc);
+  __syncthreads();
+  if (t < npx) P.cnt_out[gid] = cnt[t];
+  if (wc.overflow) atomicAdd(P.counts, wc.overflow);
+  if (wc.capped) atomicAdd(P.counts + 1, wc.capped);
+}
+
 extern "C" int tpurt_stack_capacity() { return STACK_CAPACITY; }
 
 extern "C" int tpurt_params_size() { return (int)sizeof(Params); }
@@ -285,7 +351,12 @@ extern "C" int tpurt_fused_shadows_launch(int mode, const Params* P,
       launch_mode<SOFT>(P, grid, block, st);
       break;
     case PSOFT:
-      launch_mode<PSOFT>(P, grid, block, st);
+      if (P->attrs == 2)
+        psoft_kernel<2><<<grid, block, 0, st>>>(*P);
+      else if (P->attrs)
+        psoft_kernel<1><<<grid, block, 0, st>>>(*P);
+      else
+        psoft_kernel<0><<<grid, block, 0, st>>>(*P);
       break;
     case SOFT_MULTI:
       launch_mode<SOFT_MULTI>(P, grid, block, st);

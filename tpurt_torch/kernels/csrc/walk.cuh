@@ -11,7 +11,8 @@
 // and the launch arguments both files take (Params). binary.cu's walks
 // over the packed binary tree reuse the leaf tests and Params.
 //
-// One thread walks one ray with its own stack in local memory. Every
+// One thread walks one ray with its own stack in local memory (the
+// point-light penumbra walks at the end: one thread per (ray, sample)). Every
 // function evaluates in the order of the plain PyTorch version
 // (tpurt_torch/kernels/traverse.py, sampling.py); with --fmad=false no
 // product is contracted, so the two agree bit for bit. Every function here
@@ -80,6 +81,27 @@ __device__ __forceinline__ unsigned child_hits(const float* __restrict__ row,
     if (__ldg(b) <= __ldg(b + 3) && slab(b, r, t_min, cap)) mask |= 1u << c;
   }
   return mask;
+}
+
+// Slab test of one box against [t_min, cap], in slab()'s order, from
+// values already loaded (binary.cu's 16-byte records, the penumbra walks'
+// child_hits4).
+__device__ __forceinline__ bool slab_box(float bx0, float by0, float bz0,
+                                         float bx1, float by1, float bz1,
+                                         const Ray& r, float t_min,
+                                         float cap) {
+  float t0 = (bx0 - r.ox) * r.ix;
+  float t1 = (bx1 - r.ox) * r.ix;
+  float lx = fminf(t0, t1), hx = fmaxf(t0, t1);
+  t0 = (by0 - r.oy) * r.iy;
+  t1 = (by1 - r.oy) * r.iy;
+  float ly = fminf(t0, t1), hy = fmaxf(t0, t1);
+  t0 = (bz0 - r.oz) * r.iz;
+  t1 = (bz1 - r.oz) * r.iz;
+  float lz = fminf(t0, t1), hz = fmaxf(t0, t1);
+  float enter = fmaxf(fmaxf(lx, ly), fmaxf(lz, t_min));
+  float exit_ = fminf(fminf(hx, hy), fminf(hz, cap));
+  return enter <= exit_;
 }
 
 struct MT {
@@ -607,3 +629,122 @@ struct Params {
   uint32_t seed;
   uint32_t light;  // the generator's second key word (the light index)
 };
+
+// ---------------------------------------------------------------------------
+// The point-light penumbra walks, PSOFT's phase 2 (fused_shadows.cu) and
+// ANY_PSOFT (shadow_rays.cu): one thread per (ray, sample).
+//
+// A block of PSOFT_PIXELS threads owns PSOFT_PIXELS consecutive rays of the
+// packed block. Its threads loop over the flat index q = t, t +
+// PSOFT_PIXELS, ... below (rays) x spp and take ray q / spp, sample q % spp,
+// so the spp samples of one ray lie in neighbouring lanes: at spp 8 a warp
+// walks 4 rays x 8 samples, and a lit ray's walks (each to the end) run
+// side by side instead of one after another in one thread. Each occluded
+// sample adds 1 to its ray's count in shared memory, written once. A
+// sample is the one the thread-per-ray loop drew: Philox keyed by (seed,
+// light), counted by (ray index in the packed block, sample), and the
+// disk basis recomputed from the same origin in the same order, so every
+// count, dropped push and capped walk equals the plain version's.
+//
+// The walk is anyhit_walk's (slot order, the highest slot pops first, stop
+// at the first occluder), with each child record read as two 16-byte
+// loads (the rows are f32[Nw,128] and a record is 16 floats at a 64-byte
+// offset, so every record is 16-byte aligned once the row block is, which
+// the wrappers check).
+// ---------------------------------------------------------------------------
+
+#define PSOFT_PIXELS 128
+static_assert(PSOFT_PIXELS == 128, "the launches use blocks of 128 threads");
+
+// child_hits over 16-byte loads, in slot order: child c's record is
+// (bmin.xyz, bmax.x) and (bmax.yz, ref, pad); ref[c] gets its reference.
+// The same empty-slot compare and slab arithmetic as child_hits.
+__device__ __forceinline__ unsigned child_hits4(const float* __restrict__ row,
+                                                const Ray& r, float t_min,
+                                                float cap, int (&ref)[8]) {
+  const float4* rec = reinterpret_cast<const float4*>(row);
+  unsigned mask = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float4 lo = __ldg(rec + 4 * c);
+    float4 hi = __ldg(rec + 4 * c + 1);
+    ref[c] = (int)hi.z;
+    if (lo.x <= lo.w &&
+        slab_box(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r, t_min, cap))
+      mask |= 1u << c;
+  }
+  return mask;
+}
+
+// anyhit_walk over child_hits4: the same walk (pop, the hit children in
+// slot order, a leaf tested as it comes, an internal child pushed so the
+// highest slot pops first, a push onto a full stack dropped and counted,
+// stop at the first occluder), the same occlusion and counters.
+__device__ __forceinline__ bool anyhit_walk4(const float* __restrict__ nodes,
+                                             const float* __restrict__ tris,
+                                             int k, const Ray& s, float tmax,
+                                             float t_min, int max_iters,
+                                             int stack_size, int* stack,
+                                             WalkCounts& wc) {
+  bool active = tmax > t_min;
+  bool occ = false;
+  int sp = 1, it = 0;
+  stack[0] = 0;
+  while (sp > 0 && it < max_iters && !occ) {
+    const float* row = nodes + (size_t)stack[--sp] * 128;
+    int ref[8];
+    unsigned mask = child_hits4(row, s, t_min, active ? tmax : -BIG, ref);
+    while (mask) {
+      int c = __ffs(mask) - 1;
+      mask &= mask - 1;
+      int rc = ref[0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) rc = c == j ? ref[j] : rc;
+      if (rc < 0) {
+        if (leaf_occluded(tris, max(-rc - 1, 0), k, s, t_min, tmax)) {
+          occ = true;
+          break;
+        }
+      } else if (sp < stack_size) {
+        stack[sp++] = rc;
+      } else {
+        ++wc.overflow;
+      }
+    }
+    ++it;
+  }
+  wc.capped += (!occ && sp > 0);
+  return occ;
+}
+
+// The disk samples of the npx (<= PSOFT_PIXELS) rays base, base + 1, ...
+// that this block owns. org: their biased origins and hit flags, component
+// j of ray i at org[j * cs + i] (PSOFT: staged in shared memory; ANY_PSOFT:
+// the packed origin block); lp: the light's position(3) and radius. cnt:
+// the block's shared counts, zeroed before and read after a barrier.
+__device__ __forceinline__ void disk_samples(const Params& P,
+                                             const float* org, int cs,
+                                             const float* lp, uint32_t light,
+                                             float t_min, int base, int npx,
+                                             int* cnt, int* stack,
+                                             WalkCounts& wc) {
+  const int total = npx * P.spp;
+  for (int q = threadIdx.x; q < total; q += PSOFT_PIXELS) {
+    int i = q / P.spp;
+    int sample = q - i * P.spp;
+    Ray s;
+    s.ox = org[i];
+    s.oy = org[cs + i];
+    s.oz = org[2 * cs + i];
+    s.dx = s.dy = s.dz = s.ix = s.iy = s.iz = 0.0f;
+    bool hitm = org[3 * cs + i] > 0.0f;
+    Disk db = disk_basis(lp, lp[3], s);
+    float u1, u2;
+    sample_u1u2(P.seed, light, P.zero_stream, (uint32_t)(base + i),
+                (uint32_t)sample, u1, u2);
+    float stmax = disk_sample(db, u1, u2, hitm, s);
+    if (anyhit_walk4(P.nodes, P.tris, P.k, s, stmax, t_min, P.max_iters,
+                     P.stack_size, stack, wc))
+      atomicAdd(cnt + i, 1);
+  }
+}

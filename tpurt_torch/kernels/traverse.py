@@ -101,7 +101,7 @@ import torch.nn.functional as F
 
 from ..bvh.lbvh import LBVH
 from ..bvh.wide import WideBVH, WideBVHT, leaves_per_block
-from ._build import _check, _pick
+from ._build import _check, _pick, _stream
 from .pack import NODE_STRIDE, PackedBVH, pack_bvh
 from .sampling import (lane_axis_onb, onb3, rsqrt, sample_uniforms,
                        sincos_2pi)
@@ -1298,6 +1298,12 @@ _BINARY = "tpurt_binary_launch"
 _TRANSPOSED = "tpurt_transposed_launch"
 
 
+def _require_cuda(dev) -> None:
+    """The kernels take CUDA tensors only: no fallback."""
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels need CUDA tensors, got {dev}")
+
+
 def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
             ray_comps: int, attrs, leaf_size: int, t_min: float,
             max_iters: int, stack_size: int, scal_len: int,
@@ -1328,8 +1334,7 @@ def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
     if not 1 <= stack_size <= STACK_CAPACITY:
         raise ValueError(f"stack_size {stack_size} outside 1..{STACK_CAPACITY}")
     dev = rays.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernels need CUDA tensors, got {dev}")
+    _require_cuda(dev)
     pb = rays.shape[0]
     nl = tris.shape[0]
     _check(rays, "rays", torch.float32, (pb, ray_comps, 8, 128), dev)
@@ -1366,8 +1371,7 @@ def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
         max_iters=int(max_iters), stack_size=int(stack_size),
         t_min=float(t_min), **ptrs,
         **{name: b.data_ptr() for name, b in zip(outputs, blocks)}, **extra)
-    err = getattr(lib, entry)(
-        mode, ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream)
+    err = getattr(lib, entry)(mode, ctypes.byref(params), _stream(dev))
     if err != 0:
         raise RuntimeError(f"{entry} mode {mode} launch failed: CUDA error "
                            f"{err}")
@@ -1409,6 +1413,13 @@ def _soft_multi_fields(disk: bool, n_extra: int) -> dict:
                 disk=int(bool(disk)), n_extra=int(n_extra))
 
 
+def _check_records(nodes) -> None:
+    """The binary kernels and the penumbra walks (PSOFT, ANY_PSOFT) read a
+    node record as 16-byte loads."""
+    if nodes.data_ptr() % 16:
+        raise ValueError("node rows are not 16-byte aligned")
+
+
 # Each *_cuda launches one mode of csrc/fused_shadows.cu or
 # csrc/shadow_rays.cu, with the contract of its *_reference; it takes CUDA
 # tensors only, builds the kernel library on first use, raises on anything
@@ -1447,6 +1458,7 @@ def closest_point_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
                                    spp: int, seed: int, zero_stream: bool,
                                    **walk):
     """Mode PSOFT: spp disk samples of a point light."""
+    _check_records(nodes)
     res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, (at0, at1), scal,
                  **walk, scal_len=5, **_sampling(spp, seed, zero_stream))
     closest_point_soft_shadow_cuda.launches += 1
@@ -1493,6 +1505,7 @@ def closest_soft_shadow_st_cuda(rays, nodes, tris, scal, *, spp: int,
 def closest_point_soft_shadow_st_cuda(rays, nodes, tris, scal, *, spp: int,
                                       seed: int, zero_stream: bool, **walk):
     """Mode PSOFT attrs=0."""
+    _check_records(nodes)
     res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, None, scal, **walk,
                  scal_len=5, **_sampling(spp, seed, zero_stream))
     closest_point_soft_shadow_st_cuda.launches += 1
@@ -1569,6 +1582,7 @@ def closest_point_soft_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
                                        spp: int, seed: int,
                                        zero_stream: bool, **walk):
     """Mode PSOFT attrs=2."""
+    _check_records(nodes)
     res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, (at0, at1), scal,
                  **walk, scal_len=5, **_sampling(spp, seed, zero_stream),
                  textured=True)
@@ -1624,6 +1638,7 @@ def any_point_soft_cuda(rays, nodes, tris, scal, *, leaf_size: int,
                         spp: int, seed: int, light: int, zero_stream: bool,
                         t_min: float, max_iters: int, stack_size: int):
     """Mode ANY_PSOFT: spp disk samples from given origins."""
+    _check_records(nodes)
     res = _launch(_SHADOW_RAYS, ANY_PSOFT, ("cnt_out",), rays, nodes, tris,
                   scal, ray_comps=4, attrs=None, leaf_size=leaf_size,
                   t_min=t_min, max_iters=max_iters, stack_size=stack_size,
@@ -1632,10 +1647,6 @@ def any_point_soft_cuda(rays, nodes, tris, scal, *, leaf_size: int,
     return res
 
 
-def _check_records(nodes) -> None:
-    """The binary kernels read a node record as four 16-byte loads."""
-    if nodes.data_ptr() % 16:
-        raise ValueError("binary node rows are not 16-byte aligned")
 
 
 def binary_closest_cuda(rays, nodes, tris, **walk):
