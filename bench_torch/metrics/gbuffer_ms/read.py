@@ -1,0 +1,11 @@
+"""gbuffer_ms: the G-buffer's decode (from the walk's
+channels or the shade table) and textures, the span ``tpurt.gbuffer`` of
+``Renderer.render_frame``: its self ms on the device's timeline (from the
+device reaching the span's start to reaching its end, idle included) a
+traced frame, from ``Renderer.spans``; None where no traced frame
+recorded it."""
+
+
+def read(ctx):
+    spans = getattr(ctx.cell.renderer, "spans", None)
+    return None if spans is None else spans.per_frame("tpurt.gbuffer")

@@ -39,7 +39,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    Renderer(device="cuda"): one warm-up frame and five timed frames,
    checked for finite values, coverage, shadow share and bit-identical
    repeats; then the kernel against its plain version on every 8th row
-   and on the whole frame.
+   and on the whole frame; where the frame's time goes, from the
+   program's spans over three frames under torch.profiler
+   (``Renderer.spans``: device-timeline, self and host ms a frame per
+   span); one frame under CUDA's sync debug mode, whose syncs must equal
+   the frame's own count of host syncs. Phases 5, 6 and 9 do the same.
 5. Config 3: the same hall and camera, a 2 deg sun, spp 8, accumulation,
    1920x1080: one warm-up and five timed frames, exactly one soft-kernel
    launch each; finite images, a penumbra, frames that differ, and a second
@@ -59,8 +63,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    takes the fused cone kernel for the sun and the unfused disk sampler
    for the lamp. One warm-up and five timed frames each, with the launches
    of every kernel counted; config 1's unfused image against phase 4's
-   fused one; the stage split (G-buffer, shadow pass per light,
-   composite); every kernel of the case against its plain version on
+   fused one; the spans of three frames; every kernel of the case against its plain version on
    every 8th row and on the whole frame (the samplers also with the zero
    stream on every 8th row); each fused_shadow=False case timed in turns
    with its fused twin (fused, unfused, unfused, fused).
@@ -76,8 +79,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    warm-up and five timed frames, one launch of each build kernel and of
    closest_shadow per frame; frames bit-identical; the image against
    config 1's static frame (another tree of the same geometry: at most
-   1e-3 of valid pixels may differ by more than 1e-3); the rebuild's
-   stage split; the wide depth and nw_pad. Then five animated frames
+   1e-3 of valid pixels may differ by more than 1e-3); the spans of three
+   posed frames (set_vertices, then the frame), the rebuild's parts
+   among them, and a posed frame's host syncs; the wide depth and
+   nw_pad. Then five animated frames
    (set_vertices(deform(mesh, t))), finite, with the count of overflow
    recoveries, and one more after a pad forced below the count, which
    must recover.
@@ -90,8 +95,8 @@ Phases, in order; any failure raises and the exit code is not 0:
     the image by more than 2e-2 on < 1%); the rasterizer against its plain
     version on the whole frame's bins (ids, u, v and 1/w equal, every
     other channel within 1e-6); the binning's host syncs (must be 0) and
-    its pair, big-row and per-tile statistics; the stage split (binning,
-    kernel, decode, shadow pass, composite); the raster and ray frames in
+    its pair, big-row and per-tile statistics; the binning and the kernel
+    timed alone, beside the frame's spans; the raster and ray frames in
     turns; one binning call and one raster frame under torch.profiler
     (kernel time, launches, the card's idle share, the costliest
     kernels). Then the two "auto" paths that resolve to raster on the card:
@@ -114,12 +119,12 @@ Phases, in order; any failure raises and the exit code is not 0:
     config 5's three lights, the lamp and the sun with two fills (SOFT,
     MULTI, PSOFT, SOFT_MULTI attrs=0); one warm-up and five timed frames
     each with the launches counted; each kernel against its plain version
-    on every 8th row and on the whole frame; the stage split (the table
-    build, the per-pixel row gather, the decode). Last config 2 with the
+    on every 8th row and on the whole frame; the spans of config 1's
+    frames, fused and unfused. Last config 2 with the
     flag: the rebuild's host syncs (must be 0), one warm-up and five
     rebuilt frames with the shade table of the rebuilt tree, the image
-    against the static one, HARD attrs=0 on the rebuilt tree against its
-    plain version.
+    against the static one, their spans, HARD attrs=0 on the rebuilt tree
+    against its plain version.
 12. The binary tree (bvh_width=2; csrc/binary.cu's BIN_CLOSEST and
     BIN_ANY, tpurt's _closest_hit_kernel and _any_hit_kernel over the
     packed LBVH) and the 60-bit Morton codes. (a) Right after phase 11's
@@ -133,7 +138,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     repeats, the image against phase 4's (coverage off on < 0.2% of
     pixels, the image off by more than 2e-2 on < 1%), both kernels
     against their plain versions on every 8th row and on the whole frame,
-    the stage split, and the frame in turns with phase 4's. (c) "auto"
+    the spans, and the frame in turns with phase 4's. (c) "auto"
     (the rasterizer and BIN_ANY): three frames, each against (b)'s. (d)
     Config 3's 2 deg sun at spp 8: 8 BIN_ANY launches a frame, a
     penumbra, a second Renderer with the same seed giving bit-identical
@@ -150,8 +155,8 @@ Phases, in order; any failure raises and the exit code is not 0:
     5 flat, loaded through tpurt_torch.io.obj.load_obj with the native
     parser (timed). Through Renderer(device="cuda") at 1920x1080: the
     fused frame (HARD attrs=2, six frames, bit-identical, coverage against
-    phase 4's untextured twin, the two in turns, the stage split with the
-    texture pass as a stage), the unfused frame (CLOSEST attrs=2 + any),
+    phase 4's untextured twin, the two in turns, the spans, the texture
+    pass inside tpurt.gbuffer), the unfused frame (CLOSEST attrs=2 + any),
     config 5's three lights (MULTI), the 2 deg sun (SOFT), the lamp
     (PSOFT) and the sun with two fills (SOFT_MULTI), two frames each, with
     every launch counted and each attrs=2 kernel against its plain
@@ -201,8 +206,8 @@ Phases, in order; any failure raises and the exit code is not 0:
     bit-identical, the image against phase 4's ray frame within the
     raster bounds, in turns with phase 10's 32-float raster frame;
     bin_rows(fmt="z16") with no host sync; the z16 rasterizer against its
-    plain version (ids, u, v and 1/w equal), the stage split (binning,
-    kernel, row gather and decode); the plain rebuild's deferred frames
+    plain version (ids, u, v and 1/w equal), the binning and the kernel
+    timed alone, beside the frame's spans; the plain rebuild's deferred frames
     (the original-order table per frame, no host sync in a rebuild); the
     textured hall's deferred frame against phase 13's textured ray frame
     (the share of pixels that look up other texels, beside phase 13's).
@@ -1027,30 +1032,45 @@ def vs_plain(name, full_inputs, sub_inputs, what, tri_id=None) -> dict:
     return full
 
 
-def stage_ms(r, trace, frame_ms_mean: float, reps: int = 5) -> dict:
-    """Where a frame's time goes: CUDA events around each stage of
-    render_frame_fn, run by hand on the Renderer's state (mean of reps
-    calls, launch overhead included); the composite and the rest by
-    difference from the mean frame. ``trace(accel, origins, dirs)`` is the
-    frame's fused wrapper (packing, the kernel, channel unpacking)."""
-    from tpurt_torch.app import _gb_accel
-    from tpurt_torch.camera import generate_rays
-    from tpurt_torch.passes.gbuffer import gbuf_from_attr_channels
-    cfg, cam = r.config, r.camera
-    acc = _gb_accel(r.accel, cam, cfg)
-    o, d = generate_rays(cam, cfg.width, cfg.height, r.device)
-    ch = trace(acc, o, d)[0]
-    stages = {
-        "generate_rays": lambda: generate_rays(cam, cfg.width, cfg.height,
-                                               r.device),
-        "order_children": lambda: _gb_accel(r.accel, cam, cfg),
-        "trace": lambda: trace(acc, o, d),
-        "gbuffer_decode": lambda: gbuf_from_attr_channels(ch, o, d, cam,
-                                                          r.mesh),
-    }
-    out = {k: cuda_ms(fn, reps) for k, fn in stages.items()}
-    out["composite_and_rest"] = frame_ms_mean - sum(out.values())
+def span_ms(r, n: int = 3, pose=None) -> dict:
+    """Where a frame's time goes, from the program's own spans: n frames
+    (each after ``pose(i)``) under torch.profiler -> per span of
+    ``Renderer.spans``, its device-timeline ms, self ms, host ms and
+    entries a frame over those frames, and the host syncs a frame."""
+    from torch.profiler import ProfilerActivity, profile
+    sp = r.spans
+    before, frames, syncs = sp.totals, sp.frames, sp.syncs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for i in range(n):
+            if pose is not None:
+                pose(i)
+            r.render_frame()
+        torch.cuda.synchronize()
+    n = sp.frames - frames
+    out = {name: {k: (v - before.get(name, {}).get(k, 0.0)) / n
+                  for k, v in t.items()}
+           for name, t in sp.totals.items()}
+    out["host_syncs_per_frame"] = (sp.syncs - syncs) / n
     return out
+
+
+def counted_syncs(r, what: str) -> dict:
+    """One frame under torch.profiler and CUDA's sync debug mode: the
+    syncs the debug mode finds must be the frame's own count
+    (``Renderer.spans.syncs``)."""
+    from torch.profiler import ProfilerActivity, profile
+    sp = r.spans
+    syncs = sp.syncs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        found = host_syncs(r.render_frame)
+        torch.cuda.synchronize()
+    counted = sp.syncs - syncs
+    if counted != len(found):
+        raise RuntimeError(f"{what}: the frame counted {counted} host syncs, "
+                           f"the sync debug mode found {len(found)}: {found}")
+    res = dict(host_syncs=counted, where=found)
+    log(f"{what} host syncs a frame: {json.dumps(res)}")
+    return res
 
 
 def rays_per_s(npix, nvalid, nshadow, mean_ms) -> dict:
@@ -1067,7 +1087,6 @@ def setup_stats(r) -> dict:
 def phase_config1(dev, mesh) -> dict:
     """Config 1's fused frame at the bench headline's size."""
     from tpurt_torch.app import Renderer
-    from tpurt_torch.kernels.traverse import trace_closest_shadow
     from tpurt_torch.scenes import sponza_interior_camera
     from tpurt_torch.types import Light, RenderConfig
     cam = sponza_interior_camera()
@@ -1089,12 +1108,10 @@ def phase_config1(dev, mesh) -> dict:
     kp = kernel_vs_plain("closest_shadow", r, MAIN_W, MAIN_H, "phase 4",
                          light_dir=light.direction)
     mean_ms = float(np.mean(frame_ms))
-    stages = stage_ms(r, lambda acc, o, d: trace_closest_shadow(
-        acc, o, d, light.direction, BIAS, attr_tables=r.attr_tables),
-        mean_ms)
     nvalid = int(valid.sum())
     return dict(launches=n["closest_shadow"], frame_ms=frame_ms,
-                frame_ms_mean=mean_ms, kernel=kp, stages_ms=stages,
+                frame_ms_mean=mean_ms, kernel=kp, spans=span_ms(r),
+                syncs=counted_syncs(r, "phase 4"),
                 image=kept[0]["image"], valid=valid, renderer=r,
                 valid_share=valid_share,
                 occluded_share=occ_share,
@@ -1106,7 +1123,6 @@ def phase_config1(dev, mesh) -> dict:
 def phase_config3(dev, mesh) -> dict:
     """Config 3: 2 deg sun, spp 8, accumulation, 1080p."""
     from tpurt_torch.app import Renderer, frame_seed
-    from tpurt_torch.kernels.traverse import trace_closest_soft_shadow
     from tpurt_torch.scenes import sponza_interior_camera
     from tpurt_torch.types import Light, RenderConfig
     cam = sponza_interior_camera()
@@ -1139,12 +1155,10 @@ def phase_config3(dev, mesh) -> dict:
                          "phase 5", axis_dir=sun.direction,
                          cone_cos=cone_cos, spp=SPP, seed=seed)
     mean_ms = float(np.mean(frame_ms))
-    stages = stage_ms(r, lambda acc, o, d: trace_closest_soft_shadow(
-        acc, o, d, sun.direction, cone_cos, SPP, seed, BIAS,
-        attr_tables=r.attr_tables), mean_ms)
     nvalid = int(valid.sum())
     return dict(launches=n["closest_soft_shadow"], frame_ms=frame_ms,
-                frame_ms_mean=mean_ms, kernel=kp, stages_ms=stages,
+                frame_ms_mean=mean_ms, kernel=kp, spans=span_ms(r),
+                syncs=counted_syncs(r, "phase 5"),
                 penumbra_share=penumbra,
                 occluded_share=occluded,
                 **rays_per_s(MAIN_W * MAIN_H, nvalid, nvalid * SPP, mean_ms))
@@ -1162,7 +1176,6 @@ def config5_lights():
 def phase_config5(dev, mesh) -> dict:
     """Config 5: three directional lights at 3840x2160."""
     from tpurt_torch.app import Renderer
-    from tpurt_torch.kernels.traverse import trace_closest_multi_shadow
     from tpurt_torch.scenes import sponza_interior_camera
     from tpurt_torch.types import RenderConfig
     cam = sponza_interior_camera()
@@ -1188,11 +1201,10 @@ def phase_config5(dev, mesh) -> dict:
     kp = kernel_vs_plain("closest_multi_shadow", r, UHD_W, UHD_H, "phase 6",
                          lights=spec)
     mean_ms = float(np.mean(frame_ms))
-    stages = stage_ms(r, lambda acc, o, d: trace_closest_multi_shadow(
-        acc, o, d, spec, BIAS, attr_tables=r.attr_tables), mean_ms)
     nvalid = int(valid.sum())
     return dict(launches=n["closest_multi_shadow"], frame_ms=frame_ms,
-                frame_ms_mean=mean_ms, kernel=kp, stages_ms=stages,
+                frame_ms_mean=mean_ms, kernel=kp, spans=span_ms(r),
+                syncs=counted_syncs(r, "phase 6"),
                 occluded_shares=shares,
                 peak_mem_mb=peak_mb,
                 **rays_per_s(UHD_W * UHD_H, nvalid, nvalid * len(lights),
@@ -1277,44 +1289,6 @@ def unfused_inputs(name, r, light_index: int, step: int):
     return tr.any_point_soft_inputs(r.accel, origins, valid, light.position,
                                     float(light.radius), cfg.spp, seed,
                                     light_index)[:2]
-
-
-def stage_ms_unfused(r, frame_ms_mean: float, reps: int = 5) -> dict:
-    """Where an unfused or mixed frame's time goes: CUDA events around the
-    G-buffer (with light 0's fused shadow on the fused0 route), each
-    light's unfused shadow pass and the composite, run by hand on the
-    Renderer's state (mean of reps calls); the rest by difference."""
-    from tpurt_torch.app import (composite_lights, frame_seed,
-                                 gbuffer_production,
-                                 gbuffer_shadow_fused_production,
-                                 shadow_production, unfused_lights)
-    cfg = r.config
-    seed = frame_seed(cfg.seed, 0)
-    if r.route == "fused0":
-        def gb():
-            return gbuffer_shadow_fused_production(
-                r.accel, r.mesh, r.camera, cfg, r.lights[0], r.attr_tables,
-                seed)
-        gbuf, vis0, _ = gb()
-        shadows = [vis0]
-        out = {"gbuffer_and_light0_fused": cuda_ms(gb, reps)}
-    else:
-        def gb():
-            return gbuffer_production(r.accel, r.mesh, r.camera, cfg,
-                                      r.attr_tables)
-        gbuf, _ = gb()
-        shadows = []
-        out = {"gbuffer": cuda_ms(gb, reps)}
-    for li in unfused_lights(r.route, len(r.lights)):
-        def shadow(li=li):
-            return shadow_production(r.accel, gbuf, r.lights[li], seed, li,
-                                     cfg)
-        shadows.append(shadow()[0])
-        out[f"shadow_pass_light{li}"] = cuda_ms(shadow, reps)
-    out["composite"] = cuda_ms(
-        lambda: composite_lights(gbuf, shadows, r.lights, cfg), reps)
-    out["counter_read_rest"] = frame_ms_mean - sum(out.values())
-    return out
 
 
 def in_turns(ra, rb, n: int = 5) -> dict:
@@ -1405,7 +1379,7 @@ def phase_unfused(dev, mesh, fused_config1_image) -> dict:
                 res["kernels"][name]["zero_stream_every_8th_row"] = \
                     check_pair(name, args, dict(kw, zero_stream=True),
                                f"phase 8 {label} {name} zero stream")[0]
-        res["stages_ms"] = stage_ms_unfused(r, res["frame_ms_mean"])
+        res["spans"] = span_ms(r)
         if not cfg.fused_shadow:
             twin = Renderer(mesh, cam, lights,
                             dataclasses.replace(cfg, fused_shadow=True),
@@ -1543,27 +1517,22 @@ def time_build(name, args, reps: int = 20) -> dict:
     return dict(ms=ms, plain_ms=plain_ms)
 
 
-def rebuild_stages(r):
-    """_rebuild_fused by hand, stage by stage, on the Renderer's geometry
-    -> (the three build kernels' inputs at config 2's shapes: unit
-    coordinates of the centroids, the clustered leaf codes' deltas, the
-    deferred tree's child array and node areas; {stage: callable that
-    reruns it on the intermediates})."""
+def build_kernel_inputs(r):
+    """_rebuild_fused's intermediates on the Renderer's geometry -> the
+    three build kernels' inputs at config 2's shapes: unit coordinates of
+    the centroids, the clustered leaf codes' deltas, the deferred tree's
+    child array and node areas."""
     from tpurt_torch.bvh import lbvh as L
     from tpurt_torch.bvh import wide as W
     from tpurt_torch.bvh.morton import unit_coords
-    from tpurt_torch.kernels.build import collapse_area, morton_codes, \
-        topology
-    from tpurt_torch.passes.shading import (attr_payload_columns,
-                                            leaf_attr_rows_from_sorted)
+    from tpurt_torch.kernels.build import morton_codes
     m, k, splits = r.mesh, r.config.leaf_size, r._rebuild_splits
     tpad = r.bvh.num_sorted_tris
     tri, v0, e1, e2, cen, smin, smax = L._triangle_data(m.vertices,
                                                         m.indices, tpad)
-    cols = L._pad_columns(attr_payload_columns(m, r.device), tpad)
     codes = morton_codes(cen, smin, smax)
     order = torch.arange(tpad, dtype=torch.int32, device=r.device)
-    chs, srt = L._sort_payload(codes, [order, v0, e1, e2, tri] + cols)
+    chs, srt = L._sort_payload(codes, [order, v0, e1, e2, tri])
     sv0, se1, se2 = srt[1:4]
     split = L._subleaf_split(chs, *L._leaf_boxes(sv0, se1, se2, k)[2:], k,
                              splits)
@@ -1573,31 +1542,8 @@ def rebuild_stages(r):
     boxes = W._leaf_boxes_from_tris(bvh)
     tab = L.range_table(*boxes)
     area = W.node_areas(bvh, tab)
-    front, src, _ = collapse_area(bvh.nodes_child, area, r._nw_pad)
-    stages = {
-        "bounds_and_centroids": lambda: L._triangle_data(m.vertices,
-                                                         m.indices, tpad),
-        "attribute_columns": lambda: attr_payload_columns(m, r.device),
-        "morton_kernel": lambda: morton_codes(cen, smin, smax),
-        "sort_and_payload_gather": lambda: L._sort_payload(
-            codes, [order, v0, e1, e2, tri] + cols),
-        "subleaf_split": lambda: L._subleaf_split(
-            chs, *L._leaf_boxes(sv0, se1, se2, k)[2:], k, splits),
-        "deltas_and_topology_kernel": lambda: topology(
-            L.adjacent_deltas(split[1])),
-        "root_box": lambda: torch.cat([split[2], -split[3]], 1).amin(0),
-        "range_table_and_areas": lambda: W.node_areas(
-            bvh, L.range_table(*boxes)),
-        "collapse_kernel": lambda: collapse_area(bvh.nodes_child, area,
-                                                 r._nw_pad),
-        "row_assembly": lambda: (W.assemble_area_rows(
-            bvh, boxes, tab, front, src, r._nw_pad), W.block_rows(bvh)),
-        "attribute_rows": lambda: leaf_attr_rows_from_sorted(
-            srt[5:], srt[0], bvh.num_blocks, k),
-    }
-    inputs = (unit_coords(cen, smin, smax).contiguous(), d,
-              bvh.nodes_child.contiguous(), area)
-    return inputs, stages
+    return (unit_coords(cen, smin, smax).contiguous(), d,
+            bvh.nodes_child.contiguous(), area)
 
 
 def phase_config2(dev, mesh, static_image) -> dict:
@@ -1605,7 +1551,6 @@ def phase_config2(dev, mesh, static_image) -> dict:
     import tpurt_torch.kernels.build as B
     from tpurt_torch.app import Renderer
     from tpurt_torch.bvh.lbvh import adjacent_deltas
-    from tpurt_torch.kernels.traverse import trace_closest_shadow
     from tpurt_torch.scenes import deform, sponza_interior_camera
     from tpurt_torch.types import Light, RenderConfig
     cam = sponza_interior_camera()
@@ -1624,7 +1569,7 @@ def phase_config2(dev, mesh, static_image) -> dict:
         f"wide_depth={r.depth} {json.dumps(r.stats)}")
 
     # Each build kernel against its plain version, exactly.
-    (unit, d, child, area), rebuild_stage = rebuild_stages(r)
+    unit, d, child, area = build_kernel_inputs(r)
     rng = np.random.default_rng(2)
     values = rng.integers(0, 1 << 30, 64)
     synth = torch.from_numpy(np.sort(rng.choice(values, 30_000)).astype(
@@ -1701,22 +1646,18 @@ def phase_config2(dev, mesh, static_image) -> dict:
     if share > 1e-3:
         raise RuntimeError(f"config 2 image differs from config 1's static "
                            f"one on {share:.2e} of valid pixels")
-    # Where the rebuild's time goes: CUDA events around each stage (mean
-    # of 5 calls, launch overhead included).
-    stages = {name: cuda_ms(fn, 5) for name, fn in rebuild_stage.items()}
-    stages["sum"] = sum(stages.values())
     hard = kernel_vs_plain("closest_shadow", r, MAIN_W, MAIN_H,
                            "phase 9 closest_shadow on the rebuilt tree",
                            light_dir=light.direction)
     mean_ms = float(np.mean(frame_ms))
-    # The frame's stages after the rebuild; their rest excludes it.
-    frame_stages = stage_ms(r, lambda acc, o, d: trace_closest_shadow(
-        acc, o, d, light.direction, BIAS, attr_tables=r.attr_tables),
-        mean_ms - float(np.mean(build_ms)))
+    # Where the time of a posed frame goes, the rebuild's parts
+    # (tpurt.rebuild.*) among them, and its host syncs.
+    spans = span_ms(r, pose=lambda i: r.set_vertices(deform(mesh, 0.1 * i)))
+    r.set_vertices(deform(mesh, 0.4))
+    syncs_posed = counted_syncs(r, "phase 9 posed")
     res = dict(launches=n, frame_ms=frame_ms, frame_ms_mean=mean_ms,
                build_ms=build_ms, build_ms_mean=float(np.mean(build_ms)),
-               rebuild_stages_ms=stages, frame_stages_ms=frame_stages,
-               closest_shadow=hard,
+               spans=spans, syncs=syncs_posed, closest_shadow=hard,
                valid_share=valid_share,
                vs_static_share=share, vs_static_any_bit_share=exact,
                occluded_share=float((kept[0]["shadow"][0][valid] < 1.0)
@@ -1838,9 +1779,7 @@ def phase_raster(dev, mesh, c1) -> dict:
     """The raster G-buffer at 1080p; c1: phase 4's image, valid mask and
     Renderer."""
     import tpurt_torch.kernels.raster as R
-    from tpurt_torch.app import (Renderer, composite_lights, frame_seed,
-                                 shadow_production)
-    from tpurt_torch.passes.gbuffer import gbuffer_raster_pass
+    from tpurt_torch.app import Renderer
     from tpurt_torch.raster.setup import bin_rows, default_cap_rows
     from tpurt_torch.scenes import sponza_interior_camera
     from tpurt_torch.types import Light, RenderConfig
@@ -1904,22 +1843,12 @@ def phase_raster(dev, mesh, c1) -> dict:
                          **stats, **build_bound(nbytes, ops))
     log(f"phase 10 rasterizer: {json.dumps(res['kernel'])}")
 
-    # Where the frame's time goes (mean of 5 calls per stage).
-    seed = frame_seed(cfg.seed, 0)
-    gbuf = gbuffer_raster_pass(r.mesh, cam, w, h)
-    vis = shadow_production(r.accel, gbuf, light, seed, 0, r.config)[0]
+    # Where the frame's time goes: the program's spans, and inside
+    # tpurt.gbuffer the binning and the rasterizer (mean of 5 calls each).
     st = {"binning": cuda_ms(lambda: bin_rows(cam, r.mesh, w, h, cap), 5),
           "raster_kernel": cuda_ms(lambda: R.rasterize_rows_cuda(bins, w, h),
                                    5),
-          "gbuffer_pass": cuda_ms(lambda: gbuffer_raster_pass(r.mesh, cam, w,
-                                                              h), 5),
-          "shadow_pass_light0": cuda_ms(lambda: shadow_production(
-              r.accel, gbuf, light, seed, 0, r.config), 5),
-          "composite": cuda_ms(lambda: composite_lights(
-              gbuf, [vis], [light], r.config), 5)}
-    st["decode"] = st["gbuffer_pass"] - st["binning"] - st["raster_kernel"]
-    st["counter_read_rest"] = mean_ms - st["gbuffer_pass"] \
-        - st["shadow_pass_light0"] - st["composite"]
+          "spans": span_ms(r)}
     res["stages_ms"] = st
     turns = in_turns(c1["renderer"], r)
     res["in_turns_ms"] = {"ray": turns["a"], "raster": turns["b"]}
@@ -2086,52 +2015,10 @@ def small_shade_table(dev) -> dict:
     return out
 
 
-def stage_ms_shade_table(r, trace, frame_ms_mean: float,
-                         reps: int = 5) -> dict:
-    """Where a shade-table frame's time goes: CUDA events around each
-    stage, run by hand on the Renderer's state (mean of reps calls).
-    ``trace(accel, origins, dirs)`` returns (t, sidx, ..., walk counts):
-    the G-buffer's closest-hit wrapper, alone or fused. The table
-    build is a set-up stage of a static scene and a stage of every
-    rebuild; ``gbuf_from_table`` is the per-pixel row gather plus the
-    decode (position, barycentrics, normals, albedo, tri_id, flips,
-    depth)."""
-    from tpurt_torch.app import _gb_accel
-    from tpurt_torch.camera import generate_rays
-    from tpurt_torch.passes.gbuffer import gbuf_from_table
-    from tpurt_torch.passes.shading import gather_table_rows, \
-        make_shade_table
-    cfg, cam = r.config, r.camera
-    acc = _gb_accel(r.accel, cam, cfg)
-    o, d = generate_rays(cam, cfg.width, cfg.height, r.device)
-    res = trace(acc, o, d)
-    t, sidx = res[0], res[1]
-    out = {
-        "table_build": cuda_ms(lambda: make_shade_table(r.bvh, r.mesh),
-                               reps),
-        "generate_rays": cuda_ms(lambda: generate_rays(
-            cam, cfg.width, cfg.height, r.device), reps),
-        "order_children": cuda_ms(lambda: _gb_accel(r.accel, cam, cfg),
-                                  reps),
-        "trace": cuda_ms(lambda: trace(acc, o, d), reps),
-        "table_gather": cuda_ms(lambda: gather_table_rows(r.shade_table,
-                                                          sidx), reps),
-        "gbuf_from_table": cuda_ms(lambda: gbuf_from_table(
-            t, None, sidx, o, d, cam, r.mesh, r.shade_table), reps),
-    }
-    out["decode"] = out["gbuf_from_table"] - out["table_gather"]
-    out["composite_and_rest"] = frame_ms_mean - (
-        out["generate_rays"] + out["order_children"] + out["trace"]
-        + out["gbuf_from_table"])
-    return out
-
-
 def phase_shade_table(dev, mesh, c1) -> dict:
     """The shade-table frames at 1080p (static, every route) and config 2
     with the flag; c1: phase 4's image, valid mask and Renderer."""
     from tpurt_torch.app import Renderer, frame_seed
-    from tpurt_torch.kernels.traverse import (trace_closest,
-                                              trace_closest_shadow)
     from tpurt_torch.scenes import sponza_interior_camera
     from tpurt_torch.types import Light, RenderConfig
     cam = sponza_interior_camera()
@@ -2211,16 +2098,8 @@ def phase_shade_table(dev, mesh, c1) -> dict:
                                   "shade_table": turns["b"]}
         if label == "config1":
             static = kept[0]["image"]
-            res["stages_ms"] = stage_ms_shade_table(
-                r, lambda acc, o, d: trace_closest_shadow(
-                    acc, o, d, hard.direction, BIAS), res["frame_ms_mean"])
-        if label == "config1_unfused":
-            def plain_closest(acc, o, d):
-                t, _, sidx, counts = trace_closest(
-                    acc, o, d, return_sorted=True, gather_tri_id=False)
-                return t, sidx, counts
-            res["stages_ms"] = stage_ms_shade_table(
-                r, plain_closest, res["frame_ms_mean"])
+        if label in ("config1", "config1_unfused"):
+            res["spans"] = span_ms(r)
         kernels[name] = kernel_vs_plain(name, r, MAIN_W, MAIN_H,
                                         f"phase 11 {label} {name}", **spec)
         launched[name] = n[name]
@@ -2259,10 +2138,7 @@ def phase_shade_table(dev, mesh, c1) -> dict:
         build_ms=build_ms, build_ms_mean=float(np.mean(build_ms)),
         rebuild_host_syncs=len(syncs), valid_share=valid_share,
         vs_static_share=share, nw_pad=r._nw_pad, setup=dict(r.stats),
-        stages_ms=stage_ms_shade_table(
-            r, lambda acc, o, d: trace_closest_shadow(
-                acc, o, d, hard.direction, BIAS),
-            mean_ms - float(np.mean(build_ms))),
+        spans=span_ms(r),
         closest_shadow_st=kernel_vs_plain(
             "closest_shadow_st", r, MAIN_W, MAIN_H,
             "phase 11 config 2 closest_shadow_st on the rebuilt tree",
@@ -2379,41 +2255,6 @@ def small_binary(dev) -> dict:
     return out
 
 
-def stage_ms_binary(r, frame_ms_mean: float, reps: int = 5) -> dict:
-    """Where a binary frame's time goes (mean of reps calls per stage):
-    the G-buffer (camera rays, BIN_CLOSEST, the table's row gather and
-    decode), BIN_CLOSEST alone, the shadow pass (ray set-up and BIN_ANY)
-    and the composite; the rest (the counter read) by difference."""
-    import tpurt_torch.kernels.traverse as tr
-    from tpurt_torch.app import (composite_lights, frame_seed,
-                                 gbuffer_production, shadow_production)
-    from tpurt_torch.camera import generate_rays
-    cfg, cam = r.config, r.camera
-    o, d = generate_rays(cam, cfg.width, cfg.height, r.device)
-    seed = frame_seed(cfg.seed, 0)
-
-    def gb():
-        return gbuffer_production(r.accel, r.mesh, cam, cfg, None,
-                                  r.shade_table)
-    gbuf = gb()[0]
-    vis = [shadow_production(r.accel, gbuf, l, seed, i, cfg)[0]
-           for i, l in enumerate(r.lights)]
-    out = {"gbuffer": cuda_ms(gb, reps),
-           "closest_trace": cuda_ms(lambda: tr.trace_closest(
-               r.accel, o, d, return_sorted=True, gather_tri_id=False),
-               reps)}
-    for i, light in enumerate(r.lights):
-        out[f"shadow_pass_light{i}"] = cuda_ms(
-            lambda: shadow_production(r.accel, gbuf, light, seed, i, cfg),
-            reps)
-    out["composite"] = cuda_ms(
-        lambda: composite_lights(gbuf, vis, r.lights, cfg), reps)
-    out["counter_read_rest"] = frame_ms_mean - out["gbuffer"] - sum(
-        v for k, v in out.items() if k.startswith("shadow_pass")) \
-        - out["composite"]
-    return out
-
-
 def image_against(img, valid, ref_img, ref_valid) -> dict:
     """Coverage and image against a reference frame (tests/test_raster.py's
     bounds: coverage off on < 0.2% of pixels, the image off by more than
@@ -2475,7 +2316,7 @@ def phase_binary(dev, mesh, c1) -> dict:
                valid_share=valid_share, vs_phase4=vs4, setup=setup,
                occluded_share=float((kept[0]["shadow"][0][kept[0]["valid"]]
                                      < 1.0).float().mean()),
-               stages_ms=stage_ms_binary(r, mean_ms))
+               spans=span_ms(r))
     turns = in_turns(c1["renderer"], r)
     res["in_turns_ms"] = {"wide_fused": turns["a"], "binary": turns["b"]}
     out["ray_1080p"] = res
@@ -2697,23 +2538,6 @@ def write_textured_hall(mesh, root: str) -> dict:
                 obj_mb=os.path.getsize(os.path.join(root, "hall.obj")) / 2**20)
 
 
-def stage_ms_textured(r, trace, frame_ms_mean: float, reps: int = 5) -> dict:
-    """stage_ms of a textured attribute frame plus the texture pass (the
-    atlas sampled at the kernel's uv and layer) as its own stage."""
-    from tpurt_torch.app import _gb_accel
-    from tpurt_torch.camera import generate_rays
-    from tpurt_torch.passes.gbuffer import gbuf_from_attr_channels
-    from tpurt_torch.passes.texture import apply_textures
-    cfg, cam = r.config, r.camera
-    acc = _gb_accel(r.accel, cam, cfg)
-    o, d = generate_rays(cam, cfg.width, cfg.height, r.device)
-    gbuf = gbuf_from_attr_channels(trace(acc, o, d)[0], o, d, cam, r.mesh)
-    tex_ms = cuda_ms(lambda: apply_textures(r.mesh, gbuf), reps)
-    out = stage_ms(r, trace, frame_ms_mean - tex_ms, reps)
-    out["texture_pass"] = tex_ms
-    return out
-
-
 def raster_texture_against(r, fused) -> dict:
     """The textured raster frame against the fused ray-cast one. The raster
     G-buffer reconstructs its positions from 1/w, which moves them off the
@@ -2765,7 +2589,6 @@ def phase_textured(dev, mesh, c1) -> dict:
     import tempfile
     from tpurt_torch.app import Renderer, frame_seed
     from tpurt_torch.io.obj import load_obj
-    from tpurt_torch.kernels.traverse import trace_closest_shadow
     from tpurt_torch.scenes import sponza_interior_camera
     from tpurt_torch.types import Light, RenderConfig
     cam = sponza_interior_camera()
@@ -2851,11 +2674,7 @@ def phase_textured(dev, mesh, c1) -> dict:
             turns = in_turns(c1["renderer"], r)
             res["in_turns_ms"] = {"untextured": turns["a"],
                                   "textured": turns["b"]}
-            res["stages_ms"] = stage_ms_textured(
-                r, lambda acc, o, d: trace_closest_shadow(
-                    acc, o, d, hard.direction, BIAS,
-                    attr_tables=r.attr_tables, textured=True),
-                res["frame_ms_mean"])
+            res["spans"] = span_ms(r)
         if spec is None:
             kernels[name] = vs_plain(name, unfused_inputs(name, r, 0, 1),
                                      unfused_inputs(name, r, 0, 8),
@@ -3294,7 +3113,6 @@ def phase_deferred(dev, mesh, c1, ras32, textured) -> dict:
     textured hall and fused frame."""
     import tpurt_torch.kernels.raster as R
     from tpurt_torch.app import Renderer
-    from tpurt_torch.passes.gbuffer import gbuffer_raster_pass
     from tpurt_torch.raster.setup import bin_rows, default_cap_rows
     from tpurt_torch.scenes import sponza_interior_camera
     from tpurt_torch.types import Light, RenderConfig
@@ -3343,10 +3161,7 @@ def phase_deferred(dev, mesh, c1, ras32, textured) -> dict:
                                                   fmt="z16"), 5),
               "raster_kernel": cuda_ms(
                   lambda: R.rasterize_rows16_cuda(bins, w, h), 5),
-              "gbuffer_pass": cuda_ms(lambda: gbuffer_raster_pass(
-                  r.mesh, cam, w, h, r.shade_table_orig, deferred=True), 5)}
-    stages["gather_and_decode"] = stages["gbuffer_pass"] \
-        - stages["binning"] - stages["raster_kernel"]
+              "spans": span_ms(r)}
     R.rasterize_rows16_cuda.launches = before
     stats = {}
     pres, plain_ms = host_ms(lambda: R.rasterize_rows16_reference(

@@ -1,0 +1,41 @@
+"""The benchmark's eight readers of the program's spans and host-sync
+count (``bench_torch/metrics/<name>/read.py``), through a traced run of
+the harness on the CPU at its tests' tiny size: each reads a finite
+number, and the host syncs a frame are the frame's reads (the walk flags,
+and in the animated rebuild the wide-node count)."""
+
+import math
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
+from test_torch_native import ensure_native_libraries  # noqa: E402
+
+from bench_torch import harness  # noqa: E402
+
+ensure_native_libraries()
+
+TINY = dict(tris_target=3000, width=64, height=36, check_pixels=384,
+            warmup_frames=1, trace_frames=2)
+SEED = 2 ** 31 + 12345
+METRICS = ("order_ms", "rays_ms", "walk_ms", "gbuffer_ms", "shadow_ms",
+           "composite_ms", "host_wait_ms", "host_syncs_per_frame")
+
+
+@pytest.mark.parametrize("workload,syncs", [
+    ("hall_static.sun_1080p", 1), ("hall_rebuild.sun_1080p_animated", 2)])
+def test_traced_run_reads_the_spans(workload, syncs):
+    res = harness.run(workload, SEED, 0.3, True, t_start=time.perf_counter(),
+                      device="cpu", overrides=TINY)
+    assert res["correct"] and res["failed"] == 0
+    m = res["metrics"]
+    for name in METRICS:
+        assert math.isfinite(m[name]["value"]), name
+        assert m[name]["value"] >= 0, name
+    assert m["walk_ms"]["value"] > 0 and m["gbuffer_ms"]["value"] > 0
+    assert m["host_syncs_per_frame"] == {"value": syncs, "unit": "syncs"}

@@ -125,6 +125,7 @@ from .passes.shading import (attr_payload_columns, leaf_attr_rows_from_sorted,
                              make_shade_table_orig, smooth_normals_device)
 from .passes.texture import apply_textures
 from .raster.setup import default_cap_rows
+from .spans import Spans, host_read, span
 from .types import (LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT, Camera,
                     Light, Mesh, RenderConfig)
 
@@ -308,9 +309,10 @@ def _gb_accel(bvh, cam: Camera, cfg: RenderConfig):
     """The accel the G-buffer walks: the 8-wide one ordered near-first for
     the camera (``order_children``); a binary accel or a WideBVHT as it
     is, since ``tpurt`` orders only WideBVH children."""
-    if not isinstance(bvh, WideBVH) or not cfg.order_children:
-        return bvh
-    return order_children_for_point(bvh, cam.position)
+    with span("tpurt.order"):
+        if not isinstance(bvh, WideBVH) or not cfg.order_children:
+            return bvh
+        return order_children_for_point(bvh, cam.position)
 
 
 def _visibility(valid: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
@@ -343,16 +345,19 @@ def _fused_gbuf(trace, attr_tables, shade_table, mesh: Mesh, cam: Camera,
     else from t and the sorted index through the shade table
     (``gbuf_from_table``), then the mesh's textures. Returns (gbuf, the
     wrapper's shadow outputs, walk counts)."""
-    origins, dirs = generate_rays(cam, cfg.width, cfg.height, device)
-    res = trace(origins, dirs)
-    if attr_tables is not None:
-        ch, *shadow, counts = res
-        gbuf = gbuf_from_attr_channels(ch, origins, dirs, cam, mesh)
-    else:
-        t, sidx, *shadow, counts = res
-        gbuf = gbuf_from_table(t, None, sidx, origins, dirs, cam, mesh,
-                               shade_table)
-    return _apply_mesh_textures(gbuf, mesh), shadow, counts
+    with span("tpurt.rays"):
+        origins, dirs = generate_rays(cam, cfg.width, cfg.height, device)
+    with span("tpurt.walk"):
+        res = trace(origins, dirs)
+    with span("tpurt.gbuffer"):
+        if attr_tables is not None:
+            ch, *shadow, counts = res
+            gbuf = gbuf_from_attr_channels(ch, origins, dirs, cam, mesh)
+        else:
+            t, sidx, *shadow, counts = res
+            gbuf = gbuf_from_table(t, None, sidx, origins, dirs, cam, mesh,
+                                   shade_table)
+        return _apply_mesh_textures(gbuf, mesh), shadow, counts
 
 
 def gbuffer_shadow_fused_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
@@ -390,9 +395,10 @@ def gbuffer_shadow_fused_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
                 textured=mesh.textured)
     gbuf, (out,), counts = _fused_gbuf(trace, attr_tables, shade_table,
                                        mesh, cam, cfg, bvh.nodes.device)
-    vis = 1.0 - out.to(torch.float32) / cfg.spp if soft or psoft \
-        else torch.where(out, 0.0, 1.0)
-    return gbuf, _visibility(gbuf["valid"], vis), counts
+    with span("tpurt.shadow"):
+        vis = 1.0 - out.to(torch.float32) / cfg.spp if soft or psoft \
+            else torch.where(out, 0.0, 1.0)
+        return gbuf, _visibility(gbuf["valid"], vis), counts
 
 
 def gbuffer_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
@@ -410,7 +416,9 @@ def gbuffer_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
             gb_accel, o, d, spec, cfg.shadow_bias, attr_tables=attr_tables,
             textured=mesh.textured),
         attr_tables, shade_table, mesh, cam, cfg, bvh.nodes.device)
-    return gbuf, _mask_visibility(gbuf["valid"], mask, len(lights)), counts
+    with span("tpurt.shadow"):
+        return (gbuf, _mask_visibility(gbuf["valid"], mask, len(lights)),
+                counts)
 
 
 def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
@@ -433,9 +441,10 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
             cfg.spp, seed, cfg.shadow_bias, attr_tables=attr_tables,
             textured=mesh.textured),
         attr_tables, shade_table, mesh, cam, cfg, bvh.nodes.device)
-    valid = gbuf["valid"]
-    vises = [_visibility(valid, 1.0 - cnt.to(torch.float32) / cfg.spp)]
-    vises += _mask_visibility(valid, mask, len(lights) - 1)
+    with span("tpurt.shadow"):
+        valid = gbuf["valid"]
+        vises = [_visibility(valid, 1.0 - cnt.to(torch.float32) / cfg.spp)]
+        vises += _mask_visibility(valid, mask, len(lights) - 1)
     return gbuf, vises, counts
 
 
@@ -453,11 +462,13 @@ def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
     and no seed is asked for, as ``tpurt`` gates both on a WideBVH; then
     the mesh's textures. Returns (gbuf, walk counts)."""
     if cfg.gbuffer == "raster":
-        gbuf = gbuffer_raster_pass(mesh, cam, cfg.width, cfg.height,
-                                   shade_table_orig,
-                                   cap_pairs=cfg.raster_cap_pairs or None,
-                                   deferred=cfg.raster_deferred)
-        counts = torch.zeros(2, dtype=torch.int32, device=bvh.tri_id.device)
+        with span("tpurt.gbuffer"):
+            gbuf = gbuffer_raster_pass(
+                mesh, cam, cfg.width, cfg.height, shade_table_orig,
+                cap_pairs=cfg.raster_cap_pairs or None,
+                deferred=cfg.raster_deferred)
+            counts = torch.zeros(2, dtype=torch.int32,
+                                 device=bvh.tri_id.device)
     else:
         gb_accel = _gb_accel(bvh, cam, cfg)
         if attr_tables is not None and isinstance(bvh, WideBVH):
@@ -476,7 +487,8 @@ def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
                                            gather_tri_id=False,
                                            seeded=seeded),
                 mesh, cam, cfg.width, cfg.height, shade_table)
-    return _apply_mesh_textures(gbuf, mesh), counts
+    with span("tpurt.gbuffer"):
+        return _apply_mesh_textures(gbuf, mesh), counts
 
 
 def shadow_production(bvh, gbuf, light: Light, seed: int,
@@ -560,11 +572,14 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
                                           shade_table, shade_table_orig)
         shadows = []
     for li in unfused_lights(route, len(lights)):
-        vis, c = shadow_production(bvh, gbuf, lights[li], seed, li, cfg)
-        shadows.append(vis)
-        counts = counts + c
-    return {"image": composite_lights(gbuf, shadows, lights, cfg),
-            "shadow": torch.stack(shadows), **gbuf, "walk_counts": counts}
+        with span("tpurt.shadow"):
+            vis, c = shadow_production(bvh, gbuf, lights[li], seed, li, cfg)
+            shadows.append(vis)
+            counts = counts + c
+    with span("tpurt.composite"):
+        return {"image": composite_lights(gbuf, shadows, lights, cfg),
+                "shadow": torch.stack(shadows), **gbuf,
+                "walk_counts": counts}
 
 
 def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
@@ -595,33 +610,38 @@ def _rebuild_fused(vertices: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
         raise ValueError(f"collapse={collapse!r}")
     attrs = tables == "attr"
     fixed = collapse == "fixed"
-    payload = attr_payload_columns(mesh, vertices.device) if attrs else ()
-    built = build_lbvh(vertices, indices, leaf_size=leaf_size,
-                       boxes="defer", extra_payload=payload,
-                       want_depth=fixed, split_blocks=split_blocks,
-                       top_sah=top_sah)
+    with span("tpurt.rebuild.build"):
+        payload = attr_payload_columns(mesh, vertices.device) if attrs \
+            else ()
+        built = build_lbvh(vertices, indices, leaf_size=leaf_size,
+                           boxes="defer", extra_payload=payload,
+                           want_depth=fixed, split_blocks=split_blocks,
+                           top_sah=top_sah)
     if not isinstance(built, tuple):
         built = (built,)
     bvh = built[0]
     cols = built[1] if attrs else ()
-    if fixed:
-        depth = built[-1]
-        if not top_sah:
-            # A steered tree's bound passes the stack: its frames rely on
-            # the walk counters (decision 18).
-            check_stack_bound(FIXED_CUT_DEPTH_BOUND)
-        wide = widen_lbvh(bvh, nw_pad, mode="fixed", depths=depth)
-        count = wide_count_device(bvh, mode="fixed", depths=depth)
-    else:
-        wide, count = widen_area_kernel(bvh, nw_pad)
+    with span("tpurt.rebuild.collapse"):
+        if fixed:
+            depth = built[-1]
+            if not top_sah:
+                # A steered tree's bound passes the stack: its frames rely
+                # on the walk counters (decision 18).
+                check_stack_bound(FIXED_CUT_DEPTH_BOUND)
+            wide = widen_lbvh(bvh, nw_pad, mode="fixed", depths=depth)
+            count = wide_count_device(bvh, mode="fixed", depths=depth)
+        else:
+            wide, count = widen_area_kernel(bvh, nw_pad)
     table = None
-    if attrs:
-        table = leaf_attr_rows_from_sorted(cols, bvh.tri_id, bvh.num_blocks,
-                                           leaf_size, mesh.textured)
-    elif tables == "st":
-        table = make_shade_table(bvh, mesh)
-    elif tables == "sto":
-        table = make_shade_table_orig(mesh.on(vertices.device))
+    with span("tpurt.rebuild.tables"):
+        if attrs:
+            table = leaf_attr_rows_from_sorted(cols, bvh.tri_id,
+                                               bvh.num_blocks, leaf_size,
+                                               mesh.textured)
+        elif tables == "st":
+            table = make_shade_table(bvh, mesh)
+        elif tables == "sto":
+            table = make_shade_table_orig(mesh.on(vertices.device))
     return bvh, wide, table, count
 
 
@@ -707,7 +727,19 @@ class Renderer:
     mode: ``build_ms``, the rebuild (CUDA events on the card, read after
     the frame's walk counters), and ``overflow_recoveries``, the rebuilds
     that outgrew the pad. ``raster_cap_growths``: frames rendered again
-    because the binning overflowed ``config.raster_cap_pairs``."""
+    because the binning overflowed ``config.raster_cap_pairs``.
+
+    ``spans`` (``spans.Spans``) holds the frames rendered while a torch
+    profiler records: their count, their host syncs (every read of a
+    device value and every copy of host data onto the card) and, per
+    stage span, the sums of its device-timeline ms, self ms, host ms and
+    entries. The spans, each also a ``record_function`` on the profiler's
+    timeline: ``tpurt.frame``, the whole frame; ``tpurt.rebuild`` (rebuild
+    mode, around which ``build_ms`` is timed) with ``.build``,
+    ``.collapse``, ``.tables`` and ``.count_read``; ``tpurt.order``,
+    ``tpurt.rays``, ``tpurt.walk``, ``tpurt.gbuffer``, ``tpurt.shadow``,
+    ``tpurt.composite``; ``tpurt.read``, the frame's host read and its
+    checks. Without a profiler the frame records nothing."""
 
     def __init__(self, mesh: Mesh, camera: Camera,
                  lights: Union[Light, Sequence[Light]],
@@ -772,6 +804,7 @@ class Renderer:
         self.frame_index = 0
         self.accum: Optional[torch.Tensor] = None
         self.stats: Dict[str, float] = {"raster_cap_growths": 0}
+        self.spans = Spans(self.device)
         self._nw_pad: Optional[int] = None
         self._geom_dirty = False
         self.attr_tables = None
@@ -851,9 +884,10 @@ class Renderer:
 
     def _check_count(self, count: torch.Tensor) -> None:
         """Raise if a collapse outgrew the pad just counted (host sync)."""
-        if int(count) > self._nw_pad:
-            raise RuntimeError(f"the collapse made {int(count)} wide nodes "
-                               f"in a pad of {self._nw_pad}")
+        n = int(host_read(count))
+        if n > self._nw_pad:
+            raise RuntimeError(f"the collapse made {n} wide nodes in a pad "
+                               f"of {self._nw_pad}")
 
     def _setup_rebuild(self) -> None:
         """Rebuild mode's set-up: the mesh on the device, the pad from a
@@ -908,7 +942,9 @@ class Renderer:
         bvh, accel, table, count = self._rebuild()
         if self._geom_dirty:
             self._geom_dirty = False
-            if int(count) > self._nw_pad:
+            with span("tpurt.rebuild.count_read"):
+                grew = int(host_read(count)) > self._nw_pad
+            if grew:
                 self._nw_pad = self._count_pad()
                 self.stats["overflow_recoveries"] += 1
                 bvh, accel, table, count = self._rebuild()
@@ -948,65 +984,46 @@ class Renderer:
         capacity is rendered again with the capacity doubled, and at least
         ``default_cap_rows`` (``tpurt/app.py:1055-1072``), so a frame with
         dropped coverage is never returned; the flag is read in the frame's
-        one host read, with the walk counters."""
+        one host read, with the walk counters. Under a recording torch
+        profiler the frame is traced into ``spans``."""
+        with self.spans.frame(self.frame_index):
+            return self._render_frame()
+
+    def _render_frame(self) -> Dict[str, torch.Tensor]:
         cfg = self.config
         if self.mode == "rebuild":
-            timer = _Stopwatch(self.device)
-            self._update_bvh()
-            timer.stop()
+            with span("tpurt.rebuild", self.device) as timer:
+                self._update_bvh()
         out = render_frame_fn(self.accel, self.mesh, self.camera,
                               self.lights, cfg, self.attr_tables,
                               seed=frame_seed(cfg.seed, self.frame_index),
                               shade_table=self.shade_table,
                               shade_table_orig=self.shade_table_orig)
-        flags = out["walk_counts"]
-        if self._raster:
-            flags = torch.cat([flags, out["raster_overflow"].reshape(1)
-                               .to(flags.dtype)])
-        flags = flags.cpu()
-        if self._raster and bool(flags[2]):
+        with span("tpurt.read"):
+            flags = out["walk_counts"]
+            if self._raster:
+                flags = torch.cat([flags, out["raster_overflow"].reshape(1)
+                                   .to(flags.dtype)])
+            flags = host_read(flags)
+            grow = self._raster and bool(flags[2])
+            if not grow:
+                check_walk_counts(flags[:2])
+        if grow:
             ntris = self.mesh.num_triangles
             cap = cfg.raster_cap_pairs or default_cap_rows(ntris)
             self.config = dataclasses.replace(
                 cfg, raster_cap_pairs=max(2 * cap, default_cap_rows(ntris)))
             self.stats["raster_cap_growths"] += 1
-            return self.render_frame()
-        check_walk_counts(flags[:2])
+            return self._render_frame()
         if self.mode == "rebuild":
             self.stats["build_ms"] = timer.ms()
         if cfg.accumulate:
-            if self.accum is None:
-                self.accum = out["image"]
-            else:
-                self.accum = accumulate(self.accum, self.frame_index,
-                                        out["image"])
+            with span("tpurt.composite"):
+                if self.accum is None:
+                    self.accum = out["image"]
+                else:
+                    self.accum = accumulate(self.accum, self.frame_index,
+                                            out["image"])
             out["image"] = self.accum
         self.frame_index += 1
         return out
-
-
-class _Stopwatch:
-    """Milliseconds of the work between construction and ``stop()``: CUDA
-    events on the card (read later, without a sync of its own), the host
-    clock on the CPU, where the work has finished when it returns."""
-
-    def __init__(self, device: torch.device):
-        self._cuda = device.type == "cuda"
-        if self._cuda:
-            self._start = torch.cuda.Event(enable_timing=True)
-            self._end = torch.cuda.Event(enable_timing=True)
-            self._start.record()
-        else:
-            self._t0 = time.perf_counter()
-
-    def stop(self) -> None:
-        if self._cuda:
-            self._end.record()
-        else:
-            self._t1 = time.perf_counter()
-
-    def ms(self) -> float:
-        if self._cuda:
-            self._end.synchronize()
-            return self._start.elapsed_time(self._end)
-        return (self._t1 - self._t0) * 1e3

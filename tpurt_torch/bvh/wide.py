@@ -37,6 +37,7 @@ import torch
 
 from ..kernels.build import (EMPTY, WIDE_FACTOR, collapse_area, greedy_slots,
                              node_depths)
+from ..spans import host_read, to_device
 from .lbvh import LBVH, _leaf_boxes, range_boxes, range_query, range_table
 
 _BIG = 3.4e38
@@ -236,7 +237,7 @@ def count_wide(bvh: LBVH, mode: str = None) -> int:
     """Host sync: number of wide nodes (for choosing the padded size);
     ``mode`` must be the one the widen uses."""
     _, mask = _front_and_mask(bvh.nodes_child, bvh.nodes_box, mode=mode)
-    return int(mask.sum())
+    return int(host_read(mask.sum()))
 
 
 def wide_count_device(bvh: LBVH, mode: str = None,
@@ -531,7 +532,7 @@ def order_children_for_point(wide: WideBVH, point) -> WideBVH:
     stack pops the nearest child first. Any permutation is correct."""
     rows = wide.nodes.reshape(-1, WIDE_FACTOR, 16)
     center = (rows[:, :, 0:3] + rows[:, :, 3:6]) * 0.5
-    p = torch.as_tensor(np.asarray(point, np.float32), device=rows.device)
+    p = to_device(point, rows.device)
     d = center - p
     key = d[:, :, 0] * d[:, :, 0] + d[:, :, 1] * d[:, :, 1] \
         + d[:, :, 2] * d[:, :, 2]

@@ -8,9 +8,9 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
+from .spans import to_device
 from .types import Camera
 
 
@@ -18,7 +18,7 @@ def as_f32(x, device) -> torch.Tensor:
     """A numpy array, scalar or tensor as a float32 tensor on ``device``."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return to_device(x, device)
 
 
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:

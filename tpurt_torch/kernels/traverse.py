@@ -95,12 +95,13 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..bvh.lbvh import LBVH
 from ..bvh.wide import WideBVH, WideBVHT, leaves_per_block
+from ..camera import as_f32
+from ..spans import to_device
 from ._build import _check, _pick, _stream
 from .pack import NODE_STRIDE, PackedBVH, pack_bvh
 from .sampling import (lane_axis_onb, onb3, rsqrt, sample_uniforms,
@@ -194,7 +195,7 @@ def _flat_packets(x: torch.Tensor, npad: int, fill: float) -> torch.Tensor:
 def _ray_packets(origins, dirs, t_max):
     """(H, W, 3) rays -> seven (P, 8, 128) component tensors in 32x32 pixel
     tiles, or (N, 3) rays in runs of 1024."""
-    tm = torch.as_tensor(t_max, dtype=torch.float32, device=origins.device)
+    tm = as_f32(t_max, origins.device)
     if origins.ndim == 3:
         h, w = origins.shape[:2]
         comps = [to_packets(origins[..., c]) for c in range(3)]
@@ -1732,13 +1733,9 @@ for _fn in CUDA_KERNELS:
 # Inputs and wrappers
 # ---------------------------------------------------------------------------
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
-
-
 def _dir_scalars(ld, device):
     """Toward-light direction(3) and its clamped inverse(3)."""
-    d = _f32(ld, device)
+    d = to_device(ld, device)
     return [d, torch.clamp(1.0 / d, -_BIG, _BIG)]
 
 
@@ -1748,17 +1745,17 @@ def _root_box(bvh: WideBVH):
 
 def _cone_scalars(axis_dir, cone_cos, device):
     """Cone axis(3), its Duff basis t0(3), t1(3), cone_cos."""
-    axis = _f32(axis_dir, device)
+    axis = to_device(axis_dir, device)
     t0, t1 = onb3(axis)
-    return [axis, t0, t1, _f32([cone_cos], device)]
+    return [axis, t0, t1, to_device([cone_cos], device)]
 
 
 def _shadow_scalars(bvh: WideBVH, light_dir, bias, light_pos, device):
     """f32[4] (point: position, bias) or f32[13] (directional: dir,
     clamped 1/dir, bias, root box min, max)."""
-    b = _f32([bias], device)
+    b = to_device([bias], device)
     if light_pos is not None:
-        return torch.cat([_f32(light_pos, device), b])
+        return torch.cat([to_device(light_pos, device), b])
     return torch.cat(_dir_scalars(light_dir, device) + [b]
                      + _root_box(bvh))
 
@@ -1800,9 +1797,9 @@ def closest_multi_shadow_inputs(bvh: WideBVH, origins, dirs, lights, bias,
     points = tuple(lp is not None for _, lp in lights)
 
     def scal(dev):
-        blocks = [_f32([bias], dev)] + _root_box(bvh)
+        blocks = [to_device([bias], dev)] + _root_box(bvh)
         for ld, lp in lights:
-            blocks += [_f32(lp, dev)] if lp is not None \
+            blocks += [to_device(lp, dev)] if lp is not None \
                 else _dir_scalars(ld, dev)
         return torch.cat(blocks)
     return _fused_inputs(bvh, origins, dirs, attr_tables, t_max, t_min,
@@ -1818,7 +1815,7 @@ def closest_soft_shadow_inputs(bvh: WideBVH, origins, dirs, axis_dir,
     return _fused_inputs(
         bvh, origins, dirs, attr_tables, t_max, t_min, stack_size,
         lambda dev: torch.cat(_cone_scalars(axis_dir, cone_cos, dev)
-                              + _root_box(bvh) + [_f32([bias], dev)]),
+                              + _root_box(bvh) + [to_device([bias], dev)]),
         spp=int(spp), seed=int(seed), zero_stream=bool(zero_stream))
 
 
@@ -1831,8 +1828,8 @@ def closest_point_soft_shadow_inputs(bvh: WideBVH, origins, dirs, light_pos,
     """Inputs of the disk kernel (scal f32[5])."""
     return _fused_inputs(
         bvh, origins, dirs, attr_tables, t_max, t_min, stack_size,
-        lambda dev: torch.cat([_f32(light_pos, dev),
-                               _f32([radius, bias], dev)]),
+        lambda dev: torch.cat([to_device(light_pos, dev),
+                               to_device([radius, bias], dev)]),
         spp=int(spp), seed=int(seed), zero_stream=bool(zero_stream))
 
 
@@ -1852,9 +1849,9 @@ def closest_soft_multi_shadow_inputs(bvh: WideBVH, origins, dirs, light0,
         _check_mask_lights(len(extra_dirs))
 
     def scal(dev):
-        blocks = [_f32([bias], dev)] + _root_box(bvh)
-        blocks += [_f32(vec, dev), _f32([scalar], dev)] if kind == "disk" \
-            else _cone_scalars(vec, scalar, dev)
+        blocks = [to_device([bias], dev)] + _root_box(bvh)
+        blocks += [to_device(vec, dev), to_device([scalar], dev)] \
+            if kind == "disk" else _cone_scalars(vec, scalar, dev)
         for ld in extra_dirs:
             blocks += _dir_scalars(ld, dev)
         return torch.cat(blocks)
@@ -1955,7 +1952,8 @@ def any_point_soft_inputs(bvh: WideBVH, origins, valid, light_pos, radius,
     """Inputs of the standalone disk kernel (scal f32[4])."""
     return _soft_inputs(
         bvh, origins, valid,
-        lambda dev: torch.cat([_f32(light_pos, dev), _f32([radius], dev)]),
+        lambda dev: torch.cat([to_device(light_pos, dev),
+                               to_device([radius], dev)]),
         spp, seed, light, t_min, zero_stream, stack_size)
 
 

@@ -34,7 +34,7 @@ def composite_pass(gbuf: Dict[str, torch.Tensor], shadow: torch.Tensor,
     radiance = as_f32(light.color, dev) * as_f32(light.intensity, dev)
     direct = (ndl * falloff * shadow)[..., None] * radiance
     color = gbuf["albedo"] * (direct + ambient)
-    bg = torch.as_tensor(background, dtype=color.dtype, device=dev)
+    bg = as_f32(background, dev)
     return torch.where(gbuf["valid"][..., None], color, bg)
 
 

@@ -27,6 +27,7 @@ from ..kernels.raster import rasterize_rows, rasterize_rows16
 from ..bvh.wide import WideBVHT
 from ..kernels.traverse import trace_closest_attrs, trace_closest_attrs_t
 from ..raster.setup import bin_rows, default_cap_rows
+from ..spans import span
 from ..types import Camera, Mesh
 from .shading import (barycentrics_from_position, gather_table_rows,
                       oct_decode, shade_from_table, shade_from_table_uv,
@@ -41,13 +42,16 @@ def gbuffer_attr_pass(bvh, attr_tables, mesh: Mesh, cam: Camera,
     and the w8t attribute walk runs. Returns (G-buffer, walk counts
     i32[2])."""
     if rays is None:
-        rays = generate_rays(cam, width, height, bvh.nodes.device)
+        with span("tpurt.rays"):
+            rays = generate_rays(cam, width, height, bvh.nodes.device)
     origins, dirs = rays
     trace = trace_closest_attrs_t if isinstance(bvh, WideBVHT) \
         else trace_closest_attrs
-    ch, counts = trace(bvh, origins, dirs, attr_tables,
-                       textured=mesh.textured)
-    return gbuf_from_attr_channels(ch, origins, dirs, cam, mesh), counts
+    with span("tpurt.walk"):
+        ch, counts = trace(bvh, origins, dirs, attr_tables,
+                           textured=mesh.textured)
+    with span("tpurt.gbuffer"):
+        return gbuf_from_attr_channels(ch, origins, dirs, cam, mesh), counts
 
 
 def _viewer_facing(gnormal, dirs) -> torch.Tensor:
@@ -100,13 +104,23 @@ def gbuffer_pass(trace_closest: Callable, mesh: Mesh, cam: Camera,
     if rays is None:
         dev = (shade_table if shade_table is not None
                else mesh.vertices).device
-        rays = generate_rays(cam, width, height, dev)
+        with span("tpurt.rays"):
+            rays = generate_rays(cam, width, height, dev)
     origins, dirs = rays
+    with span("tpurt.walk"):
+        hit = trace_closest(origins, dirs)
+    with span("tpurt.gbuffer"):
+        return _gbuf_from_hit(hit, origins, dirs, cam, mesh, shade_table)
+
+
+def _gbuf_from_hit(hit, origins, dirs, cam: Camera, mesh: Mesh,
+                   shade_table):
+    """``gbuffer_pass``'s decode of the tracer's result."""
     if shade_table is not None:
-        t, tri_id, sidx, counts = trace_closest(origins, dirs)
+        t, tri_id, sidx, counts = hit
         return gbuf_from_table(t, tri_id, sidx, origins, dirs, cam, mesh,
                                shade_table), counts
-    t, tri_id, counts = trace_closest(origins, dirs)
+    t, tri_id, counts = hit
     valid = tri_id >= 0
     position = origins + dirs * torch.where(valid, t, 0.0)[..., None]
     attrs = shade_attributes(mesh, tri_id, position, valid)
