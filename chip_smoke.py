@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases (one card)
+    python3 chip_smoke.py               # all phases (one card)
+    python3 chip_smoke.py frame_graph   # phases 1, 2 and 20 alone
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -43,7 +44,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    program's spans over three frames under torch.profiler
    (``Renderer.spans``: device-timeline, self and host ms a frame per
    span); one frame under CUDA's sync debug mode, whose syncs must equal
-   the frame's own count of host syncs. Phases 5, 6 and 9 do the same.
+   the frame's own count of host syncs and 1, the frame's one host read
+   (2 in phase 9, with the rebuild's count read). Phases 5, 6 and 9 do
+   the same.
 5. Config 3: the same hall and camera, a 2 deg sun, spp 8, accumulation,
    1920x1080: one warm-up and five timed frames, exactly one soft-kernel
    launch each; finite images, a penumbra, frames that differ, and a second
@@ -252,7 +255,20 @@ Phases, in order; any failure raises and the exit code is not 0:
     on >= 99.4% of covered pixels, coverage off on < 0.2%: the v1 records'
     pixel-scale cross products lose the depth order on some pixels, as
     tpurt's own v1 does).
-20. Timings on one JSON line, then the kernel table on one JSON line, the
+20. The static frame's CUDA graphs (tpurt_torch/graphs.py) against its
+    eager frames at 1920x1080 in the hall: per route (hard fused0, the
+    seeded SOFT at spp 8 with accumulation, fusedN with config 5's three
+    suns, fusedSM with the 2 deg sun and two fills, the unfused hard
+    frame, the shade table, the textured hall) six frames of one Renderer
+    that takes the graphs and six of one that runs eagerly: every output
+    of every frame equal bit for bit, the same launches of every kernel,
+    one capture and five replays; every frame's frame-2 output unchanged
+    after frame 6; on hard fused0 the camera moved between frames 3 and
+    4 (equal outputs, no second capture). Then one graph frame per route
+    under CUDA's sync debug mode: 1 host sync, the frame's own count. The
+    frame ms of both (CUDA events and the host clock, frames 3-6) per
+    route, and the spans of both on hard fused0 and three suns.
+21. Timings on one JSON line, then the kernel table on one JSON line, the
     card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Tolerances of the walk kernels' checks against their plain versions:
@@ -291,6 +307,7 @@ pass.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1054,10 +1071,10 @@ def span_ms(r, n: int = 3, pose=None) -> dict:
     return out
 
 
-def counted_syncs(r, what: str) -> dict:
+def counted_syncs(r, what: str, want: int) -> dict:
     """One frame under torch.profiler and CUDA's sync debug mode: the
     syncs the debug mode finds must be the frame's own count
-    (``Renderer.spans.syncs``)."""
+    (``Renderer.spans.syncs``), and ``want``."""
     from torch.profiler import ProfilerActivity, profile
     sp = r.spans
     syncs = sp.syncs
@@ -1065,9 +1082,10 @@ def counted_syncs(r, what: str) -> dict:
         found = host_syncs(r.render_frame)
         torch.cuda.synchronize()
     counted = sp.syncs - syncs
-    if counted != len(found):
+    if not counted == len(found) == want:
         raise RuntimeError(f"{what}: the frame counted {counted} host syncs, "
-                           f"the sync debug mode found {len(found)}: {found}")
+                           f"the sync debug mode found {len(found)}, want "
+                           f"{want}: {found}")
     res = dict(host_syncs=counted, where=found)
     log(f"{what} host syncs a frame: {json.dumps(res)}")
     return res
@@ -1111,7 +1129,7 @@ def phase_config1(dev, mesh) -> dict:
     nvalid = int(valid.sum())
     return dict(launches=n["closest_shadow"], frame_ms=frame_ms,
                 frame_ms_mean=mean_ms, kernel=kp, spans=span_ms(r),
-                syncs=counted_syncs(r, "phase 4"),
+                syncs=counted_syncs(r, "phase 4", 1),
                 image=kept[0]["image"], valid=valid, renderer=r,
                 valid_share=valid_share,
                 occluded_share=occ_share,
@@ -1158,7 +1176,7 @@ def phase_config3(dev, mesh) -> dict:
     nvalid = int(valid.sum())
     return dict(launches=n["closest_soft_shadow"], frame_ms=frame_ms,
                 frame_ms_mean=mean_ms, kernel=kp, spans=span_ms(r),
-                syncs=counted_syncs(r, "phase 5"),
+                syncs=counted_syncs(r, "phase 5", 1),
                 penumbra_share=penumbra,
                 occluded_share=occluded,
                 **rays_per_s(MAIN_W * MAIN_H, nvalid, nvalid * SPP, mean_ms))
@@ -1204,7 +1222,7 @@ def phase_config5(dev, mesh) -> dict:
     nvalid = int(valid.sum())
     return dict(launches=n["closest_multi_shadow"], frame_ms=frame_ms,
                 frame_ms_mean=mean_ms, kernel=kp, spans=span_ms(r),
-                syncs=counted_syncs(r, "phase 6"),
+                syncs=counted_syncs(r, "phase 6", 1),
                 occluded_shares=shares,
                 peak_mem_mb=peak_mb,
                 **rays_per_s(UHD_W * UHD_H, nvalid, nvalid * len(lights),
@@ -1654,7 +1672,7 @@ def phase_config2(dev, mesh, static_image) -> dict:
     # (tpurt.rebuild.*) among them, and its host syncs.
     spans = span_ms(r, pose=lambda i: r.set_vertices(deform(mesh, 0.1 * i)))
     r.set_vertices(deform(mesh, 0.4))
-    syncs_posed = counted_syncs(r, "phase 9 posed")
+    syncs_posed = counted_syncs(r, "phase 9 posed", 2)
     res = dict(launches=n, frame_ms=frame_ms, frame_ms_mean=mean_ms,
                build_ms=build_ms, build_ms_mean=float(np.mean(build_ms)),
                spans=spans, syncs=syncs_posed, closest_shadow=hard,
@@ -3757,6 +3775,144 @@ def variants_rows(var) -> list:
                     k["rasterize_tiles"])]
 
 
+@contextlib.contextmanager
+def eager_frames():
+    """Frames rendered inside run their stages eagerly: the graph frames'
+    comparison."""
+    import tpurt_torch.app as app
+    saved = app.takes_graph
+    app.takes_graph = lambda *args: False
+    try:
+        yield
+    finally:
+        app.takes_graph = saved
+
+
+def textured_hall(mesh):
+    """Phase 13's textured hall, written as OBJ/MTL/PNG and loaded."""
+    import tempfile
+    from tpurt_torch.io.obj import load_obj
+    with tempfile.TemporaryDirectory() as root:
+        return load_obj(write_textured_hall(mesh, root)["path"],
+                        use_native=True)
+
+
+def _graph_run(r, n: int, eager: bool, move=None):
+    """n frames of ``r`` (eagerly where ``eager``; the camera set to
+    ``move`` before frame 4) -> (outputs, the frame-2 outputs' copies
+    taken when it returned, CUDA-event ms and host ms of frames 3..n)."""
+    outs, held, dev_ms, host_ms = [], None, [], []
+    for i in range(n):
+        if move is not None and i == 3:
+            r.camera = move
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        with eager_frames() if eager else contextlib.nullcontext():
+            out = r.render_frame()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+        if i == 1:
+            held = {k: v.clone() for k, v in out.items()}
+        outs.append(out)
+    return outs, held, dev_ms, host_ms
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def phase_frame_graph(dev, mesh, tmesh) -> dict:
+    """The static frame's CUDA graphs against its eager frames: per
+    route, the outputs bit for bit, the launches, the captures and
+    replays, the held frame-2 outputs, the moved camera (hard fused0),
+    the host syncs of a graph frame; both frames' ms and spans."""
+    from tpurt_torch.app import Renderer
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Camera, Light, RenderConfig
+    cam = sponza_interior_camera()
+    moved = Camera.look_at(np.asarray(cam.position) + np.float32(
+        [0.4, 0.1, -0.3]), cam.target, fov_y_deg=60.0,
+        zfar=float(cam.zfar))
+    hard = Light.directional(SUN_DIR)
+    sun = Light.sun(SUN_DIR, angular_radius_deg=2.0)
+    fills = config5_lights()[1:]
+    seed = 2 ** 31 + 16_001
+    cases = {
+        "hard": (mesh, [hard], {}, "fused0"),
+        "soft_spp8": (mesh, [sun], dict(spp=SPP, accumulate=True),
+                      "fused0"),
+        "three_suns": (mesh, config5_lights(), {}, "fusedN"),
+        "sun_fills": (mesh, [sun] + fills, dict(spp=SPP), "fusedSM"),
+        "unfused": (mesh, [hard], dict(fused_shadow=False), "unfused"),
+        "shade_table": (mesh, [hard], dict(inkernel_attrs=False), "fused0"),
+        "textured": (tmesh, [hard], {}, "fused0"),
+    }
+    res = {}
+    for name, (m, lights, fields, route) in cases.items():
+        cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=14,
+                           seed=seed, **fields)
+        move = moved if name == "hard" else None
+        got = {}
+        for side in ("graph", "eager"):
+            r = Renderer(m, cam, lights, cfg, device=dev)
+            if r.route != route:
+                raise RuntimeError(f"frame_graph {name} takes route "
+                                   f"{r.route}, want {route}")
+            reset_launches()
+            outs, held, dev_ms, host_ms = _graph_run(r, 6, side == "eager",
+                                                     move)
+            got[side] = dict(r=r, outs=outs, held=held, launches=launches(),
+                             dev_ms=dev_ms, host_ms=host_ms)
+        g, e = got["graph"], got["eager"]
+        for i, (a, b) in enumerate(zip(g["outs"], e["outs"])):
+            bad = [k for k in b if k not in a or not _same_bits(a[k], b[k])]
+            if bad or set(a) != set(b):
+                raise RuntimeError(f"frame_graph {name} frame {i + 1}: "
+                                   f"graph and eager differ in {bad}")
+        for side, x in got.items():
+            bad = [k for k, v in x["held"].items()
+                   if not _same_bits(x["outs"][1][k], v)]
+            if bad:
+                raise RuntimeError(f"frame_graph {name} ({side}): frame 2's "
+                                   f"{bad} changed by later frames")
+        if g["launches"] != e["launches"]:
+            raise RuntimeError(f"frame_graph {name}: graph launches "
+                               f"{g['launches']}, eager {e['launches']}")
+        stats = {k: (g["r"].stats[k], e["r"].stats[k])
+                 for k in ("graph_captures", "graph_replays")}
+        if stats != {"graph_captures": (1, 0), "graph_replays": (5, 0)}:
+            raise RuntimeError(f"frame_graph {name}: {stats}")
+        syncs = counted_syncs(g["r"], f"frame_graph {name}", 1)
+        if g["r"].spans.graph_frames != 1:
+            raise RuntimeError(f"frame_graph {name}: the traced frame did "
+                               f"not replay its graphs")
+        res[name] = dict(
+            route=route, launches={k: v for k, v in g["launches"].items()
+                                   if v},
+            graph_ms=g["dev_ms"], eager_ms=e["dev_ms"],
+            graph_host_ms=g["host_ms"], eager_host_ms=e["host_ms"],
+            graph_ms_mean=float(np.mean(g["dev_ms"])),
+            eager_ms_mean=float(np.mean(e["dev_ms"])), syncs=syncs,
+            stages=len(g["r"]._graphs.stages))
+        if name in ("hard", "three_suns"):
+            res[name]["spans_graph"] = span_ms(g["r"])
+            with eager_frames():
+                res[name]["spans_eager"] = span_ms(e["r"])
+        log(f"phase 20 frame_graph {name}: {json.dumps(res[name])}")
+        del got, g, e
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; the port's "
@@ -3784,6 +3940,16 @@ def main() -> int:
                            f"psoft_kernel<0, 1, 2> and any_psoft_kernel")
     log(f"phase 2 penumbra kernels (ptxas): {json.dumps(ptxas_psoft)}")
 
+    if sys.argv[1:] == ["frame_graph"]:
+        mesh = sponza_scene(MAIN_TRIS)
+        fg = phase_frame_graph(dev, mesh, textured_hall(mesh))
+        log(json.dumps({"timings": {"card": card, "build_s": build_s,
+                                    "frame_graph_1080p": fg}}))
+        log(card)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     t_start = time.perf_counter()
     small = phase_small(dev)
     small["psoft_spp"] = small_psoft_spp(dev)
@@ -3811,6 +3977,7 @@ def main() -> int:
     deferred = phase_deferred(dev, mesh, phase4, ras32, textured)
     w8t = phase_w8t(dev, mesh, phase4, textured["mesh"])
     var = phase_variants(dev, mesh, phase4["renderer"])
+    fg = phase_frame_graph(dev, mesh, textured["mesh"])
     timings = {"card": card, "build_s": build_s,
                "ptxas_psoft": ptxas_psoft,
                "phases_s": time.perf_counter() - t_start,
@@ -3829,7 +3996,8 @@ def main() -> int:
                "w8t_1080p": {k: v for k, v in w8t.items()
                              if k != "kernels"},
                "variants_1080p": {"launches": var["launches"],
-                                  "phase_s": var["phase_s"]}}
+                                  "phase_s": var["phase_s"]},
+               "frame_graph_1080p": fg}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],

@@ -1,0 +1,288 @@
+"""The frame's block of constants and the CUDA-graph frames
+(``tpurt_torch/frame_block.py``, ``tpurt_torch/graphs.py``), on the CPU:
+the block holds, bit for bit, the float32 values a copy of each host
+value makes, and the walks' scalar blocks and seed read from it equal
+those made from the host values; which frames take the graphs is a pure
+function of (mode, G-buffer, device, route); the capture key follows what
+the graphs bake in and nothing else; CPU frames capture and replay
+nothing; a frame's outputs stay as they were after the next frame."""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_native import ensure_native_libraries  # noqa: E402
+
+import tpurt_torch.kernels.traverse as tr  # noqa: E402
+from tpurt_torch.app import Renderer, frame_seed  # noqa: E402
+from tpurt_torch.bvh.wide import order_children_for_point  # noqa: E402
+from tpurt_torch.camera import generate_rays  # noqa: E402
+from tpurt_torch.frame_block import FrameBlock  # noqa: E402
+from tpurt_torch.graphs import GRAPH_ROUTES, capture_key, takes_graph  # noqa: E402,E501
+from tpurt_torch.kernels.sampling import sample_uniforms  # noqa: E402
+from tpurt_torch.passes.shadow import cone_cos  # noqa: E402
+from tpurt_torch.scenes import default_camera_for, deform, teapot_scene  # noqa: E402,E501
+from tpurt_torch.spans import to_device  # noqa: E402
+from tpurt_torch.types import Camera, Light, RenderConfig  # noqa: E402
+
+ensure_native_libraries()
+torch.set_num_threads(1)
+
+W, H = 40, 24
+SEED = 2 ** 31 + 977
+SUN = Light.directional((0.45, 0.8, 0.3))
+SOFT_SUN = Light.sun((0.2, 0.5, -0.8), angular_radius_deg=4.0)
+FILL = Light.directional((-0.5, 0.7, 0.2), color=(1.0, 0.8, 0.6),
+                         intensity=0.5)
+SKY = Light.directional((0.1, 0.9, -0.4), color=(0.7, 0.8, 1.0),
+                        intensity=0.35)
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    return teapot_scene(1200)
+
+
+def _lamp(mesh, radius):
+    c = 0.5 * sum(mesh.bounds())
+    return Light.point(c + np.float32([0.3, 1.2, 0.4]), radius=radius,
+                       intensity=2.0)
+
+
+# route name -> (lights, config fields, the route the Renderer takes)
+ROUTES = {
+    "hard": (lambda m: [SUN], {}, "fused0"),
+    "soft": (lambda m: [SOFT_SUN], dict(spp=4, accumulate=True), "fused0"),
+    "psoft": (lambda m: [_lamp(m, 0.15)], dict(spp=4), "fused0"),
+    "point_hard": (lambda m: [_lamp(m, 0.0)], {}, "fused0"),
+    "multi": (lambda m: [SUN, FILL, SKY], {}, "fusedN"),
+    "soft_multi": (lambda m: [SOFT_SUN, FILL], dict(spp=4), "fusedSM"),
+    "psoft_multi": (lambda m: [_lamp(m, 0.15), FILL], dict(spp=4),
+                    "fusedSM"),
+    "unfused": (lambda m: [SOFT_SUN, _lamp(m, 0.15), SUN],
+                dict(fused_shadow=False, spp=4), "unfused"),
+    "shade_table": (lambda m: [SUN, FILL], dict(inkernel_attrs=False),
+                    "fusedN"),
+    "binary": (lambda m: [SOFT_SUN], dict(bvh_width=2, sah=False, spp=4),
+               "unfused"),
+}
+
+
+def _renderer(mesh, route, mode="static", **more):
+    lights, fields, _ = ROUTES[route]
+    cfg = RenderConfig(width=W, height=H, leaf_size=8, seed=SEED,
+                       **{**fields, **more})
+    return Renderer(mesh, default_camera_for(mesh), lights(mesh), cfg,
+                    mode=mode, device="cpu")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(_bits(a), _bits(b)))
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_block_holds_the_copied_values(mesh, route):
+    """Every view equals the copy of its host value that the frame made
+    before the block (``spans.to_device``), bit for bit and in shape; the
+    seed view holds the frame seed's bits; the near-first order from the
+    block's camera position is the order from the host's."""
+    r = _renderer(mesh, route)
+    assert r.route == ROUTES[route][2]
+    cam, cfg = r.camera, r.config
+    k = r._block.write(cam, r.lights, cfg, frame_seed(cfg.seed, 5))
+    for f in ("position", "target", "up", "fov_y", "zfar"):
+        assert _same(getattr(k.camera, f), to_device(getattr(cam, f),
+                                                     "cpu")), f
+    for view, light in zip(k.lights, r.lights):
+        assert view.kind == light.kind
+        for f in ("direction", "position", "color", "intensity", "radius"):
+            assert _same(getattr(view, f), to_device(getattr(light, f),
+                                                     "cpu")), f
+        assert _same(cone_cos(view), to_device(cone_cos(light), "cpu"))
+    assert _same(k.bias, to_device(cfg.shadow_bias, "cpu"))
+    assert _same(k.background, to_device(cfg.background, "cpu"))
+    assert k.seed.dtype == torch.int32 and k.seed.shape == (1,)
+    assert int(k.seed[0]) & 0xFFFFFFFF == frame_seed(cfg.seed, 5)
+    if route != "binary":
+        assert torch.equal(
+            order_children_for_point(r.accel, k.camera.position).nodes,
+            order_children_for_point(r.accel, cam.position).nodes)
+
+
+def _host_and_views(mesh):
+    r = _renderer(mesh, "unfused")
+    lights = r.lights + [FILL]
+    k = FrameBlock(len(lights), "cpu").write(r.camera, lights, r.config,
+                                             frame_seed(SEED, 2))
+    o, d = generate_rays(r.camera, W, H, "cpu")
+    return r, lights, k, o, d
+
+
+# Each walk's inputs from (light set, bias, seed) -> (args, kwargs).
+INPUTS = {
+    "hard_dir": lambda r, ls, b, s, o, d: tr.closest_shadow_inputs(
+        r.accel, o, d, ls[3].direction, b, r.attr_tables),
+    "hard_point": lambda r, ls, b, s, o, d: tr.closest_shadow_inputs(
+        r.accel, o, d, None, b, r.attr_tables, light_pos=ls[1].position),
+    "multi": lambda r, ls, b, s, o, d: tr.closest_multi_shadow_inputs(
+        r.accel, o, d, [(ls[2].direction, None), (None, ls[1].position),
+                        (ls[3].direction, None)], b, r.attr_tables),
+    "soft": lambda r, ls, b, s, o, d: tr.closest_soft_shadow_inputs(
+        r.accel, o, d, ls[0].direction, cone_cos(ls[0]), 4, s, b,
+        r.attr_tables),
+    "psoft": lambda r, ls, b, s, o, d: tr.closest_point_soft_shadow_inputs(
+        r.accel, o, d, ls[1].position, ls[1].radius, 4, s, b,
+        r.attr_tables),
+    "soft_multi_cone": lambda r, ls, b, s, o, d:
+        tr.closest_soft_multi_shadow_inputs(
+            r.accel, o, d, ("cone", ls[0].direction, cone_cos(ls[0])),
+            [ls[2].direction, ls[3].direction], 4, s, b, r.attr_tables),
+    "soft_multi_disk": lambda r, ls, b, s, o, d:
+        tr.closest_soft_multi_shadow_inputs(
+            r.accel, o, d, ("disk", ls[1].position, ls[1].radius),
+            [ls[3].direction], 4, s, b, r.attr_tables),
+    "any_soft": lambda r, ls, b, s, o, d: tr.any_soft_inputs(
+        r.accel, o, torch.ones(o.shape[:2], dtype=torch.bool),
+        ls[0].direction, cone_cos(ls[0]), 4, s, light=1),
+    "any_point_soft": lambda r, ls, b, s, o, d: tr.any_point_soft_inputs(
+        r.accel, o, torch.ones(o.shape[:2], dtype=torch.bool),
+        ls[1].position, ls[1].radius, 4, s, light=2),
+}
+
+
+@pytest.mark.parametrize("walk", sorted(INPUTS))
+def test_walk_scalars_from_the_block(mesh, walk):
+    """A walk's scalar block (light, bias and the root box) and its seed,
+    made from the block's views, equal those made from the host values
+    (the float bias and the int seed), bit for bit."""
+    r, lights, k, o, d = _host_and_views(mesh)
+    host = INPUTS[walk](r, lights, r.config.shadow_bias,
+                        frame_seed(SEED, 2), o, d)
+    views = INPUTS[walk](r, k.lights, k.bias, k.seed, o, d)
+    scal_h, scal_v = host[0][-1], views[0][-1]
+    assert _same(scal_v, scal_h)
+    if walk == "hard_dir":      # dir(3), clamped 1/dir(3), bias, the box
+        assert torch.equal(scal_v[7:10], r.accel.root_min)
+        assert torch.equal(scal_v[10:13], r.accel.root_max)
+    if "seed" in host[1]:
+        assert host[1]["seed"] == int(views[1]["seed"][0]) & 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1,
+                                  frame_seed(SEED, 3)])
+def test_generator_takes_the_block_seed(seed):
+    """The plain walks' generator keyed by the block's int32 seed view
+    draws what the int seed draws."""
+    bits = torch.tensor([seed - (1 << 32) if seed >= 1 << 31 else seed],
+                        dtype=torch.int32)
+    ray = torch.arange(3000)
+    for s in (0, 5):
+        a = sample_uniforms(seed, 2, ray, s)
+        b = sample_uniforms(bits, 2, ray, s)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_t_max_filled_as_copied():
+    """A Python t_max filled on the device equals its copy."""
+    for t_max in (3.4e38, 1.0, 0.1, 7):
+        assert _same(tr.t_max_tensor(t_max, "cpu"), to_device(t_max, "cpu"))
+
+
+GRAPH_CASES = (
+    [("static", "ray", "cuda", route, True) for route in GRAPH_ROUTES]
+    + [("static", "ray", "cuda:0", "fusedN", True),
+       ("rebuild", "ray", "cuda", "fused0", False),
+       ("rebuild", "ray", "cuda", "unfused", False),
+       ("static", "raster", "cuda", "unfused", False),
+       ("rebuild", "raster", "cuda", "unfused", False),
+       ("static", "ray", "cpu", "fused0", False),
+       ("static", "ray", "cpu", "fusedN", False),
+       ("rebuild", "ray", "cpu", "fused0", False),
+       ("static", "ray", "cuda", "a route of later", False)])
+
+
+@pytest.mark.parametrize("mode,gbuffer,device,route,graph", GRAPH_CASES)
+def test_graph_rule(mode, gbuffer, device, route, graph):
+    """The static ray-cast routes on the card take the graphs; the
+    rebuild, the raster G-buffer and the CPU stay eager."""
+    assert takes_graph(mode, gbuffer, device, route) is graph
+
+
+def _key(r, **over):
+    parts = dict(route=r.route, config=r.config, lights=r.lights,
+                 device="cuda", accel=r.accel, attr_tables=r.attr_tables,
+                 shade_table=r.shade_table, mesh=r.mesh)
+    parts.update(over)
+    return capture_key(parts["route"], parts["config"], parts["lights"],
+                       parts["device"], parts["accel"], parts["attr_tables"],
+                       parts["shade_table"], parts["mesh"])
+
+
+def test_capture_key(mesh):
+    """The key changes with the config, the lights' count and kinds, the
+    accel, its tables, the mesh and the device; not with the camera or
+    the lights' values."""
+    import copy
+    import dataclasses
+    r = _renderer(mesh, "multi")
+    base = _key(r)
+    assert _key(r) == base
+    moved = [dataclasses.replace(l, direction=l.direction[::-1].copy(),
+                                 color=l.color * 0.5, intensity=0.1)
+             for l in r.lights]
+    assert _key(r, lights=moved) == base
+    r.camera = Camera.look_at((1.0, 2.0, 3.0), (0.0, 0.0, 0.0))
+    assert _key(r) == base
+    changed = {
+        "config": dataclasses.replace(r.config, spp=2),
+        "lights": r.lights[:2],
+        "accel": copy.copy(r.accel),
+        "attr_tables": tuple(t.clone() for t in r.attr_tables),
+        "mesh": copy.copy(r.mesh),
+        "device": "cuda:1",
+    }
+    for name, value in changed.items():
+        assert _key(r, **{name: value}) != base, name
+    kinds = [_lamp(mesh, 0.0)] + r.lights[1:]
+    assert _key(r, lights=kinds) != base
+
+
+@pytest.mark.parametrize("mode,route", [("static", "soft"),
+                                        ("static", "multi"),
+                                        ("rebuild", "soft")])
+def test_cpu_frames_capture_nothing(mesh, mode, route):
+    """CPU frames run eagerly: no capture, no replay, no traced frame
+    marked as replayed."""
+    r = _renderer(mesh, route, mode=mode)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for i in range(3):
+            if mode == "rebuild":
+                r.set_vertices(deform(mesh, 0.1 * (i + 1)))
+            r.render_frame()
+    assert r.stats["graph_captures"] == 0 == r.stats["graph_replays"]
+    assert r.spans.frames == 3 and r.spans.graph_frames == 0
+
+
+@pytest.mark.parametrize("route", ["soft", "multi", "unfused"])
+def test_outputs_stay_after_the_next_frame(mesh, route):
+    """What a frame returns is not changed by later frames: soft spp 4
+    with accumulation, the three-light frame, the unfused frame."""
+    r = _renderer(mesh, route)
+    first = r.render_frame()
+    kept = {k: v.clone() for k, v in first.items()}
+    later = [r.render_frame() for _ in range(2)]
+    assert set(first) == set(kept)
+    for name, v in kept.items():
+        assert torch.equal(first[name], v), name
+    if route == "soft":     # the next frame drew other samples
+        assert not torch.equal(later[0]["shadow"], first["shadow"])

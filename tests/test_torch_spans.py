@@ -3,7 +3,8 @@
 without a recording profiler and leaves no trace; under ``torch.profiler``
 every stage appears in the profiler's events inside ``tpurt.frame`` and is
 folded into ``Renderer.spans``; the frame's host syncs are counted;
-``stats`` keeps its set-up keys and ``build_ms``."""
+``stats`` keeps its set-up keys and ``build_ms``, beside the CUDA graphs'
+counters."""
 
 import sys
 from pathlib import Path
@@ -206,12 +207,15 @@ def test_build_ms_on_every_rebuild_frame(mesh):
     assert r.spans.frames == 0
 
 
+GRAPH_KEYS = {"graph_captures", "graph_replays"}
+
+
 @pytest.mark.parametrize("runs,keys", [
     ("static_runs", {"raster_cap_growths", "sah_build_ms", "collapse_ms",
-                     "attr_rows_ms"}),
+                     "attr_rows_ms"} | GRAPH_KEYS),
     ("rebuild_runs", {"raster_cap_growths", "build_and_count_ms",
                       "collapse_ms", "overflow_recoveries", "attr_rows_ms",
-                      "build_ms"})])
+                      "build_ms"} | GRAPH_KEYS)])
 def test_stats_keys_unchanged(runs, keys, request):
     got = request.getfixturevalue(runs)
     assert set(got["off"].stats) == keys == set(got["on"].stats)

@@ -115,6 +115,8 @@ from .kernels.traverse import (MAX_MASK_LIGHTS, as_packed,
                                trace_closest_soft_multi_shadow,
                                trace_closest_soft_shadow)
 from .passes.composite import accumulate, composite_pass
+from .frame_block import FrameBlock
+from .graphs import FrameGraphs, capture_key, takes_graph
 from .native import available as native_available
 from .passes.gbuffer import (gbuf_from_attr_channels, gbuf_from_table,
                              gbuffer_attr_pass, gbuffer_pass,
@@ -125,7 +127,7 @@ from .passes.shading import (attr_payload_columns, leaf_attr_rows_from_sorted,
                              make_shade_table_orig, smooth_normals_device)
 from .passes.texture import apply_textures
 from .raster.setup import default_cap_rows
-from .spans import Spans, host_read, span
+from .spans import Spans, graph_frame, host_read, span
 from .types import (LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT, Camera,
                     Light, Mesh, RenderConfig)
 
@@ -362,14 +364,17 @@ def _fused_gbuf(trace, attr_tables, shade_table, mesh: Mesh, cam: Camera,
 
 def gbuffer_shadow_fused_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
                                     cfg: RenderConfig, light: Light,
-                                    attr_tables, seed: int = 0,
-                                    shade_table=None):
+                                    attr_tables, seed=0, shade_table=None,
+                                    bias=None):
     """ONE kernel launch returns the hit set and light 0's visibility: hard
     (directional, point, or a cone at spp 1 along its axis), cone-sampled
     for an area light at spp > 1, or disk-sampled for a point light at spp
     > 1 (visibility = 1 - counts / spp). The hit set carries its shading
-    attributes (``attr_tables``) or keys the shade table (attrs=0). Returns
-    (gbuf, visibility, walk counts)."""
+    attributes (``attr_tables``) or keys the shade table (attrs=0).
+    ``bias``: the kernel's shadow bias, ``cfg.shadow_bias`` or the block's
+    view of it (as every fused production takes it). Returns (gbuf,
+    visibility, walk counts)."""
+    bias = cfg.shadow_bias if bias is None else bias
     gb_accel = _gb_accel(bvh, cam, cfg)
     soft = light.kind == LIGHT_AREA_CONE and cfg.spp > 1
     psoft = light.kind == LIGHT_POINT and cfg.spp > 1
@@ -377,22 +382,19 @@ def gbuffer_shadow_fused_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
         def trace(o, d):
             return trace_closest_point_soft_shadow(
                 gb_accel, o, d, light.position, light.radius, cfg.spp, seed,
-                cfg.shadow_bias, attr_tables=attr_tables,
-                textured=mesh.textured)
+                bias, attr_tables=attr_tables, textured=mesh.textured)
     elif soft:
         def trace(o, d):
             return trace_closest_soft_shadow(
                 gb_accel, o, d, light.direction, cone_cos(light), cfg.spp,
-                seed, cfg.shadow_bias, attr_tables=attr_tables,
-                textured=mesh.textured)
+                seed, bias, attr_tables=attr_tables, textured=mesh.textured)
     else:
         lpos = light.position if light.kind == LIGHT_POINT else None
 
         def trace(o, d):
             return trace_closest_shadow(
-                gb_accel, o, d, light.direction, cfg.shadow_bias,
-                light_pos=lpos, attr_tables=attr_tables,
-                textured=mesh.textured)
+                gb_accel, o, d, light.direction, bias, light_pos=lpos,
+                attr_tables=attr_tables, textured=mesh.textured)
     gbuf, (out,), counts = _fused_gbuf(trace, attr_tables, shade_table,
                                        mesh, cam, cfg, bvh.nodes.device)
     with span("tpurt.shadow"):
@@ -404,16 +406,18 @@ def gbuffer_shadow_fused_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
 def gbuffer_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
                                           cam: Camera, cfg: RenderConfig,
                                           lights: Sequence[Light],
-                                          attr_tables, shade_table=None):
+                                          attr_tables, shade_table=None,
+                                          bias=None):
     """ONE kernel launch for an all-hard light set: the hit set and one
     occlusion bit per light (cones at spp 1 along their axes). Returns
     (gbuf, [visibility per light], walk counts)."""
+    bias = cfg.shadow_bias if bias is None else bias
     gb_accel = _gb_accel(bvh, cam, cfg)
     spec = [(None, l.position) if l.kind == LIGHT_POINT
             else (l.direction, None) for l in lights]
     gbuf, (mask,), counts = _fused_gbuf(
         lambda o, d: trace_closest_multi_shadow(
-            gb_accel, o, d, spec, cfg.shadow_bias, attr_tables=attr_tables,
+            gb_accel, o, d, spec, bias, attr_tables=attr_tables,
             textured=mesh.textured),
         attr_tables, shade_table, mesh, cam, cfg, bvh.nodes.device)
     with span("tpurt.shadow"):
@@ -425,12 +429,13 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
                                                cam: Camera,
                                                cfg: RenderConfig,
                                                lights: Sequence[Light],
-                                               attr_tables, seed: int = 0,
-                                               shade_table=None):
+                                               attr_tables, seed=0,
+                                               shade_table=None, bias=None):
     """ONE kernel launch for a soft light 0 (cone or disk) with hard
     directional extras: the hit set, light 0's sample counts and the
     extras' occlusion bits. Returns (gbuf, [visibility per light], walk
     counts)."""
+    bias = cfg.shadow_bias if bias is None else bias
     gb_accel = _gb_accel(bvh, cam, cfg)
     l0 = lights[0]
     light0 = ("disk", l0.position, l0.radius) if l0.kind == LIGHT_POINT \
@@ -438,7 +443,7 @@ def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
     gbuf, (cnt, mask), counts = _fused_gbuf(
         lambda o, d: trace_closest_soft_multi_shadow(
             gb_accel, o, d, light0, [l.direction for l in lights[1:]],
-            cfg.spp, seed, cfg.shadow_bias, attr_tables=attr_tables,
+            cfg.spp, seed, bias, attr_tables=attr_tables,
             textured=mesh.textured),
         attr_tables, shade_table, mesh, cam, cfg, bvh.nodes.device)
     with span("tpurt.shadow"):
@@ -491,7 +496,7 @@ def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
         return _apply_mesh_textures(gbuf, mesh), counts
 
 
-def shadow_production(bvh, gbuf, light: Light, seed: int,
+def shadow_production(bvh, gbuf, light: Light, seed,
                       light_index: int, cfg: RenderConfig):
     """One light's unfused shadow pass on the accel as built (``tpurt``
     measured camera or light ordering as no gain for the any-hit walks).
@@ -514,14 +519,15 @@ def shadow_production(bvh, gbuf, light: Light, seed: int,
 
 
 def composite_lights(gbuf, shadows, lights: Sequence[Light],
-                     cfg: RenderConfig) -> torch.Tensor:
-    """Sum of per-light direct terms + one ambient term."""
-    img = composite_pass(gbuf, shadows[0], lights[0], cfg.ambient,
-                         cfg.background)
+                     cfg: RenderConfig, background=None) -> torch.Tensor:
+    """Sum of per-light direct terms + one ambient term. ``background``:
+    ``cfg.background`` or the block's view of it; an extra light's term
+    keeps only its valid pixels, so its sky value never shows."""
+    bg = cfg.background if background is None else background
+    img = composite_pass(gbuf, shadows[0], lights[0], cfg.ambient, bg)
     valid = gbuf["valid"][..., None]
     for li in range(1, len(lights)):
-        extra = composite_pass(gbuf, shadows[li], lights[li], 0.0,
-                               (0.0, 0.0, 0.0))
+        extra = composite_pass(gbuf, shadows[li], lights[li], 0.0, bg)
         img = torch.where(valid, img + extra, img)
     return img
 
@@ -530,7 +536,8 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
                     lights: Sequence[Light], cfg: RenderConfig,
                     attr_tables=None, seed: int = 0,
                     shade_table=None,
-                    shade_table_orig=None) -> Dict[str, torch.Tensor]:
+                    shade_table_orig=None,
+                    consts=None) -> Dict[str, torch.Tensor]:
     """One frame: G-buffer + the fused route's shadows -> the unfused
     shadow pass for every other light -> composite (sum of per-light
     direct terms + one ambient term). ``bvh``: the 8-wide accel, or a
@@ -547,7 +554,14 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
     (``raster_deferred``) reads. ``seed``: the frame's generator key
     (``frame_seed``); light i samples with the key (seed, i).
     ``walk_counts`` sums the walk counters of every launch of the
-    frame."""
+    frame. ``consts``: the frame's views of a block of constants already
+    written (``FrameBlock.write``, the Renderer's own); without them the
+    frame writes ``cam``, ``lights``, ``cfg`` and ``seed`` into a block
+    of its own. The device reads every per-frame value through them."""
+    if consts is None:
+        consts = FrameBlock(len(lights), bvh.tri_id.device).write(
+            cam, lights, cfg, seed)
+    cam, lights, seed = consts.camera, consts.lights, consts.seed
     if is_binary(bvh):
         if attr_tables is not None:
             raise ValueError("a binary accel has no leaf attribute rows")
@@ -557,15 +571,18 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
                              "(root_min, root_max) for the shadow pass")
     tabs = attr_tables is not None or shade_table is not None
     route = frame_route(cfg, lights, bvh) if tabs else "unfused"
+    bias = consts.bias
     if route == "fusedN":
         gbuf, shadows, counts = gbuffer_multi_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights, attr_tables, shade_table)
+            bvh, mesh, cam, cfg, lights, attr_tables, shade_table, bias)
     elif route == "fusedSM":
         gbuf, shadows, counts = gbuffer_soft_multi_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights, attr_tables, seed, shade_table)
+            bvh, mesh, cam, cfg, lights, attr_tables, seed, shade_table,
+            bias)
     elif route == "fused0":
         gbuf, vis0, counts = gbuffer_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights[0], attr_tables, seed, shade_table)
+            bvh, mesh, cam, cfg, lights[0], attr_tables, seed, shade_table,
+            bias)
         shadows = [vis0]
     else:
         gbuf, counts = gbuffer_production(bvh, mesh, cam, cfg, attr_tables,
@@ -577,7 +594,8 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
             shadows.append(vis)
             counts = counts + c
     with span("tpurt.composite"):
-        return {"image": composite_lights(gbuf, shadows, lights, cfg),
+        return {"image": composite_lights(gbuf, shadows, lights, cfg,
+                                          consts.background),
                 "shadow": torch.stack(shadows), **gbuf,
                 "walk_counts": counts}
 
@@ -729,9 +747,21 @@ class Renderer:
     that outgrew the pad. ``raster_cap_growths``: frames rendered again
     because the binning overflowed ``config.raster_cap_pairs``.
 
+    ``graph_captures`` and ``graph_replays``: the captures of a frame's
+    stages into CUDA graphs and the frames that replayed them.
+
+    Every frame writes its host constants (camera, lights, bias,
+    background, frame seed) into the Renderer's block on the device with
+    one copy that does not wait (``frame_block.FrameBlock``), and reads
+    them there. A static frame with the ray-cast G-buffer on the card
+    replays its stages as CUDA graphs (``graphs.py``: the first frame of
+    a capture key runs eagerly, the second captures), and returns copies
+    of the graphs' outputs; every other frame runs its stages eagerly.
+
     ``spans`` (``spans.Spans``) holds the frames rendered while a torch
     profiler records: their count, their host syncs (every read of a
-    device value and every copy of host data onto the card) and, per
+    device value and every copy of host data onto the card), the ones
+    that replayed CUDA graphs and, per
     stage span, the sums of its device-timeline ms, self ms, host ms and
     entries. The spans, each also a ``record_function`` on the profiler's
     timeline: ``tpurt.frame``, the whole frame; ``tpurt.rebuild`` (rebuild
@@ -803,8 +833,12 @@ class Renderer:
         self.route = frame_route(config, lights)
         self.frame_index = 0
         self.accum: Optional[torch.Tensor] = None
-        self.stats: Dict[str, float] = {"raster_cap_growths": 0}
+        self.stats: Dict[str, float] = {"raster_cap_growths": 0,
+                                        "graph_captures": 0,
+                                        "graph_replays": 0}
         self.spans = Spans(self.device)
+        self._block = FrameBlock(len(lights), self.device)
+        self._graphs: Optional[FrameGraphs] = None
         self._nw_pad: Optional[int] = None
         self._geom_dirty = False
         self.attr_tables = None
@@ -975,6 +1009,37 @@ class Renderer:
             normals=smooth_normals_device(v, self.mesh.indices))
         self._geom_dirty = True
 
+    def _frame_fn(self, consts) -> Dict[str, torch.Tensor]:
+        """The frame's stages, eagerly, on the block's views."""
+        return render_frame_fn(self.accel, self.mesh, self.camera,
+                               self.lights, self.config, self.attr_tables,
+                               shade_table=self.shade_table,
+                               shade_table_orig=self.shade_table_orig,
+                               consts=consts)
+
+    def _graph_frame(self, consts) -> Dict[str, torch.Tensor]:
+        """A frame that takes the CUDA graphs (``graphs.py``): the first of
+        a capture key runs eagerly, the second captures its stages, and
+        it and every later one replays them. A new key (route, config,
+        lights' count and kinds, accel, tables, mesh, block, device) drops
+        the graphs of the last."""
+        objects = (self.accel, self.attr_tables, self.shade_table,
+                   self.shade_table_orig, self.mesh, self._block)
+        key = capture_key(self.route, self.config, self.lights, self.device,
+                          *objects)
+        g = self._graphs
+        if g is None or g.key != key:
+            g = self._graphs = FrameGraphs(key, objects)
+        if not g.warm:
+            g.warm = True
+            return self._frame_fn(consts)
+        if not g.captured:
+            g.capture(lambda: self._frame_fn(consts))
+            self.stats["graph_captures"] += 1
+        self.stats["graph_replays"] += 1
+        graph_frame()
+        return g.replay()
+
     def render_frame(self) -> Dict[str, torch.Tensor]:
         """Render one frame; returns the output dict (tensors on the
         Renderer's device). Rebuild mode first rebuilds the accel. The soft
@@ -994,11 +1059,14 @@ class Renderer:
         if self.mode == "rebuild":
             with span("tpurt.rebuild", self.device) as timer:
                 self._update_bvh()
-        out = render_frame_fn(self.accel, self.mesh, self.camera,
-                              self.lights, cfg, self.attr_tables,
-                              seed=frame_seed(cfg.seed, self.frame_index),
-                              shade_table=self.shade_table,
-                              shade_table_orig=self.shade_table_orig)
+        if self._block.n_lights != len(self.lights):
+            self._block = FrameBlock(len(self.lights), self.device)
+        consts = self._block.write(self.camera, self.lights, cfg,
+                                   frame_seed(cfg.seed, self.frame_index))
+        if takes_graph(self.mode, cfg.gbuffer, self.device, self.route):
+            out = self._graph_frame(consts)
+        else:
+            out = self._frame_fn(consts)
         with span("tpurt.read"):
             flags = out["walk_counts"]
             if self._raster:

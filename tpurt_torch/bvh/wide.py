@@ -37,7 +37,8 @@ import torch
 
 from ..kernels.build import (EMPTY, WIDE_FACTOR, collapse_area, greedy_slots,
                              node_depths)
-from ..spans import host_read, to_device
+from ..camera import as_f32
+from ..spans import host_read
 from .lbvh import LBVH, _leaf_boxes, range_boxes, range_query, range_table
 
 _BIG = 3.4e38
@@ -529,10 +530,12 @@ def wide_depth(wide: WideBVH) -> int:
 def order_children_for_point(wide: WideBVH, point) -> WideBVH:
     """Per-frame near-first child ordering for a shared ray origin (the
     camera): children are permuted inside each row so the kernel's LIFO
-    stack pops the nearest child first. Any permutation is correct."""
+    stack pops the nearest child first. Any permutation is correct.
+    ``point``: host data, or the camera position's view of the frame's
+    block of constants."""
     rows = wide.nodes.reshape(-1, WIDE_FACTOR, 16)
     center = (rows[:, :, 0:3] + rows[:, :, 3:6]) * 0.5
-    p = to_device(point, rows.device)
+    p = as_f32(point, rows.device)
     d = center - p
     key = d[:, :, 0] * d[:, :, 0] + d[:, :, 1] * d[:, :, 1] \
         + d[:, :, 2] * d[:, :, 2]

@@ -1,7 +1,8 @@
 """Camera ray generation and view math (counterpart of ``tpurt/camera.py``).
 
-Camera fields may be numpy arrays or tensors; each function casts them to
-float32 tensors on the device it is given.
+Camera fields may be numpy arrays or tensors (a frame's camera is the view
+of its block of constants, ``frame_block.BlockCamera``); each function
+casts them to float32 tensors on the device it is given.
 """
 
 from __future__ import annotations
@@ -19,6 +20,12 @@ def as_f32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     return to_device(x, device)
+
+
+def host_camera(cam: Camera) -> Camera:
+    """The camera whose fields are host data: a block camera's ``host``,
+    any other camera as it is."""
+    return getattr(cam, "host", None) or cam
 
 
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:

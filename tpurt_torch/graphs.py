@@ -1,0 +1,131 @@
+"""CUDA graphs of the static frame's stages.
+
+A static frame on the card enqueues the same few hundred launches on the
+same buffers every frame; only the values in the frame's block of
+constants (``frame_block.py``) change, and every launch reads them
+through their fixed addresses. So the frames of one capture key
+(``capture_key``) run in three steps:
+
+1. the first runs eagerly: it loads the kernels and warms the allocator;
+2. the second runs its code once under capture: each stage span
+   (``STAGES``) becomes one CUDA graph, all in one memory pool, in the
+   order they ran (``spans.capturing``: the spans record nothing then);
+   then it replays them, as every later frame does;
+3. a replay runs each graph inside its own span, as the eager code runs,
+   then copies every output out of the pool into a fresh tensor within
+   the last stage, ``tpurt.composite``: a frame's outputs stay valid
+   after the next frame.
+
+Which frames take the graphs is a function of what the frame observes
+(``takes_graph``). The launch counters of the walk kernels (``.launches``)
+count a replay's launches as the eager frame does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from .spans import capturing, span
+
+STAGES = ("tpurt.order", "tpurt.rays", "tpurt.walk", "tpurt.gbuffer",
+          "tpurt.shadow", "tpurt.composite")
+# The routes whose every per-frame input comes through the block of
+# constants: every route of the Renderer's frames.
+GRAPH_ROUTES = ("fusedN", "fusedSM", "fused0", "unfused")
+
+
+def takes_graph(mode: str, gbuffer: str, device, route: str) -> bool:
+    """Does a frame replay its stages as CUDA graphs? The static mode's
+    ray-cast G-buffer on the card, on a route that takes every per-frame
+    value from the block. The rebuild's accel is new every frame and its
+    count read is a host read; the raster G-buffer may render a frame
+    again with a bigger binning capacity; the CPU has no graphs: those
+    frames run eagerly."""
+    return (mode == "static" and gbuffer == "ray"
+            and torch.device(device).type == "cuda"
+            and route in GRAPH_ROUTES)
+
+
+def capture_key(route: str, config, lights, device, *objects) -> tuple:
+    """What a frame's graphs bake in: the route, the config, the lights'
+    count and kinds and the device by value, and ``objects`` (the accel,
+    its tables, the mesh) by identity. A new camera or new light values
+    leave it as it is."""
+    return (route, config, tuple(light.kind for light in lights),
+            torch.device(device), tuple(id(o) for o in objects))
+
+
+class _Capture:
+    """One frame's stages under capture: each outermost stage span is
+    captured into a graph of its own in ``pool``."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.stages: List[Tuple[str, "torch.cuda.CUDAGraph"]] = []
+        self._open = False
+
+    def stage(self, name: str):
+        if self._open or name not in STAGES:
+            return contextlib.nullcontext()
+        return self._graph(name)
+
+    @contextlib.contextmanager
+    def _graph(self, name: str):
+        graph = torch.cuda.CUDAGraph()
+        self._open = True
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                yield None
+        finally:
+            self._open = False
+        self.stages.append((name, graph))
+
+
+class FrameGraphs:
+    """The graphs of one capture key. ``objects``: what the key holds by
+    identity, kept alive with the graphs that read it."""
+
+    def __init__(self, key: tuple, objects: tuple):
+        self.key = key
+        self._objects = objects
+        self.warm = False
+        self.stages: List[Tuple[str, "torch.cuda.CUDAGraph"]] = []
+        self.out: Dict[str, torch.Tensor] = {}
+        self._launches: Dict[Callable, int] = {}
+
+    @property
+    def captured(self) -> bool:
+        return bool(self.stages)
+
+    def capture(self, frame: Callable[[], Dict[str, torch.Tensor]]) -> None:
+        """Capture ``frame()``'s stages; its outputs stay in the pool."""
+        from .kernels.traverse import CUDA_KERNELS
+        before = {fn: fn.launches for fn in CUDA_KERNELS}
+        cap = _Capture(torch.cuda.graph_pool_handle())
+        with capturing(cap):
+            out = frame()
+        # The capture launched nothing: its counts move to the replays.
+        self._launches = {fn: fn.launches - n for fn, n in before.items()
+                          if fn.launches != n}
+        for fn, n in self._launches.items():
+            fn.launches -= n
+        if not cap.stages or cap.stages[-1][0] != "tpurt.composite":
+            raise RuntimeError("a captured frame must end in its "
+                               "tpurt.composite stage")
+        self.stages, self.out = cap.stages, out
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        """Replay every stage in its span -> fresh copies of the
+        outputs."""
+        for fn, n in self._launches.items():
+            fn.launches += n
+        *head, (last, graph) = self.stages
+        for name, g in head:
+            with span(name):
+                g.replay()
+        with span(last):
+            graph.replay()
+            return {k: v.clone() for k, v in self.out.items()}

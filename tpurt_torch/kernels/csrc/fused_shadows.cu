@@ -196,9 +196,10 @@ __device__ __forceinline__ void shadow_phase(const Params& P, const Ray& r,
     Disk db = {};
     if (disk) db = disk_basis(l0, l0[3], s);
     int cnt = 0;
+    const uint32_t seed = *P.seed;
     for (int i = 0; i < P.spp; ++i) {
       float u1, u2;
-      sample_u1u2(P.seed, 0u, P.zero_stream, (uint32_t)gid, (uint32_t)i, u1,
+      sample_u1u2(seed, 0u, P.zero_stream, (uint32_t)gid, (uint32_t)i, u1,
                   u2);
       float stmax = disk ? disk_sample(db, u1, u2, hitm, s)
                          : cone_sample(l0, l0[9], u1, u2, hitm, root, s);

@@ -87,9 +87,10 @@ __global__ void __launch_bounds__(128) shadow_rays_kernel(Params P) {
     bool valid = rb[3 * LANES] > 0.0f;
     const float* sc = P.scal;
     int cnt = 0;
+    const uint32_t seed = *P.seed;
     for (int i = 0; i < P.spp; ++i) {
       float u1, u2;
-      sample_u1u2(P.seed, P.light, P.zero_stream, (uint32_t)gid, (uint32_t)i,
+      sample_u1u2(seed, P.light, P.zero_stream, (uint32_t)gid, (uint32_t)i,
                   u1, u2);
       float stmax = cone_sample(sc, sc[9], u1, u2, valid, sc + 10, s);
       cnt += anyhit_walk(P.nodes, P.tris, P.k, s, stmax, P.t_min,

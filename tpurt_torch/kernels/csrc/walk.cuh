@@ -620,13 +620,16 @@ struct Params {
   int* cnt_out;       // SOFT, PSOFT, SOFT_MULTI, ANY_SOFT, ANY_PSOFT
   int* mask_out;      // HARD, MULTI, SOFT_MULTI, ANY
   int* counts;
+  // The sampling modes' generator key word (the frame seed): read through
+  // a pointer, so a launch captured into a CUDA graph reads each replay's
+  // seed from the frame's block of constants.
+  const uint32_t* seed;
   int num_rays, k, max_iters, stack_size;
   int attrs;  // closest modes: 1 with the attribute rows, 2 with them and
               // the texture lanes (textured meshes), 0 without
   float t_min;
   int nlights, point_mask;  // HARD (bit 0: point light), MULTI
   int spp, zero_stream, disk, n_extra;  // sampling modes
-  uint32_t seed;
   uint32_t light;  // the generator's second key word (the light index)
 };
 
@@ -729,6 +732,7 @@ __device__ __forceinline__ void disk_samples(const Params& P,
                                              int* cnt, int* stack,
                                              WalkCounts& wc) {
   const int total = npx * P.spp;
+  const uint32_t seed = *P.seed;
   for (int q = threadIdx.x; q < total; q += PSOFT_PIXELS) {
     int i = q / P.spp;
     int sample = q - i * P.spp;
@@ -740,7 +744,7 @@ __device__ __forceinline__ void disk_samples(const Params& P,
     bool hitm = org[3 * cs + i] > 0.0f;
     Disk db = disk_basis(lp, lp[3], s);
     float u1, u2;
-    sample_u1u2(P.seed, light, P.zero_stream, (uint32_t)(base + i),
+    sample_u1u2(seed, light, P.zero_stream, (uint32_t)(base + i),
                 (uint32_t)sample, u1, u2);
     float stmax = disk_sample(db, u1, u2, hitm, s);
     if (anyhit_walk4(P.nodes, P.tris, P.k, s, stmax, t_min, P.max_iters,

@@ -50,10 +50,29 @@ def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
-def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
-    """Philox4x32-10 on int64 tensors holding uint32 words -> 4 words."""
-    k0 &= MASK32
-    k1 &= MASK32
+def seed_arg(seed):
+    """A generator key word as the walks pass it on: a one-element int32
+    tensor holding its 32 bits (the frame block's seed,
+    ``frame_block.FrameBlock``) as it is, any other value as an int in
+    [0, 2^32)."""
+    if isinstance(seed, torch.Tensor):
+        return seed
+    return int(seed) & MASK32
+
+
+def _key_word(k):
+    """An int key word, or a one-element int32 tensor's 32 bits as an
+    int64 scalar tensor, in [0, 2^32)."""
+    if isinstance(k, torch.Tensor):
+        return k.to(torch.int64).reshape(()) & MASK32
+    return k & MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding uint32 words -> 4 words.
+    Each key word an int or a one-element int32 tensor (``_key_word``)."""
+    k0 = _key_word(k0)
+    k1 = _key_word(k1)
     for r in range(PHILOX_ROUNDS):
         if r:
             k0 = (k0 + PHILOX_W0) & MASK32
@@ -70,9 +89,10 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return m.view(torch.float32) - 1.0
 
 
-def sample_uniforms(seed: int, light: int, ray_index: torch.Tensor,
+def sample_uniforms(seed, light: int, ray_index: torch.Tensor,
                     sample: int, zero_stream: bool = False):
-    """(u1, u2) f32 for each ray index (an integer tensor) at one sample."""
+    """(u1, u2) f32 for each ray index (an integer tensor) at one sample;
+    ``seed`` an int or the frame block's seed (``seed_arg``)."""
     if zero_stream:
         z = torch.zeros(ray_index.shape, dtype=torch.float32,
                         device=ray_index.device)

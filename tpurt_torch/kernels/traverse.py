@@ -78,7 +78,12 @@ All walks return ``counts`` i32[2]: pushes dropped because the per-ray
 stack was full, and walks cut at the iteration cap, summed over phase 1
 and every shadow walk. A correct frame leaves both at zero;
 ``check_walk_counts`` raises otherwise. The soft samplers draw from the
-counter-based generator of ``sampling.py``.
+counter-based generator of ``sampling.py``; their ``seed`` is an int or
+the frame block's one-element int32 view of the frame seed
+(``frame_block.py``), which the kernels read through a pointer, so that
+a launch captured into a CUDA graph reads each replay's seed. The
+wrappers' light, bias and radius arguments take host data or the
+block's views alike.
 
 The layouts at the kernel boundary are the JAX package's: nodes
 f32[Nw,128] (binary: f32[Nr,128], 8 records per row), leaf rows
@@ -101,11 +106,10 @@ import torch.nn.functional as F
 from ..bvh.lbvh import LBVH
 from ..bvh.wide import WideBVH, WideBVHT, leaves_per_block
 from ..camera import as_f32
-from ..spans import to_device
 from ._build import _check, _pick, _stream
 from .pack import NODE_STRIDE, PackedBVH, pack_bvh
 from .sampling import (lane_axis_onb, onb3, rsqrt, sample_uniforms,
-                       sincos_2pi)
+                       seed_arg, sincos_2pi)
 
 TILE = 32          # 32x32 pixel tile -> one (8, 128) packet
 _BIG = 3.4e38
@@ -192,10 +196,19 @@ def _flat_packets(x: torch.Tensor, npad: int, fill: float) -> torch.Tensor:
     return F.pad(x, (0, npad - x.shape[0]), value=fill).reshape(-1, 8, 128)
 
 
+def t_max_tensor(t_max, device) -> torch.Tensor:
+    """A walk's t_max as a float32 tensor on ``device``: a Python number
+    filled there (no copy of host data onto the card), host data copied,
+    a tensor as it is."""
+    if isinstance(t_max, (int, float)):
+        return torch.full((), t_max, dtype=torch.float32, device=device)
+    return as_f32(t_max, device)
+
+
 def _ray_packets(origins, dirs, t_max):
     """(H, W, 3) rays -> seven (P, 8, 128) component tensors in 32x32 pixel
     tiles, or (N, 3) rays in runs of 1024."""
-    tm = as_f32(t_max, origins.device)
+    tm = t_max_tensor(t_max, origins.device)
     if origins.ndim == 3:
         h, w = origins.shape[:2]
         comps = [to_packets(origins[..., c]) for c in range(3)]
@@ -1276,13 +1289,13 @@ class Params(ctypes.Structure):
     (the loader checks the two sizes agree)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "nodes", "tris", "at0", "at1", "rays", "scal", "out", "sidx_out",
-        "cnt_out", "mask_out", "counts")]
+        "cnt_out", "mask_out", "counts", "seed")]
         + [(n, ctypes.c_int) for n in ("num_rays", "k", "max_iters",
                                        "stack_size", "attrs")]
         + [("t_min", ctypes.c_float)]
         + [(n, ctypes.c_int) for n in ("nlights", "point_mask", "spp",
                                        "zero_stream", "disk", "n_extra")]
-        + [(n, ctypes.c_uint32) for n in ("seed", "light")])
+        + [("light", ctypes.c_uint32)])
 
 
 # The kernel templates' modes: csrc/fused_shadows.cu ``Mode`` (closest hit,
@@ -1321,8 +1334,9 @@ def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
     a tuple of "cnt_out" / "mask_out"; ``transposed``: the w8t kernels,
     whose leaves (and attribute rows) are a WideBVHT's transposed blocks
     f32[nblk, 8, 128], at leaf_size 8 or 16; extra: the mode's Params
-    fields. -> (closest outputs, *outputs, counts); raises on a refused
-    launch."""
+    fields, ``seed`` as ``_sampling`` gives it (the kernel reads it
+    through a pointer). -> (closest outputs, *outputs, counts); raises on
+    a refused launch."""
     from ._build import load_library
     k = int(leaf_size)
     if transposed:
@@ -1362,6 +1376,9 @@ def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
     if scal_len:
         _check(scal, "scal", torch.float32, (scal_len,), dev)
         ptrs["scal"] = scal.data_ptr()
+    if "seed" in extra:
+        seed = _seed_on(extra["seed"], dev)
+        extra["seed"] = seed.data_ptr()
     lib = load_library()
     blocks = [torch.empty((pb, 8, 128), dtype=torch.int32, device=dev)
               for _ in outputs]
@@ -1387,13 +1404,23 @@ def _fused(mode: int, outputs, rays, nodes, tris, attrs, scal, **kw):
                    ray_comps=10, attrs=attrs, closest=True, **kw)
 
 
-def _sampling(spp: int, seed: int, zero_stream: bool,
-              light: int = 0) -> dict:
-    """The sampling modes' Params fields."""
+def _sampling(spp: int, seed, zero_stream: bool, light: int = 0) -> dict:
+    """The sampling modes' Params fields (``seed`` as ``seed_arg`` keeps
+    it; ``_launch`` gives the kernel its address)."""
     if spp < 1:
         raise ValueError(f"spp {spp} < 1")
-    return dict(spp=int(spp), seed=int(seed) & 0xFFFFFFFF,
+    return dict(spp=int(spp), seed=seed_arg(seed),
                 zero_stream=int(zero_stream), light=int(light) & 0xFFFFFFFF)
+
+
+def _seed_on(seed, dev) -> torch.Tensor:
+    """The key word a sampling launch reads through its pointer: the
+    frame block's int32 view, or an int's 32 bits copied onto ``dev``."""
+    if isinstance(seed, torch.Tensor):
+        _check(seed, "seed", torch.int32, (1,), dev)
+        return seed
+    return torch.tensor([seed - (1 << 32) if seed >= 1 << 31 else seed],
+                        dtype=torch.int32, device=dev)
 
 
 def _hard_fields(point: bool) -> dict:
@@ -1733,9 +1760,16 @@ for _fn in CUDA_KERNELS:
 # Inputs and wrappers
 # ---------------------------------------------------------------------------
 
+def _vec(x, device) -> torch.Tensor:
+    """A piece of a kernel's scalar block as a 1-D float32 tensor on
+    ``device``: host data (copied there), or a view of the frame's block
+    of constants (``frame_block.FrameBlock``) as it is."""
+    return as_f32(x, device).reshape(-1)
+
+
 def _dir_scalars(ld, device):
     """Toward-light direction(3) and its clamped inverse(3)."""
-    d = to_device(ld, device)
+    d = _vec(ld, device)
     return [d, torch.clamp(1.0 / d, -_BIG, _BIG)]
 
 
@@ -1745,17 +1779,17 @@ def _root_box(bvh: WideBVH):
 
 def _cone_scalars(axis_dir, cone_cos, device):
     """Cone axis(3), its Duff basis t0(3), t1(3), cone_cos."""
-    axis = to_device(axis_dir, device)
+    axis = _vec(axis_dir, device)
     t0, t1 = onb3(axis)
-    return [axis, t0, t1, to_device([cone_cos], device)]
+    return [axis, t0, t1, _vec(cone_cos, device)]
 
 
 def _shadow_scalars(bvh: WideBVH, light_dir, bias, light_pos, device):
     """f32[4] (point: position, bias) or f32[13] (directional: dir,
     clamped 1/dir, bias, root box min, max)."""
-    b = to_device([bias], device)
+    b = _vec(bias, device)
     if light_pos is not None:
-        return torch.cat([to_device(light_pos, device), b])
+        return torch.cat([_vec(light_pos, device), b])
     return torch.cat(_dir_scalars(light_dir, device) + [b]
                      + _root_box(bvh))
 
@@ -1797,9 +1831,9 @@ def closest_multi_shadow_inputs(bvh: WideBVH, origins, dirs, lights, bias,
     points = tuple(lp is not None for _, lp in lights)
 
     def scal(dev):
-        blocks = [to_device([bias], dev)] + _root_box(bvh)
+        blocks = [_vec(bias, dev)] + _root_box(bvh)
         for ld, lp in lights:
-            blocks += [to_device(lp, dev)] if lp is not None \
+            blocks += [_vec(lp, dev)] if lp is not None \
                 else _dir_scalars(ld, dev)
         return torch.cat(blocks)
     return _fused_inputs(bvh, origins, dirs, attr_tables, t_max, t_min,
@@ -1815,8 +1849,8 @@ def closest_soft_shadow_inputs(bvh: WideBVH, origins, dirs, axis_dir,
     return _fused_inputs(
         bvh, origins, dirs, attr_tables, t_max, t_min, stack_size,
         lambda dev: torch.cat(_cone_scalars(axis_dir, cone_cos, dev)
-                              + _root_box(bvh) + [to_device([bias], dev)]),
-        spp=int(spp), seed=int(seed), zero_stream=bool(zero_stream))
+                              + _root_box(bvh) + [_vec(bias, dev)]),
+        spp=int(spp), seed=seed_arg(seed), zero_stream=bool(zero_stream))
 
 
 def closest_point_soft_shadow_inputs(bvh: WideBVH, origins, dirs, light_pos,
@@ -1828,9 +1862,9 @@ def closest_point_soft_shadow_inputs(bvh: WideBVH, origins, dirs, light_pos,
     """Inputs of the disk kernel (scal f32[5])."""
     return _fused_inputs(
         bvh, origins, dirs, attr_tables, t_max, t_min, stack_size,
-        lambda dev: torch.cat([to_device(light_pos, dev),
-                               to_device([radius, bias], dev)]),
-        spp=int(spp), seed=int(seed), zero_stream=bool(zero_stream))
+        lambda dev: torch.cat([_vec(light_pos, dev), _vec(radius, dev),
+                               _vec(bias, dev)]),
+        spp=int(spp), seed=seed_arg(seed), zero_stream=bool(zero_stream))
 
 
 def closest_soft_multi_shadow_inputs(bvh: WideBVH, origins, dirs, light0,
@@ -1849,15 +1883,16 @@ def closest_soft_multi_shadow_inputs(bvh: WideBVH, origins, dirs, light0,
         _check_mask_lights(len(extra_dirs))
 
     def scal(dev):
-        blocks = [to_device([bias], dev)] + _root_box(bvh)
-        blocks += [to_device(vec, dev), to_device([scalar], dev)] \
+        blocks = [_vec(bias, dev)] + _root_box(bvh)
+        blocks += [_vec(vec, dev), _vec(scalar, dev)] \
             if kind == "disk" else _cone_scalars(vec, scalar, dev)
         for ld in extra_dirs:
             blocks += _dir_scalars(ld, dev)
         return torch.cat(blocks)
     return _fused_inputs(bvh, origins, dirs, attr_tables, t_max, t_min,
-                         stack_size, scal, spp=int(spp), seed=int(seed),
-                         zero_stream=bool(zero_stream), disk=kind == "disk",
+                         stack_size, scal, spp=int(spp),
+                         seed=seed_arg(seed), zero_stream=bool(zero_stream),
+                         disk=kind == "disk",
                          n_extra=len(extra_dirs))
 
 
@@ -1928,7 +1963,7 @@ def _soft_inputs(bvh, origins, valid, scal_fn, spp, seed, light, t_min,
     rays, p, meta = _pack_soft_origins(origins, valid, batch=1)
     args = (rays, bvh.nodes, bvh.tris, scal_fn(rays.device))
     kwargs = dict(_walk_kwargs(bvh, t_min, stack_size), spp=int(spp),
-                  seed=int(seed), light=int(light),
+                  seed=seed_arg(seed), light=int(light),
                   zero_stream=bool(zero_stream))
     return args, kwargs, p, meta
 
@@ -1952,8 +1987,7 @@ def any_point_soft_inputs(bvh: WideBVH, origins, valid, light_pos, radius,
     """Inputs of the standalone disk kernel (scal f32[4])."""
     return _soft_inputs(
         bvh, origins, valid,
-        lambda dev: torch.cat([to_device(light_pos, dev),
-                               to_device([radius], dev)]),
+        lambda dev: torch.cat([_vec(light_pos, dev), _vec(radius, dev)]),
         spp, seed, light, t_min, zero_stream, stack_size)
 
 

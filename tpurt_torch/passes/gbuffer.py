@@ -22,7 +22,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..camera import (_cross, as_f32, camera_basis, generate_rays,
-                      normalize, view_depth)
+                      host_camera, normalize, view_depth)
 from ..kernels.raster import rasterize_rows, rasterize_rows16
 from ..bvh.wide import WideBVHT
 from ..kernels.traverse import trace_closest_attrs, trace_closest_attrs_t
@@ -228,7 +228,8 @@ def gbuffer_raster_pass(mesh: Mesh, cam: Camera, width: int, height: int,
     (``raster_deferred``), which takes ``_gbuffer_raster_deferred``, and
     then it is required. The dict gains ``raster_overflow`` (bool[]): the
     pair capacity dropped coverage and the frame must be rendered again
-    with a bigger one."""
+    with a bigger one. The binning transforms the mesh with the camera's
+    host values (``camera.host_camera``)."""
     if deferred:
         if shade_table_orig is None:
             raise ValueError("the deferred raster G-buffer needs the "
@@ -238,7 +239,7 @@ def gbuffer_raster_pass(mesh: Mesh, cam: Camera, width: int, height: int,
     dev = mesh.vertices.device
     if cap_pairs is None:
         cap_pairs = default_cap_rows(mesh.num_triangles)
-    bins = bin_rows(cam, mesh, width, height, cap_pairs)
+    bins = bin_rows(host_camera(cam), mesh, width, height, cap_pairs)
     tri_id, at = rasterize_rows(bins, width, height)
     valid = tri_id >= 0
     origins, dirs = generate_rays(cam, width, height, dev)
@@ -279,7 +280,8 @@ def _gbuffer_raster_deferred(mesh: Mesh, cam: Camera, width: int,
     camera ray is generated."""
     if cap_pairs is None:
         cap_pairs = default_cap_rows(mesh.num_triangles)
-    bins = bin_rows(cam, mesh, width, height, cap_pairs, fmt="z16")
+    bins = bin_rows(host_camera(cam), mesh, width, height, cap_pairs,
+                    fmt="z16")
     tri_id, u, v, invw = rasterize_rows16(bins, width, height)
     valid = tri_id >= 0
     n = shade_table_orig.shape[0]

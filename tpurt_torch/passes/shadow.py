@@ -12,7 +12,9 @@ tracers to the 8-wide accel alone), the pass loops over the samples as
 ``tpurt``'s scan does: per sample one jittered ray per pixel and one
 any-hit launch. Its uniforms come from the port's Philox generator
 (``kernels/sampling.sample_uniforms``), keyed by (frame seed, light index)
-and counted by (pixel index, sample), in place of ``jax.random``.
+and counted by (pixel index, sample), in place of ``jax.random``. The
+frame seed is an int or the frame block's view of its bits, and a light's
+fields host data or the block's views (``frame_block.py``).
 """
 
 from __future__ import annotations
@@ -23,14 +25,18 @@ import numpy as np
 import torch
 
 from ..camera import as_f32, normalize
+from ..frame_block import BlockLight
 from ..kernels.sampling import sample_uniforms
 from ..types import LIGHT_AREA_CONE, LIGHT_POINT, Light
 
 _BIG = 3.4e38
 
 
-def cone_cos(light: Light) -> float:
-    """cos of an area light's angular radius, rounded as numpy rounds it."""
+def cone_cos(light: Light):
+    """cos of an area light's angular radius, rounded as numpy rounds it:
+    a float, or a block light's view of it (``frame_block.BlockLight``)."""
+    if isinstance(light, BlockLight):
+        return light.cone_cos
     return float(np.cos(np.float32(light.angular_radius)))
 
 
@@ -46,14 +52,18 @@ def _onb(n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return t0, t1
 
 
-def sample_cone(d: torch.Tensor, half_angle, u: torch.Tensor) -> torch.Tensor:
+def sample_cone(d: torch.Tensor, half_angle, u: torch.Tensor,
+                cos_half=None) -> torch.Tensor:
     """Uniform directions in a cone of the given half-angle (a host
     scalar) around the unit axes d[..., 3]; u[..., 2] uniforms in
-    [0, 1)."""
+    [0, 1). ``cos_half``: its cosine where the caller has it
+    (``cone_cos``), in place of the half-angle."""
     # cos of the half-angle on the host, correctly rounded as numpy and
     # XLA round it (torch's float32 cos is an ulp off at 4 deg, and
     # sqrt(1 - cos_t^2) magnifies that near the axis).
-    cos_half = as_f32(np.cos(np.asarray(half_angle, np.float32)), d.device)
+    if cos_half is None:
+        cos_half = np.cos(np.asarray(half_angle, np.float32))
+    cos_half = as_f32(cos_half, d.device)
     cos_t = 1.0 - u[..., 0] * (1.0 - cos_half)
     sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
     phi = 2.0 * np.pi * u[..., 1]
@@ -115,7 +125,7 @@ def shadow_ray_batch(gbuf: Dict[str, torch.Tensor], light: Light,
     else:
         d = as_f32(light.direction, dev).expand(origins.shape)
         if light.kind == LIGHT_AREA_CONE and u is not None:
-            d = sample_cone(d, light.angular_radius, u)
+            d = sample_cone(d, light.angular_radius, u, cone_cos(light))
         dirs = d.contiguous()
         far = scene_exit_t(origins, dirs, scene_bounds) \
             if scene_bounds is not None else torch.full_like(pos[..., 0],
@@ -125,7 +135,7 @@ def shadow_ray_batch(gbuf: Dict[str, torch.Tensor], light: Light,
 
 
 def shadow_pass(trace_any: Callable, gbuf: Dict[str, torch.Tensor],
-                light: Light, spp: int, seed: int, light_index: int,
+                light: Light, spp: int, seed, light_index: int,
                 bias: float, scene_bounds=None,
                 trace_soft: Optional[Callable] = None,
                 trace_soft_point: Optional[Callable] = None):
@@ -153,8 +163,7 @@ def shadow_pass(trace_any: Callable, gbuf: Dict[str, torch.Tensor],
                                  cone_cos(light), spp, seed, light_index)
     elif light.kind == LIGHT_POINT and trace_soft_point is not None:
         cnt, counts = trace_soft_point(origins, valid, light.position,
-                                       float(light.radius), spp, seed,
-                                       light_index)
+                                       light.radius, spp, seed, light_index)
     else:
         return _scan_samples(trace_any, gbuf, light, spp, seed, light_index,
                              bias, scene_bounds)
@@ -163,7 +172,7 @@ def shadow_pass(trace_any: Callable, gbuf: Dict[str, torch.Tensor],
 
 
 def _scan_samples(trace_any: Callable, gbuf, light: Light, spp: int,
-                  seed: int, light_index: int, bias: float, scene_bounds):
+                  seed, light_index: int, bias: float, scene_bounds):
     """``tpurt``'s scan over samples: for each sample s the whole frame's
     uniforms (u1, u2 of the pixel's row-major index and s, keyed by (seed,
     light_index)), one jittered shadow ray per pixel and one any-hit

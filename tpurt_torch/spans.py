@@ -26,7 +26,12 @@ The frame's host syncs go through two helpers, which count each into the
 traced frame's record: ``host_read``, every read of a device value, and
 ``to_device``, every copy of host data onto the card (torch copies
 pageable memory synchronously, so the host waits for the stream there
-too).
+too). A traced frame also records whether its stages replayed CUDA graphs
+(``graph_frame``).
+
+While a frame's stages are captured into CUDA graphs (``capturing``,
+``graphs.py``), ``span`` hands each stage to the capture and tracing is
+off, so no event is recorded into a graph.
 """
 
 from __future__ import annotations
@@ -41,6 +46,9 @@ import torch
 
 # The traced frame whose spans ``span`` records, None with tracing off.
 _FRAME: ContextVar[Optional["_Frame"]] = ContextVar("tpurt_frame",
+                                                    default=None)
+# The capture of a frame's stages into CUDA graphs, while it runs.
+_CAPTURE: ContextVar[Optional[object]] = ContextVar("tpurt_capture",
                                                     default=None)
 _NULL = contextlib.nullcontext()
 # The per-span sums ``Spans.totals`` reports, in this order.
@@ -130,7 +138,11 @@ def span(name: str, device: Optional[torch.device] = None):
     """The stage ``name`` of the traced frame, a context that yields its
     Stopwatch; with tracing off the shared null context, or, where
     ``device`` is given, a bare Stopwatch on it, which its caller reads
-    whether or not the frame is traced."""
+    whether or not the frame is traced. While a capture runs
+    (``capturing``) it is the capture's context for the stage instead."""
+    capture = _CAPTURE.get()
+    if capture is not None and device is None:
+        return capture.stage(name)
     frame = _FRAME.get()
     if frame is None:
         return _NULL if device is None else Stopwatch(device)
@@ -157,6 +169,27 @@ def to_device(x, device) -> torch.Tensor:
     return out
 
 
+@contextlib.contextmanager
+def capturing(capture):
+    """Run the block with ``capture`` taking the stage spans
+    (``capture.stage(name)`` -> a context) and tracing off."""
+    t_capture = _CAPTURE.set(capture)
+    t_frame = _FRAME.set(None)
+    try:
+        yield
+    finally:
+        _FRAME.reset(t_frame)
+        _CAPTURE.reset(t_capture)
+
+
+def graph_frame() -> None:
+    """Record in the traced frame, if any, that its stages replayed CUDA
+    graphs."""
+    frame = _FRAME.get()
+    if frame is not None:
+        frame.graph = True
+
+
 class _Frame:
     """A traced frame's record while it renders: its spans, innermost
     open last, and its host syncs. As a context it makes itself the frame
@@ -168,6 +201,7 @@ class _Frame:
         self.open: List[_Span] = []
         self.done: List[_Span] = []
         self.syncs = 0
+        self.graph = False
 
     def __enter__(self) -> "_Frame":
         self._token = _FRAME.set(self)
@@ -186,7 +220,8 @@ class _Frame:
 
 class Spans:
     """A Renderer's traced frames (``Renderer.spans``): how many, their
-    host syncs, and per span name the sums over them of its device ms (the
+    host syncs, how many replayed their stages as CUDA graphs, and per
+    span name the sums over them of its device ms (the
     device's timeline from start to end, idle included), self ms (that
     less the part its child spans cover), host ms and entries."""
 
@@ -196,6 +231,7 @@ class Spans:
         self.pending: List[_Frame] = []
         self._frames = 0
         self._syncs = 0
+        self._graph_frames = 0
         self._totals: Dict[str, List[float]] = {}
 
     def frame(self, index: int):
@@ -228,6 +264,7 @@ class Spans:
             self.pool += s.watch.events()
         self._frames += 1
         self._syncs += frame.syncs
+        self._graph_frames += frame.graph
         frame.done.clear()          # no cycle left for the collector
 
     @property
@@ -239,6 +276,11 @@ class Spans:
     def syncs(self) -> int:
         self._settle()
         return self._syncs
+
+    @property
+    def graph_frames(self) -> int:
+        self._settle()
+        return self._graph_frames
 
     @property
     def totals(self) -> Dict[str, Dict[str, float]]:
