@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py               # all phases (one card)
     python3 chip_smoke.py frame_graph   # phases 1, 2 and 20 alone
+    python3 chip_smoke.py resolve       # phases 1, 2 and 21 alone
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -11,10 +12,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    csrc/shadow_rays.cu, csrc/binary.cu and csrc/transposed.cu, templates
    with a mode per walk kernel, csrc/variants.cu, the stats walk,
    csrc/build.cu, the rebuild's kernels, the node boxes and the sweep,
-   and csrc/raster.cu, the rasterizer in its 32- and 16-float
-   instantiations and the v1 kernel; one nvcc per source, in parallel),
-   and print ptxas's register and spill report, then the penumbra
-   kernels' (psoft_kernel<0, 1, 2>, any_psoft_kernel) on one line.
+   csrc/raster.cu, the rasterizer in its 32- and 16-float
+   instantiations and the v1 kernel, and csrc/resolve.cu, the frame
+   resolve; one nvcc per source, in parallel), and print ptxas's
+   register and spill report, then the penumbra kernels'
+   (psoft_kernel<0, 1, 2>, any_psoft_kernel) on one line and the resolve
+   kernel's on another.
 3. Every kernel against its plain PyTorch version on the card: teapot
    scene, 10k triangles, 512x512, leaf 14. closest_shadow with a
    directional and a point light; multi with directional + point +
@@ -268,7 +271,21 @@ Phases, in order; any failure raises and the exit code is not 0:
     under CUDA's sync debug mode: 1 host sync, the frame's own count. The
     frame ms of both (CUDA events and the host clock, frames 3-6) per
     route, and the spans of both on hard fused0 and three suns.
-21. Timings on one JSON line, then the kernel table on one JSON line, the
+21. The frame resolve (tpurt_torch/kernels/resolve.py, csrc/resolve.cu)
+    in the hall, as the benchmark's static cells render it: 1920x1080
+    with the sun (HARD), 1920x1080 with the 2 deg sun at spp 8 and
+    accumulation (SOFT) and 3840x2160 with config 5's three suns
+    (MULTI). Per case the kernel against its plain version on one
+    frame's fused launch, every output equal bit for bit; the kernel's
+    ms (CUDA events, 20 launches) beside its byte bound (what the
+    function reads and writes once: per pixel the sorted index, the ray
+    and the shadow words, per valid pixel 11 more attribute channels;
+    out the G-buffer, the shadows and the image) and the plain version's
+    ms; then five graph frames under torch.profiler: the launches a
+    frame, the resolve launches a frame (1) and the resolve kernel's
+    device ms a frame in the trace. Phase 2 also prints the resolve
+    kernel's ptxas line (registers, spills).
+22. Timings on one JSON line, then the kernel table on one JSON line, the
     card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Tolerances of the walk kernels' checks against their plain versions:
@@ -3913,6 +3930,94 @@ def phase_frame_graph(dev, mesh, tmesh) -> dict:
     return res
 
 
+def _resolve_launch(r):
+    """A fresh frame block and the Renderer's fused launch on it, its
+    outputs left in packets -> (launch, shadow kind, consts, origins,
+    dirs)."""
+    from tpurt_torch.app import _fused_trace, frame_seed
+    from tpurt_torch.bvh.wide import order_children_for_point
+    from tpurt_torch.camera import generate_rays
+    cfg = r.config
+    consts = r._block.write(r.camera, r.lights, cfg,
+                            frame_seed(cfg.seed, 7))
+    acc = order_children_for_point(r.accel, consts.camera.position)
+    trace, kind = _fused_trace(r.route, acc, consts.lights, cfg,
+                               consts.seed, consts.bias, r.attr_tables,
+                               False)
+    o, d = generate_rays(consts.camera, cfg.width, cfg.height, r.device)
+    return trace(o, d, packets=True), kind, consts, o, d
+
+
+def phase_resolve(dev, mesh) -> dict:
+    """Phase 21: the resolve kernel against its plain version, its ms
+    beside its byte bound, and a graph frame's launches, per case."""
+    import tpurt_torch.kernels.resolve as rs
+    from bench_torch.profile import profile_frames
+    from tpurt_torch.app import Renderer
+    from tpurt_torch.scenes import sponza_interior_camera
+    from tpurt_torch.types import Light, RenderConfig
+    cam = sponza_interior_camera()
+    seed = 2 ** 31 + 21_001
+    cases = {
+        "sun_1080p": ([Light.directional(SUN_DIR)], MAIN_W, MAIN_H, {},
+                      "fused0"),
+        "soft_spp8_1080p": ([Light.sun(SUN_DIR, angular_radius_deg=2.0)],
+                            MAIN_W, MAIN_H, dict(spp=SPP, accumulate=True),
+                            "fused0"),
+        "three_suns_2160p": (config5_lights(), UHD_W, UHD_H, {}, "fusedN"),
+    }
+    res = {}
+    for name, (lights, w, h, fields, route) in cases.items():
+        cfg = RenderConfig(width=w, height=h, leaf_size=14, seed=seed,
+                           **fields)
+        r = Renderer(mesh, cam, lights, cfg, device=dev)
+        if r.route != route:
+            raise RuntimeError(f"resolve {name} takes route {r.route}")
+        r.render_frame()
+        launch, kind, consts, o, d = _resolve_launch(r)
+
+        def kernel():
+            return rs.frame_resolve_cuda(launch, kind, consts, cfg, r.mesh,
+                                         o, d)
+        got = kernel()
+        want, plain_ms = host_ms(lambda: rs.frame_resolve_reference(
+            launch, kind, consts, cfg, r.mesh, o, d))
+        bad = {k: int((got[k] != want[k]).sum()) for k in want
+               if not _same_bits(got[k], want[k])}
+        if bad or list(got) != list(want):
+            raise RuntimeError(f"resolve {name}: kernel and plain differ "
+                               f"in {bad}")
+        ms = cuda_ms(kernel, 20)
+        npix, nvalid = w * h, int(want["valid"].sum())
+        read = npix * (4 + 24 + 4 * len(launch.shadow)) + nvalid * 44 \
+            + 4 * consts.block.numel()
+        written = npix * (4 * (17 + len(lights)) + 4 + 1)
+        bound_ms = (read + written) / HBM_RATE * 1e3
+        del got, want
+        for _ in range(3):          # the capture and two replays
+            r.render_frame()
+        before = rs.frame_resolve_cuda.launches
+        summary = profile_frames(r.render_frame, 5, dev)
+        trace_ms = sum(s for k, s in summary.kernels
+                       if "frame_resolve_kernel" in k) * 1e3 / 5
+        res[name] = dict(
+            route=route, kind=kind, valid_share=nvalid / npix, ms=ms,
+            bound_ms=bound_ms, bound_by="bytes", bytes=read + written,
+            roofline_pct=100.0 * bound_ms / ms, plain_ms=plain_ms,
+            graph_replays=r.stats["graph_replays"],
+            resolve_launches_per_frame=(rs.frame_resolve_cuda.launches
+                                        - before) / 5,
+            launches_per_frame=summary.launches / 5,
+            resolve_trace_ms_per_frame=trace_ms,
+            busy_ms_per_frame=summary.busy_s * 1e3 / 5)
+        if res[name]["resolve_launches_per_frame"] != 1:
+            raise RuntimeError(f"resolve {name}: {res[name]}")
+        log(f"phase 21 resolve {name}: {json.dumps(res[name])}")
+        del r, launch, consts, o, d
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; the port's "
@@ -3939,7 +4044,23 @@ def main() -> int:
         raise RuntimeError(f"ptxas reported {sorted(ptxas_psoft)}, want "
                            f"psoft_kernel<0, 1, 2> and any_psoft_kernel")
     log(f"phase 2 penumbra kernels (ptxas): {json.dumps(ptxas_psoft)}")
+    ptxas_resolve = {k: v for k, v in ptxas_report(BuildInfo.log).items()
+                     if "frame_resolve_kernel" in k}
+    if len(ptxas_resolve) != 1:
+        raise RuntimeError(f"ptxas reported {sorted(ptxas_resolve)}, want "
+                           f"frame_resolve_kernel")
+    log(f"phase 2 resolve kernel (ptxas): {json.dumps(ptxas_resolve)}")
 
+    if sys.argv[1:] == ["resolve"]:
+        res = phase_resolve(dev, sponza_scene(MAIN_TRIS))
+        log(json.dumps({"timings": {"card": card, "build_s": build_s,
+                                    "ptxas_resolve": ptxas_resolve,
+                                    "resolve": res}}))
+        log(card)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["frame_graph"]:
         mesh = sponza_scene(MAIN_TRIS)
         fg = phase_frame_graph(dev, mesh, textured_hall(mesh))
@@ -3978,8 +4099,9 @@ def main() -> int:
     w8t = phase_w8t(dev, mesh, phase4, textured["mesh"])
     var = phase_variants(dev, mesh, phase4["renderer"])
     fg = phase_frame_graph(dev, mesh, textured["mesh"])
+    resolve = phase_resolve(dev, mesh)
     timings = {"card": card, "build_s": build_s,
-               "ptxas_psoft": ptxas_psoft,
+               "ptxas_psoft": ptxas_psoft, "ptxas_resolve": ptxas_resolve,
                "phases_s": time.perf_counter() - t_start,
                "teapot_512": small, "config1_1080p": c1,
                "config3_1080p": c3, "config5_2160p": c5,
@@ -3997,7 +4119,7 @@ def main() -> int:
                              if k != "kernels"},
                "variants_1080p": {"launches": var["launches"],
                                   "phase_s": var["phase_s"]},
-               "frame_graph_1080p": fg}
+               "frame_graph_1080p": fg, "resolve": resolve}
     rows = [kernel_row("closest_shadow", c1["launches"], c1["kernel"],
                        small),
             kernel_row("closest_multi_shadow", c5["launches"], c5["kernel"],

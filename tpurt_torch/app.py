@@ -4,7 +4,12 @@
 One fused frame: camera rays -> near-first child ordering of the accel ->
 ONE fused kernel launch -> G-buffer decode -> composite. The kernel finds
 the closest hit with the winner's shading attributes, then traces the
-light set's shadows from the biased hit point. With
+light set's shadows from the biased hit point. Where the launch takes
+every light, with the leaf attribute rows and an untextured mesh
+(``resolves``), the decode, the visibility and the composite are ONE
+step (``kernels/resolve.frame_resolve``): on the card the resolve kernel
+writes every output straight from the launch's packets, on the CPU its
+plain version runs the tensor code. With
 ``inkernel_attrs=False`` the frame reads the packed shade table instead of
 the leaf attribute rows: the kernels (their attrs=0 variants, and the
 plain closest hit on the unfused route) return t and the sorted hit index,
@@ -114,14 +119,16 @@ from .kernels.traverse import (MAX_MASK_LIGHTS, as_packed,
                                trace_closest_shadow,
                                trace_closest_soft_multi_shadow,
                                trace_closest_soft_shadow)
-from .passes.composite import accumulate, composite_pass
+from .kernels.resolve import frame_resolve
+from .passes.composite import accumulate, composite_lights
 from .frame_block import FrameBlock
 from .graphs import FrameGraphs, capture_key, takes_graph
 from .native import available as native_available
 from .passes.gbuffer import (gbuf_from_attr_channels, gbuf_from_table,
                              gbuffer_attr_pass, gbuffer_pass,
                              gbuffer_raster_pass)
-from .passes.shadow import cone_cos, shadow_pass
+from .passes.shadow import (COUNTS, COUNTS_MASK, MASK, OCCLUDED, cone_cos,
+                            fused_visibility, shadow_pass)
 from .passes.shading import (attr_payload_columns, leaf_attr_rows_from_sorted,
                              make_leaf_attr_rows, make_shade_table,
                              make_shade_table_orig, smooth_normals_device)
@@ -317,17 +324,6 @@ def _gb_accel(bvh, cam: Camera, cfg: RenderConfig):
         return order_children_for_point(bvh, cam.position)
 
 
-def _visibility(valid: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
-    return torch.where(valid, vis, 1.0)
-
-
-def _mask_visibility(valid, mask, n: int, first_bit: int = 0):
-    """Bit ``first_bit + i`` of the occlusion mask -> visibility of the
-    i-th of n lights."""
-    return [_visibility(valid, torch.where(
-        ((mask >> (first_bit + i)) & 1) > 0, 0.0, 1.0)) for i in range(n)]
-
-
 def _apply_mesh_textures(gbuf, mesh: Mesh):
     """A textured mesh's albedo sampled from its atlas as a post-pass on
     every G-buffer (``tpurt``'s ``_apply_mesh_textures``): from the
@@ -362,95 +358,67 @@ def _fused_gbuf(trace, attr_tables, shade_table, mesh: Mesh, cam: Camera,
         return _apply_mesh_textures(gbuf, mesh), shadow, counts
 
 
-def gbuffer_shadow_fused_production(bvh: WideBVH, mesh: Mesh, cam: Camera,
-                                    cfg: RenderConfig, light: Light,
-                                    attr_tables, seed=0, shade_table=None,
-                                    bias=None):
-    """ONE kernel launch returns the hit set and light 0's visibility: hard
-    (directional, point, or a cone at spp 1 along its axis), cone-sampled
-    for an area light at spp > 1, or disk-sampled for a point light at spp
-    > 1 (visibility = 1 - counts / spp). The hit set carries its shading
+def _fused_trace(route: str, gb_accel, lights: Sequence[Light],
+                 cfg: RenderConfig, seed, bias, attr_tables, textured: bool):
+    """The fused launch of ``route`` on the camera-ordered accel ->
+    (``trace(origins, dirs, **kw)``, the fused wrapper's call, ``kw`` its
+    ``packets``; the kind of the launch's shadow output,
+    ``passes/shadow.py``). fusedN: one hard walk per light (points by
+    position, the rest along their direction); fusedSM: light 0's disk or
+    cone samples, the extras' directions; fused0: light 0 disk-sampled (a
+    point light at spp > 1), cone-sampled (an area light at spp > 1) or
+    hard (directional, point, or a cone at spp 1 along its axis)."""
+    tables = dict(attr_tables=attr_tables, textured=textured)
+    if route == "fusedN":
+        spec = [(None, l.position) if l.kind == LIGHT_POINT
+                else (l.direction, None) for l in lights]
+        return (lambda o, d, **kw: trace_closest_multi_shadow(
+            gb_accel, o, d, spec, bias, **tables, **kw)), MASK
+    light = lights[0]
+    if route == "fusedSM":
+        light0 = ("disk", light.position, light.radius) \
+            if light.kind == LIGHT_POINT \
+            else ("cone", light.direction, cone_cos(light))
+        extra = [l.direction for l in lights[1:]]
+        return (lambda o, d, **kw: trace_closest_soft_multi_shadow(
+            gb_accel, o, d, light0, extra, cfg.spp, seed, bias, **tables,
+            **kw)), COUNTS_MASK
+    if light.kind == LIGHT_POINT and cfg.spp > 1:
+        return (lambda o, d, **kw: trace_closest_point_soft_shadow(
+            gb_accel, o, d, light.position, light.radius, cfg.spp, seed,
+            bias, **tables, **kw)), COUNTS
+    if light.kind == LIGHT_AREA_CONE and cfg.spp > 1:
+        return (lambda o, d, **kw: trace_closest_soft_shadow(
+            gb_accel, o, d, light.direction, cone_cos(light), cfg.spp, seed,
+            bias, **tables, **kw)), COUNTS
+    lpos = light.position if light.kind == LIGHT_POINT else None
+    return (lambda o, d, **kw: trace_closest_shadow(
+        gb_accel, o, d, light.direction, bias, light_pos=lpos, **tables,
+        **kw)), OCCLUDED
+
+
+def gbuffer_fused_production(route: str, bvh: WideBVH, mesh: Mesh,
+                             cam: Camera, cfg: RenderConfig,
+                             lights: Sequence[Light], attr_tables, seed=0,
+                             shade_table=None, bias=None):
+    """ONE kernel launch of ``route``'s fused walk (``_fused_trace``)
+    returns the hit set and the visibility of each light it takes: every
+    light (fusedN, fusedSM) or light 0 (fused0); a sampled light's
+    visibility is 1 - counts / spp. The hit set carries its shading
     attributes (``attr_tables``) or keys the shade table (attrs=0).
     ``bias``: the kernel's shadow bias, ``cfg.shadow_bias`` or the block's
-    view of it (as every fused production takes it). Returns (gbuf,
-    visibility, walk counts)."""
-    bias = cfg.shadow_bias if bias is None else bias
-    gb_accel = _gb_accel(bvh, cam, cfg)
-    soft = light.kind == LIGHT_AREA_CONE and cfg.spp > 1
-    psoft = light.kind == LIGHT_POINT and cfg.spp > 1
-    if psoft:
-        def trace(o, d):
-            return trace_closest_point_soft_shadow(
-                gb_accel, o, d, light.position, light.radius, cfg.spp, seed,
-                bias, attr_tables=attr_tables, textured=mesh.textured)
-    elif soft:
-        def trace(o, d):
-            return trace_closest_soft_shadow(
-                gb_accel, o, d, light.direction, cone_cos(light), cfg.spp,
-                seed, bias, attr_tables=attr_tables, textured=mesh.textured)
-    else:
-        lpos = light.position if light.kind == LIGHT_POINT else None
-
-        def trace(o, d):
-            return trace_closest_shadow(
-                gb_accel, o, d, light.direction, bias, light_pos=lpos,
-                attr_tables=attr_tables, textured=mesh.textured)
-    gbuf, (out,), counts = _fused_gbuf(trace, attr_tables, shade_table,
-                                       mesh, cam, cfg, bvh.nodes.device)
-    with span("tpurt.shadow"):
-        vis = 1.0 - out.to(torch.float32) / cfg.spp if soft or psoft \
-            else torch.where(out, 0.0, 1.0)
-        return gbuf, _visibility(gbuf["valid"], vis), counts
-
-
-def gbuffer_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
-                                          cam: Camera, cfg: RenderConfig,
-                                          lights: Sequence[Light],
-                                          attr_tables, shade_table=None,
-                                          bias=None):
-    """ONE kernel launch for an all-hard light set: the hit set and one
-    occlusion bit per light (cones at spp 1 along their axes). Returns
-    (gbuf, [visibility per light], walk counts)."""
-    bias = cfg.shadow_bias if bias is None else bias
-    gb_accel = _gb_accel(bvh, cam, cfg)
-    spec = [(None, l.position) if l.kind == LIGHT_POINT
-            else (l.direction, None) for l in lights]
-    gbuf, (mask,), counts = _fused_gbuf(
-        lambda o, d: trace_closest_multi_shadow(
-            gb_accel, o, d, spec, bias, attr_tables=attr_tables,
-            textured=mesh.textured),
-        attr_tables, shade_table, mesh, cam, cfg, bvh.nodes.device)
-    with span("tpurt.shadow"):
-        return (gbuf, _mask_visibility(gbuf["valid"], mask, len(lights)),
-                counts)
-
-
-def gbuffer_soft_multi_shadow_fused_production(bvh: WideBVH, mesh: Mesh,
-                                               cam: Camera,
-                                               cfg: RenderConfig,
-                                               lights: Sequence[Light],
-                                               attr_tables, seed=0,
-                                               shade_table=None, bias=None):
-    """ONE kernel launch for a soft light 0 (cone or disk) with hard
-    directional extras: the hit set, light 0's sample counts and the
-    extras' occlusion bits. Returns (gbuf, [visibility per light], walk
+    view of it. Returns (gbuf, [visibility per light taken], walk
     counts)."""
     bias = cfg.shadow_bias if bias is None else bias
     gb_accel = _gb_accel(bvh, cam, cfg)
-    l0 = lights[0]
-    light0 = ("disk", l0.position, l0.radius) if l0.kind == LIGHT_POINT \
-        else ("cone", l0.direction, cone_cos(l0))
-    gbuf, (cnt, mask), counts = _fused_gbuf(
-        lambda o, d: trace_closest_soft_multi_shadow(
-            gb_accel, o, d, light0, [l.direction for l in lights[1:]],
-            cfg.spp, seed, bias, attr_tables=attr_tables,
-            textured=mesh.textured),
-        attr_tables, shade_table, mesh, cam, cfg, bvh.nodes.device)
+    trace, kind = _fused_trace(route, gb_accel, lights, cfg, seed, bias,
+                               attr_tables, mesh.textured)
+    gbuf, shadow, counts = _fused_gbuf(trace, attr_tables, shade_table,
+                                       mesh, cam, cfg, bvh.nodes.device)
     with span("tpurt.shadow"):
-        valid = gbuf["valid"]
-        vises = [_visibility(valid, 1.0 - cnt.to(torch.float32) / cfg.spp)]
-        vises += _mask_visibility(valid, mask, len(lights) - 1)
-    return gbuf, vises, counts
+        n = 1 if route == "fused0" else len(lights)
+        return (gbuf, fused_visibility(kind, gbuf["valid"], shadow, n,
+                                       cfg.spp), counts)
 
 
 def gbuffer_production(bvh, mesh: Mesh, cam: Camera, cfg: RenderConfig,
@@ -518,18 +486,42 @@ def shadow_production(bvh, gbuf, light: Light, seed,
                           if wide else None))
 
 
-def composite_lights(gbuf, shadows, lights: Sequence[Light],
-                     cfg: RenderConfig, background=None) -> torch.Tensor:
-    """Sum of per-light direct terms + one ambient term. ``background``:
-    ``cfg.background`` or the block's view of it; an extra light's term
-    keeps only its valid pixels, so its sky value never shows."""
-    bg = cfg.background if background is None else background
-    img = composite_pass(gbuf, shadows[0], lights[0], cfg.ambient, bg)
-    valid = gbuf["valid"][..., None]
-    for li in range(1, len(lights)):
-        extra = composite_pass(gbuf, shadows[li], lights[li], 0.0, bg)
-        img = torch.where(valid, img + extra, img)
-    return img
+def resolves(route: str, attr_tables, mesh: Mesh, n_lights: int) -> bool:
+    """Does the frame resolve its fused launch in one step
+    (``_resolved_frame``): a fused route whose launch takes every light,
+    with the leaf attribute rows (attrs=1) and an untextured mesh? The
+    others keep the decode, the visibility and the composite apart: the
+    shade table's row gather (attrs=0), a textured mesh's albedo sampled
+    from its atlas after the decode (attrs=2), fused0 with lights for the
+    unfused shadow pass, the unfused route and the raster G-buffer."""
+    return (route != "unfused" and attr_tables is not None
+            and not mesh.textured and not unfused_lights(route, n_lights))
+
+
+def _resolved_frame(bvh: WideBVH, mesh: Mesh, cam: Camera,
+                    lights: Sequence[Light], cfg: RenderConfig, attr_tables,
+                    seed, consts, route: str) -> Dict[str, torch.Tensor]:
+    """A frame that ``resolves``: camera rays -> the fused launch, its
+    outputs left in packets -> ``frame_resolve`` in ``tpurt.gbuffer``
+    (the resolve kernel on the card, its plain version on the CPU) writes
+    the G-buffer, every light's visibility and the image. ``tpurt.shadow``
+    and ``tpurt.composite`` stay stages of the frame and launch nothing
+    (a graph replay's output copies and the accumulation are
+    ``tpurt.composite``'s)."""
+    gb_accel = _gb_accel(bvh, cam, cfg)
+    trace, kind = _fused_trace(route, gb_accel, lights, cfg, seed,
+                               consts.bias, attr_tables, False)
+    with span("tpurt.rays"):
+        origins, dirs = generate_rays(cam, cfg.width, cfg.height,
+                                      bvh.nodes.device)
+    with span("tpurt.walk"):
+        launch = trace(origins, dirs, packets=True)
+    with span("tpurt.gbuffer"):
+        out = frame_resolve(launch, kind, consts, cfg, mesh, origins, dirs)
+    with span("tpurt.shadow"):
+        pass
+    with span("tpurt.composite"):
+        return {**out, "walk_counts": launch.counts}
 
 
 def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
@@ -571,23 +563,17 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
                              "(root_min, root_max) for the shadow pass")
     tabs = attr_tables is not None or shade_table is not None
     route = frame_route(cfg, lights, bvh) if tabs else "unfused"
-    bias = consts.bias
-    if route == "fusedN":
-        gbuf, shadows, counts = gbuffer_multi_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights, attr_tables, shade_table, bias)
-    elif route == "fusedSM":
-        gbuf, shadows, counts = gbuffer_soft_multi_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights, attr_tables, seed, shade_table,
-            bias)
-    elif route == "fused0":
-        gbuf, vis0, counts = gbuffer_shadow_fused_production(
-            bvh, mesh, cam, cfg, lights[0], attr_tables, seed, shade_table,
-            bias)
-        shadows = [vis0]
-    else:
+    if resolves(route, attr_tables, mesh, len(lights)):
+        return _resolved_frame(bvh, mesh, cam, lights, cfg, attr_tables,
+                               seed, consts, route)
+    if route == "unfused":
         gbuf, counts = gbuffer_production(bvh, mesh, cam, cfg, attr_tables,
                                           shade_table, shade_table_orig)
         shadows = []
+    else:
+        gbuf, shadows, counts = gbuffer_fused_production(
+            route, bvh, mesh, cam, cfg, lights, attr_tables, seed,
+            shade_table, consts.bias)
     for li in unfused_lights(route, len(lights)):
         with span("tpurt.shadow"):
             vis, c = shadow_production(bvh, gbuf, lights[li], seed, li, cfg)

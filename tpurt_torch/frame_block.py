@@ -66,13 +66,15 @@ class BlockLight(Light):
 class FrameViews:
     """The views a frame reads: ``camera``, ``lights``, ``bias`` f32[],
     ``background`` f32[3] and ``seed``, i32[1] holding the frame seed's
-    bits (the walks' ``seed``)."""
+    bits (the walks' ``seed``); ``block``, the whole block, which the
+    resolve kernel reads in this layout (``kernels/resolve.py``)."""
 
     camera: BlockCamera
     lights: List[BlockLight]
     bias: torch.Tensor
     background: torch.Tensor
     seed: torch.Tensor
+    block: torch.Tensor
 
 
 def _f32(x) -> np.ndarray:
@@ -106,7 +108,8 @@ class FrameBlock:
         self.views = FrameViews(camera=cam, lights=lights,
                                 bias=b[BIAS],
                                 background=b[BACKGROUND:BACKGROUND + 3],
-                                seed=b.view(torch.int32)[SEED:SEED + 1])
+                                seed=b.view(torch.int32)[SEED:SEED + 1],
+                                block=b)
 
     def write(self, cam: Camera, lights: Sequence[Light], config,
               seed: int) -> FrameViews:

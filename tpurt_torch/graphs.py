@@ -16,19 +16,25 @@ through their fixed addresses. So the frames of one capture key
    the last stage, ``tpurt.composite``: a frame's outputs stay valid
    after the next frame.
 
-Which frames take the graphs is a function of what the frame observes
-(``takes_graph``). The launch counters of the walk kernels (``.launches``)
-count a replay's launches as the eager frame does.
+A stage may enqueue nothing (where the resolve kernel writes the shadows
+and the image inside ``tpurt.gbuffer``, ``tpurt.shadow`` and
+``tpurt.composite`` launch nothing): its graph is empty, and its replay
+launches nothing inside its span. Which frames take the graphs is a
+function of what the frame observes (``takes_graph``). The launch
+counters of the walk and resolve kernels (``.launches``) count a replay's
+launches as the eager frame does, and a traced replay whose graphs hold
+the resolve kernel records it (``spans.resolve_frame``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from .spans import capturing, span
+from .spans import capturing, resolve_frame, span
 
 STAGES = ("tpurt.order", "tpurt.rays", "tpurt.walk", "tpurt.gbuffer",
           "tpurt.shadow", "tpurt.composite")
@@ -77,8 +83,11 @@ class _Capture:
         graph = torch.cuda.CUDAGraph()
         self._open = True
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
-                yield None
+            with warnings.catch_warnings():
+                # A stage that enqueues nothing captures an empty graph.
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                with torch.cuda.graph(graph, pool=self.pool):
+                    yield None
         finally:
             self._open = False
         self.stages.append((name, graph))
@@ -95,6 +104,7 @@ class FrameGraphs:
         self.stages: List[Tuple[str, "torch.cuda.CUDAGraph"]] = []
         self.out: Dict[str, torch.Tensor] = {}
         self._launches: Dict[Callable, int] = {}
+        self._resolves = False
 
     @property
     def captured(self) -> bool:
@@ -102,8 +112,10 @@ class FrameGraphs:
 
     def capture(self, frame: Callable[[], Dict[str, torch.Tensor]]) -> None:
         """Capture ``frame()``'s stages; its outputs stay in the pool."""
+        from .kernels.resolve import frame_resolve_cuda
         from .kernels.traverse import CUDA_KERNELS
-        before = {fn: fn.launches for fn in CUDA_KERNELS}
+        before = {fn: fn.launches
+                  for fn in (*CUDA_KERNELS, frame_resolve_cuda)}
         cap = _Capture(torch.cuda.graph_pool_handle())
         with capturing(cap):
             out = frame()
@@ -112,6 +124,7 @@ class FrameGraphs:
                           if fn.launches != n}
         for fn, n in self._launches.items():
             fn.launches -= n
+        self._resolves = frame_resolve_cuda in self._launches
         if not cap.stages or cap.stages[-1][0] != "tpurt.composite":
             raise RuntimeError("a captured frame must end in its "
                                "tpurt.composite stage")
@@ -122,6 +135,8 @@ class FrameGraphs:
         outputs."""
         for fn, n in self._launches.items():
             fn.launches += n
+        if self._resolves:
+            resolve_frame()
         *head, (last, graph) = self.stages
         for name, g in head:
             with span(name):

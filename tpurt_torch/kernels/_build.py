@@ -3,14 +3,14 @@ kernel wrapper makes at the launch boundary.
 
 Every ``csrc/*.cu`` (the walk kernels of ``fused_shadows.cu``,
 ``shadow_rays.cu``, ``binary.cu``, ``transposed.cu`` and ``variants.cu``
-include ``csrc/walk.cuh``; the
-build kernels of ``csrc/build.cu`` and the rasterizer of ``csrc/raster.cu``
-stand alone) is compiled by its own
-``nvcc``, all started together, and one more ``nvcc`` links the objects
-into one shared library with a plain C interface, bound with ctypes. The
-build runs at first use, never at import, into ``build/tpurt_torch/`` at
-the repository root, and is keyed by a hash of the sources, the headers
-and the flags, so an edited source rebuilds.
+include ``csrc/walk.cuh``; the build kernels of ``csrc/build.cu``, the
+rasterizer of ``csrc/raster.cu`` and the frame resolve of
+``csrc/resolve.cu`` stand alone) is compiled by its own ``nvcc``, all
+started together, and one more ``nvcc`` links the objects into one
+shared library with a plain C interface, bound with ctypes. The build
+runs at first use, never at import, into ``build/tpurt_torch/`` at the
+repository root, and is keyed by a hash of the sources, the headers and
+the flags, so an edited source rebuilds.
 """
 
 from __future__ import annotations
@@ -143,7 +143,11 @@ def load_library() -> ctypes.CDLL:
                  "tpurt_variants_launch"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = [i, ctypes.c_void_p, ctypes.c_void_p]
-    for name in ("tpurt_stack_capacity", "tpurt_params_size"):
+    lib.tpurt_frame_resolve_launch.restype = i
+    lib.tpurt_frame_resolve_launch.argtypes = [ctypes.c_void_p,
+                                               ctypes.c_void_p]
+    for name in ("tpurt_stack_capacity", "tpurt_params_size",
+                 "tpurt_resolve_params_size"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
     p, f = ctypes.c_void_p, ctypes.c_float
@@ -165,6 +169,7 @@ def load_library() -> ctypes.CDLL:
                                            i, p, p, p])):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = args
+    from .resolve import ResolveParams
     from .traverse import STACK_CAPACITY, Params
     if lib.tpurt_stack_capacity() != STACK_CAPACITY:
         raise RuntimeError("kernel STACK_CAPACITY differs from "
@@ -172,5 +177,8 @@ def load_library() -> ctypes.CDLL:
     if lib.tpurt_params_size() != ctypes.sizeof(Params):
         raise RuntimeError("the kernel's Params struct differs from "
                            "traverse.Params")
+    if lib.tpurt_resolve_params_size() != ctypes.sizeof(ResolveParams):
+        raise RuntimeError("the kernel's ResolveParams struct differs from "
+                           "resolve.ResolveParams")
     _Library.handle = lib
     return lib

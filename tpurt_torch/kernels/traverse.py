@@ -98,6 +98,7 @@ occlusion, mask or counts.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Tuple
 
 import torch
@@ -2007,6 +2008,31 @@ def _fused_pair(name: str, attr_tables, textured: bool, device):
     return _pick(device, g[stem + "_cuda"], g[stem + "_reference"])
 
 
+@dataclasses.dataclass
+class FusedLaunch:
+    """A fused attrs=1 launch's outputs left in the packet layout
+    (``packets=True`` of the fused wrappers), for ``kernels/resolve.py``:
+    ``attrs`` the attribute channels f32[PB, ATTR_CH, 8, 128], ``shadow``
+    the mode's i32[PB, 8, 128] blocks (occlusion, counts or mask; counts
+    then mask for SOFT_MULTI), ``counts`` the walk counts i32[2], ``rays``
+    the packed ray block f32[PB, 10, 8, 128], and ``p`` and ``meta``,
+    which ``_unpack`` takes."""
+
+    attrs: torch.Tensor
+    shadow: Tuple[torch.Tensor, ...]
+    counts: torch.Tensor
+    rays: torch.Tensor
+    p: int
+    meta: tuple
+
+
+def _packets(res, args, p, meta, attr_tables) -> FusedLaunch:
+    """A fused attrs=1 launch's result ``res`` on ``args`` as it is."""
+    if attr_tables is None:
+        raise ValueError("packets=True needs the leaf attribute rows")
+    return FusedLaunch(res[0], tuple(res[1:-1]), res[-1], args[0], p, meta)
+
+
 def _hit_outputs(res, p, meta, attrs: bool):
     """A closest launch's phase-1 outputs, image-shaped -> (head, rest):
     head (channel dict,) with the attribute tables, else (t, sidx) with
@@ -2021,7 +2047,7 @@ def _hit_outputs(res, p, meta, attrs: bool):
 def trace_closest_shadow(bvh: WideBVH, origins, dirs, light_dir, bias,
                          t_max=_BIG, t_min: float = 0.0, light_pos=None,
                          attr_tables=None, stack_size: int = STACK_CAPACITY,
-                         textured: bool = False):
+                         textured: bool = False, packets: bool = False):
     """Fused primary visibility + light-0 hard shadow (ONE kernel launch).
 
     origins/dirs f32[H, W, 3]; light_dir f32[3] toward the light (used when
@@ -2032,15 +2058,19 @@ def trace_closest_shadow(bvh: WideBVH, origins, dirs, light_dir, bias,
     wrapper and ``trace_closest_attrs`` take it). Returns (channel dict,
     occluded bool[H, W], counts i32[2]); without attribute tables
     (attrs=0) (t f32[H, W], sidx i32[H, W], occluded, counts), misses
-    (inf, -1). Every fused wrapper returns its t and sidx so. CUDA tensors
-    launch the kernel; CPU tensors take the plain version."""
+    (inf, -1). Every fused wrapper returns its t and sidx so, and with
+    ``packets=True`` (and the attribute rows) the launch's outputs as they
+    are, a ``FusedLaunch``. CUDA tensors launch the kernel; CPU tensors
+    take the plain version."""
     fn = _fused_pair("closest_shadow", attr_tables, textured,
                      origins.device)
     args, kwargs, p, meta = closest_shadow_inputs(
         bvh, origins, dirs, light_dir, bias, attr_tables, t_max, t_min,
         light_pos, stack_size)
-    head, (occ, counts) = _hit_outputs(fn(*args, **kwargs), p, meta,
-                                       attr_tables is not None)
+    res = fn(*args, **kwargs)
+    if packets:
+        return _packets(res, args, p, meta, attr_tables)
+    head, (occ, counts) = _hit_outputs(res, p, meta, attr_tables is not None)
     return (*head, _unpack(occ[:p], meta) > 0, counts)
 
 
@@ -2048,7 +2078,7 @@ def trace_closest_multi_shadow(bvh: WideBVH, origins, dirs, lights, bias,
                                t_max=_BIG, t_min: float = 0.0,
                                attr_tables=None,
                                stack_size: int = STACK_CAPACITY,
-                               textured: bool = False):
+                               textured: bool = False, packets: bool = False):
     """Fused primary visibility + N hard shadows (ONE kernel launch).
     lights: (light_dir, light_pos) pairs as ``tpurt``'s
     ``trace_closest_multi_shadow_pallas`` takes them (at most 31). Returns
@@ -2059,8 +2089,10 @@ def trace_closest_multi_shadow(bvh: WideBVH, origins, dirs, lights, bias,
     args, kwargs, p, meta = closest_multi_shadow_inputs(
         bvh, origins, dirs, lights, bias, attr_tables, t_max, t_min,
         stack_size)
-    head, (mask, counts) = _hit_outputs(fn(*args, **kwargs), p, meta,
-                                        attr_tables is not None)
+    res = fn(*args, **kwargs)
+    if packets:
+        return _packets(res, args, p, meta, attr_tables)
+    head, (mask, counts) = _hit_outputs(res, p, meta, attr_tables is not None)
     return (*head, _unpack(mask[:p], meta), counts)
 
 
@@ -2069,7 +2101,7 @@ def trace_closest_soft_shadow(bvh: WideBVH, origins, dirs, axis_dir,
                               t_max=_BIG, t_min: float = 0.0,
                               attr_tables=None, zero_stream: bool = False,
                               stack_size: int = STACK_CAPACITY,
-                              textured: bool = False):
+                              textured: bool = False, packets: bool = False):
     """Fused primary visibility + area-light (cone) soft shadows (ONE
     kernel launch). Returns (channel dict, occlusion counts i32[H, W] in
     [0, spp], walk counts i32[2]), or (t, sidx, counts, walk counts)
@@ -2079,8 +2111,10 @@ def trace_closest_soft_shadow(bvh: WideBVH, origins, dirs, axis_dir,
     args, kwargs, p, meta = closest_soft_shadow_inputs(
         bvh, origins, dirs, axis_dir, cone_cos, spp, seed, bias,
         attr_tables, t_max, t_min, zero_stream, stack_size)
-    head, (cnt, counts) = _hit_outputs(fn(*args, **kwargs), p, meta,
-                                       attr_tables is not None)
+    res = fn(*args, **kwargs)
+    if packets:
+        return _packets(res, args, p, meta, attr_tables)
+    head, (cnt, counts) = _hit_outputs(res, p, meta, attr_tables is not None)
     return (*head, _unpack(cnt[:p], meta), counts)
 
 
@@ -2090,7 +2124,8 @@ def trace_closest_point_soft_shadow(bvh: WideBVH, origins, dirs, light_pos,
                                     attr_tables=None,
                                     zero_stream: bool = False,
                                     stack_size: int = STACK_CAPACITY,
-                                    textured: bool = False):
+                                    textured: bool = False,
+                                    packets: bool = False):
     """Fused primary visibility + point-light penumbra (ONE kernel
     launch). Returns (channel dict, counts i32[H, W] in [0, spp], walk
     counts i32[2]), or (t, sidx, counts, walk counts) without tables."""
@@ -2099,8 +2134,10 @@ def trace_closest_point_soft_shadow(bvh: WideBVH, origins, dirs, light_pos,
     args, kwargs, p, meta = closest_point_soft_shadow_inputs(
         bvh, origins, dirs, light_pos, radius, spp, seed, bias, attr_tables,
         t_max, t_min, zero_stream, stack_size)
-    head, (cnt, counts) = _hit_outputs(fn(*args, **kwargs), p, meta,
-                                       attr_tables is not None)
+    res = fn(*args, **kwargs)
+    if packets:
+        return _packets(res, args, p, meta, attr_tables)
+    head, (cnt, counts) = _hit_outputs(res, p, meta, attr_tables is not None)
     return (*head, _unpack(cnt[:p], meta), counts)
 
 
@@ -2110,7 +2147,8 @@ def trace_closest_soft_multi_shadow(bvh: WideBVH, origins, dirs, light0,
                                     attr_tables=None,
                                     zero_stream: bool = False,
                                     stack_size: int = STACK_CAPACITY,
-                                    textured: bool = False):
+                                    textured: bool = False,
+                                    packets: bool = False):
     """Fused primary + soft light 0 + hard directional extras (ONE kernel
     launch). light0: ("cone", axis, cone_cos) or ("disk", position,
     radius). Returns (channel dict, counts0 i32[H, W], occ_mask i32[H, W]
@@ -2121,7 +2159,10 @@ def trace_closest_soft_multi_shadow(bvh: WideBVH, origins, dirs, light0,
     args, kwargs, p, meta = closest_soft_multi_shadow_inputs(
         bvh, origins, dirs, light0, extra_dirs, spp, seed, bias, attr_tables,
         t_max, t_min, zero_stream, stack_size)
-    head, (cnt, mask, counts) = _hit_outputs(fn(*args, **kwargs), p, meta,
+    res = fn(*args, **kwargs)
+    if packets:
+        return _packets(res, args, p, meta, attr_tables)
+    head, (cnt, mask, counts) = _hit_outputs(res, p, meta,
                                              attr_tables is not None)
     return (*head, _unpack(cnt[:p], meta), _unpack(mask[:p], meta), counts)
 

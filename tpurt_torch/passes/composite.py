@@ -4,7 +4,7 @@ pixels take the background."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
@@ -36,6 +36,21 @@ def composite_pass(gbuf: Dict[str, torch.Tensor], shadow: torch.Tensor,
     color = gbuf["albedo"] * (direct + ambient)
     bg = as_f32(background, dev)
     return torch.where(gbuf["valid"][..., None], color, bg)
+
+
+def composite_lights(gbuf, shadows, lights: Sequence[Light], cfg,
+                     background=None) -> torch.Tensor:
+    """Sum of per-light direct terms + one ambient term (``cfg.ambient``).
+    ``background``: ``cfg.background`` or the block's view of it; an extra
+    light's term keeps only its valid pixels, so its sky value never
+    shows."""
+    bg = cfg.background if background is None else background
+    img = composite_pass(gbuf, shadows[0], lights[0], cfg.ambient, bg)
+    valid = gbuf["valid"][..., None]
+    for li in range(1, len(lights)):
+        extra = composite_pass(gbuf, shadows[li], lights[li], 0.0, bg)
+        img = torch.where(valid, img + extra, img)
+    return img
 
 
 def accumulate(prev: torch.Tensor, frame_index: int,

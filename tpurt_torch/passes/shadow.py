@@ -43,6 +43,33 @@ def cone_cos(light: Light):
     return float(np.cos(np.float32(light.angular_radius)))
 
 
+# The shadow output of a fused walk (csrc/resolve.cu ``ShadowKind``):
+# HARD's occluded flag, SOFT's or PSOFT's sample counts, MULTI's occlusion
+# mask (bit l = light l), SOFT_MULTI's counts and mask (bit i = extra
+# light i).
+OCCLUDED, COUNTS, MASK, COUNTS_MASK = range(4)
+
+
+def fused_visibility(kind: int, valid: torch.Tensor, outs, n: int,
+                     spp: int) -> list:
+    """A fused walk's image-shaped shadow outputs ``outs`` (one, or counts
+    then mask for COUNTS_MASK) -> the visibility f32[H, W] of each of the
+    n lights it took, 1 off the valid mask; a sampled light's is 1 -
+    counts / spp."""
+    def off_valid(vis):
+        return torch.where(valid, vis, 1.0)
+
+    def bits(mask, m):
+        return [off_valid(torch.where(((mask >> i) & 1) > 0, 0.0, 1.0))
+                for i in range(m)]
+    if kind == OCCLUDED:
+        return [off_valid(torch.where(outs[0] > 0, 0.0, 1.0))]
+    if kind == MASK:
+        return bits(outs[0], n)
+    vis = [off_valid(1.0 - outs[0].to(torch.float32) / spp)]
+    return vis + bits(outs[1], n - 1) if kind == COUNTS_MASK else vis
+
+
 def _onb(n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Branchless orthonormal basis around the unit vectors n[..., 3]
     (Duff et al. 2017)."""
