@@ -349,35 +349,37 @@ LAMP_POS, LAMP_RADIUS = (2.0, 9.0, 0.5), 0.5
 
 CSRC = "tpurt_torch/kernels/csrc/"
 TPU = "tpurt/kernels/traverse.py:"
+# The TPU kernel each walk kernel replaces, by the line that defines it;
+# the kernel's source is its row's (traverse.WALK_KERNELS).
 KERNELS = {
-    "closest_shadow": ("fused_shadows.cu", 1450),
-    "closest_multi_shadow": ("fused_shadows.cu", 1538),
-    "closest_soft_shadow": ("fused_shadows.cu", 1032),
-    "closest_point_soft_shadow": ("fused_shadows.cu", 1117),
-    "closest_soft_multi_shadow": ("fused_shadows.cu", 1622),
-    "closest_attrs": ("fused_shadows.cu", 1429),
-    "any": ("shadow_rays.cu", 874),
-    "any_soft": ("shadow_rays.cu", 890),
-    "any_point_soft": ("shadow_rays.cu", 963),
-    "closest": ("fused_shadows.cu", 1286),
-    "closest_shadow_st": ("fused_shadows.cu", 1450),
-    "closest_multi_shadow_st": ("fused_shadows.cu", 1538),
-    "closest_soft_shadow_st": ("fused_shadows.cu", 1032),
-    "closest_point_soft_shadow_st": ("fused_shadows.cu", 1117),
-    "closest_soft_multi_shadow_st": ("fused_shadows.cu", 1622),
-    "binary_closest": ("binary.cu", 287),
-    "binary_any": ("binary.cu", 222),
-    "closest_shadow_tex": ("fused_shadows.cu", 1450),
-    "closest_multi_shadow_tex": ("fused_shadows.cu", 1538),
-    "closest_soft_shadow_tex": ("fused_shadows.cu", 1032),
-    "closest_point_soft_shadow_tex": ("fused_shadows.cu", 1117),
-    "closest_soft_multi_shadow_tex": ("fused_shadows.cu", 1622),
-    "closest_attrs_tex": ("fused_shadows.cu", 1429),
-    "first_hit": ("fused_shadows.cu", 1290),
-    "w8t_any": ("transposed.cu", 1910),
-    "w8t_closest": ("transposed.cu", 1973),
-    "w8t_closest_attrs": ("transposed.cu", 2238),
-    "w8t_closest_attrs_tex": ("transposed.cu", 2238),
+    "closest_shadow": 1450,
+    "closest_multi_shadow": 1538,
+    "closest_soft_shadow": 1032,
+    "closest_point_soft_shadow": 1117,
+    "closest_soft_multi_shadow": 1622,
+    "closest_attrs": 1429,
+    "any": 874,
+    "any_soft": 890,
+    "any_point_soft": 963,
+    "closest": 1286,
+    "closest_shadow_st": 1450,
+    "closest_multi_shadow_st": 1538,
+    "closest_soft_shadow_st": 1032,
+    "closest_point_soft_shadow_st": 1117,
+    "closest_soft_multi_shadow_st": 1622,
+    "binary_closest": 287,
+    "binary_any": 222,
+    "closest_shadow_tex": 1450,
+    "closest_multi_shadow_tex": 1538,
+    "closest_soft_shadow_tex": 1032,
+    "closest_point_soft_shadow_tex": 1117,
+    "closest_soft_multi_shadow_tex": 1622,
+    "closest_attrs_tex": 1429,
+    "first_hit": 1290,
+    "w8t_any": 1910,
+    "w8t_closest": 1973,
+    "w8t_closest_attrs": 2238,
+    "w8t_closest_attrs_tex": 2238,
 }
 # The attrs=0 variants of the fused modes (no attribute rows; t and the
 # sorted index out) and the plain closest hit: the shade-table G-buffer's.
@@ -3521,7 +3523,8 @@ def build_kernel_row(name, launches_, kp) -> dict:
 
 
 def kernel_row(name, launches_, kp, small) -> dict:
-    src, line = KERNELS[name]
+    import tpurt_torch.kernels.traverse as tr
+    src, line = tr.WALK_KERNELS[name].source, KERNELS[name]
     checks = [kp] + [v for k, v in small.items()
                      if k == name or k.startswith(name + "/")]
     return {"name": name, "route": "cuda", "source": CSRC + src,
@@ -3934,18 +3937,18 @@ def _resolve_launch(r):
     """A fresh frame block and the Renderer's fused launch on it, its
     outputs left in packets -> (launch, shadow kind, consts, origins,
     dirs)."""
-    from tpurt_torch.app import _fused_trace, frame_seed
+    from tpurt_torch.app import frame_seed, fused_launch
     from tpurt_torch.bvh.wide import order_children_for_point
     from tpurt_torch.camera import generate_rays
     cfg = r.config
     consts = r._block.write(r.camera, r.lights, cfg,
                             frame_seed(cfg.seed, 7))
     acc = order_children_for_point(r.accel, consts.camera.position)
-    trace, kind = _fused_trace(r.route, acc, consts.lights, cfg,
-                               consts.seed, consts.bias, r.attr_tables,
-                               False)
+    launch, kind = fused_launch(r.route, acc, consts.lights, cfg,
+                                consts.seed, consts.bias, r.attr_tables,
+                                False)
     o, d = generate_rays(consts.camera, cfg.width, cfg.height, r.device)
-    return trace(o, d, packets=True), kind, consts, o, d
+    return launch(o, d), kind, consts, o, d
 
 
 def phase_resolve(dev, mesh) -> dict:

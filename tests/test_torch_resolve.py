@@ -126,11 +126,11 @@ def _launch(r, consts):
     packets -> (launch, shadow kind, origins, dirs)."""
     cfg = r.config
     acc = order_children_for_point(r.accel, consts.camera.position)
-    trace, kind = app._fused_trace(r.route, acc, consts.lights, cfg,
-                                   consts.seed, consts.bias, r.attr_tables,
-                                   False)
+    launch, kind = app.fused_launch(r.route, acc, consts.lights, cfg,
+                                    consts.seed, consts.bias, r.attr_tables,
+                                    False)
     o, d = generate_rays(consts.camera, cfg.width, cfg.height, r.device)
-    return trace(o, d, packets=True), kind, o, d
+    return launch(o, d), kind, o, d
 
 
 def _replaced(r, consts):

@@ -273,6 +273,28 @@ def test_params_mirror_the_cuda_struct():
         "ANY": tr.ANY, "ANY_SOFT": tr.ANY_SOFT, "ANY_PSOFT": tr.ANY_PSOFT}
 
 
+@pytest.mark.parametrize("name", list(tr.WALK_KERNELS))
+def test_walk_table_row(name):
+    """A row of the walk-launch table: its launcher and plain version under
+    their public names, the mode its launcher's doc names numbered as in
+    its source's ``enum Mode``, and the fused pair lookup picking the row
+    by mode and attrs variant, its name suffixed as the variant's."""
+    w = tr.WALK_KERNELS[name]
+    assert getattr(tr, f"{name}_cuda") is w.launch
+    assert w.launch.__name__ == f"{name}_cuda" and w.launch in tr.CUDA_KERNELS
+    assert getattr(tr, f"{name}_reference") is w.reference
+    mode = re.match(r"Mode (\w+)", w.launch.__doc__).group(1)
+    assert _modes(_csrc(w.source))[mode] == w.mode
+    if w.entry != tr._FUSED or w.mode in (tr.NEAREST, tr.FIRST_HIT):
+        return
+    assert re.sub(r"_(st|tex)$", "", name) + ("_st", "", "_tex")[w.attrs] \
+        == name
+    tables = None if w.attrs == 0 else ("at0", "at1")
+    for dev, fn in (("cuda", w.launch), ("cpu", w.reference)):
+        assert tr._fused_pair(w.mode, tables, w.attrs == 2,
+                              torch.device(dev)) is fn
+
+
 def test_only_one_source_defines_the_queries():
     """Both sources link into one library: the extern "C" queries live in
     fused_shadows.cu alone, and every device function of walk.cuh is

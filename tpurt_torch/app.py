@@ -110,15 +110,16 @@ from .bvh.wide import (WideBVH, WideBVHT, count_wide,
                        widen_area_kernel, widen_from_plan, widen_lbvh)
 from .camera import generate_rays
 from .kernels.pack import binary_vmem_bytes, pack_bvh, tree_depth
-from .kernels.traverse import (MAX_MASK_LIGHTS, as_packed,
+from .kernels.traverse import (HARD, MAX_MASK_LIGHTS, MULTI, PSOFT, SOFT,
+                               SOFT_MULTI, _fused_launch, as_packed,
                                check_binary_stack_bound, check_stack_bound,
-                               check_walk_counts, is_binary, trace_any,
-                               trace_any_point_soft, trace_any_soft,
-                               trace_closest, trace_closest_multi_shadow,
-                               trace_closest_point_soft_shadow,
-                               trace_closest_shadow,
-                               trace_closest_soft_multi_shadow,
-                               trace_closest_soft_shadow)
+                               check_walk_counts, closest_multi_shadow_inputs,
+                               closest_point_soft_shadow_inputs,
+                               closest_shadow_inputs,
+                               closest_soft_multi_shadow_inputs,
+                               closest_soft_shadow_inputs, is_binary,
+                               trace_any, trace_any_point_soft,
+                               trace_any_soft, trace_closest)
 from .kernels.resolve import frame_resolve
 from .passes.composite import accumulate, composite_lights
 from .frame_block import FrameBlock
@@ -336,17 +337,17 @@ def _apply_mesh_textures(gbuf, mesh: Mesh):
     return gbuf
 
 
-def _fused_gbuf(trace, attr_tables, shade_table, mesh: Mesh, cam: Camera,
+def _fused_gbuf(launch, attr_tables, shade_table, mesh: Mesh, cam: Camera,
                 cfg: RenderConfig, device):
-    """Camera rays -> ``trace(origins, dirs)``, a fused wrapper -> the
-    G-buffer: from the attribute channels with the leaf attribute rows,
-    else from t and the sorted index through the shade table
-    (``gbuf_from_table``), then the mesh's textures. Returns (gbuf, the
-    wrapper's shadow outputs, walk counts)."""
+    """Camera rays -> ``launch(origins, dirs)``, the route's fused launch,
+    unpacked -> the G-buffer: from the attribute channels with the leaf
+    attribute rows, else from t and the sorted index through the shade
+    table (``gbuf_from_table``), then the mesh's textures. Returns (gbuf,
+    the launch's shadow outputs, walk counts)."""
     with span("tpurt.rays"):
         origins, dirs = generate_rays(cam, cfg.width, cfg.height, device)
     with span("tpurt.walk"):
-        res = trace(origins, dirs)
+        res = launch(origins, dirs).unpacked()
     with span("tpurt.gbuffer"):
         if attr_tables is not None:
             ch, *shadow, counts = res
@@ -358,50 +359,52 @@ def _fused_gbuf(trace, attr_tables, shade_table, mesh: Mesh, cam: Camera,
         return _apply_mesh_textures(gbuf, mesh), shadow, counts
 
 
-def _fused_trace(route: str, gb_accel, lights: Sequence[Light],
+def fused_launch(route: str, gb_accel, lights: Sequence[Light],
                  cfg: RenderConfig, seed, bias, attr_tables, textured: bool):
     """The fused launch of ``route`` on the camera-ordered accel ->
-    (``trace(origins, dirs, **kw)``, the fused wrapper's call, ``kw`` its
-    ``packets``; the kind of the launch's shadow output,
-    ``passes/shadow.py``). fusedN: one hard walk per light (points by
-    position, the rest along their direction); fusedSM: light 0's disk or
-    cone samples, the extras' directions; fused0: light 0 disk-sampled (a
-    point light at spp > 1), cone-sampled (an area light at spp > 1) or
-    hard (directional, point, or a cone at spp 1 along its axis)."""
-    tables = dict(attr_tables=attr_tables, textured=textured)
+    (``launch(origins, dirs)``, which makes ONE launch of the route's
+    fused walk and returns its ``FusedLaunch``; the kind of the launch's
+    shadow output, ``passes/shadow.py``). fusedN: one hard walk per light
+    (points by position, the rest along their direction); fusedSM: light
+    0's disk or cone samples, the extras' directions; fused0: light 0
+    disk-sampled (a point light at spp > 1), cone-sampled (an area light
+    at spp > 1) or hard (directional, point, or a cone at spp 1 along its
+    axis)."""
+    def bind(mode, inputs, **spec):
+        return (lambda o, d: _fused_launch(
+            mode, inputs(gb_accel, o, d, bias=bias, attr_tables=attr_tables,
+                         **spec), attr_tables, textured))
     if route == "fusedN":
         spec = [(None, l.position) if l.kind == LIGHT_POINT
                 else (l.direction, None) for l in lights]
-        return (lambda o, d, **kw: trace_closest_multi_shadow(
-            gb_accel, o, d, spec, bias, **tables, **kw)), MASK
+        return bind(MULTI, closest_multi_shadow_inputs, lights=spec), MASK
     light = lights[0]
     if route == "fusedSM":
         light0 = ("disk", light.position, light.radius) \
             if light.kind == LIGHT_POINT \
             else ("cone", light.direction, cone_cos(light))
         extra = [l.direction for l in lights[1:]]
-        return (lambda o, d, **kw: trace_closest_soft_multi_shadow(
-            gb_accel, o, d, light0, extra, cfg.spp, seed, bias, **tables,
-            **kw)), COUNTS_MASK
+        return bind(SOFT_MULTI, closest_soft_multi_shadow_inputs,
+                    light0=light0, extra_dirs=extra, spp=cfg.spp,
+                    seed=seed), COUNTS_MASK
     if light.kind == LIGHT_POINT and cfg.spp > 1:
-        return (lambda o, d, **kw: trace_closest_point_soft_shadow(
-            gb_accel, o, d, light.position, light.radius, cfg.spp, seed,
-            bias, **tables, **kw)), COUNTS
+        return bind(PSOFT, closest_point_soft_shadow_inputs,
+                    light_pos=light.position, radius=light.radius,
+                    spp=cfg.spp, seed=seed), COUNTS
     if light.kind == LIGHT_AREA_CONE and cfg.spp > 1:
-        return (lambda o, d, **kw: trace_closest_soft_shadow(
-            gb_accel, o, d, light.direction, cone_cos(light), cfg.spp, seed,
-            bias, **tables, **kw)), COUNTS
+        return bind(SOFT, closest_soft_shadow_inputs,
+                    axis_dir=light.direction, cone_cos=cone_cos(light),
+                    spp=cfg.spp, seed=seed), COUNTS
     lpos = light.position if light.kind == LIGHT_POINT else None
-    return (lambda o, d, **kw: trace_closest_shadow(
-        gb_accel, o, d, light.direction, bias, light_pos=lpos, **tables,
-        **kw)), OCCLUDED
+    return bind(HARD, closest_shadow_inputs, light_dir=light.direction,
+                light_pos=lpos), OCCLUDED
 
 
 def gbuffer_fused_production(route: str, bvh: WideBVH, mesh: Mesh,
                              cam: Camera, cfg: RenderConfig,
                              lights: Sequence[Light], attr_tables, seed=0,
                              shade_table=None, bias=None):
-    """ONE kernel launch of ``route``'s fused walk (``_fused_trace``)
+    """ONE kernel launch of ``route``'s fused walk (``fused_launch``)
     returns the hit set and the visibility of each light it takes: every
     light (fusedN, fusedSM) or light 0 (fused0); a sampled light's
     visibility is 1 - counts / spp. The hit set carries its shading
@@ -411,9 +414,9 @@ def gbuffer_fused_production(route: str, bvh: WideBVH, mesh: Mesh,
     counts)."""
     bias = cfg.shadow_bias if bias is None else bias
     gb_accel = _gb_accel(bvh, cam, cfg)
-    trace, kind = _fused_trace(route, gb_accel, lights, cfg, seed, bias,
-                               attr_tables, mesh.textured)
-    gbuf, shadow, counts = _fused_gbuf(trace, attr_tables, shade_table,
+    launch, kind = fused_launch(route, gb_accel, lights, cfg, seed, bias,
+                                attr_tables, mesh.textured)
+    gbuf, shadow, counts = _fused_gbuf(launch, attr_tables, shade_table,
                                        mesh, cam, cfg, bvh.nodes.device)
     with span("tpurt.shadow"):
         n = 1 if route == "fused0" else len(lights)
@@ -509,19 +512,19 @@ def _resolved_frame(bvh: WideBVH, mesh: Mesh, cam: Camera,
     (a graph replay's output copies and the accumulation are
     ``tpurt.composite``'s)."""
     gb_accel = _gb_accel(bvh, cam, cfg)
-    trace, kind = _fused_trace(route, gb_accel, lights, cfg, seed,
-                               consts.bias, attr_tables, False)
+    launch, kind = fused_launch(route, gb_accel, lights, cfg, seed,
+                                consts.bias, attr_tables, False)
     with span("tpurt.rays"):
         origins, dirs = generate_rays(cam, cfg.width, cfg.height,
                                       bvh.nodes.device)
     with span("tpurt.walk"):
-        launch = trace(origins, dirs, packets=True)
+        packets = launch(origins, dirs)
     with span("tpurt.gbuffer"):
-        out = frame_resolve(launch, kind, consts, cfg, mesh, origins, dirs)
+        out = frame_resolve(packets, kind, consts, cfg, mesh, origins, dirs)
     with span("tpurt.shadow"):
         pass
     with span("tpurt.composite"):
-        return {**out, "walk_counts": launch.counts}
+        return {**out, "walk_counts": packets.counts}
 
 
 def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
@@ -1054,7 +1057,7 @@ class Renderer:
             self._block = FrameBlock(len(self.lights), self.device)
         consts = self._block.write(self.camera, self.lights, cfg,
                                    frame_seed(cfg.seed, self.frame_index))
-        if takes_graph(self.mode, cfg.gbuffer, self.device, self.route):
+        if takes_graph(self.mode, cfg.gbuffer, self.device):
             out = self._graph_frame(consts)
         else:
             out = self._frame_fn(consts)

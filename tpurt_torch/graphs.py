@@ -38,21 +38,17 @@ from .spans import capturing, resolve_frame, span
 
 STAGES = ("tpurt.order", "tpurt.rays", "tpurt.walk", "tpurt.gbuffer",
           "tpurt.shadow", "tpurt.composite")
-# The routes whose every per-frame input comes through the block of
-# constants: every route of the Renderer's frames.
-GRAPH_ROUTES = ("fusedN", "fusedSM", "fused0", "unfused")
 
 
-def takes_graph(mode: str, gbuffer: str, device, route: str) -> bool:
+def takes_graph(mode: str, gbuffer: str, device) -> bool:
     """Does a frame replay its stages as CUDA graphs? The static mode's
-    ray-cast G-buffer on the card, on a route that takes every per-frame
-    value from the block. The rebuild's accel is new every frame and its
-    count read is a host read; the raster G-buffer may render a frame
-    again with a bigger binning capacity; the CPU has no graphs: those
-    frames run eagerly."""
+    ray-cast G-buffer on the card, on any route: every route takes each
+    per-frame value from the block. The rebuild's accel is new every
+    frame and its count read is a host read; the raster G-buffer may
+    render a frame again with a bigger binning capacity; the CPU has no
+    graphs: those frames run eagerly."""
     return (mode == "static" and gbuffer == "ray"
-            and torch.device(device).type == "cuda"
-            and route in GRAPH_ROUTES)
+            and torch.device(device).type == "cuda")
 
 
 def capture_key(route: str, config, lights, device, *objects) -> tuple:

@@ -74,6 +74,12 @@ contract on the packed ray block:
 - ``trace_*``: the wrapper the frame calls. It packs the rays, picks one
   of the two by the tensors' device, and decodes the attribute channels.
 
+``WALK_KERNELS`` holds one row per kernel: its entry point and mode, what
+the launch takes and returns, and its plain version; one factory makes
+every ``*_cuda`` from its row. The five fused wrappers are one launch
+(``_fused_launch``, a ``FusedLaunch`` of the outputs as written) and one
+unpacking (``FusedLaunch.unpacked``).
+
 All walks return ``counts`` i32[2]: pushes dropped because the per-ray
 stack was full, and walks cut at the iteration cap, summed over phase 1
 and every shadow walk. A correct frame leaves both at zero;
@@ -99,7 +105,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -981,73 +987,6 @@ def seed_cap(rays, t1, s1) -> torch.Tensor:
     return torch.where(s1 >= 0, t1 * SEED_SCALE + SEED_PAD, rays[:, 9])
 
 
-# The attrs=0 plain versions of the fused modes, called as their kernels
-# ``*_st_cuda`` are: no attribute tables -> (t, sidx, *i32 outputs,
-# counts).
-
-def closest_shadow_st_reference(rays, nodes, tris, scal, **kw):
-    """Plain version of HARD attrs=0."""
-    return closest_shadow_reference(rays, nodes, tris, None, None, scal,
-                                    **kw)
-
-
-def closest_multi_shadow_st_reference(rays, nodes, tris, scal, **kw):
-    """Plain version of MULTI attrs=0."""
-    return closest_multi_shadow_reference(rays, nodes, tris, None, None,
-                                          scal, **kw)
-
-
-def closest_soft_shadow_st_reference(rays, nodes, tris, scal, **kw):
-    """Plain version of SOFT attrs=0."""
-    return closest_soft_shadow_reference(rays, nodes, tris, None, None,
-                                         scal, **kw)
-
-
-def closest_point_soft_shadow_st_reference(rays, nodes, tris, scal, **kw):
-    """Plain version of PSOFT attrs=0."""
-    return closest_point_soft_shadow_reference(rays, nodes, tris, None,
-                                               None, scal, **kw)
-
-
-def closest_soft_multi_shadow_st_reference(rays, nodes, tris, scal, **kw):
-    """Plain version of SOFT_MULTI attrs=0."""
-    return closest_soft_multi_shadow_reference(rays, nodes, tris, None,
-                                               None, scal, **kw)
-
-
-# The attrs=2 (textured) plain versions, called as their kernels
-# ``*_tex_cuda`` are.
-
-def closest_shadow_tex_reference(*args, **kw):
-    """Plain version of HARD attrs=2."""
-    return closest_shadow_reference(*args, textured=True, **kw)
-
-
-def closest_multi_shadow_tex_reference(*args, **kw):
-    """Plain version of MULTI attrs=2."""
-    return closest_multi_shadow_reference(*args, textured=True, **kw)
-
-
-def closest_soft_shadow_tex_reference(*args, **kw):
-    """Plain version of SOFT attrs=2."""
-    return closest_soft_shadow_reference(*args, textured=True, **kw)
-
-
-def closest_point_soft_shadow_tex_reference(*args, **kw):
-    """Plain version of PSOFT attrs=2."""
-    return closest_point_soft_shadow_reference(*args, textured=True, **kw)
-
-
-def closest_soft_multi_shadow_tex_reference(*args, **kw):
-    """Plain version of SOFT_MULTI attrs=2."""
-    return closest_soft_multi_shadow_reference(*args, textured=True, **kw)
-
-
-def closest_attrs_tex_reference(*args, **kw):
-    """Plain version of CLOSEST attrs=2."""
-    return closest_attrs_reference(*args, textured=True, **kw)
-
-
 def any_reference(rays, nodes, tris, *, leaf_size: int, t_min: float,
                   max_iters: int, stack_size: int, stats=None):
     """Plain version of ``_any_hit_kernel_w8_b``: any hit in (t_min,
@@ -1276,11 +1215,6 @@ def w8t_closest_attrs_reference(rays, nodes, tris_t, at0_t, at1_t, *,
                                    textured=textured, **walk)
 
 
-def w8t_closest_attrs_tex_reference(*args, **kw):
-    """Plain version of ``_closest_attr_kernel_w8t_b`` with textured=True."""
-    return w8t_closest_attrs_reference(*args, textured=True, **kw)
-
-
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
@@ -1311,6 +1245,9 @@ _FUSED = "tpurt_fused_shadows_launch"
 _SHADOW_RAYS = "tpurt_shadow_rays_launch"
 _BINARY = "tpurt_binary_launch"
 _TRANSPOSED = "tpurt_transposed_launch"
+# Each entry point's walk source under csrc/.
+_SOURCES = {_FUSED: "fused_shadows.cu", _SHADOW_RAYS: "shadow_rays.cu",
+            _BINARY: "binary.cu", _TRANSPOSED: "transposed.cu"}
 
 
 def _require_cuda(dev) -> None:
@@ -1397,15 +1334,7 @@ def _launch(entry: str, mode: int, outputs, rays, nodes, tris, scal, *,
     return (*res, *blocks, counts)
 
 
-def _fused(mode: int, outputs, rays, nodes, tris, attrs, scal, **kw):
-    """A launch of csrc/fused_shadows.cu, the closest walk's modes: attrs
-    (at0, at1) for the attrs=1 variant (attrs=2 with ``textured=True`` in
-    ``kw``), None for attrs=0."""
-    return _launch(_FUSED, mode, outputs, rays, nodes, tris, scal,
-                   ray_comps=10, attrs=attrs, closest=True, **kw)
-
-
-def _sampling(spp: int, seed, zero_stream: bool, light: int = 0) -> dict:
+def _sampling(spp: int, seed, zero_stream: bool, light: int) -> dict:
     """The sampling modes' Params fields (``seed`` as ``seed_arg`` keeps
     it; ``_launch`` gives the kernel its address)."""
     if spp < 1:
@@ -1424,6 +1353,10 @@ def _seed_on(seed, dev) -> torch.Tensor:
                         dtype=torch.int32, device=dev)
 
 
+def _no_fields() -> dict:
+    return {}
+
+
 def _hard_fields(point: bool) -> dict:
     return dict(scal_len=4 if point else 13, nlights=1,
                 point_mask=int(bool(point)))
@@ -1435,11 +1368,18 @@ def _multi_fields(points) -> dict:
                 point_mask=sum(1 << i for i, p in enumerate(points) if p))
 
 
-def _soft_multi_fields(disk: bool, n_extra: int) -> dict:
+def _fused_sampling(spp: int, seed, zero_stream: bool) -> dict:
+    """SOFT's and PSOFT's fields: light 0's samples."""
+    return _sampling(spp, seed, zero_stream, 0)
+
+
+def _soft_multi_fields(disk: bool, n_extra: int, spp: int, seed,
+                       zero_stream: bool) -> dict:
     if n_extra:
         _check_mask_lights(n_extra)
     return dict(scal_len=_soft_multi_scal_len(disk, n_extra),
-                disk=int(bool(disk)), n_extra=int(n_extra))
+                disk=int(bool(disk)), n_extra=int(n_extra),
+                **_sampling(spp, seed, zero_stream, 0))
 
 
 def _check_records(nodes) -> None:
@@ -1449,312 +1389,248 @@ def _check_records(nodes) -> None:
         raise ValueError("node rows are not 16-byte aligned")
 
 
-# Each *_cuda launches one mode of csrc/fused_shadows.cu or
-# csrc/shadow_rays.cu, with the contract of its *_reference; it takes CUDA
-# tensors only, builds the kernel library on first use, raises on anything
-# the kernel does not take and on a refused launch, and counts its launches
-# in ``.launches``. The fused modes' *_st_cuda are their attrs=0 variants,
-# *_tex_cuda (CLOSEST's too) their attrs=2 (textured) ones.
+@dataclasses.dataclass
+class _WalkKernel:
+    """A row of ``WALK_KERNELS``: one walk kernel, a mode of one walk
+    source in one attrs variant, and what ``_launch`` needs for it.
+    ``outputs``: its i32[PB,8,128] blocks; ``ray_comps``: the rows of its
+    ray block (4: the shadow-ray origins); ``closest``: the mode runs the
+    closest walk, whose outputs ``attrs`` selects (0: t and the sorted
+    index; 1: the attribute channels, from the tables that follow (rays,
+    nodes, tris) in the arguments; 2: those with the winner's uv and
+    layer); ``transposed``: a WideBVHT's leaves; ``records``: the kernel
+    reads 16-byte node records; ``fields``: the mode's own keywords ->
+    its Params fields; ``scal_len``: the length of the scalar block, the
+    last argument (None: ``fields`` gives it; 0: no block). ``launch`` is
+    the ``*_cuda`` launcher, ``reference`` its plain version."""
 
-def closest_shadow_cuda(rays, nodes, tris, at0, at1, scal, *, point: bool,
-                        **walk):
-    """Mode HARD: light 0's hard shadow."""
-    res = _fused(HARD, ("mask_out",), rays, nodes, tris, (at0, at1), scal,
-                 **walk, **_hard_fields(point))
-    closest_shadow_cuda.launches += 1
-    return res
+    name: str
+    entry: str
+    mode: int
+    outputs: Tuple[str, ...]
+    doc: str
+    reference: Callable
+    ray_comps: int = 10
+    closest: bool = False
+    attrs: int = 0
+    transposed: bool = False
+    records: bool = False
+    fields: Callable[..., dict] = _no_fields
+    scal_len: Optional[int] = 0
+    launch: Callable = dataclasses.field(init=False, repr=False)
 
+    def __post_init__(self):
+        self.launch = _launcher(self)
 
-def closest_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *, points,
-                              **walk):
-    """Mode MULTI: one hard shadow per light."""
-    res = _fused(MULTI, ("mask_out",), rays, nodes, tris, (at0, at1), scal,
-                 **walk, **_multi_fields(points))
-    closest_multi_shadow_cuda.launches += 1
-    return res
-
-
-def closest_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
-                             spp: int, seed: int, zero_stream: bool, **walk):
-    """Mode SOFT: spp cone samples of a sun."""
-    res = _fused(SOFT, ("cnt_out",), rays, nodes, tris, (at0, at1), scal,
-                 **walk, scal_len=17, **_sampling(spp, seed, zero_stream))
-    closest_soft_shadow_cuda.launches += 1
-    return res
-
-
-def closest_point_soft_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
-                                   spp: int, seed: int, zero_stream: bool,
-                                   **walk):
-    """Mode PSOFT: spp disk samples of a point light."""
-    _check_records(nodes)
-    res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, (at0, at1), scal,
-                 **walk, scal_len=5, **_sampling(spp, seed, zero_stream))
-    closest_point_soft_shadow_cuda.launches += 1
-    return res
+    @property
+    def source(self) -> str:
+        """The kernel's walk source under csrc/."""
+        return _SOURCES[self.entry]
 
 
-def closest_soft_multi_shadow_cuda(rays, nodes, tris, at0, at1, scal, *,
-                                   spp: int, seed: int, zero_stream: bool,
-                                   disk: bool, n_extra: int, **walk):
-    """Mode SOFT_MULTI: soft light 0 plus hard directional extras."""
-    res = _fused(SOFT_MULTI, ("cnt_out", "mask_out"), rays, nodes, tris,
-                 (at0, at1), scal, **walk, **_soft_multi_fields(disk, n_extra),
-                 **_sampling(spp, seed, zero_stream))
-    closest_soft_multi_shadow_cuda.launches += 1
-    return res
+def _launcher(w: _WalkKernel):
+    """Row ``w``'s ``*_cuda``: (rays, nodes, tris[, at0, at1][, scal])
+    and keywords, the walk's (leaf_size, t_min, max_iters, stack_size)
+    and the mode's (``w.fields``)."""
+    nargs = 3 + (2 if w.attrs else 0) + (w.scal_len != 0)
+    const = dict(ray_comps=w.ray_comps, closest=w.closest,
+                 textured=w.attrs == 2, transposed=w.transposed)
+    if w.scal_len is not None:
+        const["scal_len"] = w.scal_len
+
+    def launch(*args, leaf_size: int, t_min: float, max_iters: int,
+               stack_size: int, **kw):
+        if len(args) != nargs:
+            raise TypeError(f"{launch.__name__} takes {nargs} positional "
+                            f"arguments, {len(args)} given")
+        if w.records:
+            _check_records(args[1])
+        res = _launch(w.entry, w.mode, w.outputs, args[0], args[1], args[2],
+                      args[-1] if w.scal_len != 0 else None,
+                      attrs=args[3:5] if w.attrs else None,
+                      leaf_size=leaf_size, t_min=t_min, max_iters=max_iters,
+                      stack_size=stack_size, **const, **w.fields(**kw))
+        launch.launches += 1
+        return res
+
+    launch.__name__ = launch.__qualname__ = w.name + "_cuda"
+    launch.__doc__ = w.doc
+    launch.launches = 0
+    return launch
 
 
-def closest_shadow_st_cuda(rays, nodes, tris, scal, *, point: bool, **walk):
-    """Mode HARD attrs=0: t, sidx and light 0's hard shadow."""
-    res = _fused(HARD, ("mask_out",), rays, nodes, tris, None, scal, **walk,
-                 **_hard_fields(point))
-    closest_shadow_st_cuda.launches += 1
-    return res
+def _variant(name: str, reference, attrs: int):
+    """The plain version of a closest walk's attrs variant, made from its
+    attrs=1 one: attrs=0 takes no attribute tables, attrs=2 walks
+    ``textured``."""
+    if attrs == 1:
+        return reference
+    if attrs == 0:
+        def plain(rays, nodes, tris, scal, **kw):
+            return reference(rays, nodes, tris, None, None, scal, **kw)
+    else:
+        def plain(*args, **kw):
+            return reference(*args, textured=True, **kw)
+    plain.__name__ = plain.__qualname__ = name + "_reference"
+    plain.__doc__ = (f"Plain version of ``{name}_cuda``: "
+                     f"``{reference.__name__}`` in attrs={attrs}.")
+    return plain
 
 
-def closest_multi_shadow_st_cuda(rays, nodes, tris, scal, *, points,
-                                 **walk):
-    """Mode MULTI attrs=0."""
-    res = _fused(MULTI, ("mask_out",), rays, nodes, tris, None, scal,
-                 **walk, **_multi_fields(points))
-    closest_multi_shadow_st_cuda.launches += 1
-    return res
+# An attrs variant's suffix of the kernel's name and the end of its doc.
+_ATTRS_NAMES = {1: ("", "."),
+                0: ("_st", ", t and the sorted index (attrs=0)."),
+                2: ("_tex", ", the attribute channels with the winner's "
+                    "interpolated uv and layer (attrs=2).")}
 
 
-def closest_soft_shadow_st_cuda(rays, nodes, tris, scal, *, spp: int,
-                                seed: int, zero_stream: bool, **walk):
-    """Mode SOFT attrs=0."""
-    res = _fused(SOFT, ("cnt_out",), rays, nodes, tris, None, scal, **walk,
-                 scal_len=17, **_sampling(spp, seed, zero_stream))
-    closest_soft_shadow_st_cuda.launches += 1
-    return res
+def _closest_variants(name, entry, mode, outputs, doc, reference,
+                      attrs=(1, 0, 2), **row):
+    """The rows of a closest walk's mode in each of its ``attrs``
+    variants: ``name`` (1), ``name``_st (0), ``name``_tex (2)."""
+    rows = []
+    for a in attrs:
+        suffix, more = _ATTRS_NAMES[a]
+        rows.append(_WalkKernel(name + suffix, entry, mode, outputs,
+                                doc + more,
+                                _variant(name + suffix, reference, a),
+                                closest=True, attrs=a, **row))
+    return rows
 
 
-def closest_point_soft_shadow_st_cuda(rays, nodes, tris, scal, *, spp: int,
-                                      seed: int, zero_stream: bool, **walk):
-    """Mode PSOFT attrs=0."""
-    _check_records(nodes)
-    res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, None, scal, **walk,
-                 scal_len=5, **_sampling(spp, seed, zero_stream))
-    closest_point_soft_shadow_st_cuda.launches += 1
-    return res
+_MASK, _CNT = ("mask_out",), ("cnt_out",)
 
+# The walk launches, one row per kernel: the five fused modes of
+# csrc/fused_shadows.cu in attrs 1, 0 and 2, its CLOSEST in attrs 1 and 2,
+# NEAREST and FIRST_HIT; the shadow rays of csrc/shadow_rays.cu; the
+# binary walks of csrc/binary.cu; the w8t walks of csrc/transposed.cu.
+WALK_KERNELS = {w.name: w for w in (
+    *_closest_variants("closest_shadow", _FUSED, HARD, _MASK,
+                       "Mode HARD: light 0's hard shadow",
+                       closest_shadow_reference, fields=_hard_fields,
+                       scal_len=None),
+    *_closest_variants("closest_multi_shadow", _FUSED, MULTI, _MASK,
+                       "Mode MULTI: one hard shadow per light",
+                       closest_multi_shadow_reference, fields=_multi_fields,
+                       scal_len=None),
+    *_closest_variants("closest_soft_shadow", _FUSED, SOFT, _CNT,
+                       "Mode SOFT: spp cone samples of a sun",
+                       closest_soft_shadow_reference,
+                       fields=_fused_sampling, scal_len=17),
+    *_closest_variants("closest_point_soft_shadow", _FUSED, PSOFT, _CNT,
+                       "Mode PSOFT: spp disk samples of a point light",
+                       closest_point_soft_shadow_reference, records=True,
+                       fields=_fused_sampling, scal_len=5),
+    *_closest_variants("closest_soft_multi_shadow", _FUSED, SOFT_MULTI,
+                       ("cnt_out", "mask_out"),
+                       "Mode SOFT_MULTI: soft light 0 plus hard directional "
+                       "extras", closest_soft_multi_shadow_reference,
+                       fields=_soft_multi_fields, scal_len=None),
+    *_closest_variants("closest_attrs", _FUSED, CLOSEST, (),
+                       "Mode CLOSEST: the closest hit and its attributes "
+                       "alone", closest_attrs_reference, attrs=(1, 2)),
+    _WalkKernel("closest", _FUSED, NEAREST, (),
+                "Mode NEAREST: the closest hit alone, t and the sorted "
+                "index.", closest_reference, closest=True),
+    _WalkKernel("first_hit", _FUSED, FIRST_HIT, (),
+                "Mode FIRST_HIT: the seed of the seeded G-buffer, t and the "
+                "sorted index of a hit, found by NEAREST's walk stopped "
+                "once the ray has one.", first_hit_reference, closest=True),
+    _WalkKernel("any", _SHADOW_RAYS, ANY, _MASK,
+                "Mode ANY of csrc/shadow_rays.cu: any hit of given rays.",
+                any_reference),
+    _WalkKernel("any_soft", _SHADOW_RAYS, ANY_SOFT, _CNT,
+                "Mode ANY_SOFT: spp cone samples from given origins.",
+                any_soft_reference, ray_comps=4, fields=_sampling,
+                scal_len=16),
+    _WalkKernel("any_point_soft", _SHADOW_RAYS, ANY_PSOFT, _CNT,
+                "Mode ANY_PSOFT: spp disk samples from given origins.",
+                any_point_soft_reference, ray_comps=4, records=True,
+                fields=_sampling, scal_len=4),
+    _WalkKernel("binary_closest", _BINARY, BIN_CLOSEST, (),
+                "Mode BIN_CLOSEST of csrc/binary.cu: the closest hit over "
+                "the packed binary tree, t and the sorted index.",
+                binary_closest_reference, closest=True, records=True),
+    _WalkKernel("binary_any", _BINARY, BIN_ANY, _MASK,
+                "Mode BIN_ANY of csrc/binary.cu: any hit over the packed "
+                "binary tree.", binary_any_reference, records=True),
+    _WalkKernel("w8t_any", _TRANSPOSED, W8T_ANY, _MASK,
+                "Mode W8T_ANY of csrc/transposed.cu: any hit of given rays.",
+                w8t_any_reference, transposed=True),
+    _WalkKernel("w8t_closest", _TRANSPOSED, W8T_CLOSEST, (),
+                "Mode W8T_CLOSEST without attribute rows: t and the sorted "
+                "index.", w8t_closest_reference, closest=True,
+                transposed=True),
+    *_closest_variants("w8t_closest_attrs", _TRANSPOSED, W8T_CLOSEST, (),
+                       "Mode W8T_CLOSEST: the 15 attribute channels from "
+                       "the transposed rows",
+                       w8t_closest_attrs_reference, attrs=(1, 2),
+                       transposed=True),
+)}
 
-def closest_soft_multi_shadow_st_cuda(rays, nodes, tris, scal, *, spp: int,
-                                      seed: int, zero_stream: bool,
-                                      disk: bool, n_extra: int, **walk):
-    """Mode SOFT_MULTI attrs=0."""
-    res = _fused(SOFT_MULTI, ("cnt_out", "mask_out"), rays, nodes, tris,
-                 None, scal, **walk, **_soft_multi_fields(disk, n_extra),
-                 **_sampling(spp, seed, zero_stream))
-    closest_soft_multi_shadow_st_cuda.launches += 1
-    return res
+# Each *_cuda launches its row's mode with the contract of its
+# *_reference; it takes CUDA tensors only, builds the kernel library on
+# first use, raises on anything the kernel does not take and on a refused
+# launch, and counts its launches in ``.launches``.
+closest_shadow_cuda = WALK_KERNELS["closest_shadow"].launch
+closest_multi_shadow_cuda = WALK_KERNELS["closest_multi_shadow"].launch
+closest_soft_shadow_cuda = WALK_KERNELS["closest_soft_shadow"].launch
+closest_point_soft_shadow_cuda = \
+    WALK_KERNELS["closest_point_soft_shadow"].launch
+closest_soft_multi_shadow_cuda = \
+    WALK_KERNELS["closest_soft_multi_shadow"].launch
+closest_shadow_st_cuda = WALK_KERNELS["closest_shadow_st"].launch
+closest_multi_shadow_st_cuda = WALK_KERNELS["closest_multi_shadow_st"].launch
+closest_soft_shadow_st_cuda = WALK_KERNELS["closest_soft_shadow_st"].launch
+closest_point_soft_shadow_st_cuda = \
+    WALK_KERNELS["closest_point_soft_shadow_st"].launch
+closest_soft_multi_shadow_st_cuda = \
+    WALK_KERNELS["closest_soft_multi_shadow_st"].launch
+closest_shadow_tex_cuda = WALK_KERNELS["closest_shadow_tex"].launch
+closest_multi_shadow_tex_cuda = WALK_KERNELS["closest_multi_shadow_tex"].launch
+closest_soft_shadow_tex_cuda = WALK_KERNELS["closest_soft_shadow_tex"].launch
+closest_point_soft_shadow_tex_cuda = \
+    WALK_KERNELS["closest_point_soft_shadow_tex"].launch
+closest_soft_multi_shadow_tex_cuda = \
+    WALK_KERNELS["closest_soft_multi_shadow_tex"].launch
+closest_attrs_cuda = WALK_KERNELS["closest_attrs"].launch
+closest_attrs_tex_cuda = WALK_KERNELS["closest_attrs_tex"].launch
+closest_cuda = WALK_KERNELS["closest"].launch
+first_hit_cuda = WALK_KERNELS["first_hit"].launch
+any_cuda = WALK_KERNELS["any"].launch
+any_soft_cuda = WALK_KERNELS["any_soft"].launch
+any_point_soft_cuda = WALK_KERNELS["any_point_soft"].launch
+binary_closest_cuda = WALK_KERNELS["binary_closest"].launch
+binary_any_cuda = WALK_KERNELS["binary_any"].launch
+w8t_any_cuda = WALK_KERNELS["w8t_any"].launch
+w8t_closest_cuda = WALK_KERNELS["w8t_closest"].launch
+w8t_closest_attrs_cuda = WALK_KERNELS["w8t_closest_attrs"].launch
+w8t_closest_attrs_tex_cuda = WALK_KERNELS["w8t_closest_attrs_tex"].launch
 
+# The plain versions of the attrs=0 and attrs=2 variants.
+closest_shadow_st_reference = WALK_KERNELS["closest_shadow_st"].reference
+closest_multi_shadow_st_reference = \
+    WALK_KERNELS["closest_multi_shadow_st"].reference
+closest_soft_shadow_st_reference = \
+    WALK_KERNELS["closest_soft_shadow_st"].reference
+closest_point_soft_shadow_st_reference = \
+    WALK_KERNELS["closest_point_soft_shadow_st"].reference
+closest_soft_multi_shadow_st_reference = \
+    WALK_KERNELS["closest_soft_multi_shadow_st"].reference
+closest_shadow_tex_reference = WALK_KERNELS["closest_shadow_tex"].reference
+closest_multi_shadow_tex_reference = \
+    WALK_KERNELS["closest_multi_shadow_tex"].reference
+closest_soft_shadow_tex_reference = \
+    WALK_KERNELS["closest_soft_shadow_tex"].reference
+closest_point_soft_shadow_tex_reference = \
+    WALK_KERNELS["closest_point_soft_shadow_tex"].reference
+closest_soft_multi_shadow_tex_reference = \
+    WALK_KERNELS["closest_soft_multi_shadow_tex"].reference
+closest_attrs_tex_reference = WALK_KERNELS["closest_attrs_tex"].reference
+w8t_closest_attrs_tex_reference = \
+    WALK_KERNELS["w8t_closest_attrs_tex"].reference
 
-def closest_attrs_cuda(rays, nodes, tris, at0, at1, **walk):
-    """Mode CLOSEST: the closest hit and its attributes alone."""
-    res = _fused(CLOSEST, (), rays, nodes, tris, (at0, at1), None, **walk,
-                 scal_len=0)
-    closest_attrs_cuda.launches += 1
-    return res
-
-
-def closest_cuda(rays, nodes, tris, **walk):
-    """Mode NEAREST: the closest hit alone, t and the sorted index."""
-    res = _fused(NEAREST, (), rays, nodes, tris, None, None, **walk,
-                 scal_len=0)
-    closest_cuda.launches += 1
-    return res
-
-
-def first_hit_cuda(rays, nodes, tris, **walk):
-    """Mode FIRST_HIT: the seed of the seeded G-buffer, t and the sorted
-    index of a hit, found by NEAREST's walk stopped once the ray has
-    one."""
-    res = _fused(FIRST_HIT, (), rays, nodes, tris, None, None, **walk,
-                 scal_len=0)
-    first_hit_cuda.launches += 1
-    return res
-
-
-def closest_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
-                            point: bool, **walk):
-    """Mode HARD attrs=2: with the winner's interpolated uv and layer."""
-    res = _fused(HARD, ("mask_out",), rays, nodes, tris, (at0, at1), scal,
-                 **walk, **_hard_fields(point), textured=True)
-    closest_shadow_tex_cuda.launches += 1
-    return res
-
-
-def closest_multi_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
-                                  points, **walk):
-    """Mode MULTI attrs=2."""
-    res = _fused(MULTI, ("mask_out",), rays, nodes, tris, (at0, at1), scal,
-                 **walk, **_multi_fields(points), textured=True)
-    closest_multi_shadow_tex_cuda.launches += 1
-    return res
-
-
-def closest_soft_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
-                                 spp: int, seed: int, zero_stream: bool,
-                                 **walk):
-    """Mode SOFT attrs=2."""
-    res = _fused(SOFT, ("cnt_out",), rays, nodes, tris, (at0, at1), scal,
-                 **walk, scal_len=17, **_sampling(spp, seed, zero_stream),
-                 textured=True)
-    closest_soft_shadow_tex_cuda.launches += 1
-    return res
-
-
-def closest_point_soft_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
-                                       spp: int, seed: int,
-                                       zero_stream: bool, **walk):
-    """Mode PSOFT attrs=2."""
-    _check_records(nodes)
-    res = _fused(PSOFT, ("cnt_out",), rays, nodes, tris, (at0, at1), scal,
-                 **walk, scal_len=5, **_sampling(spp, seed, zero_stream),
-                 textured=True)
-    closest_point_soft_shadow_tex_cuda.launches += 1
-    return res
-
-
-def closest_soft_multi_shadow_tex_cuda(rays, nodes, tris, at0, at1, scal, *,
-                                       spp: int, seed: int,
-                                       zero_stream: bool, disk: bool,
-                                       n_extra: int, **walk):
-    """Mode SOFT_MULTI attrs=2."""
-    res = _fused(SOFT_MULTI, ("cnt_out", "mask_out"), rays, nodes, tris,
-                 (at0, at1), scal, **walk,
-                 **_soft_multi_fields(disk, n_extra),
-                 **_sampling(spp, seed, zero_stream), textured=True)
-    closest_soft_multi_shadow_tex_cuda.launches += 1
-    return res
-
-
-def closest_attrs_tex_cuda(rays, nodes, tris, at0, at1, **walk):
-    """Mode CLOSEST attrs=2: the closest hit and its attributes, uv and
-    layer included."""
-    res = _fused(CLOSEST, (), rays, nodes, tris, (at0, at1), None, **walk,
-                 scal_len=0, textured=True)
-    closest_attrs_tex_cuda.launches += 1
-    return res
-
-
-def any_cuda(rays, nodes, tris, *, leaf_size: int, t_min: float,
-             max_iters: int, stack_size: int):
-    """Mode ANY of csrc/shadow_rays.cu: any hit of given rays."""
-    res = _launch(_SHADOW_RAYS, ANY, ("mask_out",), rays, nodes, tris, None,
-                  ray_comps=10, attrs=None, leaf_size=leaf_size, t_min=t_min,
-                  max_iters=max_iters, stack_size=stack_size, scal_len=0)
-    any_cuda.launches += 1
-    return res
-
-
-def any_soft_cuda(rays, nodes, tris, scal, *, leaf_size: int, spp: int,
-                  seed: int, light: int, zero_stream: bool, t_min: float,
-                  max_iters: int, stack_size: int):
-    """Mode ANY_SOFT: spp cone samples from given origins."""
-    res = _launch(_SHADOW_RAYS, ANY_SOFT, ("cnt_out",), rays, nodes, tris,
-                  scal, ray_comps=4, attrs=None, leaf_size=leaf_size,
-                  t_min=t_min, max_iters=max_iters, stack_size=stack_size,
-                  scal_len=16, **_sampling(spp, seed, zero_stream, light))
-    any_soft_cuda.launches += 1
-    return res
-
-
-def any_point_soft_cuda(rays, nodes, tris, scal, *, leaf_size: int,
-                        spp: int, seed: int, light: int, zero_stream: bool,
-                        t_min: float, max_iters: int, stack_size: int):
-    """Mode ANY_PSOFT: spp disk samples from given origins."""
-    _check_records(nodes)
-    res = _launch(_SHADOW_RAYS, ANY_PSOFT, ("cnt_out",), rays, nodes, tris,
-                  scal, ray_comps=4, attrs=None, leaf_size=leaf_size,
-                  t_min=t_min, max_iters=max_iters, stack_size=stack_size,
-                  scal_len=4, **_sampling(spp, seed, zero_stream, light))
-    any_point_soft_cuda.launches += 1
-    return res
-
-
-
-
-def binary_closest_cuda(rays, nodes, tris, **walk):
-    """Mode BIN_CLOSEST of csrc/binary.cu: the closest hit over the packed
-    binary tree, t and the sorted index."""
-    _check_records(nodes)
-    res = _launch(_BINARY, BIN_CLOSEST, (), rays, nodes, tris, None,
-                  ray_comps=10, attrs=None, closest=True, scal_len=0, **walk)
-    binary_closest_cuda.launches += 1
-    return res
-
-
-def binary_any_cuda(rays, nodes, tris, **walk):
-    """Mode BIN_ANY of csrc/binary.cu: any hit over the packed binary
-    tree."""
-    _check_records(nodes)
-    res = _launch(_BINARY, BIN_ANY, ("mask_out",), rays, nodes, tris, None,
-                  ray_comps=10, attrs=None, scal_len=0, **walk)
-    binary_any_cuda.launches += 1
-    return res
-
-
-def _w8t(mode: int, outputs, rays, nodes, tris_t, attrs, **walk):
-    """A launch of csrc/transposed.cu over a WideBVHT's transposed leaves:
-    mode W8T_ANY, or W8T_CLOSEST with the transposed attribute rows
-    ``attrs`` (attrs=1, attrs=2 with ``textured=True`` in ``walk``) or
-    without (None: t and the sorted index)."""
-    return _launch(_TRANSPOSED, mode, outputs, rays, nodes, tris_t, None,
-                   ray_comps=10, attrs=attrs, closest=mode == W8T_CLOSEST,
-                   scal_len=0, transposed=True, **walk)
-
-
-def w8t_any_cuda(rays, nodes, tris_t, **walk):
-    """Mode W8T_ANY of csrc/transposed.cu: any hit of given rays."""
-    res = _w8t(W8T_ANY, ("mask_out",), rays, nodes, tris_t, None, **walk)
-    w8t_any_cuda.launches += 1
-    return res
-
-
-def w8t_closest_cuda(rays, nodes, tris_t, **walk):
-    """Mode W8T_CLOSEST without attribute rows: t and the sorted index."""
-    res = _w8t(W8T_CLOSEST, (), rays, nodes, tris_t, None, **walk)
-    w8t_closest_cuda.launches += 1
-    return res
-
-
-def w8t_closest_attrs_cuda(rays, nodes, tris_t, at0_t, at1_t, **walk):
-    """Mode W8T_CLOSEST attrs=1: the 15 attribute channels, the layer -1
-    on every ray."""
-    res = _w8t(W8T_CLOSEST, (), rays, nodes, tris_t, (at0_t, at1_t), **walk)
-    w8t_closest_attrs_cuda.launches += 1
-    return res
-
-
-def w8t_closest_attrs_tex_cuda(rays, nodes, tris_t, at0_t, at1_t, **walk):
-    """Mode W8T_CLOSEST attrs=2: with the winner's interpolated uv and
-    layer."""
-    res = _w8t(W8T_CLOSEST, (), rays, nodes, tris_t, (at0_t, at1_t),
-               textured=True, **walk)
-    w8t_closest_attrs_tex_cuda.launches += 1
-    return res
-
-
-CUDA_KERNELS = (closest_shadow_cuda, closest_multi_shadow_cuda,
-                closest_soft_shadow_cuda, closest_point_soft_shadow_cuda,
-                closest_soft_multi_shadow_cuda, closest_attrs_cuda, any_cuda,
-                any_soft_cuda, any_point_soft_cuda, closest_cuda,
-                closest_shadow_st_cuda, closest_multi_shadow_st_cuda,
-                closest_soft_shadow_st_cuda,
-                closest_point_soft_shadow_st_cuda,
-                closest_soft_multi_shadow_st_cuda, binary_closest_cuda,
-                binary_any_cuda, closest_shadow_tex_cuda,
-                closest_multi_shadow_tex_cuda, closest_soft_shadow_tex_cuda,
-                closest_point_soft_shadow_tex_cuda,
-                closest_soft_multi_shadow_tex_cuda, closest_attrs_tex_cuda,
-                first_hit_cuda, w8t_any_cuda, w8t_closest_cuda,
-                w8t_closest_attrs_cuda, w8t_closest_attrs_tex_cuda)
-for _fn in CUDA_KERNELS:
-    _fn.launches = 0
+CUDA_KERNELS = tuple(w.launch for w in WALK_KERNELS.values())
 
 
 # ---------------------------------------------------------------------------
@@ -1992,62 +1868,81 @@ def any_point_soft_inputs(bvh: WideBVH, origins, valid, light_pos, radius,
         spp, seed, light, t_min, zero_stream, stack_size)
 
 
-# The variants of a fused mode by tpurt's ``attrs``: 0 without attribute
-# tables (the shade-table G-buffer), 1 with them, 2 with them on a
-# textured mesh (``attrs = 2 if textured else 1``).
-_VARIANT_SUFFIX = ("_st", "", "_tex")
+# The closest walk's rows of csrc/fused_shadows.cu by (mode, attrs).
+_FUSED_ROWS = {(w.mode, w.attrs): w for w in WALK_KERNELS.values()
+               if w.entry == _FUSED}
 
 
-def _fused_pair(name: str, attr_tables, textured: bool, device):
-    """The kernel or plain version of fused mode ``name`` (the functions'
-    stem, e.g. "closest_shadow") for ``device``, in the variant the
-    tables and ``textured`` select."""
-    attrs = 0 if attr_tables is None else (2 if textured else 1)
-    stem = name + _VARIANT_SUFFIX[attrs]
-    g = globals()
-    return _pick(device, g[stem + "_cuda"], g[stem + "_reference"])
+def _fused_pair(mode: int, attr_tables, textured: bool, device):
+    """The kernel or plain version of fused ``mode`` for ``device``, in the
+    variant of ``tpurt``'s ``attrs``: 0 without attribute tables (the
+    shade-table G-buffer), 1 with them, 2 with them on a textured mesh."""
+    w = _FUSED_ROWS[mode, 0 if attr_tables is None else 2 if textured else 1]
+    return _pick(device, w.launch, w.reference)
 
 
 @dataclasses.dataclass
 class FusedLaunch:
-    """A fused attrs=1 launch's outputs left in the packet layout
-    (``packets=True`` of the fused wrappers), for ``kernels/resolve.py``:
-    ``attrs`` the attribute channels f32[PB, ATTR_CH, 8, 128], ``shadow``
-    the mode's i32[PB, 8, 128] blocks (occlusion, counts or mask; counts
-    then mask for SOFT_MULTI), ``counts`` the walk counts i32[2], ``rays``
-    the packed ray block f32[PB, 10, 8, 128], and ``p`` and ``meta``,
-    which ``_unpack`` takes."""
+    """A fused launch's outputs as the kernel or its plain version wrote
+    them, in the packet layout (``_fused_launch``): ``attrs`` the
+    attribute channels f32[PB, ATTR_CH, 8, 128] (attrs=1, 2; None for
+    attrs=0, whose t f32[PB, 8, 128] and sorted index i32[PB, 8, 128] are
+    ``hit``), ``shadow`` the mode's i32[PB, 8, 128] blocks (occlusion,
+    counts or mask; counts then mask for SOFT_MULTI), ``counts`` the walk
+    counts i32[2], ``rays`` the packed ray block f32[PB, 10, 8, 128], ``p``
+    and ``meta``, which ``_unpack`` takes, and the fused ``mode``.
+    ``kernels/resolve.py`` takes an attrs=1 launch as it is."""
 
-    attrs: torch.Tensor
+    attrs: Optional[torch.Tensor]
     shadow: Tuple[torch.Tensor, ...]
     counts: torch.Tensor
     rays: torch.Tensor
     p: int
     meta: tuple
+    mode: int
+    hit: Tuple[torch.Tensor, ...] = ()
+
+    def unpacked(self) -> tuple:
+        """The outputs image-shaped, as the fused wrappers return them:
+        the channel dict, or t and the sorted index; the mode's shadow
+        outputs (HARD's occlusion as bool); the walk counts."""
+        head = _hit_outputs(self.hit or (self.attrs,), self.p, self.meta)
+        shadow = [_unpack(b[:self.p], self.meta) for b in self.shadow]
+        if self.mode == HARD:
+            shadow[0] = shadow[0] > 0
+        return (*head, *shadow, self.counts)
 
 
-def _packets(res, args, p, meta, attr_tables) -> FusedLaunch:
-    """A fused attrs=1 launch's result ``res`` on ``args`` as it is."""
+def _hit_outputs(hit, p, meta) -> tuple:
+    """A closest launch's phase-1 outputs, image-shaped: (channel dict,)
+    from the attribute channels, else (t, sidx) with misses (inf, -1), as
+    ``tpurt``'s wrappers return them."""
+    if len(hit) == 1:
+        return (_attr_channels(hit[0], p, meta),)
+    t, sidx = _unpack(hit[0][:p], meta), _unpack(hit[1][:p], meta)
+    return torch.where(sidx >= 0, t, torch.inf), sidx
+
+
+def _fused_launch(mode: int, inputs, attr_tables,
+                  textured: bool) -> FusedLaunch:
+    """ONE launch of fused ``mode`` on its ``*_inputs`` ``inputs``, in the
+    variant the tables and ``textured`` select: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    args, kwargs, p, meta = inputs
+    rays = args[0]
+    fn = _fused_pair(mode, attr_tables, textured, rays.device)
+    res = fn(*args, **kwargs)
     if attr_tables is None:
-        raise ValueError("packets=True needs the leaf attribute rows")
-    return FusedLaunch(res[0], tuple(res[1:-1]), res[-1], args[0], p, meta)
-
-
-def _hit_outputs(res, p, meta, attrs: bool):
-    """A closest launch's phase-1 outputs, image-shaped -> (head, rest):
-    head (channel dict,) with the attribute tables, else (t, sidx) with
-    misses (inf, -1), as ``tpurt``'s wrappers return them; rest: the
-    launch's other outputs."""
-    if attrs:
-        return (_attr_channels(res[0], p, meta),), res[1:]
-    t, sidx = _unpack(res[0][:p], meta), _unpack(res[1][:p], meta)
-    return (torch.where(sidx >= 0, t, torch.inf), sidx), res[2:]
+        return FusedLaunch(None, tuple(res[2:-1]), res[-1], rays, p, meta,
+                           mode, hit=tuple(res[:2]))
+    return FusedLaunch(res[0], tuple(res[1:-1]), res[-1], rays, p, meta,
+                       mode)
 
 
 def trace_closest_shadow(bvh: WideBVH, origins, dirs, light_dir, bias,
                          t_max=_BIG, t_min: float = 0.0, light_pos=None,
                          attr_tables=None, stack_size: int = STACK_CAPACITY,
-                         textured: bool = False, packets: bool = False):
+                         textured: bool = False):
     """Fused primary visibility + light-0 hard shadow (ONE kernel launch).
 
     origins/dirs f32[H, W, 3]; light_dir f32[3] toward the light (used when
@@ -2058,42 +1953,26 @@ def trace_closest_shadow(bvh: WideBVH, origins, dirs, light_dir, bias,
     wrapper and ``trace_closest_attrs`` take it). Returns (channel dict,
     occluded bool[H, W], counts i32[2]); without attribute tables
     (attrs=0) (t f32[H, W], sidx i32[H, W], occluded, counts), misses
-    (inf, -1). Every fused wrapper returns its t and sidx so, and with
-    ``packets=True`` (and the attribute rows) the launch's outputs as they
-    are, a ``FusedLaunch``. CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
-    fn = _fused_pair("closest_shadow", attr_tables, textured,
-                     origins.device)
-    args, kwargs, p, meta = closest_shadow_inputs(
+    (inf, -1). Every fused wrapper returns its t and sidx so. CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
+    return _fused_launch(HARD, closest_shadow_inputs(
         bvh, origins, dirs, light_dir, bias, attr_tables, t_max, t_min,
-        light_pos, stack_size)
-    res = fn(*args, **kwargs)
-    if packets:
-        return _packets(res, args, p, meta, attr_tables)
-    head, (occ, counts) = _hit_outputs(res, p, meta, attr_tables is not None)
-    return (*head, _unpack(occ[:p], meta) > 0, counts)
+        light_pos, stack_size), attr_tables, textured).unpacked()
 
 
 def trace_closest_multi_shadow(bvh: WideBVH, origins, dirs, lights, bias,
                                t_max=_BIG, t_min: float = 0.0,
                                attr_tables=None,
                                stack_size: int = STACK_CAPACITY,
-                               textured: bool = False, packets: bool = False):
+                               textured: bool = False):
     """Fused primary visibility + N hard shadows (ONE kernel launch).
     lights: (light_dir, light_pos) pairs as ``tpurt``'s
     ``trace_closest_multi_shadow_pallas`` takes them (at most 31). Returns
     (channel dict, occ_mask i32[H, W] with bit l = light l occluded,
     counts i32[2]), or (t, sidx, occ_mask, counts) without tables."""
-    fn = _fused_pair("closest_multi_shadow", attr_tables, textured,
-                     origins.device)
-    args, kwargs, p, meta = closest_multi_shadow_inputs(
+    return _fused_launch(MULTI, closest_multi_shadow_inputs(
         bvh, origins, dirs, lights, bias, attr_tables, t_max, t_min,
-        stack_size)
-    res = fn(*args, **kwargs)
-    if packets:
-        return _packets(res, args, p, meta, attr_tables)
-    head, (mask, counts) = _hit_outputs(res, p, meta, attr_tables is not None)
-    return (*head, _unpack(mask[:p], meta), counts)
+        stack_size), attr_tables, textured).unpacked()
 
 
 def trace_closest_soft_shadow(bvh: WideBVH, origins, dirs, axis_dir,
@@ -2101,21 +1980,15 @@ def trace_closest_soft_shadow(bvh: WideBVH, origins, dirs, axis_dir,
                               t_max=_BIG, t_min: float = 0.0,
                               attr_tables=None, zero_stream: bool = False,
                               stack_size: int = STACK_CAPACITY,
-                              textured: bool = False, packets: bool = False):
+                              textured: bool = False):
     """Fused primary visibility + area-light (cone) soft shadows (ONE
     kernel launch). Returns (channel dict, occlusion counts i32[H, W] in
     [0, spp], walk counts i32[2]), or (t, sidx, counts, walk counts)
     without tables; visibility = 1 - counts / spp."""
-    fn = _fused_pair("closest_soft_shadow", attr_tables, textured,
-                     origins.device)
-    args, kwargs, p, meta = closest_soft_shadow_inputs(
+    return _fused_launch(SOFT, closest_soft_shadow_inputs(
         bvh, origins, dirs, axis_dir, cone_cos, spp, seed, bias,
-        attr_tables, t_max, t_min, zero_stream, stack_size)
-    res = fn(*args, **kwargs)
-    if packets:
-        return _packets(res, args, p, meta, attr_tables)
-    head, (cnt, counts) = _hit_outputs(res, p, meta, attr_tables is not None)
-    return (*head, _unpack(cnt[:p], meta), counts)
+        attr_tables, t_max, t_min, zero_stream, stack_size), attr_tables,
+        textured).unpacked()
 
 
 def trace_closest_point_soft_shadow(bvh: WideBVH, origins, dirs, light_pos,
@@ -2124,21 +1997,14 @@ def trace_closest_point_soft_shadow(bvh: WideBVH, origins, dirs, light_pos,
                                     attr_tables=None,
                                     zero_stream: bool = False,
                                     stack_size: int = STACK_CAPACITY,
-                                    textured: bool = False,
-                                    packets: bool = False):
+                                    textured: bool = False):
     """Fused primary visibility + point-light penumbra (ONE kernel
     launch). Returns (channel dict, counts i32[H, W] in [0, spp], walk
     counts i32[2]), or (t, sidx, counts, walk counts) without tables."""
-    fn = _fused_pair("closest_point_soft_shadow", attr_tables, textured,
-                     origins.device)
-    args, kwargs, p, meta = closest_point_soft_shadow_inputs(
+    return _fused_launch(PSOFT, closest_point_soft_shadow_inputs(
         bvh, origins, dirs, light_pos, radius, spp, seed, bias, attr_tables,
-        t_max, t_min, zero_stream, stack_size)
-    res = fn(*args, **kwargs)
-    if packets:
-        return _packets(res, args, p, meta, attr_tables)
-    head, (cnt, counts) = _hit_outputs(res, p, meta, attr_tables is not None)
-    return (*head, _unpack(cnt[:p], meta), counts)
+        t_max, t_min, zero_stream, stack_size), attr_tables,
+        textured).unpacked()
 
 
 def trace_closest_soft_multi_shadow(bvh: WideBVH, origins, dirs, light0,
@@ -2147,24 +2013,16 @@ def trace_closest_soft_multi_shadow(bvh: WideBVH, origins, dirs, light0,
                                     attr_tables=None,
                                     zero_stream: bool = False,
                                     stack_size: int = STACK_CAPACITY,
-                                    textured: bool = False,
-                                    packets: bool = False):
+                                    textured: bool = False):
     """Fused primary + soft light 0 + hard directional extras (ONE kernel
     launch). light0: ("cone", axis, cone_cos) or ("disk", position,
     radius). Returns (channel dict, counts0 i32[H, W], occ_mask i32[H, W]
     with bit i = extra light i, walk counts i32[2]), or (t, sidx, counts0,
     occ_mask, walk counts) without tables."""
-    fn = _fused_pair("closest_soft_multi_shadow", attr_tables, textured,
-                     origins.device)
-    args, kwargs, p, meta = closest_soft_multi_shadow_inputs(
+    return _fused_launch(SOFT_MULTI, closest_soft_multi_shadow_inputs(
         bvh, origins, dirs, light0, extra_dirs, spp, seed, bias, attr_tables,
-        t_max, t_min, zero_stream, stack_size)
-    res = fn(*args, **kwargs)
-    if packets:
-        return _packets(res, args, p, meta, attr_tables)
-    head, (cnt, mask, counts) = _hit_outputs(res, p, meta,
-                                             attr_tables is not None)
-    return (*head, _unpack(cnt[:p], meta), _unpack(mask[:p], meta), counts)
+        t_max, t_min, zero_stream, stack_size), attr_tables,
+        textured).unpacked()
 
 
 def trace_closest_attrs(bvh: WideBVH, origins, dirs, attr_tables,
@@ -2177,7 +2035,7 @@ def trace_closest_attrs(bvh: WideBVH, origins, dirs, attr_tables,
     i32[2])."""
     if isinstance(bvh, WideBVHT):
         raise ValueError("a WideBVHT walks through trace_closest_attrs_t")
-    fn = _fused_pair("closest_attrs", attr_tables, textured, origins.device)
+    fn = _fused_pair(CLOSEST, attr_tables, textured, origins.device)
     args, kwargs, p, meta = closest_attrs_inputs(
         bvh, origins, dirs, attr_tables, t_max, t_min, stack_size)
     out, counts = fn(*args, **kwargs)
@@ -2266,8 +2124,9 @@ def trace_closest(bvh, origins, dirs, t_max=_BIG,
         rays = args[0].clone()
         rays[:, 9] = seed_cap(args[0], t1, s1)
         args = (rays, *args[1:])
-    (t, sidx), (counts,) = _hit_outputs(fn(*args, **kwargs), p, meta, False)
-    counts = counts + seed_counts
+    res = fn(*args, **kwargs)
+    t, sidx = _hit_outputs(res[:2], p, meta)
+    counts = res[2] + seed_counts
     if not gather_tri_id:
         return t, None, sidx, counts
     n = bvh.tri_id.shape[0]
