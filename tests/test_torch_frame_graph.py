@@ -4,8 +4,9 @@ the block holds, bit for bit, the float32 values a copy of each host
 value makes, and the walks' scalar blocks and seed read from it equal
 those made from the host values; which frames take the graphs is a pure
 function of (mode, G-buffer, device, route); the capture key follows what
-the graphs bake in and nothing else; CPU frames capture and replay
-nothing; a frame's outputs stay as they were after the next frame."""
+the graphs bake in and nothing else; CPU frames and CPU rebuilds capture
+and replay nothing; a frame's outputs stay as they were after the next
+frame, static or rebuilt."""
 
 import sys
 from pathlib import Path
@@ -276,14 +277,41 @@ def test_cpu_frames_capture_nothing(mesh, mode, route):
     assert r.spans.frames == 3 and r.spans.graph_frames == 0
 
 
-@pytest.mark.parametrize("route", ["soft", "multi", "unfused"])
-def test_outputs_stay_after_the_next_frame(mesh, route):
+@pytest.mark.parametrize("route,more", [
+    ("soft", {}), ("shade_table", {}),
+    ("binary", dict(rebuild_splits=0, gbuffer="ray"))])
+def test_cpu_rebuilds_capture_nothing(mesh, route, more):
+    """A CPU rebuild runs eagerly on every route: no rebuild graph, no
+    traced frame marked as having replayed one."""
+    r = _renderer(mesh, route, mode="rebuild", **more)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for i in range(3):
+            r.set_vertices(deform(mesh, 0.1 * (i + 1)))
+            r.render_frame()
+    assert r._rebuild_graph is None
+    assert r.spans.frames == 3 and r.spans.rebuild_graph_frames == 0
+    built = r.spans.totals.get("tpurt.rebuild.build", {"entries": 0})
+    assert built["entries"] == (0 if route == "binary" else 3)
+
+
+@pytest.mark.parametrize("route,mode", [
+    ("soft", "static"), ("multi", "static"), ("unfused", "static"),
+    ("soft", "rebuild"), ("multi", "rebuild")],
+    ids=["soft", "multi", "unfused", "rebuild-soft", "rebuild-multi"])
+def test_outputs_stay_after_the_next_frame(mesh, route, mode):
     """What a frame returns is not changed by later frames: soft spp 4
-    with accumulation, the three-light frame, the unfused frame."""
-    r = _renderer(mesh, route)
+    with accumulation, the three-light frame, the unfused frame; in
+    rebuild mode, posed frames, whose accel the next rebuild replaces."""
+    r = _renderer(mesh, route, mode=mode)
+    pose = (lambda i: r.set_vertices(deform(mesh, 0.2 * i))) \
+        if mode == "rebuild" else (lambda i: None)
+    pose(1)
     first = r.render_frame()
     kept = {k: v.clone() for k, v in first.items()}
-    later = [r.render_frame() for _ in range(2)]
+    later = []
+    for i in (2, 3):
+        pose(i)
+        later.append(r.render_frame())
     assert set(first) == set(kept)
     for name, v in kept.items():
         assert torch.equal(first[name], v), name

@@ -123,7 +123,8 @@ from .kernels.traverse import (HARD, MAX_MASK_LIGHTS, MULTI, PSOFT, SOFT,
 from .kernels.resolve import frame_resolve
 from .passes.composite import accumulate, composite_lights
 from .frame_block import FrameBlock
-from .graphs import FrameGraphs, capture_key, takes_graph
+from .graphs import (FrameGraphs, RebuildGraph, capture_key, rebuild_key,
+                     rebuild_takes_graph, takes_graph)
 from .native import available as native_available
 from .passes.gbuffer import (gbuf_from_attr_channels, gbuf_from_table,
                              gbuffer_attr_pass, gbuffer_pass,
@@ -135,7 +136,8 @@ from .passes.shading import (attr_payload_columns, leaf_attr_rows_from_sorted,
                              make_shade_table_orig, smooth_normals_device)
 from .passes.texture import apply_textures
 from .raster.setup import default_cap_rows
-from .spans import Spans, drop_counts, graph_frame, host_read, span
+from .spans import (Spans, drop_counts, graph_frame, host_read,
+                    rebuild_graph_frame, span)
 from .types import (LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT, Camera,
                     Light, Mesh, RenderConfig)
 
@@ -739,6 +741,15 @@ class Renderer:
     ``graph_captures`` and ``graph_replays``: the captures of a frame's
     stages into CUDA graphs and the frames that replayed them.
 
+    In rebuild mode the Renderer owns the mesh's vertex and normals
+    buffers for its life: ``set_vertices`` copies each pose into the
+    first, and each rebuild after it computes the pose's normals into the
+    second. On the card the rebuild, from those buffers to the wide-node
+    count, replays as one CUDA graph (``graphs.RebuildGraph``: the first
+    rebuild of a capture key runs eagerly, the second captures), whose
+    outputs ``bvh``, ``accel`` and the table are, each replay writing
+    them in place; the frame's stages run eagerly after it.
+
     Every frame writes its host constants (camera, lights, bias,
     background, frame seed) into the Renderer's block on the device with
     one copy that does not wait (``frame_block.FrameBlock``), and reads
@@ -750,12 +761,14 @@ class Renderer:
     ``spans`` (``spans.Spans``) holds the frames rendered while a torch
     profiler records: their count, their host syncs (every read of a
     device value and every copy of host data onto the card), the ones
-    that replayed CUDA graphs and, per
-    stage span, the sums of its device-timeline ms, self ms, host ms and
-    entries. The spans, each also a ``record_function`` on the profiler's
-    timeline: ``tpurt.frame``, the whole frame; ``tpurt.rebuild`` (rebuild
+    that replayed CUDA graphs, those whose rebuild replayed its graph
+    (``rebuild_graph_frames``) and, per stage span, the sums of its
+    device-timeline ms, self ms, host ms and entries. The spans, each
+    also a ``record_function`` on the profiler's timeline:
+    ``tpurt.frame``, the whole frame; ``tpurt.rebuild`` (rebuild
     mode, around which ``build_ms`` is timed) with ``.build``,
-    ``.collapse``, ``.tables`` and ``.count_read``; ``tpurt.order``,
+    ``.collapse``, ``.tables`` (which record nothing where the rebuild
+    replays its graph) and ``.count_read``; ``tpurt.order``,
     ``tpurt.rays``, ``tpurt.walk``, ``tpurt.gbuffer``, ``tpurt.shadow``,
     ``tpurt.composite``; ``tpurt.read``, the frame's host read and its
     checks. The raster G-buffer nests ``tpurt.gbuffer.bin`` (the binning)
@@ -833,12 +846,20 @@ class Renderer:
         self.spans = Spans(self.device)
         self._block = FrameBlock(len(lights), self.device)
         self._graphs: Optional[FrameGraphs] = None
+        self._rebuild_graph: Optional[RebuildGraph] = None
+        self._posed = False
         self._nw_pad: Optional[int] = None
         self._geom_dirty = False
         self.attr_tables = None
         self.shade_table = None
         self.shade_table_orig = None
 
+        if mode == "rebuild":
+            # The pose buffers (set_vertices, _rebuild): the Renderer's
+            # own, at fixed addresses for its life.
+            dm = mesh.on(self.device)
+            self.mesh = dataclasses.replace(dm, vertices=dm.vertices.clone(),
+                                            normals=dm.normals.clone())
         if mode == "rebuild" and not self._binary:
             self._setup_rebuild()
         else:
@@ -860,10 +881,9 @@ class Renderer:
                     (t1 - t0) * 1e3,
                 "pack_ms" if self._binary else "collapse_ms":
                     (t2 - t1) * 1e3})
-            if self._raster or mode == "rebuild" or mesh.textured:
+            if (self._raster or mesh.textured) and mode != "rebuild":
                 # The rasterizer bins the mesh on the device every frame,
-                # a binary rebuild builds from it, and the texture pass
-                # samples its atlas.
+                # and the texture pass samples its atlas.
                 self.mesh = mesh.on(self.device)
             if self._tables:
                 self._make_tables(mesh, t2)
@@ -918,13 +938,12 @@ class Renderer:
                                f"of {self._nw_pad}")
 
     def _setup_rebuild(self) -> None:
-        """Rebuild mode's set-up: the mesh on the device, the pad from a
-        full-box build, and the set-up accel from that tree through the
+        """Rebuild mode's set-up: the pad from a full-box build of the pose
+        buffers, and the set-up accel from that tree through the
         per-frame collapse's mode (the area kernel, or the fixed cut), so
         its wide depth is checked against the stack once (area frames rely
         on the walk counters, unsteered fixed ones on
         ``FIXED_CUT_DEPTH_BOUND``)."""
-        self.mesh = self.mesh.on(self.device)
         t0 = time.perf_counter()
         self._nw_pad = self._count_pad()
         t1 = time.perf_counter()
@@ -942,32 +961,65 @@ class Renderer:
             self._make_tables(self.mesh, t2)
 
     def _rebuild(self):
+        """The frame's rebuild from the pose buffers: once the Renderer
+        has been posed, the pose's normals into their buffer
+        (``smooth_normals_device``), then the route's rebuild."""
+        m = self.mesh
+        if self._posed:
+            m.normals.copy_(smooth_normals_device(m.vertices, m.indices))
         if self._binary:
-            return _rebuild_binary(self.mesh.vertices, self.mesh.indices,
-                                   self.mesh, self.config.leaf_size,
+            return _rebuild_binary(m.vertices, m.indices, m,
+                                   self.config.leaf_size,
                                    tables=self._tables, top_sah=self._top_sah)
-        return _rebuild_fused(self.mesh.vertices, self.mesh.indices,
-                              self.mesh, self.config.leaf_size,
+        return _rebuild_fused(m.vertices, m.indices, m, self.config.leaf_size,
                               self._nw_pad,
                               split_blocks=self._rebuild_splits,
                               tables=self._tables,
                               collapse=self.config.rebuild_collapse,
                               top_sah=self._top_sah)
 
+    def _rebuild_step(self):
+        """``_rebuild``, replayed as one CUDA graph where
+        ``graphs.rebuild_takes_graph`` says so: the first rebuild of a
+        capture key runs eagerly, the second is captured, and it and every
+        later one replay it, writing the same outputs in place. A new key
+        (the pad, the route, the mesh and its pose buffers, the device)
+        drops the graph of the last."""
+        if not rebuild_takes_graph(self.mode, self.device):
+            return self._rebuild()
+        m = self.mesh
+        objects = (m, m.vertices, m.normals)
+        route = (self._binary, self.config.rebuild_collapse, self._tables,
+                 self._top_sah, self._rebuild_splits, self.config.leaf_size,
+                 self._posed)
+        key = rebuild_key(self._nw_pad, route, self.device, *objects)
+        g = self._rebuild_graph
+        if g is None or g.key != key:
+            g = self._rebuild_graph = RebuildGraph(key, objects)
+        if not g.warm:
+            g.warm = True
+            return self._rebuild()
+        if not g.captured:
+            g.capture(self._rebuild)
+        rebuild_graph_frame()
+        return g.replay()
+
     def _update_bvh(self) -> None:
         """Rebuild the accel for this frame. The wide-node count is read
         back only after ``set_vertices``; if it outgrew the pad, the pad is
-        recounted on a full-box build and the frame rebuilt with it.
+        recounted on a full-box build and the frame rebuilt with it,
+        eagerly: the new pad is a new capture key, whose graph the next
+        frame captures.
         ``tpurt`` instead renders that full-box build's XLA area collapse:
         the same tree with its wide ids in binary-node order, where the
         rerun keeps the breadth-first ids every other frame has. A binary
         rebuild has no pad to outgrow."""
         if self._binary:
             self._geom_dirty = False
-            self.bvh, self.accel, table = self._rebuild()
+            self.bvh, self.accel, table = self._rebuild_step()
             self._set_table(table)
             return
-        bvh, accel, table, count = self._rebuild()
+        bvh, accel, table, count = self._rebuild_step()
         if self._geom_dirty:
             self._geom_dirty = False
             with span("tpurt.rebuild.count_read"):
@@ -975,7 +1027,7 @@ class Renderer:
             if grew:
                 self._nw_pad = self._count_pad()
                 self.stats["overflow_recoveries"] += 1
-                bvh, accel, table, count = self._rebuild()
+                bvh, accel, table, count = self._rebuild_step()
                 self._check_count(count)
         self.bvh, self.accel = bvh, accel
         self._set_table(table)
@@ -991,16 +1043,21 @@ class Renderer:
 
     def set_vertices(self, vertices) -> None:
         """Animate (rebuild mode): new vertex positions f32[V, 3], same
-        triangles. The vertex normals are recomputed on the device; the
-        next frame's rebuild checks the pad against the new geometry."""
+        triangles, copied into the Renderer's vertex buffer with one copy,
+        so a later change to the caller's array or tensor leaves the
+        frames as they are. The vertex normals follow at the next frame's
+        rebuild, which computes them on the device into the normals buffer
+        and checks the pad against the new geometry."""
         if self.mode != "rebuild":
             raise NotImplementedError("set_vertices outside mode='rebuild' "
                                       "(the refit path) is not ported")
-        v = torch.as_tensor(vertices, dtype=torch.float32,
-                            device=self.device)
-        self.mesh = dataclasses.replace(
-            self.mesh, vertices=v,
-            normals=smooth_normals_device(v, self.mesh.indices))
+        buf = self.mesh.vertices
+        v = torch.as_tensor(vertices, dtype=torch.float32)
+        if v.shape != buf.shape:
+            raise ValueError(f"vertices of shape {tuple(v.shape)}, expected "
+                             f"{tuple(buf.shape)}")
+        buf.copy_(v)
+        self._posed = True
         self._geom_dirty = True
 
     def _frame_fn(self, consts) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""CUDA graphs of the static frame's stages.
+"""CUDA graphs of the static frame's stages and of the per-frame rebuild.
 
 A static frame on the card enqueues the same few hundred launches on the
 same buffers every frame; only the values in the frame's block of
@@ -21,16 +21,23 @@ and the image inside ``tpurt.gbuffer``, ``tpurt.shadow`` and
 ``tpurt.composite`` launch nothing): its graph is empty, and its replay
 launches nothing inside its span. Which frames take the graphs is a
 function of what the frame observes (``takes_graph``). The launch
-counters of the walk and resolve kernels (``.launches``) count a replay's
-launches as the eager frame does, and a traced replay whose graphs hold
-the resolve kernel records it (``spans.resolve_frame``).
+counters of the walk, build and resolve kernels (``.launches``) count a
+replay's launches as the eager frame does, and a traced replay whose
+graphs hold the resolve kernel records it (``spans.resolve_frame``).
+
+The per-frame rebuild (``mode="rebuild"``) takes the same three steps as
+one graph per capture key (``rebuild_key``, ``RebuildGraph``): everything
+from the pose buffers to the wide-node count, captured whole, its inner
+spans recording nothing. Its outputs (the tree, the accel, its table and
+the count) stay in the graph's pool, and each replay writes them in
+place, so the frame that follows reads them on the same stream.
 """
 
 from __future__ import annotations
 
 import contextlib
 import warnings
-from typing import Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,6 +58,14 @@ def takes_graph(mode: str, gbuffer: str, device) -> bool:
             and torch.device(device).type == "cuda")
 
 
+def rebuild_takes_graph(mode: str, device) -> bool:
+    """Does the per-frame rebuild replay as a CUDA graph? Rebuild mode on
+    the card, on every rebuild route: each is a chain of fixed shapes
+    (the triangle count, the leaf size, the sub-leaf splits and the pad)
+    that reads no device value on the host. The CPU has no graphs."""
+    return mode == "rebuild" and torch.device(device).type == "cuda"
+
+
 def capture_key(route: str, config, lights, device, *objects) -> tuple:
     """What a frame's graphs bake in: the route, the config, the lights'
     count and kinds and the device by value, and ``objects`` (the accel,
@@ -58,6 +73,40 @@ def capture_key(route: str, config, lights, device, *objects) -> tuple:
     leave it as it is."""
     return (route, config, tuple(light.kind for light in lights),
             torch.device(device), tuple(id(o) for o in objects))
+
+
+def rebuild_key(nw_pad: int, route: tuple, device, *objects) -> tuple:
+    """What a rebuild's graph bakes in: the pad, the rebuild's route (the
+    accel's width, the collapse, the tables, ``top_sah``, the sub-leaf
+    splits, the leaf size, whether the normals follow the pose) and the
+    device by value, and ``objects`` (the mesh and its pose buffers) by
+    identity."""
+    return (nw_pad, route, torch.device(device),
+            tuple(id(o) for o in objects))
+
+
+def _launch_counts() -> Dict[Callable, int]:
+    """Every hand-written kernel's launch counter, as it stands."""
+    from .kernels.build import BUILD_KERNELS
+    from .kernels.resolve import frame_resolve_cuda
+    from .kernels.traverse import CUDA_KERNELS
+    return {fn: fn.launches
+            for fn in (*CUDA_KERNELS, *BUILD_KERNELS, frame_resolve_cuda)}
+
+
+def _take_captured(before: Dict[Callable, int]) -> Dict[Callable, int]:
+    """The launches a capture counted since ``before``, taken off the
+    counters: the capture launched nothing, and its replays count them."""
+    moved = {fn: fn.launches - n for fn, n in before.items()
+             if fn.launches != n}
+    for fn, n in moved.items():
+        fn.launches -= n
+    return moved
+
+
+def _count_replay(launches: Dict[Callable, int]) -> None:
+    for fn, n in launches.items():
+        fn.launches += n
 
 
 class _Capture:
@@ -109,17 +158,11 @@ class FrameGraphs:
     def capture(self, frame: Callable[[], Dict[str, torch.Tensor]]) -> None:
         """Capture ``frame()``'s stages; its outputs stay in the pool."""
         from .kernels.resolve import frame_resolve_cuda
-        from .kernels.traverse import CUDA_KERNELS
-        before = {fn: fn.launches
-                  for fn in (*CUDA_KERNELS, frame_resolve_cuda)}
+        before = _launch_counts()
         cap = _Capture(torch.cuda.graph_pool_handle())
         with capturing(cap):
             out = frame()
-        # The capture launched nothing: its counts move to the replays.
-        self._launches = {fn: fn.launches - n for fn, n in before.items()
-                          if fn.launches != n}
-        for fn, n in self._launches.items():
-            fn.launches -= n
+        self._launches = _take_captured(before)
         self._resolves = frame_resolve_cuda in self._launches
         if not cap.stages or cap.stages[-1][0] != "tpurt.composite":
             raise RuntimeError("a captured frame must end in its "
@@ -129,8 +172,7 @@ class FrameGraphs:
     def replay(self) -> Dict[str, torch.Tensor]:
         """Replay every stage in its span -> fresh copies of the
         outputs."""
-        for fn, n in self._launches.items():
-            fn.launches += n
+        _count_replay(self._launches)
         if self._resolves:
             resolve_frame()
         *head, (last, graph) = self.stages
@@ -140,3 +182,48 @@ class FrameGraphs:
         with span(last):
             graph.replay()
             return {k: v.clone() for k, v in self.out.items()}
+
+
+class _Whole:
+    """A capture into one graph: no stage span opens a graph of its own,
+    and none records."""
+
+    @staticmethod
+    def stage(name: str):
+        return contextlib.nullcontext()
+
+
+class RebuildGraph:
+    """The per-frame rebuild of one capture key as one CUDA graph.
+    ``objects``: what the key holds by identity, kept alive with the
+    graph that reads it."""
+
+    def __init__(self, key: tuple, objects: tuple):
+        self.key = key
+        self._objects = objects
+        self.warm = False
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.out: Any = None
+        self._launches: Dict[Callable, int] = {}
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def capture(self, rebuild: Callable[[], Any]) -> None:
+        """Capture ``rebuild()`` into a graph of its own pool; its outputs
+        stay in the pool."""
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with capturing(_Whole()):
+            with torch.cuda.graph(graph,
+                                  pool=torch.cuda.graph_pool_handle()):
+                out = rebuild()
+        self._launches = _take_captured(before)
+        self.graph, self.out = graph, out
+
+    def replay(self) -> Any:
+        """Replay the rebuild -> its outputs, written in place."""
+        _count_replay(self._launches)
+        self.graph.replay()
+        return self.out

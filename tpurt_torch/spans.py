@@ -27,10 +27,11 @@ traced frame's record: ``host_read``, every read of a device value, and
 ``to_device``, every copy of host data onto the card (torch copies
 pageable memory synchronously, so the host waits for the stream there
 too). A traced frame also records whether its stages replayed CUDA graphs
-(``graph_frame``) and whether the resolve kernel wrote its outputs
-(``resolve_frame``), and the device counters a stage hands it (``count``):
-they stay on the device until the frame's next host read carries them
-(``host_read``), so counting adds no sync.
+(``graph_frame``), whether its rebuild replayed its CUDA graph
+(``rebuild_graph_frame``) and whether the resolve kernel wrote its
+outputs (``resolve_frame``), and the device counters a stage hands it
+(``count``): they stay on the device until the frame's next host read
+carries them (``host_read``), so counting adds no sync.
 
 While a frame's stages are captured into CUDA graphs (``capturing``,
 ``graphs.py``), ``span`` hands each stage to the capture and tracing is
@@ -222,6 +223,14 @@ def graph_frame() -> None:
         frame.graph = True
 
 
+def rebuild_graph_frame() -> None:
+    """Record in the traced frame, if any, that its rebuild replayed its
+    CUDA graph."""
+    frame = _FRAME.get()
+    if frame is not None:
+        frame.rebuild_graph = True
+
+
 def resolve_frame() -> None:
     """Record in the traced frame, if any, that the resolve kernel
     (``kernels/resolve.py``) wrote its outputs."""
@@ -242,6 +251,7 @@ class _Frame:
         self.done: List[_Span] = []
         self.syncs = 0
         self.graph = False
+        self.rebuild_graph = False
         self.resolve = False
         self.pending_counts: list = []   # (name, device value) not yet read
         self.counts: Dict[str, int] = {}
@@ -263,11 +273,12 @@ class _Frame:
 
 class Spans:
     """A Renderer's traced frames (``Renderer.spans``): how many, their
-    host syncs, how many replayed their stages as CUDA graphs, how many the
-    resolve kernel wrote, the sums of their counters (``count``), and per
-    span name the sums over them of its device ms (the
-    device's timeline from start to end, idle included), self ms (that
-    less the part its child spans cover), host ms and entries."""
+    host syncs, how many replayed their stages as CUDA graphs, how many
+    replayed their rebuild as one, how many the resolve kernel wrote, the
+    sums of their counters (``count``), and per span name the sums over
+    them of its device ms (the device's timeline from start to end, idle
+    included), self ms (that less the part its child spans cover), host
+    ms and entries."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -276,6 +287,7 @@ class Spans:
         self._frames = 0
         self._syncs = 0
         self._graph_frames = 0
+        self._rebuild_graph_frames = 0
         self._resolve_frames = 0
         self._counts: Dict[str, int] = {}
         self._totals: Dict[str, List[float]] = {}
@@ -311,6 +323,7 @@ class Spans:
         self._frames += 1
         self._syncs += frame.syncs
         self._graph_frames += frame.graph
+        self._rebuild_graph_frames += frame.rebuild_graph
         self._resolve_frames += frame.resolve
         for name, v in frame.counts.items():
             self._counts[name] = self._counts.get(name, 0) + v
@@ -330,6 +343,11 @@ class Spans:
     def graph_frames(self) -> int:
         self._settle()
         return self._graph_frames
+
+    @property
+    def rebuild_graph_frames(self) -> int:
+        self._settle()
+        return self._rebuild_graph_frames
 
     @property
     def resolve_frames(self) -> int:
