@@ -82,7 +82,10 @@ def test_pair_counter_is_the_binnings_total(raster, mesh):
     total = int(bins.pairs)
     assert not bool(bins.overflow)
     assert total == int(bins.row_counts.sum()) > 0
-    assert r.spans.counts == {"raster_pairs": TRACED * total}
+    counts = r.spans.counts
+    # The unfused shadow pass counts its live rays beside the pairs.
+    assert counts.pop("shadow_rays") > 0
+    assert counts == {"raster_pairs": TRACED * total}
 
 
 def test_grown_frame_counts_its_last_attempt(mesh):
@@ -99,7 +102,9 @@ def test_grown_frame_counts_its_last_attempt(mesh):
     bins = bin_rows(host_camera(r.camera), r.mesh, 48, 32,
                     r.config.raster_cap_pairs)
     assert not bool(bins.overflow)
-    assert r.spans.counts == {"raster_pairs": int(bins.pairs)}
+    counts = r.spans.counts
+    assert counts.pop("shadow_rays") > 0
+    assert counts == {"raster_pairs": int(bins.pairs)}
 
 
 def test_pair_counter_adds_no_host_sync(raster):

@@ -776,7 +776,9 @@ class Renderer:
     ``tpurt.gbuffer``, and counts the binned (row, tile) pairs
     (``spans.counts["raster_pairs"]``, carried by the frame's host read);
     the unfused shadow pass nests each walk, ``tpurt.walk``, in
-    ``tpurt.shadow``. Without a profiler the frame records nothing."""
+    ``tpurt.shadow``, and counts the live shadow rays its walks trace
+    (``spans.counts["shadow_rays"]``, carried by the same read). Without
+    a profiler the frame records nothing."""
 
     def __init__(self, mesh: Mesh, camera: Camera,
                  lights: Union[Light, Sequence[Light]],

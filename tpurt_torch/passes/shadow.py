@@ -16,7 +16,10 @@ and counted by (pixel index, sample), in place of ``jax.random``. The
 frame seed is an int or the frame block's view of its bits, and a light's
 fields host data or the block's views (``frame_block.py``). Each walk
 (the ray packing, the launch and the unpacking of a tracer) is the span
-``tpurt.walk``, inside the caller's ``tpurt.shadow``.
+``tpurt.walk``, inside the caller's ``tpurt.shadow``. A traced frame
+counts the live rays each walk traces in its counter ``shadow_rays``
+(``spans.count``): a ray batch's rays with t_max > 0, which the any-hit
+walk does not skip, and an in-kernel sampler's valid pixels x spp.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from ..camera import as_f32, normalize
 from ..frame_block import BlockLight
 from ..kernels.sampling import sample_uniforms
-from ..spans import span
+from ..spans import count, span
 from ..types import LIGHT_AREA_CONE, LIGHT_POINT, Light
 
 _BIG = 3.4e38
@@ -184,16 +187,19 @@ def shadow_pass(trace_any: Callable, gbuf: Dict[str, torch.Tensor],
     if not soft:
         origins, dirs, t_max = shadow_ray_batch(gbuf, light, bias, None,
                                                 scene_bounds=scene_bounds)
+        _count_live(t_max)
         with span("tpurt.walk"):
             occluded, counts = trace_any(origins, dirs, t_max)
         return torch.where(valid, torch.where(occluded, 0.0, 1.0),
                            1.0), counts
     origins = gbuf["position"] + gbuf["gnormal"] * bias
     if light.kind == LIGHT_AREA_CONE and trace_soft is not None:
+        count("shadow_rays", lambda: valid.sum() * spp)
         with span("tpurt.walk"):
             cnt, counts = trace_soft(origins, valid, light.direction,
                                      cone_cos(light), spp, seed, light_index)
     elif light.kind == LIGHT_POINT and trace_soft_point is not None:
+        count("shadow_rays", lambda: valid.sum() * spp)
         with span("tpurt.walk"):
             cnt, counts = trace_soft_point(origins, valid, light.position,
                                            light.radius, spp, seed,
@@ -203,6 +209,12 @@ def shadow_pass(trace_any: Callable, gbuf: Dict[str, torch.Tensor],
                              bias, scene_bounds)
     vis = 1.0 - cnt.to(torch.float32) / spp
     return torch.where(valid, vis, 1.0), counts
+
+
+def _count_live(t_max: torch.Tensor) -> None:
+    """Count a ray batch's live rays (t_max > 0) in the traced frame's
+    ``shadow_rays``."""
+    count("shadow_rays", lambda: (t_max > 0.0).sum())
 
 
 def _scan_samples(trace_any: Callable, gbuf, light: Light, spp: int,
@@ -222,6 +234,7 @@ def _scan_samples(trace_any: Callable, gbuf, light: Light, spp: int,
         u = torch.stack(sample_uniforms(seed, light_index, pix, s), dim=-1)
         origins, dirs, t_max = shadow_ray_batch(gbuf, light, bias, u,
                                                 scene_bounds=scene_bounds)
+        _count_live(t_max)
         with span("tpurt.walk"):
             occluded, c = trace_any(origins, dirs, t_max)
         acc = acc + torch.where(occluded, 0.0, 1.0)

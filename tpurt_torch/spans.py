@@ -153,13 +153,16 @@ def span(name: str, device: Optional[torch.device] = None):
     return _Span(frame, name)
 
 
-def count(name: str, value: torch.Tensor) -> None:
+def count(name: str, value) -> None:
     """Add the device integer ``value`` (one element) to the traced
-    frame's counter ``name``; with tracing off nothing happens. The value
-    stays on the device until the frame's next host read carries it."""
+    frame's counter ``name``; with tracing off nothing happens. ``value``
+    may be a function that makes it, called only in a traced frame, so an
+    untraced one launches nothing for the count. The value stays on the
+    device until the frame's next host read carries it."""
     frame = _FRAME.get()
     if frame is not None:
-        frame.pending_counts.append((name, value))
+        frame.pending_counts.append(
+            (name, value() if callable(value) else value))
 
 
 def drop_counts() -> None:
