@@ -262,15 +262,17 @@ Phases, in order; any failure raises and the exit code is not 0:
     eager frames at 1920x1080 in the hall: per route (hard fused0, the
     seeded SOFT at spp 8 with accumulation, fusedN with config 5's three
     suns, fusedSM with the 2 deg sun and two fills, the unfused hard
-    frame, the shade table, the textured hall) six frames of one Renderer
-    that takes the graphs and six of one that runs eagerly: every output
-    of every frame equal bit for bit, the same launches of every kernel,
-    one capture and five replays; every frame's frame-2 output unchanged
-    after frame 6; on hard fused0 the camera moved between frames 3 and
-    4 (equal outputs, no second capture). Then one graph frame per route
-    under CUDA's sync debug mode: 1 host sync, the frame's own count. The
-    frame ms of both (CUDA events and the host clock, frames 3-6) per
-    route, and the spans of both on hard fused0 and three suns.
+    frame, the shade table, the textured hall, the raster G-buffer with
+    the sun, the deferred raster G-buffer with the three suns) six frames
+    of one Renderer that takes the graphs and six of one that runs
+    eagerly: every output of every frame equal bit for bit, the same
+    launches of every kernel, one capture and five replays; every frame's
+    frame-2 output unchanged after frame 6; on hard fused0 and the raster
+    frame the camera moved between frames 3 and 4 (equal outputs, no
+    second capture). Then one graph frame per route under CUDA's sync
+    debug mode: 1 host sync, the frame's own count. The frame ms of both
+    (CUDA events and the host clock, frames 3-6) per route, and the spans
+    of both on hard fused0, three suns and the raster frame.
 21. The frame resolve (tpurt_torch/kernels/resolve.py, csrc/resolve.cu)
     in the hall, as the benchmark's static cells render it: 1920x1080
     with the sun (HARD), 1920x1080 with the 2 deg sun at spp 8 and
@@ -3853,8 +3855,9 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 def phase_frame_graph(dev, mesh, tmesh) -> dict:
     """The static frame's CUDA graphs against its eager frames: per
     route, the outputs bit for bit, the launches, the captures and
-    replays, the held frame-2 outputs, the moved camera (hard fused0),
-    the host syncs of a graph frame; both frames' ms and spans."""
+    replays, the held frame-2 outputs, the moved camera (hard fused0 and
+    the raster frame), the host syncs of a graph frame; both frames' ms
+    and spans."""
     from tpurt_torch.app import Renderer
     from tpurt_torch.scenes import sponza_interior_camera
     from tpurt_torch.types import Camera, Light, RenderConfig
@@ -3875,12 +3878,16 @@ def phase_frame_graph(dev, mesh, tmesh) -> dict:
         "unfused": (mesh, [hard], dict(fused_shadow=False), "unfused"),
         "shade_table": (mesh, [hard], dict(inkernel_attrs=False), "fused0"),
         "textured": (tmesh, [hard], {}, "fused0"),
+        "raster": (mesh, [hard], dict(gbuffer="raster", sah=False,
+                                      fused_shadow=False), "unfused"),
+        "raster_z16_suns": (mesh, config5_lights(), dict(
+            gbuffer="raster", sah=False, raster_deferred=True), "unfused"),
     }
     res = {}
     for name, (m, lights, fields, route) in cases.items():
         cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=14,
                            seed=seed, **fields)
-        move = moved if name == "hard" else None
+        move = moved if name in ("hard", "raster") else None
         got = {}
         for side in ("graph", "eager"):
             r = Renderer(m, cam, lights, cfg, device=dev)
@@ -3922,8 +3929,8 @@ def phase_frame_graph(dev, mesh, tmesh) -> dict:
             graph_host_ms=g["host_ms"], eager_host_ms=e["host_ms"],
             graph_ms_mean=float(np.mean(g["dev_ms"])),
             eager_ms_mean=float(np.mean(e["dev_ms"])), syncs=syncs,
-            stages=len(g["r"]._graphs.stages))
-        if name in ("hard", "three_suns"):
+            graphs=sum(s[0] == "graph" for s in g["r"]._graphs.steps))
+        if name in ("hard", "three_suns", "raster"):
             res[name]["spans_graph"] = span_ms(g["r"])
             with eager_frames():
                 res[name]["spans_eager"] = span_ms(e["r"])

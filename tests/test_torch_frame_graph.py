@@ -2,12 +2,26 @@
 (``tpurt_torch/frame_block.py``, ``tpurt_torch/graphs.py``), on the CPU:
 the block holds, bit for bit, the float32 values a copy of each host
 value makes, and the walks' scalar blocks and seed read from it equal
-those made from the host values; which frames take the graphs is a pure
-function of (mode, G-buffer, device, route); the capture key follows what
+those made from the host values; a raster frame's clip words equal the
+host's camera basis and projection, are written only for a raster frame
+and only when the camera or the frame size changed, and the clip
+transform and the binning fed from them equal those fed host floats, bit
+for bit; which frames take the graphs is a function of (mode, device)
+alone, whatever the G-buffer and the route; the capture key follows what
 the graphs bake in and nothing else; CPU frames and CPU rebuilds capture
 and replay nothing; a frame's outputs stay as they were after the next
-frame, static or rebuilt."""
+frame, static or rebuilt.
 
+With CUDA graphs stood in for by graphs that run their code when
+captured and do nothing when replayed (``cpu_graphs``), a captured frame
+nests its stages as the eager frame does (the raster frames' binning and
+rasterizer in ``tpurt.gbuffer``, the shadow walk in ``tpurt.shadow``; a
+resolving frame's six stages one graph each, as before), and traced
+replays record the eager frame's spans and counters
+(``tests/test_torch_raster_graph.py`` holds the frames on the card)."""
+
+import contextlib
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -19,15 +33,22 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_native import ensure_native_libraries  # noqa: E402
 
+import tpurt_torch.app as app  # noqa: E402
+import tpurt_torch.frame_block as fb  # noqa: E402
 import tpurt_torch.kernels.traverse as tr  # noqa: E402
 from tpurt_torch.app import Renderer, frame_seed  # noqa: E402
 from tpurt_torch.bvh.wide import order_children_for_point  # noqa: E402
-from tpurt_torch.camera import generate_rays  # noqa: E402
+from tpurt_torch.camera import camera_basis, generate_rays  # noqa: E402
 from tpurt_torch.frame_block import FrameBlock  # noqa: E402
 from tpurt_torch.graphs import capture_key, takes_graph  # noqa: E402
 from tpurt_torch.kernels.sampling import sample_uniforms  # noqa: E402
 from tpurt_torch.passes.shadow import cone_cos  # noqa: E402
-from tpurt_torch.scenes import default_camera_for, deform, teapot_scene  # noqa: E402,E501
+from tpurt_torch.raster.setup import (RasterRows, _projection, bin_rows,  # noqa: E402,E501
+                                      clip_constants, clip_transform,
+                                      default_cap_rows)
+from tpurt_torch.scenes import (default_camera_for, deform,  # noqa: E402
+                                sponza_interior_camera, sponza_scene,
+                                teapot_scene)
 from tpurt_torch.spans import to_device  # noqa: E402
 from tpurt_torch.types import Camera, Light, RenderConfig  # noqa: E402
 
@@ -71,6 +92,10 @@ ROUTES = {
                     "fusedN"),
     "binary": (lambda m: [SOFT_SUN], dict(bvh_width=2, sah=False, spp=4),
                "unfused"),
+    "raster": (lambda m: [SUN], dict(gbuffer="raster"), "unfused"),
+    "raster_deferred": (lambda m: [SUN, FILL, SKY],
+                        dict(gbuffer="raster", raster_deferred=True),
+                        "unfused"),
 }
 
 
@@ -205,8 +230,12 @@ GRAPH_CASES = (
     + [("static", "ray", "cuda:0", "fusedN", True),
        ("rebuild", "ray", "cuda", "fused0", False),
        ("rebuild", "ray", "cuda", "unfused", False),
-       ("static", "raster", "cuda", "unfused", False),
+       ("static", "raster", "cuda", "unfused", True),
+       ("static", "raster_deferred", "cuda", "unfused", True),
+       ("static", "raster_textured", "cuda:0", "unfused", True),
        ("rebuild", "raster", "cuda", "unfused", False),
+       ("rebuild", "raster_deferred", "cuda", "unfused", False),
+       ("static", "raster", "cpu", "unfused", False),
        ("static", "ray", "cpu", "fused0", False),
        ("static", "ray", "cpu", "fusedN", False),
        ("rebuild", "ray", "cpu", "fused0", False),
@@ -215,11 +244,11 @@ GRAPH_CASES = (
 
 @pytest.mark.parametrize("mode,gbuffer,device,route,graph", GRAPH_CASES)
 def test_graph_rule(mode, gbuffer, device, route, graph):
-    """The static ray-cast frames on the card take the graphs, whatever
-    their route (the rule reads none: every route takes its per-frame
-    values from the block); the rebuild, the raster G-buffer and the CPU
-    stay eager."""
-    assert takes_graph(mode, gbuffer, device) is graph
+    """The static frames on the card take the graphs, whatever their
+    G-buffer and route (the rule reads neither: every route takes its
+    per-frame values from the block, the raster binning its camera's
+    clip words too); the rebuild and the CPU stay eager."""
+    assert takes_graph(mode, device) is graph
 
 
 def _key(r, **over):
@@ -237,7 +266,6 @@ def test_capture_key(mesh):
     accel, its tables, the mesh and the device; not with the camera or
     the lights' values."""
     import copy
-    import dataclasses
     r = _renderer(mesh, "multi")
     base = _key(r)
     assert _key(r) == base
@@ -317,3 +345,238 @@ def test_outputs_stay_after_the_next_frame(mesh, route, mode):
         assert torch.equal(first[name], v), name
     if route == "soft":     # the next frame drew other samples
         assert not torch.equal(later[0]["shadow"], first["shadow"])
+
+
+# ---------------------------------------------------------------------------
+# The raster binning's camera, from the block
+# ---------------------------------------------------------------------------
+
+BW, BH = 96, 64     # the binning's frame: 3 x 2 tiles
+
+
+@pytest.fixture(scope="module")
+def hall():
+    return sponza_scene(3000)
+
+
+def _cameras(mesh):
+    """The raster cells' camera (in the hall), and views of ``mesh``:
+    tilted (its up off the vertical), looking straight down the y axis, a
+    wide fov_y, and one from inside it, whose triangles cross the eye
+    plane."""
+    bmin, bmax = mesh.bounds()
+    c = 0.5 * (bmin + bmax)
+    d = float(np.linalg.norm(bmax - bmin))
+    return {
+        "cell": sponza_interior_camera(),
+        "tilted": Camera.look_at(c + d * np.float32([0.3, 0.9, -0.6]), c,
+                                 up=(0.35, 0.8, 0.5), fov_y_deg=48.0),
+        "down_axis": Camera.look_at(c + np.float32([0.0, 1.2 * d, 0.0]), c,
+                                    up=(0.0, 0.0, -1.0)),
+        "wide": Camera.look_at(c + d * np.float32([-0.5, 0.2, 0.4]), c,
+                               fov_y_deg=120.0),
+        "inside": Camera.look_at(c + np.float32([0.01, 0.05, 0.01]),
+                                 c + np.float32([1.2, 0.2, 0.4]),
+                                 fov_y_deg=70.0),
+    }
+
+
+CAMERAS = ("cell", "tilted", "down_axis", "wide", "inside")
+
+
+def _raster_cfg(**more) -> RenderConfig:
+    return RenderConfig(**{"width": BW, "height": BH, "gbuffer": "raster",
+                           **more})
+
+
+def _copy_camera(cam: Camera) -> Camera:
+    """An equal camera in new arrays."""
+    return dataclasses.replace(cam, position=cam.position.copy(),
+                               target=cam.target.copy(), up=cam.up.copy())
+
+
+@pytest.mark.parametrize("name", CAMERAS)
+def test_block_holds_the_clip_words(mesh, name):
+    """A raster frame's clip words are the host's camera basis
+    (``camera_basis`` on the CPU) and ``_projection``'s four scales, bit
+    for bit; the resolve kernel's view of the block ends before them."""
+    cam = _cameras(mesh)[name]
+    k = FrameBlock(1, "cpu").write(cam, [SUN], _raster_cfg(), 3)
+    proj = torch.from_numpy(np.float32(_projection(cam, BW, BH)))
+    assert _same(k.camera.clip, torch.cat([*camera_basis(cam, "cpu"), proj]))
+    assert k.block.shape == (fb.LIGHTS + fb.LIGHT_WORDS,)
+    assert _same(k.camera.position, to_device(cam.position, "cpu"))
+
+
+def test_clip_words_follow_the_camera_and_size(mesh, monkeypatch):
+    """A ray-cast frame writes no clip words; a raster frame writes them
+    where the camera's words or the frame size changed, and else keeps
+    the last ones."""
+    made = []
+
+    def counted(cam, width, height):
+        made.append((width, height))
+        return clip_constants(cam, width, height)
+    monkeypatch.setattr(fb, "clip_constants", counted)
+    cams = _cameras(mesh)
+    block = FrameBlock(1, "cpu")
+    k = block.write(cams["tilted"], [SUN], RenderConfig(width=BW, height=BH),
+                    0)
+    assert not made and not k.camera.clip.any()
+    wide = _raster_cfg(width=2 * BW)
+    same = _copy_camera(cams["wide"])
+    frames = [(cams["tilted"], _raster_cfg()), (cams["tilted"], _raster_cfg()),
+              (cams["wide"], _raster_cfg()), (same, _raster_cfg()),
+              (cams["wide"], wide), (cams["tilted"], wide),
+              (cams["tilted"], wide)]
+    for cam, cfg in frames:
+        k = block.write(cam, [SUN], cfg, 0)
+        assert _same(k.camera.clip, torch.from_numpy(
+            clip_constants(cam, cfg.width, cfg.height)))
+    assert made == [(BW, BH), (BW, BH), (2 * BW, BH), (2 * BW, BH)]
+
+
+def _same_tensor(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.is_floating_point():
+        return _same(a, b)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fmt", ["full", "z16"])
+@pytest.mark.parametrize("name", CAMERAS)
+def test_binning_from_the_block(mesh, hall, name, fmt):
+    """The clip transform and ``bin_rows`` fed the block camera's clip
+    words equal those fed the host camera's floats, bit for bit, in every
+    field; each view bins pairs."""
+    m = (hall if name == "cell" else mesh).on("cpu")
+    cam = _cameras(mesh)[name]
+    k = FrameBlock(1, "cpu").write(cam, [SUN], _raster_cfg(), 0)
+    assert _same(clip_transform(k.camera, BW, BH, m.vertices),
+                 clip_transform(cam, BW, BH, m.vertices))
+    cap = default_cap_rows(m.num_triangles)
+    got = bin_rows(k.camera, m, BW, BH, cap, fmt=fmt)
+    want = bin_rows(cam, m, BW, BH, cap, fmt=fmt)
+    for f in RasterRows._fields:
+        assert _same_tensor(getattr(got, f), getattr(want, f)), f
+    assert int(want.pairs) > 0
+    if name == "inside":
+        assert int(want.big_nrows) > 0
+
+
+# ---------------------------------------------------------------------------
+# Captured frames with graphs that run on the CPU
+# ---------------------------------------------------------------------------
+
+class _CPUGraph:
+    """A CUDA graph's stand-in: its capture runs the code as it comes,
+    its replay does nothing, so a replay returns the capture's outputs."""
+
+    def replay(self) -> None:
+        pass
+
+
+@contextlib.contextmanager
+def _cpu_capture(graph, pool=None):
+    yield
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    """Frames of the static mode on the CPU take the graphs, with
+    ``_CPUGraph`` in the place of CUDA's."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _CPUGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _cpu_capture)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    return lambda mode, device: mode == "static"
+
+
+def _outline(steps):
+    """A capture's steps without its graphs; and whether every graph lies
+    inside a span."""
+    depth, inside, out = 0, True, []
+    for step in steps:
+        if step[0] == "graph":
+            inside = inside and depth > 0
+            continue
+        depth += {"open": 1, "close": -1}.get(step[0], 0)
+        out.append(step[:2])
+    return out, inside
+
+
+def _stage(name, *inner):
+    return [("open", name), *inner, ("close", name)]
+
+
+RASTER_OUTLINE = (
+    _stage("tpurt.gbuffer",
+           *_stage("tpurt.gbuffer.bin", ("count", "raster_pairs")),
+           *_stage("tpurt.gbuffer.raster"))
+    + _stage("tpurt.gbuffer")
+    + _stage("tpurt.shadow", ("count", "shadow_rays"),
+             *_stage("tpurt.walk"))
+    + _stage("tpurt.composite"))
+RESOLVED_STAGES = ("tpurt.order", "tpurt.rays", "tpurt.walk",
+                   "tpurt.gbuffer", "tpurt.shadow", "tpurt.composite")
+
+
+@pytest.mark.parametrize("route", ["raster", "raster_deferred", "hard",
+                                   "unfused"])
+def test_traced_replays_keep_spans_and_counters(mesh, cpu_graphs, route):
+    """Two traced frames of each Renderer, after one untraced: the one
+    that takes the graphs captures on the first traced frame and replays
+    on both; its spans (entries, and each parent's self ms its device ms
+    less its children's), counters and host reads are the eager twin's,
+    and so are the capture frame's outputs. The capture nests its stages
+    as the eager frame does: the raster frames' binning and rasterizer
+    inside ``tpurt.gbuffer`` and their walk inside ``tpurt.shadow`` (each
+    light's, unfused); a resolving frame's six stages each one graph, as
+    before."""
+    graph, eager = _renderer(mesh, route), _renderer(mesh, route)
+    outs = {}
+    for name, r in (("graph", graph), ("eager", eager)):
+        with pytest.MonkeyPatch.context() as mp:
+            if name == "graph":
+                mp.setattr(app, "takes_graph", cpu_graphs)
+            r.render_frame()
+            with profile(activities=[ProfilerActivity.CPU]):
+                outs[name] = [r.render_frame() for _ in range(2)]
+    assert graph.stats["graph_captures"] == 1
+    assert graph.stats["graph_replays"] == 2
+    assert eager.stats["graph_replays"] == 0
+    sg, se = graph.spans, eager.spans
+    assert sg.graph_frames == 2 and se.graph_frames == 0
+    assert sg.syncs == se.syncs == 2
+    assert sg.counts == se.counts
+    tg, te = sg.totals, se.totals
+    assert {k: v["entries"] for k, v in tg.items()} == \
+        {k: v["entries"] for k, v in te.items()}
+    children = {"tpurt.gbuffer": ("tpurt.gbuffer.bin",
+                                  "tpurt.gbuffer.raster"),
+                "tpurt.shadow": ("tpurt.walk",)}
+    for parent, kids in children.items():
+        if route.startswith("raster"):      # every walk is a shadow walk
+            inner = sum(tg[k]["device_ms"] for k in kids)
+            assert tg[parent]["self_ms"] == pytest.approx(
+                tg[parent]["device_ms"] - inner), parent
+    # The capture's frame (the stand-in's replays compute nothing, so a
+    # later frame's samples are not drawn).
+    a, b = outs["graph"][0], outs["eager"][0]
+    assert set(a) == set(b)
+    for k in b:
+        assert _same_tensor(a[k], b[k]), k
+    outline, inside = _outline(graph._graphs.steps)
+    assert inside
+    if route == "raster":
+        assert outline == RASTER_OUTLINE
+        assert sg.counts["raster_pairs"] > 0 and sg.counts["shadow_rays"] > 0
+    elif route == "raster_deferred":     # three lights, one walk each
+        assert outline[:10] == RASTER_OUTLINE[:10]
+        assert outline[9:-2] == RASTER_OUTLINE[9:-2] * 3
+    elif route == "hard":
+        assert graph._graphs.steps and [s[0] for s in graph._graphs.steps] \
+            == ["open", "graph", "close"] * len(RESOLVED_STAGES)
+        assert outline == [x for n in RESOLVED_STAGES for x in _stage(n)]
+        assert sg.counts == {}
+    else:
+        assert outline.count(("open", "tpurt.walk")) == 4   # camera + 3
+        assert outline.count(("count", "shadow_rays")) == 3

@@ -22,7 +22,6 @@ from test_torch_native import ensure_native_libraries  # noqa: E402
 
 from bench_torch import harness, rastercount, scene  # noqa: E402
 from tpurt_torch.app import Renderer  # noqa: E402
-from tpurt_torch.camera import host_camera  # noqa: E402
 from tpurt_torch.raster.setup import bin_rows, default_cap_rows  # noqa: E402
 from tpurt_torch.types import Light, RenderConfig  # noqa: E402
 
@@ -120,7 +119,7 @@ def test_readers_read_a_traced_raster_frame():
         t["tpurt.gbuffer.bin"]["self_ms"] / FRAMES)
     assert _read("raster_ms", ctx) == pytest.approx(
         t["tpurt.gbuffer.raster"]["self_ms"] / FRAMES)
-    bins = bin_rows(host_camera(r.camera), r.mesh, W, H,
+    bins = bin_rows(r.camera, r.mesh, W, H,
                     default_cap_rows(r.mesh.num_triangles))
     assert _read("raster_pairs", ctx) == int(bins.pairs) / 1e3 > 0
     work = rastercount.frame_raster_work(ctx.cell.mesh, ctx.cell.camera, W,

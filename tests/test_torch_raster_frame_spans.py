@@ -11,7 +11,6 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tpurt_torch.app import Renderer
-from tpurt_torch.camera import host_camera
 from tpurt_torch.raster.setup import bin_rows, default_cap_rows
 from tpurt_torch.scenes import default_camera_for, teapot_scene
 from tpurt_torch.types import Light, RenderConfig
@@ -77,7 +76,7 @@ def test_raster_frame_opens_its_spans(raster):
 
 def test_pair_counter_is_the_binnings_total(raster, mesh):
     r, _, _ = raster
-    bins = bin_rows(host_camera(r.camera), r.mesh, W, H,
+    bins = bin_rows(r.camera, r.mesh, W, H,
                     default_cap_rows(mesh.num_triangles))
     total = int(bins.pairs)
     assert not bool(bins.overflow)
@@ -99,7 +98,7 @@ def test_grown_frame_counts_its_last_attempt(mesh):
     with profile(activities=[ProfilerActivity.CPU]):
         r.render_frame()
     assert r.stats["raster_cap_growths"] == 1
-    bins = bin_rows(host_camera(r.camera), r.mesh, 48, 32,
+    bins = bin_rows(r.camera, r.mesh, 48, 32,
                     r.config.raster_cap_pairs)
     assert not bool(bins.overflow)
     counts = r.spans.counts

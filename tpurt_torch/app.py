@@ -753,7 +753,7 @@ class Renderer:
     Every frame writes its host constants (camera, lights, bias,
     background, frame seed) into the Renderer's block on the device with
     one copy that does not wait (``frame_block.FrameBlock``), and reads
-    them there. A static frame with the ray-cast G-buffer on the card
+    them there. A static frame on the card, ray-cast or rasterized,
     replays its stages as CUDA graphs (``graphs.py``: the first frame of
     a capture key runs eagerly, the second captures), and returns copies
     of the graphs' outputs; every other frame runs its stages eagerly.
@@ -777,8 +777,10 @@ class Renderer:
     (``spans.counts["raster_pairs"]``, carried by the frame's host read);
     the unfused shadow pass nests each walk, ``tpurt.walk``, in
     ``tpurt.shadow``, and counts the live shadow rays its walks trace
-    (``spans.counts["shadow_rays"]``, carried by the same read). Without
-    a profiler the frame records nothing."""
+    (``spans.counts["shadow_rays"]``, carried by the same read). A frame
+    that replays CUDA graphs records the same spans, nested as they are,
+    and the same counters. Without a profiler the frame records
+    nothing."""
 
     def __init__(self, mesh: Mesh, camera: Camera,
                  lights: Union[Light, Sequence[Light]],
@@ -1116,7 +1118,7 @@ class Renderer:
             self._block = FrameBlock(len(self.lights), self.device)
         consts = self._block.write(self.camera, self.lights, cfg,
                                    frame_seed(cfg.seed, self.frame_index))
-        if takes_graph(self.mode, cfg.gbuffer, self.device):
+        if takes_graph(self.mode, self.device):
             out = self._graph_frame(consts)
         else:
             out = self._frame_fn(consts)

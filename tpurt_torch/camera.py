@@ -22,12 +22,6 @@ def as_f32(x, device) -> torch.Tensor:
     return to_device(x, device)
 
 
-def host_camera(cam: Camera) -> Camera:
-    """The camera whose fields are host data: a block camera's ``host``,
-    any other camera as it is."""
-    return getattr(cam, "host", None) or cam
-
-
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """v / |v| over the last axis (size 3), summed in component order."""
     ss = v[..., 0:1] * v[..., 0:1] + v[..., 1:2] * v[..., 1:2] \

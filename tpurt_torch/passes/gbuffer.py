@@ -21,8 +21,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..camera import (_cross, as_f32, generate_rays, host_camera,
-                      normalize, view_depth)
+from ..camera import _cross, as_f32, generate_rays, normalize, view_depth
 from ..kernels.raster import rasterize_rows, rasterize_rows16
 from ..bvh.wide import WideBVHT
 from ..kernels.traverse import trace_closest_attrs, trace_closest_attrs_t
@@ -225,8 +224,7 @@ def _bin_and_rasterize(mesh: Mesh, cam: Camera, width: int, height: int,
     if cap_pairs is None:
         cap_pairs = default_cap_rows(mesh.num_triangles)
     with span("tpurt.gbuffer.bin"):
-        bins = bin_rows(host_camera(cam), mesh, width, height, cap_pairs,
-                        fmt=fmt)
+        bins = bin_rows(cam, mesh, width, height, cap_pairs, fmt=fmt)
         count("raster_pairs", bins.pairs)
     raster = rasterize_rows if fmt == "full" else rasterize_rows16
     with span("tpurt.gbuffer.raster"):
@@ -249,8 +247,8 @@ def gbuffer_raster_pass(mesh: Mesh, cam: Camera, width: int, height: int,
     (``raster_deferred``), which takes ``_gbuffer_raster_deferred``, and
     then it is required. The dict gains ``raster_overflow`` (bool[]): the
     pair capacity dropped coverage and the frame must be rendered again
-    with a bigger one. The binning transforms the mesh with the camera's
-    host values (``camera.host_camera``)."""
+    with a bigger one. The binning transforms the mesh with a block
+    camera's clip words (``raster.setup.clip_transform``)."""
     if deferred:
         if shade_table_orig is None:
             raise ValueError("the deferred raster G-buffer needs the "

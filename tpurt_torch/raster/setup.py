@@ -126,19 +126,41 @@ def _projection(cam: Camera, width: int, height: int):
             _f32((height - 1) / 2.0))
 
 
+CLIP_WORDS = 13     # clip_constants: the camera basis (9), _projection (4)
+
+
+def clip_constants(cam: Camera, width: int, height: int) -> np.ndarray:
+    """``clip_transform``'s constants f32[13], computed on the host: the
+    camera basis right(3), up(3), forward(3) (``camera_basis`` on the
+    CPU) and ``_projection``'s (x scale, x offset, y scale, y offset). A
+    frame's block of constants holds them (``frame_block.py``)."""
+    basis = torch.cat(camera_basis(cam, "cpu")).numpy()
+    return np.concatenate([basis, np.float32(_projection(cam, width,
+                                                         height))])
+
+
 def clip_transform(cam: Camera, width: int, height: int,
                    vertices: torch.Tensor,
                    contract: bool = False) -> torch.Tensor:
     """World vertices f32[V, 3] -> 2DH clip coords (x, y, w): (x/w, y/w)
     are screen coordinates in pixels with integers at pixel centres (the
     grid ``camera.generate_rays`` shoots through), w the camera-space depth
-    along the forward axis. The camera basis is computed on the host (the
-    same float32 operations) and enters as scalars: no copy to the
-    device, no host sync. ``contract`` rounds each dot product as XLA's
-    CPU compiler contracts it, fma(q2, b2, fma(q1, b1, q0 b0)) (the v1
-    binner's pixel-scale records, ROADMAP decision 24)."""
-    right, up, forward = (b.tolist() for b in camera_basis(cam, "cpu"))
-    pos = as_f32(cam.position, "cpu").tolist()
+    along the forward axis. The constants (``clip_constants``) and the
+    camera position enter as scalars: a block camera's views of them
+    (``frame_block.BlockCamera.clip``, so a CUDA graph of the binning reads
+    each frame's camera), else Python floats computed on the host; either
+    way no copy to the device and no host sync, and the same float32
+    products. ``contract`` rounds each dot product as XLA's CPU compiler
+    contracts it, fma(q2, b2, fma(q1, b1, q0 b0)) (the v1 binner's
+    pixel-scale records, ROADMAP decision 24), from host floats."""
+    k = None if contract else getattr(cam, "clip", None)
+    if k is None:
+        k = clip_constants(cam, width, height).tolist()
+        pos = as_f32(cam.position, "cpu").tolist()
+    else:
+        pos = cam.position
+    right, up, forward = k[0:3], k[3:6], k[6:9]
+    sx, ox, sy, oy = k[9:13]
     q = [vertices[:, i] - pos[i] for i in range(3)]
 
     def dot(b):
@@ -149,10 +171,9 @@ def clip_transform(cam: Camera, width: int, height: int,
                 acc = fma32(q[i], torch.full_like(acc, b[i]), acc)
             return acc
         return q[0] * b[0] + q[1] * b[1] + q[2] * b[2]
-    sx, ox, sy, oy = _projection(cam, width, height)
     z = dot(forward)
-    cx = float(sx) * dot(right) + ox * z
-    cy = float(sy) * dot(up) + oy * z
+    cx = sx * dot(right) + ox * z
+    cy = sy * dot(up) + oy * z
     return torch.stack([cx, cy, z], dim=-1)
 
 

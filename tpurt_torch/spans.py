@@ -34,8 +34,8 @@ outputs (``resolve_frame``), and the device counters a stage hands it
 carries them (``host_read``), so counting adds no sync.
 
 While a frame's stages are captured into CUDA graphs (``capturing``,
-``graphs.py``), ``span`` hands each stage to the capture and tracing is
-off, so no event is recorded into a graph.
+``graphs.py``), ``span`` hands each stage to the capture and ``count``
+each counter, and tracing is off, so no event is recorded into a graph.
 """
 
 from __future__ import annotations
@@ -158,7 +158,13 @@ def count(name: str, value) -> None:
     frame's counter ``name``; with tracing off nothing happens. ``value``
     may be a function that makes it, called only in a traced frame, so an
     untraced one launches nothing for the count. The value stays on the
-    device until the frame's next host read carries it."""
+    device until the frame's next host read carries it. While a capture
+    runs, the capture takes the counter (``capture.count``), so that a
+    traced replay counts it."""
+    capture = _CAPTURE.get()
+    if capture is not None:
+        capture.count(name, value)
+        return
     frame = _FRAME.get()
     if frame is not None:
         frame.pending_counts.append(
@@ -208,7 +214,8 @@ def to_device(x, device) -> torch.Tensor:
 @contextlib.contextmanager
 def capturing(capture):
     """Run the block with ``capture`` taking the stage spans
-    (``capture.stage(name)`` -> a context) and tracing off."""
+    (``capture.stage(name)`` -> a context) and the counters
+    (``capture.count(name, value)``), and tracing off."""
     t_capture = _CAPTURE.set(capture)
     t_frame = _FRAME.set(None)
     try:
