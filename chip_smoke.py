@@ -13,11 +13,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    with a mode per walk kernel, csrc/variants.cu, the stats walk,
    csrc/build.cu, the rebuild's kernels, the node boxes and the sweep,
    csrc/raster.cu, the rasterizer in its 32- and 16-float
-   instantiations and the v1 kernel, and csrc/resolve.cu, the frame
-   resolve; one nvcc per source, in parallel), and print ptxas's
+   instantiations and the v1 kernel, csrc/resolve.cu, the frame
+   resolve, and csrc/unfused_origins.cu, the unfused frame's shadow
+   origins; one nvcc per source, in parallel), and print ptxas's
    register and spill report, then the penumbra kernels'
-   (psoft_kernel<0, 1, 2>, any_psoft_kernel) on one line and the resolve
-   kernel's on another.
+   (psoft_kernel<0, 1, 2>, any_psoft_kernel) on one line and the two
+   resolve kernels' on another.
 3. Every kernel against its plain PyTorch version on the card: teapot
    scene, 10k triangles, 512x512, leaf 14. closest_shadow with a
    directional and a point light; multi with directional + point +
@@ -68,7 +69,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    fused_shadow=False, and the mixed set 2 deg sun + lamp (spp 8), which
    takes the fused cone kernel for the sun and the unfused disk sampler
    for the lamp. One warm-up and five timed frames each, with the launches
-   of every kernel counted; config 1's unfused image against phase 4's
+   of every kernel counted (the sun and the lamp alone resolve from their
+   walks' packets: one launch each of closest_attrs, the origins kernel,
+   the sampler and the frame resolve a frame); config 1's unfused image against phase 4's
    fused one; the spans of three frames; every kernel of the case against its plain version on
    every 8th row and on the whole frame (the samplers also with the zero
    stream on every 8th row); each fused_shadow=False case timed in turns
@@ -262,7 +265,8 @@ Phases, in order; any failure raises and the exit code is not 0:
     eager frames at 1920x1080 in the hall: per route (hard fused0, the
     seeded SOFT at spp 8 with accumulation, fusedN with config 5's three
     suns, fusedSM with the 2 deg sun and two fills, the unfused hard
-    frame, the shade table, the textured hall, the raster G-buffer with
+    frame, the unfused 2 deg sun at spp 8 with accumulation (resolved
+    from its walks' packets), the shade table, the textured hall, the raster G-buffer with
     the sun, the deferred raster G-buffer with the three suns) six frames
     of one Renderer that takes the graphs and six of one that runs
     eagerly: every output of every frame equal bit for bit, the same
@@ -285,8 +289,17 @@ Phases, in order; any failure raises and the exit code is not 0:
     out the G-buffer, the shadows and the image) and the plain version's
     ms; then five graph frames under torch.profiler: the launches a
     frame, the resolve launches a frame (1) and the resolve kernel's
-    device ms a frame in the trace. Phase 2 also prints the resolve
-    kernel's ptxas line (registers, spills).
+    device ms a frame in the trace. Then the unfused frame of the 2 deg
+    sun at spp 8 with accumulation (fused_shadow=False, 1920x1080): on
+    one frame's closest attribute walk the origins kernel
+    (csrc/unfused_origins.cu) against its plain version, bit for bit, and
+    its ms beside its byte bound (t, the sorted index and the geometric
+    normal, the ray, the 4-channel block out: 60 B a pixel); the cone
+    sampler on its block; the frame resolve (kind COUNTS) on the walk's
+    channels and the sampler's counts against its plain version and its
+    ms beside its byte bound; five graph frames: one launch of each a
+    frame. Phase 2 also prints the two kernels' ptxas line (registers,
+    spills).
 22. Timings on one JSON line, then the kernel table on one JSON line, the
     card's nvidia-smi line, and last {"ok": true, "device": {...}}.
 
@@ -430,8 +443,11 @@ def all_kernels():
     from tpurt_torch.kernels._variants import VARIANT_KERNELS
     from tpurt_torch.kernels.build import BUILD_KERNELS
     from tpurt_torch.kernels.raster import RASTER_KERNELS
+    from tpurt_torch.kernels.resolve import (frame_resolve_cuda,
+                                             unfused_origins_cuda)
     from tpurt_torch.kernels.traverse import CUDA_KERNELS
-    return CUDA_KERNELS + BUILD_KERNELS + RASTER_KERNELS + VARIANT_KERNELS
+    return (*CUDA_KERNELS, *BUILD_KERNELS, *RASTER_KERNELS, *VARIANT_KERNELS,
+            frame_resolve_cuda, unfused_origins_cuda)
 
 
 def reset_launches():
@@ -441,6 +457,24 @@ def reset_launches():
 
 def launches() -> dict:
     return {fn.__name__[:-len("_cuda")]: fn.launches for fn in all_kernels()}
+
+
+def resolve_launches(r, n: int) -> dict:
+    """The resolve kernels' launches in ``n`` frames of Renderer ``r``, as
+    ``render_frame_fn`` picks them from the frame's input: the frame
+    resolve on a frame that ``app.resolves``, the origins kernel and the
+    frame resolve on one that ``app.resolves_unfused``, none on the
+    others."""
+    from tpurt_torch import app
+    tabs = r.attr_tables is not None or r.shade_table is not None
+    route = app.frame_route(r.config, r.lights, r.accel) if tabs \
+        else "unfused"
+    if app.resolves(route, r.attr_tables, r.mesh, len(r.lights)):
+        return {"frame_resolve": n}
+    if app.resolves_unfused(route, r.config, r.accel, r.attr_tables, r.mesh,
+                            r.lights):
+        return {"unfused_origins": n, "frame_resolve": n}
+    return {}
 
 
 def drive(expect: dict, fn):
@@ -1134,7 +1168,8 @@ def phase_config1(dev, mesh) -> dict:
     r = Renderer(mesh, cam, light, cfg, device=dev)
     log(f"phase 4 setup: tris={mesh.num_triangles} {json.dumps(setup_stats(r))}")
     torch.cuda.reset_peak_memory_stats()
-    (kept, frame_ms), n = drive({"closest_shadow": 6}, lambda: frames(r, 6))
+    (kept, frame_ms), n = drive({"closest_shadow": 6, "frame_resolve": 6},
+                                lambda: frames(r, 6))
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     valid_share = check_image(kept[0], MAIN_W, MAIN_H, "config 1")
     valid = kept[0]["valid"]
@@ -1148,7 +1183,8 @@ def phase_config1(dev, mesh) -> dict:
                          light_dir=light.direction)
     mean_ms = float(np.mean(frame_ms))
     nvalid = int(valid.sum())
-    return dict(launches=n["closest_shadow"], frame_ms=frame_ms,
+    return dict(launches=n["closest_shadow"],
+                resolve_launches=n["frame_resolve"], frame_ms=frame_ms,
                 frame_ms_mean=mean_ms, kernel=kp, spans=span_ms(r),
                 syncs=counted_syncs(r, "phase 4", 1),
                 image=kept[0]["image"], valid=valid, renderer=r,
@@ -1171,8 +1207,8 @@ def phase_config3(dev, mesh) -> dict:
     r = Renderer(mesh, cam, sun, cfg, device=dev)
     if r.route != "fused0":
         raise RuntimeError(f"config 3 takes route {r.route}")
-    (kept, frame_ms), n = drive({"closest_soft_shadow": 6},
-                                lambda: frames(r, 6))
+    (kept, frame_ms), n = drive({"closest_soft_shadow": 6,
+                                 "frame_resolve": 6}, lambda: frames(r, 6))
     for f in kept:
         check_image(f, MAIN_W, MAIN_H, "config 3")
     valid = kept[0]["valid"]
@@ -1224,8 +1260,8 @@ def phase_config5(dev, mesh) -> dict:
     if r.route != "fusedN":
         raise RuntimeError(f"config 5 takes route {r.route}")
     torch.cuda.reset_peak_memory_stats()
-    (kept, frame_ms), n = drive({"closest_multi_shadow": 6},
-                                lambda: frames(r, 6))
+    (kept, frame_ms), n = drive({"closest_multi_shadow": 6,
+                                 "frame_resolve": 6}, lambda: frames(r, 6))
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     check_image(kept[0], UHD_W, UHD_H, "config 5")
     for f in kept[1:]:
@@ -1277,7 +1313,8 @@ def phase_soft_variants(dev, mesh) -> dict:
         r = Renderer(mesh, cam, lights, cfg, device=dev)
         if r.route != route:
             raise RuntimeError(f"{name}: route {r.route}, want {route}")
-        (kept, frame_ms), n = drive({name: 2}, lambda: frames(r, 2))
+        (kept, frame_ms), n = drive({name: 2, "frame_resolve": 2},
+                                    lambda: frames(r, 2))
         for f in kept:
             check_image(f, MAIN_W, MAIN_H, name)
         valid = kept[0]["valid"]
@@ -1361,16 +1398,20 @@ def phase_unfused(dev, mesh, fused_config1_image) -> dict:
     # label: (lights, config fields, route, launches per frame by kernel,
     # the unfused kernels to hold against their plain versions with the
     # index of the light they trace). The three fused_shadow=False cases
-    # are also timed in turns with their fused twin.
+    # are also timed in turns with their fused twin. The sun and the lamp
+    # alone resolve from their walks' packets (app.resolves_unfused): the
+    # origins kernel between the walks, the frame resolve after them.
     cases = {
         "config1_unfused": ([Light.directional(SUN_DIR)], dict(unfused),
                             "unfused", {"closest_attrs": 1, "any": 1},
                             [("closest_attrs", 0), ("any", 0)]),
         "config3_unfused": ([sun], dict(unfused, spp=SPP), "unfused",
-                            {"closest_attrs": 1, "any_soft": 1},
+                            {"closest_attrs": 1, "unfused_origins": 1,
+                             "any_soft": 1, "frame_resolve": 1},
                             [("any_soft", 0)]),
         "lamp_unfused": ([lamp], dict(unfused, spp=SPP), "unfused",
-                         {"closest_attrs": 1, "any_point_soft": 1},
+                         {"closest_attrs": 1, "unfused_origins": 1,
+                          "any_point_soft": 1, "frame_resolve": 1},
                          [("any_point_soft", 0)]),
         "sun_lamp_mixed": ([sun, lamp], dict(spp=SPP), "fused0",
                            {"closest_soft_shadow": 1, "any_point_soft": 1},
@@ -1672,7 +1713,8 @@ def phase_config2(dev, mesh, static_image) -> dict:
     # Config 2 frames through the Renderer.
     (kept, frame_ms, build_ms), n = drive(
         {"closest_shadow": 6, "morton_codes": 6, "topology": 6,
-         "collapse_area": 6}, lambda: rebuild_frames(r, 6))
+         "collapse_area": 6, **resolve_launches(r, 6)},
+        lambda: rebuild_frames(r, 6))
     valid_share = check_image(kept[0], MAIN_W, MAIN_H, "config 2")
     for f in kept[1:]:
         if not torch.equal(f["image"], kept[0]["image"]):
@@ -2864,8 +2906,8 @@ def phase_fixed_cut(dev, mesh, area) -> dict:
             raise RuntimeError(f"fixed rebuild: {what} differs between the "
                                f"kernels and the plain versions")
     (kept, frame_ms, build_ms), n = drive(
-        {"closest_shadow": 6, "morton_codes": 6, "topology_depth": 6},
-        lambda: rebuild_frames(r, 6))
+        {"closest_shadow": 6, "morton_codes": 6, "topology_depth": 6,
+         **resolve_launches(r, 6)}, lambda: rebuild_frames(r, 6))
     check_image(kept[0], MAIN_W, MAIN_H, "fixed cut")
     for f in kept[1:]:
         if not torch.equal(f["image"], kept[0]["image"]):
@@ -3073,7 +3115,8 @@ def phase_top_sah(dev, mesh) -> dict:
     out = {"kernel": {k: v for k, v in kp.items() if k != "checks"}}
     plain = renderer()
     (pk, _, _), _ = drive({"closest_shadow": 2, "morton_codes": 2,
-                           "topology": 2, "collapse_area": 2},
+                           "topology": 2, "collapse_area": 2,
+                           **resolve_launches(plain, 2)},
                           lambda: rebuild_frames(plain, 2))
     hard_plain = kernel_vs_plain("closest_shadow", plain, MAIN_W, MAIN_H,
                                  "phase 16 closest_shadow, unsteered",
@@ -3100,6 +3143,7 @@ def phase_top_sah(dev, mesh) -> dict:
         expect = {"closest_shadow": 6, "morton_codes": 6,
                   "sweep_sah_priorities": 6}
         expect.update({k: 6 * v for k, v in per_frame.items()})
+        expect.update(resolve_launches(r, 6))
         (kept, frame_ms, build_ms), n = drive(
             expect, lambda: rebuild_frames(r, 6))
         check_image(kept[0], MAIN_W, MAIN_H, f"steered {label}")
@@ -3876,6 +3920,8 @@ def phase_frame_graph(dev, mesh, tmesh) -> dict:
         "three_suns": (mesh, config5_lights(), {}, "fusedN"),
         "sun_fills": (mesh, [sun] + fills, dict(spp=SPP), "fusedSM"),
         "unfused": (mesh, [hard], dict(fused_shadow=False), "unfused"),
+        "unfused_soft_spp8": (mesh, [sun], dict(
+            fused_shadow=False, spp=SPP, accumulate=True), "unfused"),
         "shade_table": (mesh, [hard], dict(inkernel_attrs=False), "fused0"),
         "textured": (tmesh, [hard], {}, "fused0"),
         "raster": (mesh, [hard], dict(gbuffer="raster", sah=False,
@@ -3958,6 +4004,136 @@ def _resolve_launch(r):
     return launch(o, d), kind, consts, o, d
 
 
+# Bytes a pixel of the origins kernel: t, the sorted index and the
+# geometric normal (5 channels) and o, d (6) in, the block's 4 channels out.
+ORIGINS_BYTES = (5 + 6 + 4) * 4
+
+
+def resolve_bytes(npix: int, nvalid: int, nshadow: int, nlights: int,
+                  block_floats: int) -> int:
+    """What the frame resolve reads and writes once: per pixel the sorted
+    index, the ray and the shadow words, per valid pixel 11 more attribute
+    channels, the frame block; out the G-buffer, the shadows and the
+    image."""
+    read = npix * (4 + 24 + 4 * nshadow) + nvalid * 44 + 4 * block_floats
+    written = npix * (4 * (17 + nlights) + 4 + 1)
+    return read + written
+
+
+def resolve_unfused_case(dev, mesh, cam, seed) -> dict:
+    """Phase 21's unfused frame: the hall at 1920x1080 with the 2 deg sun
+    at spp 8, accumulation and fused_shadow=False, as the benchmark's
+    unfused cell renders it (``app.resolves_unfused``). On one frame's
+    closest attribute walk, its channels left in packets: the origins
+    kernel against its plain version, bit for bit; the cone sampler on its
+    block; the frame resolve (kind COUNTS) on the walk's channels and the
+    sampler's counts against its plain version, every output bit for bit.
+    Each kernel's ms beside its byte bound, then five graph frames under
+    torch.profiler: one launch of each kernel a frame, and each one's
+    device ms a frame in the trace."""
+    import tpurt_torch.kernels.resolve as rs
+    import tpurt_torch.kernels.traverse as tr
+    from bench_torch.profile import profile_frames
+    from tpurt_torch import app
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.passes.shadow import COUNTS, cone_cos
+    from tpurt_torch.types import Light, RenderConfig
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, leaf_size=14, seed=seed,
+                       spp=SPP, accumulate=True, fused_shadow=False)
+    r = app.Renderer(mesh, cam, [Light.sun(SUN_DIR, angular_radius_deg=2.0)],
+                     cfg, device=dev)
+    if not app.resolves_unfused(r.route, r.config, r.accel, r.attr_tables,
+                                r.mesh, r.lights):
+        raise RuntimeError(f"resolve unfused: route {r.route} does not "
+                           f"resolve")
+    r.render_frame()
+    consts = r._block.write(r.camera, r.lights, cfg,
+                            app.frame_seed(cfg.seed, 7))
+    acc = app._gb_accel(r.accel, consts.camera, cfg)
+    o, d = generate_rays(consts.camera, cfg.width, cfg.height, r.device)
+    closest = tr._fused_launch(tr.CLOSEST, tr.closest_attrs_inputs(
+        acc, o, d, r.attr_tables), r.attr_tables, False)
+    args = (closest, consts, r.mesh, o, d)
+    block = rs.unfused_origins_cuda(*args)
+    want, origins_plain_ms = host_ms(
+        lambda: rs.unfused_origins_reference(*args))
+    if not _same_bits(block, want):
+        bad = int((block.view(torch.int32) != want.view(torch.int32)).sum())
+        raise RuntimeError(f"resolve unfused: the origins kernel and its "
+                           f"plain version differ in {bad} words")
+    light = consts.lights[0]
+    cnt, _ = tr.trace_any_soft(r.accel, None, None, light.direction,
+                               cone_cos(light), cfg.spp, consts.seed,
+                               packed=(block, closest.p, closest.meta))
+    rargs = (dataclasses.replace(closest, shadow=(cnt,)), COUNTS, consts,
+             cfg, r.mesh, o, d)
+    got = rs.frame_resolve_cuda(*rargs)
+    want, resolve_plain_ms = host_ms(lambda: rs.frame_resolve_reference(
+        *rargs))
+    bad = {k: int((got[k] != want[k]).sum()) for k in want
+           if not _same_bits(got[k], want[k])}
+    if bad or list(got) != list(want):
+        raise RuntimeError(f"resolve unfused: kernel and plain differ in "
+                           f"{bad}")
+    npix, nvalid = MAIN_W * MAIN_H, int(want["valid"].sum())
+    del got, want
+    origins_ms = cuda_ms(lambda: rs.unfused_origins_cuda(*args), 20)
+    resolve_ms = cuda_ms(lambda: rs.frame_resolve_cuda(*rargs), 20)
+    origins_bytes = npix * ORIGINS_BYTES
+    nbytes = resolve_bytes(npix, nvalid, 1, 1, consts.block.numel())
+    for _ in range(3):          # the capture and two replays
+        r.render_frame()
+    before = {fn: fn.launches for fn in (rs.unfused_origins_cuda,
+                                         rs.frame_resolve_cuda)}
+    summary = profile_frames(r.render_frame, 5, dev)
+    per_frame = {fn.__name__[:-len("_cuda")]: (fn.launches - n) / 5
+                 for fn, n in before.items()}
+    if per_frame != {"unfused_origins": 1, "frame_resolve": 1}:
+        raise RuntimeError(f"resolve unfused: launches a frame {per_frame}")
+
+    def trace_ms(name):
+        return sum(t for k, t in summary.kernels if name in k) * 1e3 / 5
+    res = dict(
+        route=r.route, kind=COUNTS, valid_share=nvalid / npix,
+        graph_replays=r.stats["graph_replays"],
+        launches_per_frame=summary.launches / 5,
+        busy_ms_per_frame=summary.busy_s * 1e3 / 5,
+        origins=dict(ms=origins_ms, bound_ms=origins_bytes / HBM_RATE * 1e3,
+                     bound_by="bytes", bytes=origins_bytes,
+                     plain_ms=origins_plain_ms,
+                     launches_per_frame=per_frame["unfused_origins"],
+                     trace_ms_per_frame=trace_ms("unfused_origins_kernel")),
+        resolve=dict(ms=resolve_ms, bound_ms=nbytes / HBM_RATE * 1e3,
+                     bound_by="bytes", bytes=nbytes,
+                     plain_ms=resolve_plain_ms,
+                     launches_per_frame=per_frame["frame_resolve"],
+                     trace_ms_per_frame=trace_ms("frame_resolve_kernel")))
+    for k in ("origins", "resolve"):
+        res[k]["roofline_pct"] = 100.0 * res[k]["bound_ms"] / res[k]["ms"]
+    log(f"phase 21 resolve unfused_soft_spp8_1080p: {json.dumps(res)}")
+    return res
+
+
+def resolve_rows(resolve: dict, fused_launches: int,
+                 unfused_launches: dict) -> list:
+    """The kernel table's rows of the two resolve kernels, which replace
+    tensor code and no TPU kernel: the frame resolve at phase 21's fused
+    1080p sun and the origins kernel at its unfused frame, each with the
+    launches of phase 4's or phase 8's six frames; both equal their plain
+    versions bit for bit."""
+    fused = resolve["sun_1080p"]
+    origins = resolve["unfused_soft_spp8_1080p"]["origins"]
+    return [{"name": name, "route": "cuda", "source": CSRC + src,
+             "replaces": None, "launches": n, "max_abs_err": 0.0,
+             "mismatch_share": 0.0, "ms": kp["ms"], "plain_ms": kp["plain_ms"],
+             "bound_ms": kp["bound_ms"], "bound_by": kp["bound_by"],
+             "library_ms": None}
+            for name, src, n, kp in (
+                ("frame_resolve", "resolve.cu", fused_launches, fused),
+                ("unfused_origins", "unfused_origins.cu",
+                 unfused_launches["unfused_origins"], origins))]
+
+
 def phase_resolve(dev, mesh) -> dict:
     """Phase 21: the resolve kernel against its plain version, its ms
     beside its byte bound, and a graph frame's launches, per case."""
@@ -3999,10 +4175,9 @@ def phase_resolve(dev, mesh) -> dict:
                                f"in {bad}")
         ms = cuda_ms(kernel, 20)
         npix, nvalid = w * h, int(want["valid"].sum())
-        read = npix * (4 + 24 + 4 * len(launch.shadow)) + nvalid * 44 \
-            + 4 * consts.block.numel()
-        written = npix * (4 * (17 + len(lights)) + 4 + 1)
-        bound_ms = (read + written) / HBM_RATE * 1e3
+        nbytes = resolve_bytes(npix, nvalid, len(launch.shadow), len(lights),
+                               consts.block.numel())
+        bound_ms = nbytes / HBM_RATE * 1e3
         del got, want
         for _ in range(3):          # the capture and two replays
             r.render_frame()
@@ -4012,7 +4187,7 @@ def phase_resolve(dev, mesh) -> dict:
                        if "frame_resolve_kernel" in k) * 1e3 / 5
         res[name] = dict(
             route=route, kind=kind, valid_share=nvalid / npix, ms=ms,
-            bound_ms=bound_ms, bound_by="bytes", bytes=read + written,
+            bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
             roofline_pct=100.0 * bound_ms / ms, plain_ms=plain_ms,
             graph_replays=r.stats["graph_replays"],
             resolve_launches_per_frame=(rs.frame_resolve_cuda.launches
@@ -4025,6 +4200,9 @@ def phase_resolve(dev, mesh) -> dict:
         log(f"phase 21 resolve {name}: {json.dumps(res[name])}")
         del r, launch, consts, o, d
         torch.cuda.empty_cache()
+    res["unfused_soft_spp8_1080p"] = resolve_unfused_case(dev, mesh, cam,
+                                                          seed)
+    torch.cuda.empty_cache()
     return res
 
 
@@ -4055,11 +4233,12 @@ def main() -> int:
                            f"psoft_kernel<0, 1, 2> and any_psoft_kernel")
     log(f"phase 2 penumbra kernels (ptxas): {json.dumps(ptxas_psoft)}")
     ptxas_resolve = {k: v for k, v in ptxas_report(BuildInfo.log).items()
-                     if "frame_resolve_kernel" in k}
-    if len(ptxas_resolve) != 1:
+                     if "frame_resolve_kernel" in k
+                     or "unfused_origins_kernel" in k}
+    if len(ptxas_resolve) != 2:
         raise RuntimeError(f"ptxas reported {sorted(ptxas_resolve)}, want "
-                           f"frame_resolve_kernel")
-    log(f"phase 2 resolve kernel (ptxas): {json.dumps(ptxas_resolve)}")
+                           f"frame_resolve_kernel and unfused_origins_kernel")
+    log(f"phase 2 resolve kernels (ptxas): {json.dumps(ptxas_resolve)}")
 
     if sys.argv[1:] == ["resolve"]:
         res = phase_resolve(dev, sponza_scene(MAIN_TRIS))
@@ -4182,6 +4361,8 @@ def main() -> int:
     rows += [w8t_kernel_row(name, w8t["launches"][name], w8t["kernels"][name])
              for name in W8T_KERNELS]
     rows += variants_rows(var)
+    rows += resolve_rows(resolve, c1["resolve_launches"],
+                         unf["config3_unfused"]["launches"])
     log(json.dumps({"timings": timings}))
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -17,9 +17,11 @@ with three lights, one a point, fusedSM with a cone and with a disk at spp
   contraction; on the CPU the kernel divides and clamps as PyTorch does
   there, ``host_div`` and ``clamp_min`` of the source, and the plain
   version takes IEEE square roots, as the card does);
-- which frames resolve: attrs 0 and 2, fused0 with lights for the unfused
-  pass, the unfused route and the raster G-buffer keep the tensor code,
-  and CPU tensors take the plain version;
+- which frames resolve their fused launch: attrs 0 and 2, fused0 with
+  lights for the unfused pass, the unfused route of a hard light and the
+  raster G-buffer keep the tensor code, and CPU tensors take the plain
+  version (the unfused frame of one sampled light resolves from its
+  walks' packets: tests/test_torch_unfused_resolve.py);
 - the wrapper raises on a wrong device, dtype, shape or layout;
 - no walk kernel pattern of ``walk_roofline`` names the kernel, and
   ``resolve_frame_share`` reads the program's counter.

@@ -1,14 +1,18 @@
 """The benchmark's unfused ray-cast cell, ``hall_unfused.sun_soft_spp8_1080p``:
 its configuration against ``hall_static``'s, the route the Renderer takes
-for it (the closest-hit attribute walk for the G-buffer, the in-kernel cone
-sampler for the sun, no resolve), the cell through the harness on the CPU
+for it (the closest-hit attribute walk for the G-buffer, the origins of the
+sun's shadow rays straight from its packets, the in-kernel cone sampler,
+the resolve of the frame from both walks' packets:
+``app.resolves_unfused``), the cell through the harness on the CPU
 at a tiny size (correct, its control not, the traced run's layers), the
 readers of the G-buffer walk (``bench_torch/metrics/closest_ms``,
 ``closest_roofline``) and of the shadow pass on a traced frame of the
 cell, the closest walk's count (``bench_torch/closestcount.py``) against
 ``bench_torch/workcount.py``'s count of the whole frame, and the frame's
-spans and ``shadow_rays`` counter on an eager frame and on a replay (CUDA
-graphs stood in for by graphs that run their code when captured).
+spans, ``shadow_rays`` counter and resolved frames on an eager frame and
+on a replay (CUDA graphs stood in for by graphs that run their code when
+captured, the resolve kernel by its plain version, which counts a launch
+and records the frame as the kernel does).
 
 The test marked ``cuda`` needs an NVIDIA card and skips elsewhere (run it
 there with ``python -m pytest --noconftest -m cuda
@@ -33,6 +37,7 @@ sys.path.insert(0, str(ROOT / "tests"))
 from test_torch_native import ensure_native_libraries  # noqa: E402
 
 import tpurt_torch.app as app  # noqa: E402
+import tpurt_torch.kernels.resolve as rs  # noqa: E402
 import tpurt_torch.kernels.traverse as tr  # noqa: E402
 from bench_torch import (closestcount, harness, shadowcount,  # noqa: E402
                          workcount)
@@ -63,7 +68,7 @@ KERNELS = [(CLOSEST_NAME, 8e-4), ("void shadow_rays_kernel<1>(Params)",
 READERS = ("closest_ms", "closest_roofline", "shadow_mrays",
            "shadow_roofline", "walk_roofline")
 # The entries of each stage span a frame: the G-buffer's walk and the
-# sampler's; the decode, then the textures' post-pass.
+# sampler's; the origins from the walk's packets, then the resolve.
 STAGES = {"tpurt.order": 1, "tpurt.rays": 1, "tpurt.walk": 2,
           "tpurt.gbuffer": 2, "tpurt.shadow": 1}
 
@@ -92,38 +97,59 @@ def test_unfused_config_is_hall_static_but_the_route(key):
     assert cell.chips == 1
 
 
+def _stand_in_resolve_kernel(mp) -> None:
+    """The resolve kernel's stand-in on the CPU: its plain version, which
+    counts a launch and records the frame, as the kernel does."""
+    plain = rs.frame_resolve_reference
+
+    def kernel(*args):
+        rs.frame_resolve_cuda.launches += 1
+        rs.resolve_frame()
+        return plain(*args)
+    mp.setattr(rs, "frame_resolve_reference", kernel)
+
+
 @pytest.fixture(scope="module")
 def cell():
     """The cell at the tiny size on the CPU, one frame warm, then FRAMES
-    traced; the last traced frame's outputs kept."""
+    traced with the resolve kernel stood in for; the last traced frame's
+    outputs kept."""
     c = harness.Cell(harness.find_cell(CELL), SEED, "cpu", TINY)
     c.step()
-    with profile(activities=[ProfilerActivity.CPU]):
-        for _ in range(FRAMES):
-            out = c.step()
+    with pytest.MonkeyPatch.context() as mp:
+        _stand_in_resolve_kernel(mp)
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(FRAMES):
+                out = c.step()
     c.out = out
     return c
 
 
 def test_renderer_takes_the_unfused_route(cell, monkeypatch):
-    """The unfused route on the SBVH: the G-buffer from the closest-hit
-    attribute walk (CLOSEST, attrs=1), the sun from the in-kernel cone
-    sampler (ANY_SOFT), nothing else walked and no resolve."""
+    """The unfused route on the SBVH, resolved from its walks' packets:
+    the G-buffer from the closest-hit attribute walk (CLOSEST, attrs=1),
+    the sun's shadow origins from its packets, the sun from the in-kernel
+    cone sampler (ANY_SOFT), every output from the resolve, and nothing
+    else walked."""
     r = cell.renderer
     assert r.route == "unfused" and r.config.gbuffer == "ray"
     assert not r.config.fused_shadow and r.attr_tables is not None
     assert isinstance(r.accel, app.WideBVH)
     assert not app.resolves(r.route, r.attr_tables, r.mesh, len(r.lights))
-    assert r.spans.resolve_frames == 0 and r.spans.frames == FRAMES
+    assert app.resolves_unfused(r.route, r.config, r.accel, r.attr_tables,
+                                r.mesh, r.lights)
+    assert r.spans.resolve_frames == FRAMES and r.spans.frames == FRAMES
     picked = []
     pick = tr._pick
 
     def spy(device, kernel, plain):
         picked.append(kernel.__name__)
         return pick(device, kernel, plain)
-    monkeypatch.setattr(tr, "_pick", spy)
+    for module in (tr, rs):
+        monkeypatch.setattr(module, "_pick", spy)
     r.render_frame()
-    assert picked == ["closest_attrs_cuda", "any_soft_cuda"]
+    assert picked == ["closest_attrs_cuda", "unfused_origins_cuda",
+                      "any_soft_cuda", "frame_resolve_cuda"]
 
 
 def test_unfused_cell_is_correct():
@@ -246,8 +272,10 @@ def test_spans_and_counter_of_a_traced_frame(cell, monkeypatch, replay):
     """Two traced frames after one untraced, eager or (from the first
     traced) replayed: each records the unfused frame's stages (the
     G-buffer's walk and the sampler's, the latter inside
-    ``tpurt.shadow``; the composite, and the accumulation in it too) and
-    counts valid pixels x spp shadow rays."""
+    ``tpurt.shadow``; the origins, then the resolve; the composite, and
+    the accumulation in it too), counts valid pixels x spp shadow rays and
+    counts as resolved."""
+    _stand_in_resolve_kernel(monkeypatch)
     r = _cell_renderer(cell, monkeypatch, replay)
     r.render_frame()
     with profile(activities=[ProfilerActivity.CPU]):
@@ -255,7 +283,7 @@ def test_spans_and_counter_of_a_traced_frame(cell, monkeypatch, replay):
     s = r.spans
     assert r.stats["graph_replays"] == (FRAMES if replay else 0)
     assert s.frames == FRAMES and s.graph_frames == (FRAMES if replay else 0)
-    assert s.syncs == FRAMES and s.resolve_frames == 0
+    assert s.syncs == FRAMES and s.resolve_frames == FRAMES
     for name, n in STAGES.items():
         assert s.totals[name]["entries"] == n * FRAMES, name
     assert s.totals["tpurt.composite"]["entries"] == 2 * FRAMES

@@ -9,7 +9,11 @@ every light, with the leaf attribute rows and an untextured mesh
 (``resolves``), the decode, the visibility and the composite are ONE
 step (``kernels/resolve.frame_resolve``): on the card the resolve kernel
 writes every output straight from the launch's packets, on the CPU its
-plain version runs the tensor code. With
+plain version runs the tensor code. The unfused frame of one sampled
+light on the same accel and tables (``resolves_unfused``) resolves too:
+the closest attribute walk's channels stay in packets, one kernel writes
+the sampler's biased origins from them (``unfused_origins`` of
+``kernels/resolve.py``), and the resolve takes the sampler's counts. With
 ``inkernel_attrs=False`` the frame reads the packed shade table instead of
 the leaf attribute rows: the kernels (their attrs=0 variants, and the
 plain closest hit on the unfused route) return t and the sorted hit index,
@@ -110,17 +114,19 @@ from .bvh.wide import (WideBVH, WideBVHT, count_wide,
                        widen_area_kernel, widen_from_plan, widen_lbvh)
 from .camera import generate_rays
 from .kernels.pack import binary_vmem_bytes, pack_bvh, tree_depth
-from .kernels.traverse import (HARD, MAX_MASK_LIGHTS, MULTI, PSOFT, SOFT,
-                               SOFT_MULTI, _fused_launch, as_packed,
-                               check_binary_stack_bound, check_stack_bound,
-                               check_walk_counts, closest_multi_shadow_inputs,
+from .kernels.traverse import (CLOSEST, HARD, MAX_MASK_LIGHTS, MULTI, PSOFT,
+                               SOFT, SOFT_MULTI, _fused_launch, as_packed,
+                               check_binary_stack_bound,
+                               check_stack_bound, check_walk_counts,
+                               closest_attrs_inputs,
+                               closest_multi_shadow_inputs,
                                closest_point_soft_shadow_inputs,
                                closest_shadow_inputs,
                                closest_soft_multi_shadow_inputs,
                                closest_soft_shadow_inputs, is_binary,
                                trace_any, trace_any_point_soft,
                                trace_any_soft, trace_closest)
-from .kernels.resolve import frame_resolve
+from .kernels.resolve import frame_resolve, unfused_origins
 from .passes.composite import accumulate, composite_lights
 from .frame_block import FrameBlock
 from .graphs import (FrameGraphs, RebuildGraph, capture_key, rebuild_key,
@@ -136,7 +142,7 @@ from .passes.shading import (attr_payload_columns, leaf_attr_rows_from_sorted,
                              make_shade_table_orig, smooth_normals_device)
 from .passes.texture import apply_textures
 from .raster.setup import default_cap_rows
-from .spans import (Spans, drop_counts, graph_frame, host_read,
+from .spans import (Spans, count, drop_counts, graph_frame, host_read,
                     rebuild_graph_frame, span)
 from .types import (LIGHT_AREA_CONE, LIGHT_DIRECTIONAL, LIGHT_POINT, Camera,
                     Light, Mesh, RenderConfig)
@@ -529,6 +535,65 @@ def _resolved_frame(bvh: WideBVH, mesh: Mesh, cam: Camera,
         return {**out, "walk_counts": packets.counts}
 
 
+def resolves_unfused(route: str, cfg: RenderConfig, accel, attr_tables,
+                     mesh: Mesh, lights: Sequence[Light]) -> bool:
+    """Does the unfused frame resolve from its walks' packets
+    (``_resolved_unfused_frame``): the unfused route with the ray-cast
+    G-buffer on the 8-wide row-layout accel with its attribute rows
+    (attrs=1), an untextured mesh, and one light, which the pass's
+    in-kernel cone or disk sampler takes (a cone or a point light at spp >
+    1)? The others keep the tensor code: a hard light (its ray batch), two
+    or more lights, a textured mesh, the raster G-buffer, the shade table,
+    a binary accel or a WideBVHT (their walks and the pass's loop over
+    samples) and every fused route."""
+    return (route == "unfused" and attr_tables is not None
+            and isinstance(accel, WideBVH) and cfg.gbuffer != "raster"
+            and not mesh.textured and len(lights) == 1
+            and _soft(lights[0], cfg.spp))
+
+
+def _resolved_unfused_frame(bvh: WideBVH, mesh: Mesh, cam: Camera,
+                            lights: Sequence[Light], cfg: RenderConfig,
+                            attr_tables, seed,
+                            consts) -> Dict[str, torch.Tensor]:
+    """A frame that ``resolves_unfused``: camera rays -> the closest
+    attribute walk on the camera-ordered accel, its channels left in
+    packets -> in ``tpurt.gbuffer`` the sampler's biased origins straight
+    from them (``unfused_origins``) -> in ``tpurt.shadow`` the cone or disk
+    sampler on the accel as built, its counts left in packets -> in
+    ``tpurt.gbuffer`` ``frame_resolve`` (kind ``COUNTS``) writes the
+    G-buffer, the visibility and the image. On the card two kernels
+    replace the tensor code; on the CPU their plain versions run it. The
+    stages and the ``shadow_rays`` count are the unfused frame's."""
+    gb_accel = _gb_accel(bvh, cam, cfg)
+    with span("tpurt.rays"):
+        origins, dirs = generate_rays(cam, cfg.width, cfg.height,
+                                      bvh.nodes.device)
+    with span("tpurt.walk"):
+        closest = _fused_launch(CLOSEST, closest_attrs_inputs(
+            gb_accel, origins, dirs, attr_tables), attr_tables, False)
+    with span("tpurt.gbuffer"):
+        block = unfused_origins(closest, consts, mesh, origins, dirs)
+    with span("tpurt.shadow"):
+        count("shadow_rays", lambda: (block[:, 3] > 0.0).sum() * cfg.spp)
+        packed = (block, closest.p, closest.meta)
+        light = lights[0]
+        with span("tpurt.walk"):
+            if light.kind == LIGHT_AREA_CONE:
+                cnt, counts = trace_any_soft(
+                    bvh, None, None, light.direction, cone_cos(light),
+                    cfg.spp, seed, packed=packed)
+            else:
+                cnt, counts = trace_any_point_soft(
+                    bvh, None, None, light.position, light.radius, cfg.spp,
+                    seed, packed=packed)
+    with span("tpurt.gbuffer"):
+        out = frame_resolve(dataclasses.replace(closest, shadow=(cnt,)),
+                            COUNTS, consts, cfg, mesh, origins, dirs)
+    with span("tpurt.composite"):
+        return {**out, "walk_counts": closest.counts + counts}
+
+
 def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
                     lights: Sequence[Light], cfg: RenderConfig,
                     attr_tables=None, seed: int = 0,
@@ -571,6 +636,9 @@ def render_frame_fn(bvh, mesh: Mesh, cam: Camera,
     if resolves(route, attr_tables, mesh, len(lights)):
         return _resolved_frame(bvh, mesh, cam, lights, cfg, attr_tables,
                                seed, consts, route)
+    if resolves_unfused(route, cfg, bvh, attr_tables, mesh, lights):
+        return _resolved_unfused_frame(bvh, mesh, cam, lights, cfg,
+                                       attr_tables, seed, consts)
     if route == "unfused":
         gbuf, counts = gbuffer_production(bvh, mesh, cam, cfg, attr_tables,
                                           shade_table, shade_table_orig)

@@ -26,7 +26,7 @@ shadows and the image inside ``tpurt.gbuffer``, ``tpurt.shadow`` and
 launches nothing inside its span. A part of a stage that a nested stage
 split off and that enqueued nothing is dropped. Which frames take the
 graphs is a function of what the frame observes (``takes_graph``). The
-launch counters of the walk, build, raster and resolve kernels
+launch counters of the walk, build, raster, resolve and origins kernels
 (``.launches``) count a replay's launches as the eager frame does, and a
 traced replay whose graphs hold the resolve kernel records it
 (``spans.resolve_frame``). A counter a stage hands the frame
@@ -103,11 +103,11 @@ def _launch_counts() -> Dict[Callable, int]:
     """Every hand-written kernel's launch counter, as it stands."""
     from .kernels.build import BUILD_KERNELS
     from .kernels.raster import RASTER_KERNELS
-    from .kernels.resolve import frame_resolve_cuda
+    from .kernels.resolve import frame_resolve_cuda, unfused_origins_cuda
     from .kernels.traverse import CUDA_KERNELS
     return {fn: fn.launches
             for fn in (*CUDA_KERNELS, *BUILD_KERNELS, *RASTER_KERNELS,
-                       frame_resolve_cuda)}
+                       frame_resolve_cuda, unfused_origins_cuda)}
 
 
 def _take_captured(before: Dict[Callable, int]) -> Dict[Callable, int]:

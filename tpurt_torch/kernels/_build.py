@@ -4,8 +4,9 @@ kernel wrapper makes at the launch boundary.
 Every ``csrc/*.cu`` (the walk kernels of ``fused_shadows.cu``,
 ``shadow_rays.cu``, ``binary.cu``, ``transposed.cu`` and ``variants.cu``
 include ``csrc/walk.cuh``; the build kernels of ``csrc/build.cu``, the
-rasterizer of ``csrc/raster.cu`` and the frame resolve of
-``csrc/resolve.cu`` stand alone) is compiled by its own ``nvcc``, all
+rasterizer of ``csrc/raster.cu``, the frame resolve of ``csrc/resolve.cu``
+and the unfused frame's shadow origins of ``csrc/unfused_origins.cu``
+stand alone) is compiled by its own ``nvcc``, all
 started together, and one more ``nvcc`` links the objects into one
 shared library with a plain C interface, bound with ctypes. The build
 runs at first use, never at import, into ``build/tpurt_torch/`` at the
@@ -143,11 +144,12 @@ def load_library() -> ctypes.CDLL:
                  "tpurt_variants_launch"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = [i, ctypes.c_void_p, ctypes.c_void_p]
-    lib.tpurt_frame_resolve_launch.restype = i
-    lib.tpurt_frame_resolve_launch.argtypes = [ctypes.c_void_p,
-                                               ctypes.c_void_p]
+    for name in ("tpurt_frame_resolve_launch",
+                 "tpurt_unfused_origins_launch"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     for name in ("tpurt_stack_capacity", "tpurt_params_size",
-                 "tpurt_resolve_params_size"):
+                 "tpurt_resolve_params_size", "tpurt_origins_params_size"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
     p, f = ctypes.c_void_p, ctypes.c_float
@@ -169,7 +171,7 @@ def load_library() -> ctypes.CDLL:
                                            i, p, p, p])):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = args
-    from .resolve import ResolveParams
+    from .resolve import OriginsParams, ResolveParams
     from .traverse import STACK_CAPACITY, Params
     if lib.tpurt_stack_capacity() != STACK_CAPACITY:
         raise RuntimeError("kernel STACK_CAPACITY differs from "
@@ -180,5 +182,8 @@ def load_library() -> ctypes.CDLL:
     if lib.tpurt_resolve_params_size() != ctypes.sizeof(ResolveParams):
         raise RuntimeError("the kernel's ResolveParams struct differs from "
                            "resolve.ResolveParams")
+    if lib.tpurt_origins_params_size() != ctypes.sizeof(OriginsParams):
+        raise RuntimeError("the kernel's OriginsParams struct differs from "
+                           "resolve.OriginsParams")
     _Library.handle = lib
     return lib

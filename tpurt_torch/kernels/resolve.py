@@ -30,6 +30,27 @@ the lights, the background), ``cfg`` the config (``ambient``, ``spp``),
 ``mesh`` the untextured mesh, (origins, dirs) the image rays f32[H, W, 3]
 that the launch packed; the kernel reads the rays from the launch's
 block.
+
+The unfused frame of one sampled light (``app.resolves_unfused``) also
+resolves: its closest attribute walk (mode CLOSEST, attrs=1) writes the
+same channels in the same packets, and its cone or disk sampler's counts
+are a ``COUNTS`` block. Between the two walks it needs the sampler's
+input, the biased shadow origins:
+
+- ``unfused_origins_cuda``: the hand-written CUDA kernel
+  (``csrc/unfused_origins.cu``, ``unfused_origins_kernel``): the origins
+  block f32[P, 4, 8, 128] (position + viewer-facing geometric normal x
+  the frame's shadow bias, valid as 1.0 / 0.0) straight from the walk's
+  channels and ray block. ``.launches`` counts its launches.
+- ``unfused_origins_reference``: the same in plain PyTorch, the unfused
+  shadow pass's tensor code: the channels' unpacking, the decode, the
+  bias (``passes/shadow.shadow_pass``) and the packing
+  (``traverse._pack_soft_origins``).
+- ``unfused_origins``: the wrapper the frame calls.
+
+Each takes (launch, consts, mesh, origins, dirs) as above, ``launch`` the
+closest walk's outputs as a ``FusedLaunch`` of one packet a tile (no
+shadow blocks yet).
 """
 
 from __future__ import annotations
@@ -48,7 +69,8 @@ from ..spans import resolve_frame
 from ..types import LIGHT_POINT
 from ._build import _check, _pick, _stream
 from .traverse import (ATTR_CH, MAX_MASK_LIGHTS, FusedLaunch, _attr_channels,
-                       _require_cuda, _tile_shape, _unpack)
+                       _pack_soft_origins, _require_cuda, _tile_shape,
+                       _unpack)
 
 # The i32 blocks each kind of shadow output hands over.
 _BLOCKS = {OCCLUDED: 1, COUNTS: 1, MASK: 1, COUNTS_MASK: 2}
@@ -159,3 +181,68 @@ def frame_resolve(launch: FusedLaunch, kind: int, consts, cfg, mesh, origins,
     fn = _pick(launch.attrs.device, frame_resolve_cuda,
                frame_resolve_reference)
     return fn(launch, kind, consts, cfg, mesh, origins, dirs)
+
+
+class OriginsParams(ctypes.Structure):
+    """csrc/unfused_origins.cu ``OriginsParams``."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("attrs", "rays", "bias",
+                                                "out")]
+                + [(n, ctypes.c_int) for n in ("packets", "tiles_x",
+                                               "height", "width")])
+
+
+def unfused_origins_cuda(launch: FusedLaunch, consts, mesh, origins,
+                         dirs) -> torch.Tensor:
+    """The origins kernel (one launch on the current stream) -> the
+    sampler's block f32[P, 4, 8, 128]. Raises on a launch of flat rays and
+    on any input whose device, dtype, shape or layout the kernel does not
+    take."""
+    from ._build import load_library
+    kind_, h, w = launch.meta
+    if kind_ != "img":
+        raise ValueError("the origins kernel takes image rays")
+    dev = launch.attrs.device
+    _require_cuda(dev)
+    ht, wt = _tile_shape(h, w)
+    if launch.p != ht * wt:
+        raise ValueError(f"{launch.p} packets for a {h}x{w} image")
+    _check(launch.attrs, "attrs", torch.float32, (launch.p, ATTR_CH, 8, 128),
+           dev)
+    _check(launch.rays, "rays", torch.float32, (launch.p, 10, 8, 128), dev)
+    _check(consts.bias, "bias", torch.float32, (), dev)
+    out = torch.empty((launch.p, 4, 8, 128), dtype=torch.float32,
+                      device=dev)
+    params = OriginsParams(
+        attrs=launch.attrs.data_ptr(), rays=launch.rays.data_ptr(),
+        bias=consts.bias.data_ptr(), out=out.data_ptr(), packets=launch.p,
+        tiles_x=wt, height=h, width=w)
+    err = load_library().tpurt_unfused_origins_launch(ctypes.byref(params),
+                                                      _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"tpurt_unfused_origins_launch failed: CUDA "
+                           f"error {err}")
+    unfused_origins_cuda.launches += 1
+    return out
+
+
+unfused_origins_cuda.launches = 0
+
+
+def unfused_origins_reference(launch: FusedLaunch, consts, mesh, origins,
+                              dirs) -> torch.Tensor:
+    """The plain version: the unfused frame's tensor code from the closest
+    walk's packets to the sampler's block."""
+    gbuf = gbuf_from_attr_channels(
+        _attr_channels(launch.attrs, launch.p, launch.meta), origins, dirs,
+        consts.camera, mesh)
+    biased = gbuf["position"] + gbuf["gnormal"] * consts.bias
+    return _pack_soft_origins(biased, gbuf["valid"], batch=1)[0]
+
+
+def unfused_origins(launch: FusedLaunch, consts, mesh, origins,
+                    dirs) -> torch.Tensor:
+    """The kernel for CUDA tensors, its plain version for CPU tensors."""
+    fn = _pick(launch.attrs.device, unfused_origins_cuda,
+               unfused_origins_reference)
+    return fn(launch, consts, mesh, origins, dirs)

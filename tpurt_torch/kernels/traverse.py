@@ -1836,8 +1836,9 @@ binary_any_inputs = binary_closest_inputs
 
 
 def _soft_inputs(bvh, origins, valid, scal_fn, spp, seed, light, t_min,
-                 zero_stream, stack_size):
-    rays, p, meta = _pack_soft_origins(origins, valid, batch=1)
+                 zero_stream, stack_size, packed):
+    rays, p, meta = packed if packed is not None \
+        else _pack_soft_origins(origins, valid, batch=1)
     args = (rays, bvh.nodes, bvh.tris, scal_fn(rays.device))
     kwargs = dict(_walk_kwargs(bvh, t_min, stack_size), spp=int(spp),
                   seed=seed_arg(seed), light=int(light),
@@ -1848,24 +1849,27 @@ def _soft_inputs(bvh, origins, valid, scal_fn, spp, seed, light, t_min,
 def any_soft_inputs(bvh: WideBVH, origins, valid, axis_dir, cone_cos,
                     spp: int, seed: int, light: int = 0, t_min: float = 0.0,
                     zero_stream: bool = False,
-                    stack_size: int = STACK_CAPACITY):
-    """Inputs of the standalone cone kernel (scal f32[16])."""
+                    stack_size: int = STACK_CAPACITY, packed=None):
+    """Inputs of the standalone cone kernel (scal f32[16]). ``packed``:
+    the origins block already packed, (f32[PB, 4, 8, 128], p, meta), in
+    place of ``origins`` and ``valid``."""
     return _soft_inputs(
         bvh, origins, valid,
         lambda dev: torch.cat(_cone_scalars(axis_dir, cone_cos, dev)
                               + _root_box(bvh)),
-        spp, seed, light, t_min, zero_stream, stack_size)
+        spp, seed, light, t_min, zero_stream, stack_size, packed)
 
 
 def any_point_soft_inputs(bvh: WideBVH, origins, valid, light_pos, radius,
                           spp: int, seed: int, light: int = 0,
                           t_min: float = 0.0, zero_stream: bool = False,
-                          stack_size: int = STACK_CAPACITY):
-    """Inputs of the standalone disk kernel (scal f32[4])."""
+                          stack_size: int = STACK_CAPACITY, packed=None):
+    """Inputs of the standalone disk kernel (scal f32[4]); ``packed`` as
+    for ``any_soft_inputs``."""
     return _soft_inputs(
         bvh, origins, valid,
         lambda dev: torch.cat([_vec(light_pos, dev), _vec(radius, dev)]),
-        spp, seed, light, t_min, zero_stream, stack_size)
+        spp, seed, light, t_min, zero_stream, stack_size, packed)
 
 
 # The closest walk's rows of csrc/fused_shadows.cu by (mode, attrs).
@@ -2172,29 +2176,33 @@ def trace_any(bvh, origins, dirs, t_max, t_min: float = 0.0,
 def trace_any_soft(bvh: WideBVH, origins, valid, axis_dir, cone_cos,
                    spp: int, seed: int, light: int = 0, t_min: float = 0.0,
                    zero_stream: bool = False,
-                   stack_size: int = STACK_CAPACITY):
+                   stack_size: int = STACK_CAPACITY, packed=None):
     """Area-light (cone) soft shadows from given biased origins (ONE kernel
     launch), sampled in the kernel with the generator key (seed, light).
     origins (H, W, 3) with valid bool[H, W], or (N, 3) with [N]. Returns
-    (occlusion counts i32 in [0, spp], walk counts i32[2])."""
-    fn = _pick(origins.device, any_soft_cuda, any_soft_reference)
+    (occlusion counts i32 in [0, spp], walk counts i32[2]). ``packed``:
+    the origins block already packed, (f32[P, 4, 8, 128], p, meta), in
+    place of ``origins`` and ``valid``; the counts then stay in packets,
+    i32[P, 8, 128]."""
     args, kwargs, p, meta = any_soft_inputs(
         bvh, origins, valid, axis_dir, cone_cos, spp, seed, light, t_min,
-        zero_stream, stack_size)
+        zero_stream, stack_size, packed)
+    fn = _pick(args[0].device, any_soft_cuda, any_soft_reference)
     cnt, counts = fn(*args, **kwargs)
-    return _unpack(cnt[:p], meta), counts
+    return (cnt if packed is not None else _unpack(cnt[:p], meta)), counts
 
 
 def trace_any_point_soft(bvh: WideBVH, origins, valid, light_pos, radius,
                          spp: int, seed: int, light: int = 0,
                          t_min: float = 0.0, zero_stream: bool = False,
-                         stack_size: int = STACK_CAPACITY):
+                         stack_size: int = STACK_CAPACITY, packed=None):
     """Point-light penumbra from given biased origins (ONE kernel launch):
     spp jittered-disk samples keyed by (seed, light). Returns (counts i32
-    in [0, spp], walk counts i32[2])."""
-    fn = _pick(origins.device, any_point_soft_cuda, any_point_soft_reference)
+    in [0, spp], walk counts i32[2]); ``packed`` as for
+    ``trace_any_soft``."""
     args, kwargs, p, meta = any_point_soft_inputs(
         bvh, origins, valid, light_pos, radius, spp, seed, light, t_min,
-        zero_stream, stack_size)
+        zero_stream, stack_size, packed)
+    fn = _pick(args[0].device, any_point_soft_cuda, any_point_soft_reference)
     cnt, counts = fn(*args, **kwargs)
-    return _unpack(cnt[:p], meta), counts
+    return (cnt if packed is not None else _unpack(cnt[:p], meta)), counts
